@@ -1,0 +1,64 @@
+"""image_labeling decoder (tensordec-imagelabel.c) — port of
+nnstreamer_tpu/decoders/basic.py's ImageLabeling. The other basic modes
+(direct_video, flex) are not ported yet."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..core.buffer import Buffer, TensorMemory
+from ..core.types import Caps, TensorsConfig
+from .base import Decoder, register_decoder
+from .util import load_labels
+
+
+@register_decoder
+class ImageLabeling(Decoder):
+    """scores tensor → text/x-raw best label (tensordec-imagelabel.c):
+    option1 = label file."""
+
+    MODE = "image_labeling"
+
+    def init(self, options) -> None:
+        super().init(options)
+        self.labels = load_labels(self.option(1))
+
+    def out_caps(self, config: TensorsConfig) -> Caps:
+        return Caps("text/x-raw", {"format": "utf8"})
+
+    @staticmethod
+    def _rows(arr):
+        """Scores as (frames, classes): a batched tensor (converter
+        frames-per-tensor regrouping) yields one label per frame."""
+        return arr.reshape(-1) if arr.ndim <= 1 or arr.shape[0] == 1 \
+            else arr.reshape(arr.shape[0], -1)
+
+    def decode(self, buf: Buffer, config: TensorsConfig) -> Buffer:
+        m = buf.memories[0]
+        if m.is_device and not m.prefetched:
+            # argmax on device: D2H transfers 2 scalars per frame, not the
+            # logits; (argmax, max) come back as one stacked tensor
+            rows = self._rows(m.device())
+            pairs = torch.stack(
+                [rows.argmax(dim=-1).to(torch.float32).reshape(-1),
+                 rows.amax(dim=-1).to(torch.float32).reshape(-1)],
+                dim=1).cpu().numpy()
+        else:
+            rows = np.atleast_2d(self._rows(m.host()))
+            idxs = np.argmax(rows, axis=-1)
+            pairs = np.stack(
+                [idxs.astype(np.float32),
+                 rows[np.arange(len(rows)), idxs].astype(np.float32)], axis=1)
+        names = [self.labels[int(i)] if int(i) < len(self.labels) else str(int(i))
+                 for i, _ in pairs]
+        label, idx, top = names[0], int(pairs[0][0]), float(pairs[0][1])
+        out = buf.with_memories(
+            [TensorMemory(np.frombuffer("\n".join(names).encode("utf-8"),
+                                        np.uint8).copy())])
+        out.meta.update(label=label, label_index=idx, label_score=top)
+        if len(names) > 1:
+            out.meta.update(labels=names,
+                            label_indices=[int(i) for i, _ in pairs],
+                            label_scores=[float(s) for _, s in pairs])
+        return out

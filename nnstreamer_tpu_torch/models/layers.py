@@ -1,0 +1,58 @@
+"""Layers shared by the zoo models, written to compute what flax computes.
+
+* ``same_padding``/``conv2d_same`` — flax ``padding="SAME"``: the total pad
+  ``max((out - 1) * stride + kernel - size, 0)`` with ``out = ceil(size /
+  stride)`` splits as low = total // 2, high = total - low. With stride 2 it
+  is asymmetric whenever the size is even (300 → 150 pads (0, 1)), which
+  torch's symmetric ``padding=`` cannot express: that case goes through
+  ``F.pad``.
+* ``BatchNorm`` — inference-mode batch norm in flax's order and precision:
+  ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32 with float32
+  statistics, cast back to the activation dtype; eps is the model's 1e-3.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+    out = -(-size // stride)
+    total = max((out - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+def conv2d_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """``conv`` (built with padding=0) applied with flax SAME padding to
+    NCHW ``x``."""
+    (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
+    ph = same_padding(x.shape[2], kh, sh)
+    pw = same_padding(x.shape[3], kw, sw)
+    if ph[0] == ph[1] and pw[0] == pw[1]:
+        return F.conv2d(x, conv.weight, conv.bias, conv.stride,
+                        (ph[0], pw[0]), 1, conv.groups)
+    x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
+    return F.conv2d(x, conv.weight, conv.bias, conv.stride, 0, 1, conv.groups)
+
+
+class BatchNorm(nn.Module):
+    """Inference batch norm over the channel axis of NCHW input (flax
+    ``BatchNorm(use_running_average=True)``)."""
+
+    def __init__(self, channels: int, eps: float = 1e-3):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(channels))
+        self.bias = nn.Parameter(torch.zeros(channels))
+        self.register_buffer("running_mean", torch.zeros(channels))
+        self.register_buffer("running_var", torch.ones(channels))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        shape = (1, -1, 1, 1)
+        mul = torch.rsqrt(self.running_var + self.eps) * self.weight
+        y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
+        return (y + self.bias.view(shape)).to(x.dtype)

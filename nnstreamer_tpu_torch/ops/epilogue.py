@@ -1,0 +1,79 @@
+"""Epilogue fusion: run post-filter chains INSIDE the filter's invoke.
+
+Rewrites linear ``tensor_filter(torch-cuda) → tensor_converter*/
+tensor_decoder`` tails so the decoder's device reduction runs as an
+epilogue stage of the filter's invoke — for SSD box decode + NMS the
+device→host readback shrinks from the full model output (anchors × (4 +
+classes) floats) to the reduced (K, 6) rows, and no host decode waits on
+the raw logits.
+
+Enrolled elements stay in the graph for caps negotiation but forward
+buffers untouched (converters) or consume the pre-reduced tensor
+(decoders). Applied automatically in ``Pipeline.start()`` after elements
+are started (disable with ``pipeline.auto_fuse = False``).
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional, Tuple
+
+from ..core.log import logger
+
+log = logger("epilogue")
+
+
+def fuse_epilogues(pipeline: Any) -> int:
+    """Fuse eligible downstream chains; returns stages fused away.
+
+    Runs after ``Element.start()``: decoder instances must exist.
+    """
+    from ..elements.converter import TensorConverter
+    from ..elements.decoder import TensorDecoder
+    from ..elements.filter import TensorFilter
+    from ..filters.torch_cuda import TorchCudaFilter
+
+    fused = 0
+    for el in pipeline.elements.values():
+        if not isinstance(el, TensorFilter) or len(el.src_pads) != 1:
+            continue
+        el._open_fw()
+        fw = el.fw
+        if not isinstance(fw, TorchCudaFilter):
+            continue
+        if el._out_spec is not None:
+            continue  # output combination reorders memories downstream
+
+        n_conv = 0
+        decoder_stage: Optional[Tuple[Any, Any, Callable]] = None
+        pad = el.src_pads[0]
+        while pad.peer is not None:
+            down = pad.peer.element
+            if isinstance(down, TensorConverter) and len(down.sink_pads) == 1 \
+                    and len(down.src_pads) == 1 \
+                    and down.mode in (None, "auto") \
+                    and int(down.frames_per_tensor) == 1 \
+                    and not down._fused_passthrough:
+                # static tensors→tensors passthrough: identity math, but
+                # enrolling skips the per-frame host round trip
+                down._fused_passthrough = True
+                n_conv += 1
+                pad = down.src_pads[0]
+                continue
+            if isinstance(down, TensorDecoder) and len(down.sink_pads) == 1:
+                dec = down._decoder
+                red = dec.epilogue_reduce() if dec is not None else None
+                if red is not None and not dec._fused_epilogue:
+                    decoder_stage = (down, dec, red)
+            break
+        sig_parts: List[str] = ["converter[passthrough]"] * n_conv
+        if decoder_stage is not None:
+            _, dec, red = decoder_stage
+            fw.set_fused_epilogue(lambda outs, _r=red: (_r(outs),))
+            dec._fused_epilogue = True
+            sig_parts.append(f"decode[{dec.fusion_signature()}]")
+        count = len(sig_parts)
+        if count:
+            log.info("fused %d epilogue stage(s) into %s (%s)", count,
+                     el.name, "|".join(sig_parts))
+        fused += count
+    return fused

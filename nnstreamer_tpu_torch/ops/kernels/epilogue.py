@@ -1,0 +1,176 @@
+"""CUDA kernels for the post-filter epilogue, with their plain versions.
+
+Counterparts of the Pallas kernels in ``nnstreamer_tpu/ops/pallas/epilogue.py``
+that the SSD bounding-box reduce runs (decoders/bounding_box.py):
+
+  * ``class_reduce`` — per-anchor best class score + first index attaining it
+    (csrc/class_reduce.cu);
+  * ``nms_sweep``    — greedy NMS alive-sweep over the top-K score-sorted
+    candidates (csrc/nms_sweep.cu).
+
+Each wrapper launches its hand-written kernel for a CUDA tensor, raising on
+a device, dtype, shape or layout the kernel does not take, and adds one to
+its ``launches`` count for every launch. It runs the plain PyTorch version
+beside it only for a tensor on the CPU. The plain versions follow the JAX
+package's ``*_reference`` functions step by step and are bit-exact with
+them; they are what the kernels are held against on the card.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import ctypes
+import functools
+from typing import Tuple
+
+import torch
+
+from . import build as _build
+
+_P = ctypes.c_void_p
+
+
+@functools.lru_cache(maxsize=None)
+def _entry(lib: str, symbol: str, argtypes: tuple):
+    """The C entry point ``symbol`` of kernel library ``lib`` (built on
+    first use), with its argument types declared once."""
+    fn = getattr(_build.library(lib), symbol)
+    fn.argtypes = list(argtypes)
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def _on(device: torch.device):
+    """Make ``device`` current for a launch (a no-op when it already is)."""
+    if device.index is None or device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(device)
+
+
+def _stream_ptr(t: torch.Tensor) -> _P:
+    return _P(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check_launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with cudaError {rc}")
+
+
+def _require(cond: bool, msg: str) -> None:
+    if not cond:
+        raise ValueError(msg)
+
+
+# --------------------------------------------------------------------------- #
+# class_reduce: best class score + index per anchor
+# --------------------------------------------------------------------------- #
+
+def class_reduce_plain(cls: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, L) → (max (N,), first index attaining it (N,) int32): the
+    reference's ``jnp.max`` / ``jnp.argmax`` pair, written as the Pallas
+    kernel's first-max formula (a NaN row yields its first NaN, as
+    jnp.argmax does)."""
+    best = cls.amax(dim=-1)
+    hit = (cls == best[..., None]) | (cls.isnan() & best.isnan()[..., None])
+    iota = torch.arange(cls.shape[-1], device=cls.device, dtype=torch.int32)
+    idx = torch.where(hit, iota, cls.shape[-1]).amin(dim=-1)
+    return best, idx.to(torch.int32)
+
+
+def class_reduce(cls: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(N, L) float32 class scores → (best_score (N,), best_index (N,)
+    int32). Rows may be strided (a column slice of a wider tensor); the
+    last axis must be contiguous."""
+    if cls.device.type == "cpu":
+        return class_reduce_plain(cls)
+    _require(cls.device.type == "cuda",
+             f"class_reduce: unsupported device {cls.device}")
+    _require(cls.dtype == torch.float32,
+             f"class_reduce: float32 scores required, got {cls.dtype}")
+    _require(cls.dim() == 2 and cls.shape[0] > 0 and cls.shape[1] > 0,
+             f"class_reduce: non-empty (N, L) scores required, got "
+             f"{tuple(cls.shape)}")
+    _require(cls.stride(1) == 1 and cls.stride(0) >= cls.shape[1],
+             f"class_reduce: rows must be contiguous, strides {cls.stride()}")
+    n, l = cls.shape
+    best = torch.empty(n, device=cls.device, dtype=torch.float32)
+    idx = torch.empty(n, device=cls.device, dtype=torch.int32)
+    fn = _entry("class_reduce", "nns_class_reduce",
+                (_P, _P, _P, ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P))
+    with _on(cls.device):
+        rc = fn(cls.data_ptr(), best.data_ptr(), idx.data_ptr(), n, l,
+                cls.stride(0), _stream_ptr(cls))
+    _check_launch("class_reduce", rc)
+    class_reduce.launches += 1
+    return best, idx
+
+
+class_reduce.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# nms_sweep: greedy suppression sweep over score-descending candidates
+# --------------------------------------------------------------------------- #
+
+#: candidates one launch takes (one block, one thread each; see the source)
+NMS_MAX_K = 512
+
+
+def nms_sweep_plain(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
+                    y1: torch.Tensor, scores: torch.Tensor, *,
+                    iou_threshold: float, threshold: float) -> torch.Tensor:
+    """Scores after greedy NMS: suppressed/below-threshold rows become -1
+    (``nms_sweep_reference``, step by step)."""
+    k = scores.shape[0]
+    area = (x1 - x0) * (y1 - y0)
+    ix = (torch.minimum(x1[:, None], x1[None, :])
+          - torch.maximum(x0[:, None], x0[None, :]))
+    iy = (torch.minimum(y1[:, None], y1[None, :])
+          - torch.maximum(y0[:, None], y0[None, :]))
+    inter = ix.clamp(min=0) * iy.clamp(min=0)
+    union = area[:, None] + area[None, :] - inter
+    iou = torch.where(union > 0, inter / union, 0.0)
+    ar = torch.arange(k, device=scores.device)
+    later = ar[None, :] > ar[:, None]
+    suppresses = (iou > iou_threshold) & later
+    alive = scores >= threshold
+    for i in range(k):
+        alive = alive & ~(alive[i] & suppresses[i])
+    return torch.where(alive, scores, -1.0)
+
+
+def nms_sweep(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
+              y1: torch.Tensor, scores: torch.Tensor, *,
+              iou_threshold: float, threshold: float) -> torch.Tensor:
+    """Greedy-NMS sweep over K ≤ 512 score-descending candidates (five
+    contiguous (K,) float32 columns on one device)."""
+    cols = (x0, y0, x1, y1, scores)
+    if scores.device.type == "cpu":
+        return nms_sweep_plain(*cols, iou_threshold=iou_threshold,
+                               threshold=threshold)
+    _require(scores.device.type == "cuda",
+             f"nms_sweep: unsupported device {scores.device}")
+    k = scores.shape[0] if scores.dim() == 1 else -1
+    for c in cols:
+        _require(c.device == scores.device,
+                 "nms_sweep: columns on different devices")
+        _require(c.dtype == torch.float32,
+                 f"nms_sweep: float32 columns required, got {c.dtype}")
+        _require(c.dim() == 1 and c.shape[0] == k,
+                 f"nms_sweep: five (K,) columns required, got "
+                 f"{[tuple(t.shape) for t in cols]}")
+        _require(c.is_contiguous(), "nms_sweep: contiguous columns required")
+    _require(0 < k <= NMS_MAX_K,
+             f"nms_sweep: 1 <= K <= {NMS_MAX_K} candidates, got {k}")
+    out = torch.empty(k, device=scores.device, dtype=torch.float32)
+    fn = _entry("nms_sweep", "nns_nms_sweep",
+                (_P,) * 6 + (ctypes.c_int, ctypes.c_float, ctypes.c_float, _P))
+    with _on(scores.device):
+        rc = fn(*(c.data_ptr() for c in cols), out.data_ptr(), k,
+                float(iou_threshold), float(threshold), _stream_ptr(scores))
+    _check_launch("nms_sweep", rc)
+    nms_sweep.launches += 1
+    return out
+
+
+nms_sweep.launches = 0

@@ -1,0 +1,159 @@
+"""The torch port's epilogue kernels against the JAX package's Pallas kernels.
+
+On the CPU the wrappers run their plain PyTorch versions; those are held
+bit-exact against ``nnstreamer_tpu.ops.pallas.epilogue``'s kernels run in
+interpret mode and against its ``*_reference`` functions, on the same
+numpy inputs. The CUDA kernels themselves are held against the plain
+versions on the card (``cuda`` marker; skipped without a GPU, and by
+``chip_smoke.py``).
+"""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from nnstreamer_tpu.ops.pallas import epilogue as jep  # noqa: E402
+from nnstreamer_tpu_torch.ops.kernels import epilogue as tep  # noqa: E402
+
+
+def _class_scores(case: str) -> np.ndarray:
+    rng = np.random.default_rng(11)
+    if case == "ssd_slice":  # the detection path's (anchors, classes - 1)
+        return rng.normal(size=(2916, 91)).astype(np.float32)[:, 1:]
+    if case == "ties":
+        x = rng.integers(0, 3, size=(40, 33)).astype(np.float32)
+        x[0] = 1.5  # all-equal row: index 0
+        x[1, [4, 20, 31]] = 9.0  # first max wins
+        return x
+    if case == "L_not_multiple_of_32":
+        return rng.normal(size=(17, 45)).astype(np.float32)
+    if case == "L_is_1":
+        return rng.normal(size=(9, 1)).astype(np.float32)
+    if case == "neg_inf_row":
+        x = rng.normal(size=(6, 70)).astype(np.float32)
+        x[2] = -np.inf
+        return x
+    raise ValueError(case)
+
+
+CLASS_CASES = ["ssd_slice", "ties", "L_not_multiple_of_32", "L_is_1",
+               "neg_inf_row"]
+
+
+@pytest.mark.parametrize("case", CLASS_CASES)
+def test_class_reduce_plain_bit_exact_with_pallas(case):
+    x = _class_scores(case)
+    kb, ki = jep.class_reduce(np.ascontiguousarray(x), interpret=True)
+    rb, ri = jep.class_reduce_reference(x)
+    pb, pi = tep.class_reduce_plain(torch.from_numpy(np.ascontiguousarray(x)))
+    assert pb.dtype == torch.float32 and pi.dtype == torch.int32
+    for b, i in ((kb, ki), (rb, ri)):
+        np.testing.assert_array_equal(np.asarray(b), pb.numpy())
+        np.testing.assert_array_equal(np.asarray(i), pi.numpy())
+
+
+def test_class_reduce_wrapper_on_cpu_runs_plain_on_strided_rows():
+    base = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(50, 91)).astype(np.float32))
+    view = base[:, 1:]  # the decoder's background-dropped column view
+    before = tep.class_reduce.launches
+    got = tep.class_reduce(view)
+    want = tep.class_reduce_plain(view.contiguous())
+    assert tep.class_reduce.launches == before  # no kernel on the CPU
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _boxes(k: int, seed: int, *, zero_area: bool = False):
+    rng = np.random.default_rng(seed)
+    c = rng.uniform(0.0, 1.0, (k, 2)).astype(np.float32)
+    wh = rng.uniform(0.02, 0.4, (k, 2)).astype(np.float32)
+    x0, y0 = c[:, 0], c[:, 1]
+    x1, y1 = x0 + wh[:, 0], y0 + wh[:, 1]
+    if zero_area:
+        x1[::3] = x0[::3]  # zero width
+        y1[1::3] = y0[1::3]  # zero height
+    scores = np.sort(rng.uniform(0, 1, k).astype(np.float32))[::-1]
+    return [np.array(a, np.float32) for a in (x0, y0, x1, y1, scores)]
+
+
+NMS_CASES = [
+    ("K1", 1, 0.5, 0.5, {}),
+    ("K7", 7, 0.5, 0.3, {}),
+    ("K64", 64, 0.5, 0.5, {}),
+    ("K256", 256, 0.5, 0.5, {}),
+    ("all_below_threshold", 64, 0.5, 1.5, {}),
+    ("zero_area_boxes", 64, 0.5, 0.1, {"zero_area": True}),
+    ("tight_iou", 256, 0.3, 0.2, {}),
+]
+
+
+@pytest.mark.parametrize("name,k,iou,thr,kw", NMS_CASES,
+                         ids=[c[0] for c in NMS_CASES])
+def test_nms_sweep_plain_bit_exact_with_pallas(name, k, iou, thr, kw):
+    cols = _boxes(k, seed=k + len(name), **kw)
+    kern = jep.nms_sweep(*cols, iou_threshold=iou, threshold=thr,
+                         interpret=True)
+    ref = jep.nms_sweep_reference(*cols, iou, thr)
+    plain = tep.nms_sweep_plain(*(torch.from_numpy(c) for c in cols),
+                                iou_threshold=iou, threshold=thr)
+    np.testing.assert_array_equal(np.asarray(kern), plain.numpy())
+    np.testing.assert_array_equal(np.asarray(ref), plain.numpy())
+    if name == "all_below_threshold":
+        assert (plain.numpy() == -1.0).all()
+
+
+def test_nms_sweep_duplicate_boxes_keep_first():
+    cols = _boxes(32, seed=5)
+    for c in cols[:4]:
+        c[8:12] = c[8]  # four identical boxes: IoU exactly 1
+    plain = tep.nms_sweep_plain(*(torch.from_numpy(c) for c in cols),
+                                iou_threshold=0.5, threshold=0.0).numpy()
+    ref = np.asarray(jep.nms_sweep_reference(*cols, 0.5, 0.0))
+    np.testing.assert_array_equal(ref, plain)
+    assert plain[8] == cols[4][8] and (plain[9:12] == -1.0).all()
+
+
+def test_wrappers_raise_off_cpu_and_cuda():
+    meta = torch.empty((4, 8), device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tep.class_reduce(meta)
+    col = torch.empty(4, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        tep.nms_sweep(col, col, col, col, col, iou_threshold=0.5,
+                      threshold=0.5)
+
+
+# --------------------------------------------------------------------------- #
+# on the card: kernels against their plain versions
+# --------------------------------------------------------------------------- #
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (the CUDA kernels have no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLASS_CASES)
+def test_class_reduce_kernel_matches_plain(cuda_device, case):
+    x = torch.from_numpy(np.ascontiguousarray(_class_scores(case))).to(cuda_device)
+    before = tep.class_reduce.launches
+    got = tep.class_reduce(x)
+    want = tep.class_reduce_plain(x)
+    assert tep.class_reduce.launches == before + 1
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,k,iou,thr,kw", NMS_CASES,
+                         ids=[c[0] for c in NMS_CASES])
+def test_nms_sweep_kernel_matches_plain(cuda_device, name, k, iou, thr, kw):
+    cols = [torch.from_numpy(c).to(cuda_device)
+            for c in _boxes(k, seed=k + len(name), **kw)]
+    before = tep.nms_sweep.launches
+    got = tep.nms_sweep(*cols, iou_threshold=iou, threshold=thr)
+    want = tep.nms_sweep_plain(*cols, iou_threshold=iou, threshold=thr)
+    assert tep.nms_sweep.launches == before + 1
+    assert torch.equal(got, want)
