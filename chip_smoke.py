@@ -7,11 +7,13 @@ Phases (any failure exits non-zero before the result lines are printed):
      (one nvcc per source, started together) and print the build time;
   2. print the card's name and power limit (nvidia-smi);
   3. hold each kernel bit-exact against its plain PyTorch version on the card,
-     at the detection path's shapes and at edge cases, then time kernel,
-     plain version and (where one exists) the one-call PyTorch yardstick:
-     device time per call from CUDA-graph replay (the ``ms`` numbers of the
-     kernels line), and the eager per-call time, which the host's launch
-     path sets for calls this small;
+     at its path's shapes and at edge cases, then time kernel, plain version
+     and (where one exists) the PyTorch yardstick: device time per call from
+     CUDA-graph replay (the ``ms`` numbers of the kernels line), and the
+     eager per-call time, which the host's launch path sets for calls this
+     small; then run bounding_box's device reduce for the postprocess and
+     OpenVINO modes on CUDA tensors against the same reduce on the CPU and
+     the host decode;
   4. drive the SSD-MobileNet-v2 300x300 detection pipeline (91 classes,
      width 1.0, seeded random weights) over 64 random frames with the
      kernels' launch counts reset just before and read just after: the
@@ -20,13 +22,28 @@ Phases (any failure exits non-zero before the result lines are printed):
      must agree with the host decode path (rtol 1e-4);
   5. drive the MobileNet-v2 224 classification pipeline over a few frames
      and check each label against the model's own argmax;
-  6. print the ``kernels`` JSON line, then the device line last.
+  6. drive the DeepLab-v3 257x257 segmentation pipeline (21 classes, width
+     1.0, bf16) over 64 random frames with ``segment_colorize`` fused into
+     the filter's invoke: one launch per frame, canvases on the card, and
+     every canvas bit-equal to the host decode of the logits the fused
+     invoke produced for it, with more than one class in each;
+  7. drive the same model behind ``tensor_batch max_batch=4`` …
+     ``tensor_unbatch`` over 30 frames (the last group padded), the decoder
+     at its default ``async_depth``: 30 canvases in order with their pts,
+     one launch per frame, each canvas bit-equal to the host decode of its
+     own slice of the batched logits;
+  8. drive the PoseNet 257 pose pipeline (heatmap-offset) over 16 frames:
+     the decoder's device reduce must give the host decode's keypoints,
+     and tied heatmap cells must resolve to the first one on the card;
+  9. print the launches of each path, the ``kernels`` JSON line, then the
+     device line last.
 
 Exits non-zero without a card or without the package beside it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -40,8 +57,13 @@ import torch
 
 SSD_SPEC = "zoo://ssd_mobilenet_v2?size=300&num_classes=91"
 CLS_SPEC = "zoo://mobilenet_v2"
+SEG_SPEC = "zoo://deeplab_v3?size=257&num_classes=21"
+POSE_SPEC = "zoo://posenet?size=257"
 SSD_FRAMES = 64
 CLS_FRAMES = 8
+SEG_FRAMES = 64
+SEG_BATCH, SEG_BATCH_FRAMES = 4, 30  # 7 full groups + 1 padded
+POSE_FRAMES = 16
 
 #: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and float32
 #: operations/s outside the tensor cores
@@ -203,10 +225,386 @@ def check_nms_sweep(ep, dev, rng) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def check_segment_colorize(ep, dev, rng) -> dict:
+    pal = torch.from_numpy(rng.integers(0, 256, (256, 4), dtype=np.uint8)).to(dev)
+
+    def logits(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    cases = [("(257, 257, 21)", logits(257, 257, 21), False)]
+    ties = torch.from_numpy(rng.integers(0, 4, (500, 21)).astype(np.float32)).to(dev)
+    ties[0] = 2.0  # all-equal pixel
+    cases.append(("ties and all-equal rows", ties, False))
+    odd = logits(300, 21)
+    odd[3, 5] = float("nan")
+    odd[4, [0, 7]] = float("nan")
+    odd[5] = float("-inf")
+    odd[6, 2] = float("-inf")
+    cases.append(("NaN and -inf pixels", odd, False))
+    for c in (1, 21, 150, 300):
+        x = logits(129, 33, c)
+        if c == 300:
+            x[:64, :, 270] = 40.0  # argmax >= 256: the uint8 fill
+        cases.append((f"C={c}", x, False))
+    cases.append(("strided rows (257, 257, 30)[..., 4:25]",
+                  logits(257, 257, 30)[..., 4:25], False))
+    ids = torch.from_numpy(rng.integers(-300, 300, (257, 257)).astype(np.int32)).to(dev)
+    cases.append(("int32 ids, negative and out of range", ids, True))
+    cases.append(("float ids (truncated)", ids.to(torch.float32) * 0.37, True))
+    cases.append(("uint8 ids", ids.to(torch.uint8), True))
+    for name, x, pre in cases:
+        got = ep.segment_colorize(x, pal, pre_argmaxed=pre)
+        want = ep.segment_colorize_plain(x, pal, pre_argmaxed=pre)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"segment_colorize differs from plain: {name}")
+
+    main = cases[0][1]
+    h, w, c = main.shape
+    err = _max_abs_err(ep.segment_colorize(main, pal).to(torch.int16),
+                       ep.segment_colorize_plain(main, pal).to(torch.int16))
+    calls = {"kernel": lambda: ep.segment_colorize(main, pal),
+             "plain": lambda: ep.segment_colorize_plain(main, pal),
+             "library": lambda: pal[main.argmax(dim=-1)]}
+    dev_ms = {k: _device_ms(f) for k, f in calls.items()}
+    eager = {k: _eager_ms(f) for k, f in calls.items()}
+    p = h * w
+    bound, by = _bound_ms(p * c * 4 + p * 4 + 256 * 4, p * c)
+    print(f"segment_colorize logits ({h}*{w}, {c}) device ms/call (CUDA graph): "
+          f"kernel={dev_ms['kernel']:.6f} plain={dev_ms['plain']:.6f} "
+          f"library(pal[x.argmax(-1)], two calls)={dev_ms['library']:.6f}; "
+          f"eager ms/call: kernel={eager['kernel']:.6f} plain={eager['plain']:.6f} "
+          f"library={eager['library']:.6f}; bound_ms={bound:.8f} ({by})",
+          flush=True)
+    ids = cases[-3][1]
+    id_calls = {"kernel": lambda: ep.segment_colorize(ids, pal, pre_argmaxed=True),
+                "plain": lambda: ep.segment_colorize_plain(ids, pal, pre_argmaxed=True)}
+    id_dev = {k: _device_ms(f) for k, f in id_calls.items()}
+    id_eager = {k: _eager_ms(f) for k, f in id_calls.items()}
+    id_bound, id_by = _bound_ms(p * 4 + p * 4 + 256 * 4, p)
+    print(f"segment_colorize ids ({h}*{w},) int32 device ms/call (CUDA graph): "
+          f"kernel={id_dev['kernel']:.6f} plain={id_dev['plain']:.6f}; eager "
+          f"ms/call: kernel={id_eager['kernel']:.6f} plain={id_eager['plain']:.6f}; "
+          f"bound_ms={id_bound:.8f} ({id_by})", flush=True)
+    return {"name": "segment_colorize", "route": "cuda",
+            "source": "nnstreamer_tpu_torch/ops/kernels/csrc/segment_colorize.cu",
+            "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:219",
+            "max_abs_err": err, "ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
+            "bound_ms": bound, "bound_by": by, "library_ms": dev_ms["library"]}
+
+
+def _post_inputs(m: int, seed: int, count: bool = True) -> tuple:
+    """tflite detection-postprocess tensors: boxes [ymin, xmin, ymax, xmax],
+    class ids, scores with tied groups and duplicate boxes, and a
+    valid-row count below m."""
+    rng = np.random.default_rng(seed)
+    y0, x0 = rng.uniform(0, 0.7, (2, m)).astype(np.float32)
+    h, w = rng.uniform(0.05, 0.3, (2, m)).astype(np.float32)
+    boxes = np.stack([y0, x0, y0 + h, x0 + w], axis=1)[None]
+    classes = rng.integers(0, 9, (1, m)).astype(np.float32)
+    scores = rng.uniform(0.2, 1.0, (1, m)).astype(np.float32)
+    scores[0, 5:9] = scores[0, 5]
+    boxes[0, 20:23] = boxes[0, 19]
+    scores[0, 19:23] = 0.9
+    out = (boxes, classes, scores, np.array([m - 7], np.float32))
+    return out if count else out[:3]
+
+
+def _ov_rows(m: int, seed: int) -> tuple:
+    """OpenVINO rows [image_id, label, conf, x0, y0, x1, y1]; negative
+    image ids end the list."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = rng.uniform(0, 0.7, (2, m)).astype(np.float32)
+    w, h = rng.uniform(0.05, 0.3, (2, m)).astype(np.float32)
+    rows = np.stack([np.zeros(m, np.float32),
+                     rng.integers(1, 4, m).astype(np.float32),
+                     rng.uniform(0.2, 1.0, m).astype(np.float32),
+                     x0, y0, x0 + w, y0 + h], axis=1)
+    rows[m - 5:, 0] = -1.0
+    rows[10:14, 2] = rows[10, 2]
+    return (rows[None, None],)
+
+
+def check_box_modes(ep) -> None:
+    """bounding_box's device reduce for the postprocess and OpenVINO modes
+    on CUDA tensors (stable top-256, then nms_sweep on the card): rows
+    equal to the same reduce on the CPU, and kept rows equal to the host
+    decode of the same tensors."""
+    from nnstreamer_tpu_torch.core.buffer import Buffer
+    from nnstreamer_tpu_torch.decoders.bounding_box import BoundingBox
+    from nnstreamer_tpu_torch.decoders.util import nms
+
+    cases = [("mobilenet-ssd-postprocess", _post_inputs(100, 1)),
+             ("mobilenet-ssd-postprocess", _post_inputs(100, 2, count=False)),
+             ("tf-ssd", _post_inputs(300, 3)),
+             ("tflite-ssd-postprocess", _post_inputs(40, 4)),
+             ("ov-person-detection", _ov_rows(200, 5)),
+             ("ov-face-detection", _ov_rows(300, 6))]
+    kept_counts = []
+    for mode, inputs in cases:
+        dec = BoundingBox()
+        dec.init({1: mode, 3: "0.45:0.4", 4: "300:300", 5: "300:300"})
+        reduce, _ = dec._make_reduce()
+        before = ep.nms_sweep.launches
+        with torch.inference_mode():
+            rows = reduce(*(torch.from_numpy(a).cuda() for a in inputs))
+            rows = rows.cpu().numpy()
+            cpu_rows = reduce(*(torch.from_numpy(a) for a in inputs)).numpy()
+        if ep.nms_sweep.launches != before + 1:
+            raise AssertionError(f"{mode}: nms_sweep not launched on the card")
+        if not np.array_equal(rows, cpu_rows):
+            raise AssertionError(f"{mode}: card rows differ from the CPU reduce")
+        host_buf = Buffer.of(*inputs)
+        cands = dec._objects_ov(host_buf) if mode.startswith("ov-") \
+            else dec._objects_postprocess(host_buf)
+        if len(cands) > dec.PRE_NMS_TOPK:
+            raise AssertionError(f"{mode}: {len(cands)} candidates past top-K")
+        kept = rows[rows[:, 4] >= dec.threshold]
+        host = nms(cands, dec.iou_threshold)
+        if len(kept) < 5 or not np.array_equal(kept, host):
+            raise AssertionError(f"{mode}: device kept {len(kept)} rows, host "
+                                 f"decode {len(host)}, or they differ")
+        kept_counts.append(len(kept))
+    print(f"bounding_box postprocess/ov device reduce on the card == CPU reduce "
+          f"and == host decode: {len(cases)} cases, kept rows {kept_counts}",
+          flush=True)
+
+
+@contextlib.contextmanager
+def _epilogue_inputs(decoder_cls):
+    """Record the first model output the filter's fused invoke hands to a
+    ``decoder_cls`` epilogue, one per frame, for pipelines fused inside."""
+    seen = []
+    make = decoder_cls.epilogue_reduce
+
+    def recording_epilogue_reduce(self):
+        fn = make(self)
+        if fn is None:
+            return None
+
+        def recorded(outs):
+            seen.append(outs[0])
+            return fn(outs)
+
+        return recorded
+
+    decoder_cls.epilogue_reduce = recording_epilogue_reduce
+    try:
+        yield seen
+    finally:
+        decoder_cls.epilogue_reduce = make
+
+
+@contextlib.contextmanager
+def _decoder_inputs():
+    """Record every buffer that reaches a tensor_decoder while inside."""
+    from nnstreamer_tpu_torch.elements.decoder import TensorDecoder
+
+    seen = []
+    chain = TensorDecoder.chain
+
+    def watching_chain(self, pad, buf):
+        seen.append(buf)
+        return chain(self, pad, buf)
+
+    TensorDecoder.chain = watching_chain
+    try:
+        yield seen
+    finally:
+        TensorDecoder.chain = chain
+
+
+def _devices(bufs) -> set:
+    return {str(m.device().device) for b in bufs for m in b.memories}
+
+
+def _steady_fps(arrivals) -> float:
+    return (len(arrivals) - 1) / (arrivals[-1] - arrivals[0])
+
+
+def _seg_pipeline(spec, frames, batch=1):
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    p = Pipeline("seg")
+    chain = [p.add_new("videotestsrc", width=257, height=257, pattern="random",
+                       num_buffers=frames),
+             p.add_new("tensor_converter")]
+    if batch > 1:
+        chain.append(p.add_new("tensor_batch", max_batch=batch, budget_ms=1000.0))
+    chain.append(p.add_new("tensor_filter", framework="xla-tpu", model=spec))
+    if batch > 1:
+        chain.append(p.add_new("tensor_unbatch"))
+    chain.append(p.add_new("tensor_decoder", mode="image_segment",
+                           option1="tflite-deeplab"))
+    arrivals = []
+    sink = p.add_new("tensor_sink", store=True,
+                     new_data=lambda b: arrivals.append(time.perf_counter()))
+    chain.append(sink)
+    Pipeline.link(*chain)
+    return p, chain, sink, arrivals
+
+
+def run_segmentation(ep) -> int:
+    from nnstreamer_tpu_torch.core.buffer import Buffer, TensorMemory
+    from nnstreamer_tpu_torch.decoders.image_segment import ImageSegment
+
+    t0 = time.perf_counter()
+    _seg_pipeline(SEG_SPEC, 4)[0].run(timeout=600)
+    torch.cuda.synchronize()
+    print(f"deeplab warm-up (model build + 4 frames): {time.perf_counter() - t0:.3f} s",
+          flush=True)
+    p, _, sink, arrivals = _seg_pipeline(SEG_SPEC, SEG_FRAMES)
+    with _decoder_inputs() as seen, _epilogue_inputs(ImageSegment) as logits:
+        ep.segment_colorize.launches = 0
+        t0 = time.perf_counter()
+        p.run(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ep.segment_colorize.launches
+    if p._epilogue_count != 1:
+        raise AssertionError(f"segmentation decoder not fused: {p._epilogue_count}")
+    if sink.num_buffers != SEG_FRAMES or launches != SEG_FRAMES \
+            or len(logits) != SEG_FRAMES:
+        raise AssertionError(f"{sink.num_buffers} canvases, {launches} launches, "
+                             f"{len(logits)} epilogue calls for {SEG_FRAMES} frames")
+    devices = _devices(seen) | {str(x.device) for x in logits}
+    if any(not d.startswith("cuda") for d in devices):
+        raise AssertionError(f"filter output left the card: {devices}")
+    # every frame: the canvas the pipeline produced vs the host decode of
+    # the logits the filter's fused invoke handed its epilogue
+    host_dec = ImageSegment()
+    host_dec.init({1: "tflite-deeplab"})
+    colours = []
+    for i, (x, out) in enumerate(zip(logits, sink.buffers)):
+        if x.shape != (1, 257, 257, 21) or x.dtype != torch.float32 \
+                or not torch.isfinite(x).all():
+            raise AssertionError(f"frame {i}: logits {tuple(x.shape)} {x.dtype} "
+                                 "or not finite")
+        canvas = out.memories[0].host()
+        want = host_dec.decode(Buffer([TensorMemory(x.cpu().numpy())]), None)
+        if canvas.shape != (257, 257, 4) or canvas.dtype != np.uint8 \
+                or not np.array_equal(canvas, want.memories[0].host()):
+            raise AssertionError(f"frame {i}: fused canvas differs from the host "
+                                 "decode of its logits")
+        colours.append(len(np.unique(canvas.reshape(-1, 4), axis=0)))
+    if min(colours) < 2:
+        raise AssertionError(f"a canvas holds one class only: {colours}")
+    print(f"deeplab_v3 257x257 21 classes (fused colorize): {SEG_FRAMES} frames in "
+          f"{wall:.3f} s, steady fps={_steady_fps(arrivals):.2f}, launches={launches}, "
+          f"output devices={sorted(devices)}; every canvas == host decode of the "
+          f"logits the fused invoke produced, bit for bit (classes per canvas "
+          f"{min(colours)}..{max(colours)})", flush=True)
+    return launches
+
+
+def run_batched_segmentation(ep) -> int:
+    from nnstreamer_tpu_torch.core.buffer import Buffer, TensorMemory
+    from nnstreamer_tpu_torch.decoders.image_segment import ImageSegment
+
+    spec = f"{SEG_SPEC}&batch={SEG_BATCH}"
+    t0 = time.perf_counter()
+    _seg_pipeline(spec, SEG_BATCH, batch=SEG_BATCH)[0].run(timeout=600)
+    torch.cuda.synchronize()
+    print(f"batched deeplab warm-up (model build + 1 group): "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    # the decoder keeps its default async_depth=0
+    p, chain, sink, arrivals = _seg_pipeline(spec, SEG_BATCH_FRAMES, batch=SEG_BATCH)
+    with _decoder_inputs() as seen:
+        ep.segment_colorize.launches = 0
+        t0 = time.perf_counter()
+        p.run(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = ep.segment_colorize.launches
+    batcher = chain[2]
+    if p._epilogue_count != 0:
+        raise AssertionError("fused across tensor_unbatch")
+    if sink.num_buffers != SEG_BATCH_FRAMES or launches != SEG_BATCH_FRAMES:
+        raise AssertionError(f"{sink.num_buffers} canvases, {launches} launches "
+                             f"for {SEG_BATCH_FRAMES} frames")
+    groups = batcher.groups_emitted
+    if groups != -(-SEG_BATCH_FRAMES // SEG_BATCH) or len(seen) != SEG_BATCH_FRAMES:
+        raise AssertionError(f"{groups} groups, {len(seen)} slices")
+    rate = sink.buffers[1].pts - sink.buffers[0].pts
+    if [b.pts for b in sink.buffers] != [i * rate for i in range(SEG_BATCH_FRAMES)]:
+        raise AssertionError("canvases out of order or pts lost")
+    devices = _devices(seen)
+    if any(not d.startswith("cuda") for d in devices):
+        raise AssertionError(f"unbatched slices left the card: {devices}")
+    host_dec = ImageSegment()
+    host_dec.init({1: "tflite-deeplab"})
+    for i, (buf, out) in enumerate(zip(seen, sink.buffers)):
+        want = host_dec.decode(Buffer([TensorMemory(buf.memories[0].host())]), None)
+        if not np.array_equal(out.memories[0].host(), want.memories[0].host()):
+            raise AssertionError(f"batched canvas {i} differs from its slice's "
+                                 "host decode")
+    print(f"deeplab_v3 257x257 batched (tensor_batch max_batch={SEG_BATCH} ... "
+          f"tensor_unbatch, colorize on the decoder): {SEG_BATCH_FRAMES} frames in "
+          f"{wall:.3f} s, steady fps={_steady_fps(arrivals):.2f}, groups emitted="
+          f"{groups} (frames grouped {batcher.frames_grouped}), launches={launches}; "
+          f"every canvas == host decode of its slice", flush=True)
+    return launches
+
+
+def run_pose() -> None:
+    from nnstreamer_tpu_torch.decoders.pose import PoseEstimation, keypoint_rows
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    opts = dict(option1="640:480", option2="257:257", option4="heatmap-offset")
+
+    def build(frames):
+        p = Pipeline("pose")
+        src = p.add_new("videotestsrc", width=257, height=257, pattern="random",
+                        num_buffers=frames)
+        conv = p.add_new("tensor_converter")
+        filt = p.add_new("tensor_filter", framework="xla-tpu", model=POSE_SPEC)
+        dec = p.add_new("tensor_decoder", mode="pose_estimation", async_depth=2,
+                        **opts)
+        arrivals = []
+        sink = p.add_new("tensor_sink", store=True,
+                         new_data=lambda b: arrivals.append(time.perf_counter()))
+        Pipeline.link(src, conv, filt, dec, sink)
+        return p, sink, arrivals
+
+    build(4)[0].run(timeout=600)
+    p, sink, arrivals = build(POSE_FRAMES)
+    with _decoder_inputs() as seen:
+        t0 = time.perf_counter()
+        p.run(timeout=600)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    if sink.num_buffers != POSE_FRAMES or len(seen) != POSE_FRAMES:
+        raise AssertionError(f"{sink.num_buffers} pose frames of {POSE_FRAMES}")
+    devices = _devices(seen)
+    if any(not d.startswith("cuda") for d in devices):
+        raise AssertionError(f"pose outputs left the card: {devices}")
+    host = PoseEstimation()
+    host.init({1: opts["option1"], 2: opts["option2"], 4: opts["option4"]})
+    for i, (buf, out) in enumerate(zip(seen, sink.buffers)):
+        shapes = [tuple(m.shape) for m in buf.memories]
+        if shapes != [(1, 17, 17, 17), (1, 17, 17, 34)]:
+            raise AssertionError(f"posenet outputs {shapes}")
+        kp = out.meta["keypoints"]
+        if kp != host.keypoints(buf) or not np.isfinite(kp).all():
+            raise AssertionError(f"frame {i}: device keypoints != host keypoints")
+    # ties: torch.argmax on the card must return the first maximal cell,
+    # as jnp.argmax and np.argmax do
+    hm = torch.zeros((1, 17, 17, 17), device="cuda")
+    hm[0, 3, [2, 9], 5] = 4.0
+    off = torch.zeros((1, 17, 17, 34), device="cuda")
+    rows = keypoint_rows(hm, off).cpu()
+    if tuple(rows[0, :2].tolist()) != (0.0, 0.0) \
+            or tuple(rows[5, :2].tolist()) != (2.0, 3.0):
+        raise AssertionError(f"pose argmax tie-break on the card: {rows[:, :2]}")
+    print(f"posenet 257 pose_estimation heatmap-offset: {POSE_FRAMES} frames in "
+          f"{wall:.3f} s, steady fps={_steady_fps(arrivals):.2f}; device reduce "
+          f"keypoints == host keypoints() on every frame; ties take the first "
+          f"cell", flush=True)
+
+
 def run_detection(ep, tmp: str) -> dict:
     from nnstreamer_tpu_torch.decoders import bounding_box as bb
     from nnstreamer_tpu_torch.decoders.util import nms
-    from nnstreamer_tpu_torch.elements.decoder import TensorDecoder
     from nnstreamer_tpu_torch.graph import Pipeline
     from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
 
@@ -239,16 +637,8 @@ def run_detection(ep, tmp: str) -> dict:
           flush=True)
 
     # the decoder's input is the filter's output: record where it lives
-    devices = set()
-    chain = TensorDecoder.chain
-
-    def watching_chain(self, pad, buf):
-        devices.update(str(m.device().device) for m in buf.memories)
-        return chain(self, pad, buf)
-
     p, filt, sink, arrivals = build(SSD_FRAMES)
-    TensorDecoder.chain = watching_chain
-    try:
+    with _decoder_inputs() as seen:
         ep.class_reduce.launches = 0
         ep.nms_sweep.launches = 0
         t0 = time.perf_counter()
@@ -257,8 +647,7 @@ def run_detection(ep, tmp: str) -> dict:
         wall = time.perf_counter() - t0
         launches = {"class_reduce": ep.class_reduce.launches,
                     "nms_sweep": ep.nms_sweep.launches}
-    finally:
-        TensorDecoder.chain = chain
+    devices = _devices(seen)
     if p._epilogue_count != 1:
         raise AssertionError(f"decoder not fused: {p._epilogue_count}")
     if sink.num_buffers != SSD_FRAMES:
@@ -271,7 +660,7 @@ def run_detection(ep, tmp: str) -> dict:
     counts = [len(b.meta["detections"]) for b in sink.buffers]
     if sum(counts) == 0:
         raise AssertionError("no detections")
-    steady = (len(arrivals) - 1) / (arrivals[-1] - arrivals[0])
+    steady = _steady_fps(arrivals)
     print(f"ssd_mobilenet_v2 300x300 91 classes: {SSD_FRAMES} frames in "
           f"{wall:.3f} s, steady fps={steady:.2f}, detections/frame "
           f"min={min(counts)} max={max(counts)}, anchors={n_anchors}, "
@@ -371,13 +760,20 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
-    kernels = [check_class_reduce(ep, dev, rng), check_nms_sweep(ep, dev, rng)]
+    kernels = [check_class_reduce(ep, dev, rng), check_nms_sweep(ep, dev, rng),
+               check_segment_colorize(ep, dev, rng)]
+    check_box_modes(ep)
 
     with tempfile.TemporaryDirectory() as tmp:
         launches = run_detection(ep, tmp)
         run_classification(tmp)
+    by_phase = {"ssd": dict(launches),
+                "deeplab fused": {"segment_colorize": run_segmentation(ep)},
+                "deeplab batched": {"segment_colorize": run_batched_segmentation(ep)}}
+    run_pose()
+    print(f"launches by path: {json.dumps(by_phase)}", flush=True)
     for k in kernels:
-        k["launches"] = launches[k["name"]]
+        k["launches"] = sum(phase.get(k["name"], 0) for phase in by_phase.values())
 
     print(json.dumps({"kernels": [
         {key: k[key] for key in ("name", "route", "source", "replaces",

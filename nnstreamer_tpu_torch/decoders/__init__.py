@@ -12,6 +12,9 @@ def _ensure_builtin_decoders() -> None:
     _loaded = True
     from . import basic  # noqa: F401
     from . import bounding_box  # noqa: F401
+    from . import font  # noqa: F401
+    from . import image_segment  # noqa: F401
+    from . import pose  # noqa: F401
 
 
 _ensure_builtin_decoders()

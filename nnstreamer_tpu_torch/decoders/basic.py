@@ -1,6 +1,8 @@
-"""image_labeling decoder (tensordec-imagelabel.c) — port of
-nnstreamer_tpu/decoders/basic.py's ImageLabeling. The other basic modes
-(direct_video, flex) are not ported yet."""
+"""Basic decoders: direct_video, image_labeling.
+
+References: tensordec-directvideo.c, tensordec-imagelabel.c. Port of
+nnstreamer_tpu/decoders/basic.py; its ``flex`` mode waits for the
+converters layer (flex/flatbuf framing) and is not ported yet."""
 
 from __future__ import annotations
 
@@ -11,6 +13,29 @@ from ..core.buffer import Buffer, TensorMemory
 from ..core.types import Caps, TensorsConfig
 from .base import Decoder, register_decoder
 from .util import load_labels
+
+
+@register_decoder
+class DirectVideo(Decoder):
+    """tensor [C:W:H:1] (C∈{1,3,4}) → video/x-raw frame (passthrough view)."""
+
+    MODE = "direct_video"
+
+    _FMT = {1: "GRAY8", 3: "RGB", 4: "RGBA"}
+
+    def out_caps(self, config: TensorsConfig) -> Caps:
+        shape = config.info[0].shape  # (N,H,W,C)
+        if len(shape) != 4 or shape[-1] not in self._FMT:
+            raise ValueError(f"direct_video: bad tensor shape {shape}")
+        return Caps("video/x-raw", {"format": self._FMT[shape[-1]],
+                                    "width": shape[2], "height": shape[1],
+                                    "framerate": config.rate})
+
+    def decode(self, buf: Buffer, config: TensorsConfig) -> Buffer:
+        arr = buf.memories[0].host()
+        if arr.ndim == 4:
+            arr = arr[0]
+        return buf.with_memories([TensorMemory(np.ascontiguousarray(arr, np.uint8))])
 
 
 @register_decoder

@@ -19,10 +19,9 @@ Output: transparent RGBA canvas with green boxes + white label text
 (compose over the source video downstream), identical contract to the
 reference decoder.
 
-Port of nnstreamer_tpu/decoders/bounding_box.py. The mobilenet-ssd device
-reduce (box decode → class_reduce → threshold → top-K → nms_sweep) runs in
-torch with the hand-written CUDA kernels of ops/kernels; the other modes
-decode on the host here (their device reduce is not ported yet).
+Port of nnstreamer_tpu/decoders/bounding_box.py. Every mode's device reduce
+(mobilenet-ssd: box decode → class_reduce; then threshold → top-K →
+nms_sweep) runs in torch with the hand-written CUDA kernels of ops/kernels.
 """
 
 from __future__ import annotations
@@ -169,48 +168,89 @@ class BoundingBox(Decoder):
 
     def _make_reduce(self):
         """``(torch reduce fn, arity)`` for this mode's device reduction
-        (arity = leading memories consumed), or None.
+        (arity = leading memories consumed; None = all), or None.
 
-        mobilenet-ssd: box decode, ``class_reduce`` (kernel), threshold
-        mask, top-K by a stable descending sort, then the greedy
-        ``nms_sweep`` (kernel; reference nms(), tensordec-boundingbox.c:
-        962-976: strict > suppresses), emitting fixed (K, 6) rows [x0, y0,
-        x1, y1, score, class] with score -1 in unused or suppressed slots.
-        The same function serves the async submit path and
-        ``epilogue_reduce``."""
-        if self.box_mode not in ("mobilenet-ssd", "tflite-ssd") \
-                or self.priors is None:
-            return None
+        Every mode funnels into one shape: rank candidates (threshold mask
+        → top-K by a stable descending sort, score -1 ⇒ unused slot), then
+        the greedy ``nms_sweep`` (kernel; reference nms(),
+        tensordec-boundingbox.c:962-976: strict > suppresses), emitting
+        fixed (K, 6) rows [x0, y0, x1, y1, score, class]. mobilenet-ssd
+        first decodes the boxes and takes each anchor's best class with
+        ``class_reduce`` (kernel). The same function serves the async
+        submit path and ``epilogue_reduce``."""
         threshold = float(self.threshold)
         iou_thr = float(self.iou_threshold)
         topk = self.PRE_NMS_TOPK
-        priors_np = self.priors
-        priors_on: dict = {}
 
-        def reduce_ssd(locs, raw):
-            pr = priors_on.get(locs.device)
-            if pr is None:
-                pr = priors_on[locs.device] = torch.as_tensor(
-                    priors_np, dtype=torch.float32, device=locs.device)
-            x0, y0, x1, y1, cls = ssd_box_math(torch, locs, raw, pr)
-            best_score, best = _ep.class_reduce(cls)
-            k = min(topk, int(best_score.shape[0]))
-            # mask below-threshold anchors out before ranking so the K
-            # slots hold only real candidates (score -1 ⇒ unused)
-            masked = torch.where(best_score >= threshold, best_score, -1.0)
+        def top(masked, k):
             # jax.lax.top_k puts tied scores in index order; a stable
             # descending sort keeps that order (torch.topk does not
             # promise it on CUDA), and the order decides which box NMS keeps
             top_score, idx = torch.sort(masked, descending=True, stable=True)
-            top_score, idx = top_score[:k].contiguous(), idx[:k]
-            bx0, by0, bx1, by1 = x0[idx], y0[idx], x1[idx], y1[idx]
+            return top_score[:k].contiguous(), idx[:k]
+
+        def nms_rows(bx0, by0, bx1, by1, top_score, cls_sel):
+            bx0, by0, bx1, by1 = (c.contiguous() for c in (bx0, by0, bx1, by1))
             out_score = _ep.nms_sweep(bx0, by0, bx1, by1, top_score,
                                       iou_threshold=iou_thr,
                                       threshold=threshold)
-            return torch.stack([bx0, by0, bx1, by1, out_score,
-                                (best[idx] + 1).to(torch.float32)], dim=1)
+            return torch.stack([bx0, by0, bx1, by1, out_score, cls_sel], dim=1)
 
-        return reduce_ssd, 2
+        if self.box_mode in ("mobilenet-ssd", "tflite-ssd"):
+            if self.priors is None:
+                return None
+            priors_np = self.priors
+            priors_on: dict = {}
+
+            def reduce_ssd(locs, raw):
+                pr = priors_on.get(locs.device)
+                if pr is None:
+                    pr = priors_on[locs.device] = torch.as_tensor(
+                        priors_np, dtype=torch.float32, device=locs.device)
+                x0, y0, x1, y1, cls = ssd_box_math(torch, locs, raw, pr)
+                best_score, best = _ep.class_reduce(cls)
+                # mask below-threshold anchors out before ranking so the K
+                # slots hold only real candidates (score -1 ⇒ unused)
+                masked = torch.where(best_score >= threshold, best_score, -1.0)
+                top_score, idx = top(masked, min(topk, int(masked.shape[0])))
+                return nms_rows(x0[idx], y0[idx], x1[idx], y1[idx], top_score,
+                                (best[idx] + 1).to(torch.float32))
+
+            return reduce_ssd, 2
+        if self.box_mode in ("mobilenet-ssd-postprocess", "tf-ssd",
+                             "tflite-ssd-postprocess"):
+            def reduce_post(boxes, classes, scores, *rest):
+                boxes = boxes.reshape(-1, 4).to(torch.float32)
+                classes = classes.reshape(-1).to(torch.float32)
+                scores = scores.reshape(-1).to(torch.float32)
+                m = int(scores.shape[0])
+                order = torch.arange(m, device=scores.device)
+                if rest:  # count tensor caps valid rows (input order)
+                    valid = order < rest[0].reshape(-1)[0].to(
+                        torch.int32).clamp(max=m)
+                else:
+                    valid = torch.ones(m, dtype=torch.bool,
+                                       device=scores.device)
+                masked = torch.where(valid & (scores >= threshold), scores,
+                                     -1.0)
+                top_score, idx = top(masked, min(topk, m))
+                b = boxes[idx]  # rows are [ymin, xmin, ymax, xmax]
+                return nms_rows(b[:, 1], b[:, 0], b[:, 3], b[:, 2], top_score,
+                                classes[idx])
+
+            return reduce_post, None
+        if self.box_mode.startswith("ov-"):
+            def reduce_ov(rows):
+                r = rows.reshape(-1, 7).to(torch.float32)
+                masked = torch.where((r[:, 0] >= 0) & (r[:, 2] >= threshold),
+                                     r[:, 2], -1.0)
+                top_score, idx = top(masked, min(topk, int(r.shape[0])))
+                rr = r[idx]
+                return nms_rows(rr[:, 3], rr[:, 4], rr[:, 5], rr[:, 6],
+                                top_score, rr[:, 1])
+
+            return reduce_ov, 1
+        return None
 
     def epilogue_reduce(self):
         made = self._make_reduce()

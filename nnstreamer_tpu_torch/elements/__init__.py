@@ -7,3 +7,4 @@ from . import sinks  # noqa: F401
 from . import filter  # noqa: F401
 from . import converter  # noqa: F401
 from . import decoder  # noqa: F401
+from . import batch  # noqa: F401

@@ -1,11 +1,13 @@
 """Layers shared by the zoo models, written to compute what flax computes.
 
 * ``same_padding``/``conv2d_same`` — flax ``padding="SAME"``: the total pad
-  ``max((out - 1) * stride + kernel - size, 0)`` with ``out = ceil(size /
-  stride)`` splits as low = total // 2, high = total - low. With stride 2 it
-  is asymmetric whenever the size is even (300 → 150 pads (0, 1)), which
-  torch's symmetric ``padding=`` cannot express: that case goes through
-  ``F.pad``.
+  ``max((out - 1) * stride + k_eff - size, 0)`` with ``out = ceil(size /
+  stride)`` and the dilated kernel's extent ``k_eff = (kernel - 1) *
+  dilation + 1`` splits as low = total // 2, high = total - low. With
+  stride 2 it is asymmetric whenever the size is even (300 → 150 pads (0,
+  1)), which torch's symmetric ``padding=`` cannot express: that case goes
+  through ``F.pad``. A rate-18 3×3 convolution (DeepLab's ASPP) pads 18 on
+  each side of a 17×17 map.
 * ``BatchNorm`` — inference-mode batch norm in flax's order and precision:
   ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32 with float32
   statistics, cast back to the activation dtype; eps is the model's 1e-3.
@@ -20,23 +22,26 @@ import torch.nn.functional as F
 from torch import nn
 
 
-def same_padding(size: int, kernel: int, stride: int) -> Tuple[int, int]:
+def same_padding(size: int, kernel: int, stride: int,
+                 dilation: int = 1) -> Tuple[int, int]:
     out = -(-size // stride)
-    total = max((out - 1) * stride + kernel - size, 0)
+    extent = (kernel - 1) * dilation + 1
+    total = max((out - 1) * stride + extent - size, 0)
     return total // 2, total - total // 2
 
 
 def conv2d_same(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """``conv`` (built with padding=0) applied with flax SAME padding to
-    NCHW ``x``."""
-    (kh, kw), (sh, sw) = conv.kernel_size, conv.stride
-    ph = same_padding(x.shape[2], kh, sh)
-    pw = same_padding(x.shape[3], kw, sw)
+    """``conv`` (built with padding=0, any dilation) applied with flax SAME
+    padding to NCHW ``x``."""
+    (kh, kw), (sh, sw), (dh, dw) = conv.kernel_size, conv.stride, conv.dilation
+    ph = same_padding(x.shape[2], kh, sh, dh)
+    pw = same_padding(x.shape[3], kw, sw, dw)
     if ph[0] == ph[1] and pw[0] == pw[1]:
         return F.conv2d(x, conv.weight, conv.bias, conv.stride,
-                        (ph[0], pw[0]), 1, conv.groups)
+                        (ph[0], pw[0]), conv.dilation, conv.groups)
     x = F.pad(x, (pw[0], pw[1], ph[0], ph[1]))
-    return F.conv2d(x, conv.weight, conv.bias, conv.stride, 0, 1, conv.groups)
+    return F.conv2d(x, conv.weight, conv.bias, conv.stride, 0, conv.dilation,
+                    conv.groups)
 
 
 class BatchNorm(nn.Module):

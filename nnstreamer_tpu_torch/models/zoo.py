@@ -149,6 +149,8 @@ def _ensure_builtin_models() -> None:
     global _builtins_loaded
     if _builtins_loaded:
         return
+    from . import deeplab  # noqa: F401
     from . import mobilenet_v2  # noqa: F401
+    from . import posenet  # noqa: F401
     from . import ssd_mobilenet  # noqa: F401
     _builtins_loaded = True

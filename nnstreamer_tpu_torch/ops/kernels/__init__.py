@@ -2,7 +2,8 @@
 plain PyTorch versions."""
 
 from .epilogue import (class_reduce, class_reduce_plain, nms_sweep,
-                       nms_sweep_plain)
+                       nms_sweep_plain, segment_colorize,
+                       segment_colorize_plain)
 
 __all__ = ["class_reduce", "class_reduce_plain", "nms_sweep",
-           "nms_sweep_plain"]
+           "nms_sweep_plain", "segment_colorize", "segment_colorize_plain"]

@@ -32,6 +32,7 @@ BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
 KERNEL_FLAGS: Dict[str, List[str]] = {
     "class_reduce": [],
     "nms_sweep": ["-fmad=false"],
+    "segment_colorize": [],
 }
 
 COMMON_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",

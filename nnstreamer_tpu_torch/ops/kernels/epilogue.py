@@ -1,12 +1,15 @@
 """CUDA kernels for the post-filter epilogue, with their plain versions.
 
 Counterparts of the Pallas kernels in ``nnstreamer_tpu/ops/pallas/epilogue.py``
-that the SSD bounding-box reduce runs (decoders/bounding_box.py):
+that the SSD bounding-box reduce (decoders/bounding_box.py) and the
+segmentation decoder (decoders/image_segment.py) run:
 
-  * ``class_reduce`` — per-anchor best class score + first index attaining it
-    (csrc/class_reduce.cu);
-  * ``nms_sweep``    — greedy NMS alive-sweep over the top-K score-sorted
-    candidates (csrc/nms_sweep.cu).
+  * ``class_reduce``     — per-anchor best class score + first index
+    attaining it (csrc/class_reduce.cu);
+  * ``nms_sweep``        — greedy NMS alive-sweep over the top-K
+    score-sorted candidates (csrc/nms_sweep.cu);
+  * ``segment_colorize`` — per-pixel class argmax (or pre-argmaxed class
+    ids) → RGBA palette lookup (csrc/segment_colorize.cu).
 
 Each wrapper launches its hand-written kernel for a CUDA tensor, raising on
 a device, dtype, shape or layout the kernel does not take, and adds one to
@@ -174,3 +177,99 @@ def nms_sweep(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
 
 
 nms_sweep.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# segment_colorize: per-pixel argmax + RGBA palette lookup
+# --------------------------------------------------------------------------- #
+
+#: palette rows one launch takes (the kernel stages them in shared memory)
+PALETTE_MAX_ROWS = 256
+
+
+def segment_colorize_plain(x: torch.Tensor, palette: torch.Tensor,
+                           pre_argmaxed: bool = False) -> torch.Tensor:
+    """(..., C) logits, or (...) class ids when ``pre_argmaxed``, → (..., 4)
+    uint8 through an (n, 4) palette: ``segment_colorize_reference``, i.e.
+    ``jnp.take(palette, jnp.argmax(x, -1))``, step by step. First max wins
+    ties and a pixel with a NaN takes its first NaN's class; ids truncate
+    toward zero (``astype(int32)``); a class in [-n, -1] indexes from the
+    end, and any other class outside [0, n) gives jnp.take's uint8 fill,
+    (255, 255, 255, 255)."""
+    pal = torch.as_tensor(palette, dtype=torch.uint8, device=x.device)
+    n = pal.shape[0]
+    if pre_argmaxed:
+        cls = x.to(torch.int32)
+    else:
+        best = x.amax(dim=-1, keepdim=True)
+        hit = (x == best) | (x.isnan() & best.isnan())
+        iota = torch.arange(x.shape[-1], device=x.device, dtype=torch.int32)
+        cls = torch.where(hit, iota, x.shape[-1]).amin(dim=-1)
+    cls = torch.where(cls < 0, cls + n, cls)
+    inside = (cls >= 0) & (cls < n)
+    rgba = pal[cls.clamp(0, n - 1).to(torch.int64)]
+    return torch.where(inside[..., None], rgba, 255).to(torch.uint8)
+
+
+def _check_palette(palette: torch.Tensor, device: torch.device) -> None:
+    _require(isinstance(palette, torch.Tensor) and palette.device == device,
+             f"segment_colorize: palette must be a tensor on {device}")
+    _require(palette.dtype == torch.uint8 and palette.dim() == 2
+             and palette.shape[1] == 4
+             and 1 <= palette.shape[0] <= PALETTE_MAX_ROWS
+             and palette.is_contiguous(),
+             f"segment_colorize: contiguous (n <= {PALETTE_MAX_ROWS}, 4) uint8 "
+             f"palette required, got {tuple(palette.shape)} {palette.dtype}")
+
+
+def segment_colorize(x: torch.Tensor, palette: torch.Tensor,
+                     pre_argmaxed: bool = False) -> torch.Tensor:
+    """(..., C) float32 logits, or (...) class ids when ``pre_argmaxed``
+    (any integer or float dtype, truncated to int32), → (..., 4) RGBA uint8
+    through an (n, 4) uint8 palette on the same device. The logits' rows
+    may be strided; the class axis must be contiguous."""
+    if x.device.type == "cpu":
+        return segment_colorize_plain(x, palette, pre_argmaxed)
+    _require(x.device.type == "cuda",
+             f"segment_colorize: unsupported device {x.device}")
+    _check_palette(palette, x.device)
+    if pre_argmaxed:
+        _require(x.dtype != torch.bool and not x.is_complex(),
+                 f"segment_colorize: real class ids required, got {x.dtype}")
+        lead = tuple(x.shape)
+        ids = x.to(torch.int32).reshape(-1).contiguous()
+        p = ids.shape[0]
+    else:
+        _require(x.dtype == torch.float32,
+                 f"segment_colorize: float32 logits required, got {x.dtype}")
+        _require(x.dim() >= 1 and x.shape[-1] > 0,
+                 f"segment_colorize: (..., C >= 1) logits required, got "
+                 f"{tuple(x.shape)}")
+        lead = tuple(x.shape[:-1])
+        c = x.shape[-1]
+        flat = x.reshape(-1, c)  # a view where strides allow
+        _require(flat.stride(1) == 1 or c == 1,
+                 f"segment_colorize: the class axis must be contiguous, "
+                 f"strides {x.stride()}")
+        p = flat.shape[0]
+    out = torch.empty(lead + (4,), device=x.device, dtype=torch.uint8)
+    if p == 0:
+        return out
+    with _on(x.device):
+        if pre_argmaxed:
+            fn = _entry("segment_colorize", "nns_colorize_ids",
+                        (_P, _P, ctypes.c_int, _P, ctypes.c_longlong, _P))
+            rc = fn(ids.data_ptr(), palette.data_ptr(), palette.shape[0],
+                    out.data_ptr(), p, _stream_ptr(x))
+        else:
+            fn = _entry("segment_colorize", "nns_argmax_colorize",
+                        (_P, _P, ctypes.c_int, _P, ctypes.c_longlong,
+                         ctypes.c_int, ctypes.c_longlong, _P))
+            rc = fn(flat.data_ptr(), palette.data_ptr(), palette.shape[0],
+                    out.data_ptr(), p, c, flat.stride(0), _stream_ptr(x))
+    _check_launch("segment_colorize", rc)
+    segment_colorize.launches += 1
+    return out
+
+
+segment_colorize.launches = 0

@@ -1,16 +1,25 @@
-"""Where one SSD-MobileNet-v2 300x300 detection frame spends its time on the GPU.
+"""Where one detection or segmentation frame spends its time on the GPU.
 
-    python3 scripts/profile_torch_ssd.py [--frames 32]
+    python3 scripts/profile_torch_ssd.py [--model ssd|deeplab] [--frames 32]
 
-Runs the torch port's detection invoke the way the pipeline does — the
-``torch-cuda`` filter with the bounding-box reduce fused in (H2D copy of the
-uint8 frame, model, box decode, ``class_reduce`` and ``nms_sweep`` kernels),
-then the decoder's host side (D2H of the (256, 6) rows, box and label
-drawing) — over seeded random frames, first timed without the profiler,
-then under ``torch.profiler``. Prints per frame: host wall time of the
-invoke and of the host decode, device busy time and its share of the
-invoke's wall time, device time by kernel category, and the top kernels;
-then one JSON line with the same numbers. Needs a CUDA card.
+Runs the torch port's invoke the way the pipeline does — the ``torch-cuda``
+filter with the decoder's device reduce fused in — then the decoder's host
+side, over seeded random frames, first timed without the profiler, then
+under ``torch.profiler``:
+
+  * ``ssd`` (default): SSD-MobileNet-v2 300x300, 91 classes. Invoke = H2D
+    copy of the uint8 frame, model, box decode, ``class_reduce`` and
+    ``nms_sweep`` kernels; host side = D2H of the (256, 6) rows, box and
+    label drawing.
+  * ``deeplab``: DeepLab-v3 257x257, 21 classes. Invoke = H2D copy, model
+    (MobileNet-v2 at output stride 16, ASPP, float32 bilinear upsample),
+    ``segment_colorize`` kernel; host side = D2H of the (257, 257, 4)
+    canvas and the decoder's copy of it.
+
+Prints per frame: host wall time of the invoke and of the host decode,
+device busy time and its share of the invoke's wall time, device time by
+kernel category, and the top kernels; then one JSON line with the same
+numbers. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -29,11 +38,14 @@ import torch
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-SPEC = "zoo://ssd_mobilenet_v2?size=300&num_classes=91"
+SPECS = {"ssd": ("zoo://ssd_mobilenet_v2?size=300&num_classes=91", 300),
+         "deeplab": ("zoo://deeplab_v3?size=257&num_classes=21", 257)}
 
 CATEGORIES = (
     ("class_reduce", ("class_reduce",)),
     ("nms_sweep", ("nms_sweep",)),
+    ("segment_colorize", ("colorize",)),
+    ("upsample", ("upsample", "interpolate")),
     ("convolution", ("conv", "xmma", "implicit", "cudnn", "gemm", "depthwise",
                      "sm90")),
     ("copy", ("memcpy", "memset")),
@@ -53,6 +65,7 @@ def category(name: str) -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(SPECS), default="ssd")
     ap.add_argument("--frames", type=int, default=32)
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -63,6 +76,7 @@ def main() -> int:
     from nnstreamer_tpu_torch.core.buffer import Buffer, TensorMemory
     from nnstreamer_tpu_torch.core.hw import resolve_device
     from nnstreamer_tpu_torch.decoders.bounding_box import BoundingBox
+    from nnstreamer_tpu_torch.decoders.image_segment import ImageSegment
     from nnstreamer_tpu_torch.filters.base import FilterProps
     from nnstreamer_tpu_torch.filters.torch_cuda import TorchCudaFilter
     from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
@@ -73,18 +87,25 @@ def main() -> int:
     card = smi.stdout.strip().splitlines()[0]
     print(card, flush=True)
 
-    with tempfile.TemporaryDirectory() as tmp:
-        priors = os.path.join(tmp, "priors.txt")
-        write_box_priors(priors, size=300)
-        dec = BoundingBox()
-        dec.init({1: "mobilenet-ssd", 3: priors, 4: "300:300", 5: "300:300"})
+    spec, size = SPECS[args.model]
+    print(f"model {spec}", flush=True)
+    if args.model == "ssd":
+        with tempfile.TemporaryDirectory() as tmp:
+            priors = os.path.join(tmp, "priors.txt")
+            write_box_priors(priors, size=300)
+            dec = BoundingBox()
+            dec.init({1: "mobilenet-ssd", 3: priors, 4: "300:300",
+                      5: "300:300"})
+    else:
+        dec = ImageSegment()
+        dec.init({1: "tflite-deeplab"})
     dec._fused_epilogue = True
     fw = TorchCudaFilter()
-    fw.open(FilterProps(model=SPEC, device=resolve_device("cuda")))
+    fw.open(FilterProps(model=spec, device=resolve_device("cuda")))
     fw.set_fused_epilogue(lambda outs, _r=dec.epilogue_reduce(): (_r(outs),))
 
     rng = np.random.default_rng(0)
-    frames = [rng.integers(0, 256, (1, 300, 300, 3), dtype=np.uint8)
+    frames = [rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)
               for _ in range(args.frames)]
 
     def invoke(frame):
@@ -138,7 +159,7 @@ def main() -> int:
         print(f"  {us / 1e3 / n:.4f} ms/frame x{launches[name] / n:.0f}  {name[:110]}",
               flush=True)
     print(json.dumps({
-        "card": card, "frames": n, "invoke_wall_ms": invoke_ms,
+        "card": card, "model": args.model, "frames": n, "invoke_wall_ms": invoke_ms,
         "profiled_invoke_wall_ms": profiled_ms, "host_decode_ms": decode_ms,
         "device_busy_ms": device_ms if device_ms > 0 else None,
         "device_launches_per_frame": sum(launches.values()) / n,

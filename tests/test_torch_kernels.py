@@ -122,6 +122,123 @@ def test_wrappers_raise_off_cpu_and_cuda():
     with pytest.raises(ValueError, match="unsupported device"):
         tep.nms_sweep(col, col, col, col, col, iou_threshold=0.5,
                       threshold=0.5)
+    with pytest.raises(ValueError, match="unsupported device"):
+        tep.segment_colorize(meta, torch.zeros((256, 4), dtype=torch.uint8))
+
+
+# --------------------------------------------------------------------------- #
+# segment_colorize
+# --------------------------------------------------------------------------- #
+
+def _palette(rows: int = 256) -> np.ndarray:
+    """Every entry distinct in its four bytes, so a wrong row shows."""
+    rng = np.random.default_rng(3)
+    return rng.integers(0, 255, (rows, 4), dtype=np.uint8)
+
+
+def _logits(case: str) -> np.ndarray:
+    rng = np.random.default_rng(17)
+    if case == "deeplab_257":  # the segmentation path's (H, W, classes)
+        return rng.normal(size=(257, 257, 21)).astype(np.float32)
+    if case == "ties":
+        x = rng.integers(0, 3, size=(31, 21)).astype(np.float32)
+        x[0] = 0.5  # all-equal pixel: class 0
+        x[1, [3, 9, 20]] = 7.0  # first max wins
+        return x
+    if case.startswith("C"):  # C=1 / C=150 / C=300 (argmax >= 256 fills)
+        c = int(case[1:])
+        x = rng.normal(size=(5, 7, c)).astype(np.float32)
+        if c == 300:
+            x[0, :, 280] = 50.0
+        return x
+    if case == "neg_inf_pixel":
+        x = rng.normal(size=(9, 21)).astype(np.float32)
+        x[4] = -np.inf
+        return x
+    raise ValueError(case)
+
+
+COLORIZE_CASES = ["deeplab_257", "ties", "C1", "C150", "C300",
+                  "neg_inf_pixel"]
+
+
+@pytest.mark.parametrize("case", COLORIZE_CASES)
+def test_segment_colorize_plain_bit_exact_with_pallas(case):
+    x, pal = _logits(case), _palette()
+    kern = np.asarray(jep.segment_colorize(x, pal, interpret=True))
+    ref = np.asarray(jep.segment_colorize_reference(x, pal))
+    plain = tep.segment_colorize_plain(torch.from_numpy(x), torch.from_numpy(pal))
+    assert plain.dtype == torch.uint8 and plain.shape == x.shape[:-1] + (4,)
+    np.testing.assert_array_equal(ref, plain.numpy())
+    if case != "C300":  # the TPU kernel fills (0, 0, 0, 0) past row 255
+        np.testing.assert_array_equal(kern, plain.numpy())
+    if case == "C300":
+        assert (plain.numpy()[0] == 255).all()
+
+
+@pytest.mark.parametrize("dtype", ["int32", "uint8", "float32"])
+def test_segment_colorize_ids_plain_bit_exact_with_pallas(dtype):
+    ids = np.random.default_rng(5).integers(0, 21, (33, 17)).astype(dtype)
+    pal = _palette()
+    kern = np.asarray(jep.segment_colorize(ids, pal, pre_argmaxed=True,
+                                           interpret=True))
+    ref = np.asarray(jep.segment_colorize_reference(ids, pal,
+                                                    pre_argmaxed=True))
+    plain = tep.segment_colorize_plain(torch.from_numpy(ids),
+                                       torch.from_numpy(pal), pre_argmaxed=True)
+    np.testing.assert_array_equal(ref, plain.numpy())
+    np.testing.assert_array_equal(kern, plain.numpy())
+
+
+def test_segment_colorize_nan_takes_first_nan_class():
+    # the reference's contract (jnp.argmax: first NaN wins); the TPU kernel
+    # gives class C here instead, a divergence inside the JAX package
+    x = np.array([[1.0, np.nan, 3.0], [np.nan, np.nan, 0.0],
+                  [2.0, 5.0, np.nan]], np.float32)
+    pal = _palette()
+    ref = np.asarray(jep.segment_colorize_reference(x, pal))
+    plain = tep.segment_colorize_plain(torch.from_numpy(x),
+                                       torch.from_numpy(pal)).numpy()
+    np.testing.assert_array_equal(ref, plain)
+    np.testing.assert_array_equal(plain, pal[[1, 0, 2]])
+
+
+def test_segment_colorize_out_of_range_ids_follow_take_fill():
+    ids = np.array([-1.5, 20.9, -1, -256, -257, 256, 300, 0, 255, -100],
+                   np.float32)
+    pal = _palette()
+    ref = np.asarray(jep.segment_colorize_reference(ids, pal,
+                                                    pre_argmaxed=True))
+    plain = tep.segment_colorize_plain(torch.from_numpy(ids),
+                                       torch.from_numpy(pal),
+                                       pre_argmaxed=True).numpy()
+    np.testing.assert_array_equal(ref, plain)
+    fill = np.full(4, 255, np.uint8)
+    want = [pal[255], pal[20], pal[255], pal[0], fill, fill, fill, pal[0],
+            pal[255], pal[156]]
+    np.testing.assert_array_equal(plain, np.stack(want))
+
+
+def test_segment_colorize_short_palette_fills_past_its_rows():
+    x = np.random.default_rng(8).normal(size=(40, 12)).astype(np.float32)
+    pal = _palette(8)
+    ref = np.asarray(jep.segment_colorize_reference(x, pal))
+    plain = tep.segment_colorize_plain(torch.from_numpy(x),
+                                       torch.from_numpy(pal)).numpy()
+    np.testing.assert_array_equal(ref, plain)
+    assert (plain == 255).all(axis=-1).any()
+
+
+def test_segment_colorize_wrapper_on_cpu_runs_plain_on_strided_rows():
+    base = torch.from_numpy(np.random.default_rng(6).normal(
+        size=(9, 11, 30)).astype(np.float32))
+    view = base[..., 4:25]  # 21 classes, rows 30 apart
+    pal = torch.from_numpy(_palette())
+    before = tep.segment_colorize.launches
+    got = tep.segment_colorize(view, pal)
+    want = tep.segment_colorize_plain(view.contiguous(), pal)
+    assert tep.segment_colorize.launches == before  # no kernel on the CPU
+    assert torch.equal(got, want)
 
 
 # --------------------------------------------------------------------------- #
@@ -156,4 +273,24 @@ def test_nms_sweep_kernel_matches_plain(cuda_device, name, k, iou, thr, kw):
     got = tep.nms_sweep(*cols, iou_threshold=iou, threshold=thr)
     want = tep.nms_sweep_plain(*cols, iou_threshold=iou, threshold=thr)
     assert tep.nms_sweep.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", COLORIZE_CASES + ["strided", "ids"])
+def test_segment_colorize_kernel_matches_plain(cuda_device, case):
+    pal = torch.from_numpy(_palette()).to(cuda_device)
+    pre = case == "ids"
+    if case == "strided":
+        x = torch.from_numpy(_logits("deeplab_257")).to(cuda_device)[..., 2:19]
+    elif pre:
+        x = torch.tensor([-1, 20, -256, -257, 256, 300, 0, 255, 7],
+                         dtype=torch.int32, device=cuda_device)
+    else:
+        x = torch.from_numpy(_logits(case)).to(cuda_device)
+    before = tep.segment_colorize.launches
+    got = tep.segment_colorize(x, pal, pre_argmaxed=pre)
+    want = tep.segment_colorize_plain(x, pal, pre_argmaxed=pre)
+    torch.cuda.synchronize()
+    assert tep.segment_colorize.launches == before + 1
     assert torch.equal(got, want)

@@ -164,6 +164,103 @@ def test_reduce_matches_jax_decoder(tmp_path, size):
     assert (got[:, 4] >= pd.threshold).sum() > 10
 
 
+def _post_inputs(m: int, seed: int):
+    """tflite detection-postprocess tensors: boxes [ymin, xmin, ymax, xmax],
+    class ids, scores with tied groups, and a valid-row count below m."""
+    rng = np.random.default_rng(seed)
+    y0, x0 = rng.uniform(0, 0.7, (2, m)).astype(np.float32)
+    h, w = rng.uniform(0.05, 0.3, (2, m)).astype(np.float32)
+    boxes = np.stack([y0, x0, y0 + h, x0 + w], axis=1)[None]
+    classes = rng.integers(0, 9, (1, m)).astype(np.float32)
+    scores = rng.uniform(0.2, 1.0, (1, m)).astype(np.float32)
+    scores[0, 5:9] = scores[0, 5]
+    boxes[0, 20:23] = boxes[0, 19]  # duplicates: NMS keeps the first
+    scores[0, 19:23] = 0.9
+    return boxes, classes, scores, np.array([m - 7], np.float32)
+
+
+def _ov_rows(m: int, seed: int):
+    """OpenVINO rows [image_id, label, conf, x0, y0, x1, y1]; negative
+    image ids end the list."""
+    rng = np.random.default_rng(seed)
+    x0, y0 = rng.uniform(0, 0.7, (2, m)).astype(np.float32)
+    w, h = rng.uniform(0.05, 0.3, (2, m)).astype(np.float32)
+    rows = np.stack([np.zeros(m, np.float32),
+                     rng.integers(1, 4, m).astype(np.float32),
+                     rng.uniform(0.2, 1.0, m).astype(np.float32),
+                     x0, y0, x0 + w, y0 + h], axis=1)
+    rows[m - 5:, 0] = -1.0
+    rows[10:14, 2] = rows[10, 2]
+    return (rows[None, None],)
+
+
+POST_CASES = [
+    ("mobilenet-ssd-postprocess", lambda: _post_inputs(100, 1)),
+    ("mobilenet-ssd-postprocess_no_count", lambda: _post_inputs(100, 2)[:3]),
+    ("tf-ssd", lambda: _post_inputs(300, 3)),  # more rows than the top-256
+    ("tflite-ssd-postprocess", lambda: _post_inputs(40, 4)),
+    ("ov-person-detection", lambda: _ov_rows(200, 5)),
+    ("ov-face-detection", lambda: _ov_rows(300, 6)),
+]
+
+
+@pytest.mark.parametrize("case,make", POST_CASES, ids=[c[0] for c in POST_CASES])
+def test_post_and_ov_reduce_match_jax_decoder(case, make):
+    mode = case.removesuffix("_no_count")
+    opts = {1: mode, 3: "0.45:0.4", 4: "300:300", 5: "300:300"}
+    jd, pd = JaxBox(), BoundingBox()
+    jd.init(opts)
+    pd.init(opts)
+    inputs = make()
+    jax_reduce, jax_arity = jd._make_reduce()
+    port_reduce, port_arity = pd._make_reduce()
+    assert port_arity == jax_arity
+    want = np.asarray(jax.jit(jax_reduce)(*inputs))
+    got = port_reduce(*(torch.from_numpy(a) for a in inputs)).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_array_equal(got, want)  # gathers and copies: exact
+    assert (got[:, 4] >= pd.threshold).sum() > 5
+    # the device rows, kept, equal the host decode path's NMS'd objects
+    from nnstreamer_tpu_torch.core.buffer import Buffer as PortBuffer
+    from nnstreamer_tpu_torch.decoders.util import nms
+    cands = pd._objects_ov(PortBuffer.of(*inputs)) if mode.startswith("ov-") \
+        else pd._objects_postprocess(PortBuffer.of(*inputs))
+    assert len(cands) <= pd.PRE_NMS_TOPK  # so the top-K cap drops none
+    host = nms(cands, pd.iou_threshold)
+    kept = got[got[:, 4] >= pd.threshold]
+    np.testing.assert_array_equal(kept[:, 4], host[:, 4])
+    np.testing.assert_array_equal(kept[:, 5], host[:, 5])
+
+
+def test_ov_pipeline_fuses_and_matches_jax(tmp_path):
+    """appsrc ! tensor_filter (identity) ! tensor_decoder mode=bounding_box
+    option1=ov-person-detection: the reduce is fused into the invoke in both
+    packages and the detections are equal."""
+    import nnstreamer_tpu.core.types as jt
+    import nnstreamer_tpu_torch.core.types as tt
+
+    frames = [_ov_rows(50, s)[0][0] for s in (7, 8)]  # (1, 50, 7) each
+    results = {}
+    for name, pipeline_cls, types, kw in (
+            ("jax", JaxPipeline, jt, {}), ("port", Pipeline, tt,
+                                           {"device": "cpu"})):
+        caps = types.Caps.tensors(types.TensorsConfig(
+            types.TensorsInfo.from_strings("7:50:1", "float32")))
+        p = pipeline_cls(**kw)
+        src = p.add_new("appsrc", caps=caps, data=frames)
+        filt = p.add_new("tensor_filter", framework="xla-tpu",
+                         model=lambda x: x)
+        dec = p.add_new("tensor_decoder", mode="bounding_box",
+                        option1="ov-person-detection", option3="0.5:0.4")
+        sink = p.add_new("tensor_sink", store=True)
+        pipeline_cls.link(src, filt, dec, sink)
+        p.run(timeout=120)
+        assert p._epilogue_count == 1
+        results[name] = [b.meta["detections"] for b in sink.buffers]
+    assert all(len(d) > 3 for d in results["jax"])
+    _assert_same_detections(results["port"], results["jax"])
+
+
 # --------------------------------------------------------------------------- #
 # the whole detection pipeline
 # --------------------------------------------------------------------------- #
