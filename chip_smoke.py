@@ -35,8 +35,29 @@ Phases (any failure exits non-zero before the result lines are printed):
   8. drive the PoseNet 257 pose pipeline (heatmap-offset) over 16 frames:
      the decoder's device reduce must give the host decode's keypoints,
      and tied heatmap cells must resolve to the first one on the card;
-  9. print the launches of each path, the ``kernels`` JSON line, then the
-     device line last.
+  9. LM serving at the bench LM's full width (V 8192, d_model 1024, 16
+     heads, 8 layers, d_ff 4096; seeded random weights): ``LMEngine`` with
+     max_len 1024, 8 slots, chunk 16 serves the bench's 24-request greedy
+     mix, over float32 params and over their w8a8 form; tokens/s, prefills,
+     decode steps, waste and launches are printed, ``dequant_gelu_requant``
+     must launch once per layer per prefill and per decode step of the
+     w8a8 engine, and three requests re-run alone in a 1-slot engine must
+     give the same tokens (the engine's exactness contract; before it, one
+     decode step over 8 slots must give each slot's K/V and logits the
+     bits of the slot stepped alone);
+ 10. the flash prefill pipeline ``appsrc ! tensor_filter ! tensor_sink``
+     over a bf16 prefill bundle of the same model, B 8 × T 1024, with
+     flash attention (one ``flash_attention`` launch per layer) and dense:
+     last-token logits of the two within the bf16 bound, tokens/s of both;
+ 11. print the launches of each path (every count set to 0 just before the
+     path and read just after), the ``kernels`` JSON line, then the device
+     line last.
+
+Phase 3 also holds ``flash_attention`` (causal and full, float32 and bf16,
+normalised and residual, ragged L, D 16 to 128, strided views) and
+``dequant_gelu_requant`` (R 8 and 512, F 4096, float32 and bf16, a zero
+row) against their plain versions, and one w8a8 MLP at the serving shape
+bit for bit against its composition with the plain epilogue.
 
 Exits non-zero without a card or without the package beside it.
 """
@@ -64,20 +85,37 @@ CLS_FRAMES = 8
 SEG_FRAMES = 64
 SEG_BATCH, SEG_BATCH_FRAMES = 4, 30  # 7 full groups + 1 padded
 POSE_FRAMES = 16
+#: the bench LM (bench.py _LM_DIMS): vocab, d_model, heads, layers
+LM_DIMS = (8192, 1024, 16, 8)
+LM_MAX_LEN, LM_SLOTS, LM_CHUNK = 1024, 8, 16
+#: bench.py's serving mix: prompt lengths and generation budgets cycle
+LM_REQUESTS, LM_PROMPTS, LM_GENS = 24, (64, 192, 384, 512), (32, 64, 96, 128)
+LM_ISOLATED = (0, 9, 22)  # requests re-run alone in a 1-slot engine
+FLASH_B, FLASH_T, FLASH_FRAMES = 8, 1024, 8
 
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s and float32
-#: operations/s outside the tensor cores
+#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32
+#: operations/s outside the tensor cores, bf16 operations/s on them
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_F32_OPS_PER_S = 67e12
+PEAK_BF16_OPS_PER_S = 989e12
 
 #: IoU arithmetic per candidate pair in nms_sweep: 2 min, 2 max, 2 sub,
 #: 2 clamp, 1 mul, 1 add, 1 sub, 1 div, 1 compare
 NMS_OPS_PER_PAIR = 13
+#: dequant_gelu_requant per element: 2 mul (dequant), 8 for gelu plus its
+#: tanh, abs and max (absmax), div, rint and 2 clamps (requant)
+DGR_OPS_PER_ELEMENT = 17
+
+#: flash_attention against its plain version: (rtol, atol) by dtype — the
+#: JAX package's bf16 bound (tests/test_pallas.py); the float32 one from
+#: summation order (both accumulate in float32 over the same 64-key tiles)
+FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (5e-2, 3e-2)}
 
 
-def _bound_ms(nbytes: float, ops: float) -> tuple:
+def _bound_ms(nbytes: float, ops: float,
+              peak_ops: float = PEAK_F32_OPS_PER_S) -> tuple:
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / PEAK_F32_OPS_PER_S * 1e3
+    t_ops = ops / peak_ops * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -291,6 +329,155 @@ def check_segment_colorize(ep, dev, rng) -> dict:
             "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:219",
             "max_abs_err": err, "ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
             "bound_ms": bound, "bound_by": by, "library_ms": dev_ms["library"]}
+
+
+def _within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> bool:
+    g, w = got.double(), want.double()
+    return bool(((g - w).abs() <= atol + rtol * w.abs()).all())
+
+
+def _flash_case(fa, q, k, v, causal: bool, name: str) -> float:
+    """Kernel against plain, normalised and residual; returns the
+    normalised output's max abs error. The residual accumulator is held
+    as acc / l (it scales with l); m and l within float32 summation order."""
+    rtol, atol = FLASH_TOL[q.dtype]
+    got = fa.flash_attention(q, k, v, causal)
+    want = fa.flash_attention_plain(q, k, v, causal)
+    acc, m, l_sum = fa.flash_attention(q, k, v, causal, return_residuals=True)
+    racc, rm, rl = fa.flash_attention_plain(q, k, v, causal, return_residuals=True)
+    torch.cuda.synchronize()
+    if got.dtype != q.dtype or not _within(got, want, rtol, atol):
+        raise AssertionError(f"flash_attention differs from plain: {name}, max abs err "
+                             f"{_max_abs_err(got, want)}")
+    if not (_within(acc / l_sum[..., None], racc / rl[..., None], rtol, atol)
+            and _within(m, rm, 1e-5, 1e-5) and _within(l_sum, rl, 1e-5, 1e-5)):
+        raise AssertionError(f"flash_attention residual mode differs from plain: {name}, "
+                             f"max abs err acc {_max_abs_err(acc, racc)} m "
+                             f"{_max_abs_err(m, rm)} l {_max_abs_err(l_sum, rl)}")
+    err = _max_abs_err(got, want)
+    print(f"  flash_attention {name}: max abs err {err:.3e} (residual acc "
+          f"{_max_abs_err(acc, racc):.3e}, m {_max_abs_err(m, rm):.3e}, l "
+          f"{_max_abs_err(l_sum, rl):.3e})", flush=True)
+    return err
+
+
+def check_flash_attention(fa, dev, rng) -> dict:
+    def qkv(shape, dtype):
+        return [torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                .to(dev, dtype) for _ in range(3)]
+
+    main_shape = (FLASH_B, 16, FLASH_T, 64)
+    cases = [(main_shape, torch.bfloat16, True), (main_shape, torch.float32, True),
+             ((FLASH_B, 16, 1000, 64), torch.float32, False),
+             ((2, 3, 200, 16), torch.float32, True),
+             ((2, 3, 200, 128), torch.bfloat16, False),
+             ((1, 2, 70, 40), torch.float32, True)]
+    errs, inputs = {}, {}
+    for shape, dt, causal in cases:
+        name = f"{shape} {str(dt)[6:]} {'causal' if causal else 'full'}"
+        inputs[(shape, dt)] = t = qkv(shape, dt)
+        errs[name] = _flash_case(fa, *t, causal, name)
+    # the causal LM's split-head views of its (B, T, 3D) projection
+    proj = torch.from_numpy(rng.standard_normal((2, 300, 3 * 256), dtype=np.float32)).to(dev)
+    views = [z.reshape(2, 300, 4, 64).transpose(1, 2) for z in proj.split(256, -1)]
+    got = fa.flash_attention(*views, causal=True)
+    if not torch.equal(got, fa.flash_attention(*(z.contiguous() for z in views))):
+        raise AssertionError("flash_attention on strided views != on contiguous copies")
+
+    lines, main = {}, None
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v = inputs[(main_shape, dt)]
+        calls = {"kernel": lambda: fa.flash_attention(q, k, v, True),
+                 "plain": lambda: fa.flash_attention_plain(q, k, v, True),
+                 "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+                     q, k, v, is_causal=True)}
+        reps = {"kernel": (5, 10), "plain": (2, 3), "library": (10, 10)}
+        ms = {n: _device_ms(f, *reps[n]) for n, f in calls.items()}
+        b, h, length, d = main_shape
+        pairs = b * h * length * (length + 1) // 2  # causal (query, key) pairs
+        bound, by = _bound_ms(4 * q.numel() * q.element_size(), 4 * d * pairs,
+                              PEAK_BF16_OPS_PER_S if dt == torch.bfloat16
+                              else PEAK_F32_OPS_PER_S)
+        print(f"flash_attention {main_shape} {str(dt)[6:]} causal device ms/call (CUDA "
+              f"graph): kernel={ms['kernel']:.6f} plain={ms['plain']:.6f} "
+              f"library(scaled_dot_product_attention)={ms['library']:.6f}; "
+              f"bound_ms={bound:.8f} ({by})", flush=True)
+        lines[dt] = (ms, bound, by)
+    ms, bound, by = lines[torch.bfloat16]
+    main = f"{main_shape} bfloat16 causal"
+    return {"name": "flash_attention", "route": "cuda",
+            "source": "nnstreamer_tpu_torch/ops/kernels/csrc/flash_attention.cu",
+            "replaces": "nnstreamer_tpu/ops/pallas/flash_attention.py:285",
+            "max_abs_err": errs[main], "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": by, "library_ms": ms["library"]}
+
+
+def _dgr_inputs(rng, rows: int, f: int, dev) -> tuple:
+    y = rng.integers(-40000, 40000, (rows, f)).astype(np.int32)
+    y[1] = 0  # an all-zero row: scale 1
+    xs = rng.uniform(1e-4, 1e-3, (rows, 1)).astype(np.float32)
+    ws = rng.uniform(1e-4, 1e-3, (f,)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (y, xs, ws))
+
+
+def check_dequant_gelu_requant(ep, dev, rng) -> dict:
+    f = 4 * LM_DIMS[1]
+    timed = {}
+    for rows in (8, 512):
+        for dt in (torch.float32, torch.bfloat16):
+            y, xs, ws = _dgr_inputs(rng, rows, f, dev)
+            q, s = ep.dequant_gelu_requant(y, xs, ws, dt)
+            pq, ps = ep.dequant_gelu_requant_plain(y, xs, ws, dt)
+            torch.cuda.synchronize()
+            if not (torch.equal(q, pq) and torch.equal(s, ps)) or float(s[1]) != 1.0:
+                raise AssertionError(f"dequant_gelu_requant differs from plain: R={rows} "
+                                     f"{dt}, {int((q != pq).sum())} codes, "
+                                     f"{int((s != ps).sum())} scales")
+            calls = {"kernel": lambda: ep.dequant_gelu_requant(y, xs, ws, dt),
+                     "plain": lambda: ep.dequant_gelu_requant_plain(y, xs, ws, dt)}
+            ms = {n: _device_ms(fn) for n, fn in calls.items()}
+            bound, by = _bound_ms(rows * f * 5 + rows * 8 + f * 4,
+                                  DGR_OPS_PER_ELEMENT * rows * f)
+            print(f"dequant_gelu_requant R={rows} F={f} {str(dt)[6:]}: bit-exact; device "
+                  f"ms/call (CUDA graph): kernel={ms['kernel']:.6f} plain={ms['plain']:.6f} "
+                  f"library=none; bound_ms={bound:.8f} ({by})", flush=True)
+            timed[(rows, dt)] = (ms, bound, by)
+    # the serving engine's params are float32, so its MLPs run out_dtype
+    # float32; a decode step has one row per slot
+    ms, bound, by = timed[(LM_SLOTS, torch.float32)]
+    return {"name": "dequant_gelu_requant", "route": "cuda",
+            "source": "nnstreamer_tpu_torch/ops/kernels/csrc/dequant_gelu_requant.cu",
+            "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:337",
+            "max_abs_err": 0.0, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def check_mlp(ep, dev, rng) -> None:
+    """One w8a8 MLP at the serving widths on the card: ``mlp_matmul`` (int8
+    GEMMs around the kernel) bit for bit against the same composition with
+    the plain epilogue."""
+    from nnstreamer_tpu_torch.ops import int8 as i8
+
+    d, f = LM_DIMS[1], 4 * LM_DIMS[1]
+    w1 = i8.quantize_weight(torch.from_numpy(
+        rng.standard_normal((d, f), dtype=np.float32) / np.float32(d ** 0.5)).to(dev))
+    w2 = i8.quantize_weight(torch.from_numpy(
+        rng.standard_normal((f, d), dtype=np.float32) / np.float32(f ** 0.5)).to(dev))
+    for rows in (LM_SLOTS, 512):
+        x = torch.from_numpy(rng.standard_normal((rows, d), dtype=np.float32)).to(dev)
+        before = ep.dequant_gelu_requant.launches
+        fused = i8.mlp_matmul(x, w1, w2)
+        xq, xs = i8.quant_act(x)
+        hq, hs = ep.dequant_gelu_requant_plain(i8._int_mm(xq, w1[i8.W8A8_TAG]), xs,
+                                               w1["s"], x.dtype)
+        plain = ((i8._int_mm(hq, w2[i8.W8A8_TAG]).to(torch.float32) * hs)
+                 * w2["s"]).to(x.dtype)
+        torch.cuda.synchronize()
+        if ep.dequant_gelu_requant.launches != before + 1 or not torch.equal(fused, plain):
+            raise AssertionError(f"w8a8 MLP on the card differs from its composition with "
+                                 f"the plain epilogue at R={rows}")
+    print(f"w8a8 MLP ({d} -> {f} -> {d}) at R={LM_SLOTS} and 512 on the card == its "
+          f"composition with dequant_gelu_requant_plain, bit for bit", flush=True)
 
 
 def _post_inputs(m: int, seed: int, count: bool = True) -> tuple:
@@ -731,13 +918,188 @@ def run_classification(tmp: str) -> None:
           flush=True)
 
 
+def _lm_params(dtype=None):
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.models.convert import causal_lm_params
+
+    v, d, h, n_layers = LM_DIMS
+    return causal_lm_params(causal_lm.init_causal_lm(0, v, d, h, n_layers, LM_MAX_LEN),
+                            "cuda", dtype=dtype)
+
+
+def _serve(params, requests, n_slots: int) -> tuple:
+    from nnstreamer_tpu_torch.serving import LMEngine
+
+    eng = LMEngine(params, LM_DIMS[2], LM_MAX_LEN, n_slots=n_slots, chunk=LM_CHUNK)
+    rids = [eng.submit(p, max_new=g) for p, g in requests]
+    t0 = time.perf_counter()
+    res = eng.run()
+    torch.cuda.synchronize()
+    return [res[r] for r in rids], eng.stats, time.perf_counter() - t0
+
+
+def check_step_invariance(params, quant: str) -> None:
+    """One decode step over 8 slots holding prompts of the serving mix:
+    each slot's K/V writes and logits equal the same slot stepped alone,
+    bit for bit — what the engine's exactness contract rests on."""
+    from nnstreamer_tpu_torch.models import causal_lm
+
+    v, d, h, n_layers = LM_DIMS
+    rng = np.random.default_rng(1)
+    shape = (LM_SLOTS, n_layers * h, LM_MAX_LEN, d // h)
+    kc, vc = torch.zeros(shape, device="cuda"), torch.zeros(shape, device="cuda")
+    pos = torch.zeros((LM_SLOTS, 1), dtype=torch.int32, device="cuda")
+    for s in range(LM_SLOTS):
+        t = LM_PROMPTS[s % len(LM_PROMPTS)]
+        tok = torch.from_numpy(rng.integers(0, v, (1, t)).astype(np.int32)).cuda()
+        _, kc[s], vc[s], pos[s] = causal_lm.lm_prefill_masked(params, tok, t, h,
+                                                              LM_MAX_LEN)
+    tokens = torch.from_numpy(rng.integers(0, v, (LM_SLOTS, 1, 1)).astype(np.int32)).cuda()
+    k8, v8 = kc.clone(), vc.clone()
+    lg8, _, _, _ = causal_lm.lm_decode_step_slots(params, tokens, k8, v8, pos.clone(), h)
+    for s in range(LM_SLOTS):
+        k1, v1 = kc[s:s + 1].clone(), vc[s:s + 1].clone()
+        lg1, _, _, _ = causal_lm.lm_decode_step_slots(params, tokens[s:s + 1], k1, v1,
+                                                      pos[s:s + 1].clone(), h)
+        if not (torch.equal(k1[0], k8[s]) and torch.equal(v1[0], v8[s])
+                and torch.equal(lg1[0], lg8[s])):
+            raise AssertionError(f"{quant}: slot {s}'s decode step differs batched "
+                                 f"and alone, logits by {_max_abs_err(lg1[0], lg8[s])}")
+    print(f"lm {quant} decode step: all {LM_SLOTS} slots' K/V writes and logits == "
+          f"the slot stepped alone, bit for bit", flush=True)
+
+
+def run_lm_serving(params, quant: str, counters) -> dict:
+    """The bench's serving mix through the engine; returns the launches of
+    its run (counts set to 0 just before it)."""
+    v, _, _, n_layers = LM_DIMS
+    rng = np.random.default_rng(5)
+    requests = [(rng.integers(0, v, LM_PROMPTS[i % len(LM_PROMPTS)]).astype(np.int32),
+                 LM_GENS[i % len(LM_GENS)]) for i in range(LM_REQUESTS)]
+    check_step_invariance(params, quant)
+    _serve(params, requests[:2], LM_SLOTS)  # warm-up: cuBLAS handles, allocator
+    counters.reset()
+    outs, stats, wall = _serve(params, requests, LM_SLOTS)
+    launches = counters.read()
+    tokens = sum(len(o) for o in outs)
+    for (p, g), o in zip(requests, outs):
+        if len(o) != g or not all(0 <= t < v for t in o):
+            raise AssertionError(f"{quant}: a request of budget {g} gave {len(o)} tokens "
+                                 "or tokens outside the vocabulary")
+    want_dgr = n_layers * (stats["prefills"] + stats["decode_steps"]) \
+        if quant == "w8a8" else 0
+    if stats["prefills"] != LM_REQUESTS or launches["dequant_gelu_requant"] != want_dgr:
+        raise AssertionError(f"{quant}: {stats['prefills']} prefills, "
+                             f"{launches['dequant_gelu_requant']} dequant_gelu_requant "
+                             f"launches (want {want_dgr})")
+    for i in LM_ISOLATED:
+        alone, _, _ = _serve(params, [requests[i]], 1)
+        if alone[0] != outs[i]:
+            first = next(j for j, (a, b) in enumerate(zip(alone[0], outs[i])) if a != b)
+            raise AssertionError(f"{quant}: request {i} in the {LM_SLOTS}-slot engine "
+                                 f"differs from its 1-slot run at token {first}")
+    waste = stats["wasted_slot_steps"] / max(1, LM_SLOTS * stats["decode_steps"])
+    print(f"lm serving {quant} (V {v}, d {LM_DIMS[1]}, {LM_DIMS[2]} heads, {n_layers} "
+          f"layers; max_len {LM_MAX_LEN}, {LM_SLOTS} slots, chunk {LM_CHUNK}; "
+          f"{LM_REQUESTS} greedy requests): {tokens} tokens in {wall:.3f} s = "
+          f"{tokens / wall:.2f} tokens/s, prefills={stats['prefills']}, decode "
+          f"steps={stats['decode_steps']}, waste fraction={waste:.4f}, launches="
+          f"{json.dumps(launches)}; requests {list(LM_ISOLATED)} == their 1-slot runs",
+          flush=True)
+    return launches
+
+
+def run_flash_prefill(counters) -> dict:
+    """appsrc ! tensor_filter (prefill bundle, bf16) ! tensor_sink with
+    flash and dense attention; returns the flash run's launches."""
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.models.causal_lm import prefill_bundle, prefill_flops
+
+    v, d, h, n_layers = LM_DIMS
+    params = _lm_params(torch.bfloat16)
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, v, (FLASH_B, FLASH_T)).astype(np.int32)
+              for _ in range(FLASH_FRAMES)]
+    caps = Caps.tensors(TensorsConfig(TensorsInfo.from_strings(
+        f"{FLASH_T}:{FLASH_B}", "int32")))
+
+    def run(flash: bool, data) -> tuple:
+        p = Pipeline("lm-prefill")
+        src = p.add_new("appsrc", caps=caps, data=data)
+        filt = p.add_new("tensor_filter", framework="torch-cuda", model=prefill_bundle(
+            params, h, FLASH_T, FLASH_B, flash=flash))
+        arrivals = []
+        sink = p.add_new("tensor_sink", store=True,
+                         new_data=lambda b: arrivals.append(time.perf_counter()))
+        Pipeline.link(src, filt, sink)
+        t0 = time.perf_counter()
+        p.run(timeout=600)
+        torch.cuda.synchronize()
+        return [b.memories[0].device() for b in sink.buffers], \
+            time.perf_counter() - t0, arrivals
+
+    results = {}
+    for flash in (True, False):
+        run(flash, frames[:2])  # warm-up
+        counters.reset()
+        logits, wall, arrivals = run(flash, frames)
+        results[flash] = (logits, wall, counters.read(), arrivals)
+    launches = results[True][2]
+    if launches["flash_attention"] != n_layers * FLASH_FRAMES \
+            or results[False][2]["flash_attention"] != 0:
+        raise AssertionError(f"flash_attention launches {launches['flash_attention']} "
+                             f"(flash) and {results[False][2]['flash_attention']} (dense) "
+                             f"for {FLASH_FRAMES} batches of {n_layers} layers")
+    rtol, atol = FLASH_TOL[torch.bfloat16]
+    worst, agree = 0.0, 0
+    for fl, dn in zip(results[True][0], results[False][0]):
+        if fl.shape != (FLASH_B, v) or fl.dtype != torch.float32 \
+                or not torch.isfinite(fl).all() or not _within(fl, dn, rtol, atol):
+            raise AssertionError(f"flash prefill logits differ from dense: "
+                                 f"{tuple(fl.shape)} {fl.dtype}, max abs err "
+                                 f"{_max_abs_err(fl, dn)}")
+        worst = max(worst, _max_abs_err(fl, dn))
+        agree += int((fl.argmax(-1) == dn.argmax(-1)).sum())
+    flops = prefill_flops(FLASH_B, FLASH_T, d, n_layers, v)
+    for flash in (True, False):
+        _, wall, _, arrivals = results[flash]
+        tps = FLASH_FRAMES * FLASH_B * FLASH_T / wall
+        print(f"lm prefill pipeline ({'flash' if flash else 'dense'} attention, bf16, "
+              f"B {FLASH_B} x T {FLASH_T}): {FLASH_FRAMES} batches in {wall:.3f} s = "
+              f"{tps:.1f} tokens/s, steady {_steady_fps(arrivals):.3f} batches/s = "
+              f"{flops * _steady_fps(arrivals) / 1e12:.2f} TFLOP/s (analytic)", flush=True)
+    print(f"flash vs dense last-token logits: max abs err {worst:.4e} (bound rtol {rtol} "
+          f"atol {atol}), argmax agree {agree}/{FLASH_FRAMES * FLASH_B}", flush=True)
+    devices = {str(x.device) for x in results[True][0] + results[False][0]}
+    if any(not d.startswith("cuda") for d in devices):
+        raise AssertionError(f"prefill logits left the card: {devices}")
+    return launches
+
+
+class _Counters:
+    """The kernels' launch counts: set all to 0, read all."""
+
+    def __init__(self, wrappers) -> None:
+        self.wrappers = wrappers
+
+    def reset(self) -> None:
+        for w in self.wrappers.values():
+            w.launches = 0
+
+    def read(self) -> dict:
+        return {name: w.launches for name, w in self.wrappers.items()}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import nnstreamer_tpu_torch  # noqa: F401 — fails outside the repo
+    from nnstreamer_tpu_torch.models.causal_lm import quantize_lm_params
     from nnstreamer_tpu_torch.ops.kernels import build
     from nnstreamer_tpu_torch.ops.kernels import epilogue as ep
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -761,8 +1123,10 @@ def main() -> int:
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
     kernels = [check_class_reduce(ep, dev, rng), check_nms_sweep(ep, dev, rng),
-               check_segment_colorize(ep, dev, rng)]
+               check_segment_colorize(ep, dev, rng), check_flash_attention(fa, dev, rng),
+               check_dequant_gelu_requant(ep, dev, rng)]
     check_box_modes(ep)
+    check_mlp(ep, dev, rng)
 
     with tempfile.TemporaryDirectory() as tmp:
         launches = run_detection(ep, tmp)
@@ -771,6 +1135,14 @@ def main() -> int:
                 "deeplab fused": {"segment_colorize": run_segmentation(ep)},
                 "deeplab batched": {"segment_colorize": run_batched_segmentation(ep)}}
     run_pose()
+    counters = _Counters({k["name"]: getattr(fa if k["name"] == "flash_attention" else ep,
+                                             k["name"]) for k in kernels})
+    params = _lm_params()
+    by_phase["lm serving float32"] = run_lm_serving(params, "float32", counters)
+    by_phase["lm serving w8a8"] = run_lm_serving(quantize_lm_params(params), "w8a8",
+                                                 counters)
+    del params
+    by_phase["lm flash prefill"] = run_flash_prefill(counters)
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)
     for k in kernels:
         k["launches"] = sum(phase.get(k["name"], 0) for phase in by_phase.values())

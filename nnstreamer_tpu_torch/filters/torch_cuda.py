@@ -16,6 +16,9 @@ Design notes:
   * invoke is asynchronous: PyTorch enqueues the CUDA work and returns,
     and the pipeline blocks only where a host boundary demands it
     (sink/decoder readback);
+  * ``custom="quant=w8|int8|w8a8"`` quantizes the resolved bundle once
+    (models/quantize.py; memoized on the base bundle, so filters sharing a
+    spec share one pass);
   * the invoke composes, in the JAX backend's order: stream→model layout
     (``inputlayout=NCHW``), precision cast (``custom="precision=bf16"``),
     the model, model→stream layout (``outputlayout=NCHW``), then a fused
@@ -41,7 +44,7 @@ log = logger("torch_cuda")
 #: custom= keys consumed by the filter itself, not by model factories;
 #: stripped before model resolution so identical model specs memoize to one
 #: bundle regardless of filter-level settings
-_FILTER_ONLY_OPTS = frozenset({"precision"})
+_FILTER_ONLY_OPTS = frozenset({"precision", "quant"})
 
 
 def _model_options(options: Dict[str, str]) -> Dict[str, str]:
@@ -117,7 +120,8 @@ class TorchCudaFilter(FilterFramework):
         opts = props.custom_dict()
         self._device = props.device if props.device is not None \
             else props.accelerator.pick_device()
-        self._bundle = resolve_model(props.model, opts, self._device)
+        self._bundle = self._maybe_quantize(
+            resolve_model(props.model, opts, self._device), opts)
         self._precision = opts.get("precision", "")
         # inputlayout/outputlayout=NCHW: the stream is channel-first while
         # zoo models take channel-last — the permutes run inside the
@@ -133,6 +137,27 @@ class TorchCudaFilter(FilterFramework):
             self._out_info = self._infer_out_info(self._in_info)
         log.info("torch-cuda opened model=%s device=%s",
                  self._bundle.name, self._device)
+
+    @staticmethod
+    def _maybe_quantize(bundle: ModelBundle, opts: Dict[str, str]) -> ModelBundle:
+        """Apply custom="quant=..." (no-op without it). The quantized bundle
+        memoizes on the base bundle, so filters sharing one resolved spec
+        share one quantization pass."""
+        quant = opts.get("quant", "")
+        if not quant:
+            return bundle
+        if quant not in ("w8", "int8", "w8a8"):
+            raise ValueError(f"torch-cuda: unknown quant mode {quant!r} "
+                             "(supported: w8, int8, w8a8)")
+        key = "_w8a8_bundle" if quant == "w8a8" else "_w8_bundle"
+        cached = bundle.metadata.get(key)
+        if cached is None:
+            from ..models.quantize import quantize_bundle, quantize_bundle_w8a8
+
+            cached = (quantize_bundle_w8a8(bundle) if quant == "w8a8"
+                      else quantize_bundle(bundle))
+            bundle.metadata[key] = cached
+        return cached
 
     def set_fused_epilogue(self, post: Callable) -> None:
         """Install a post-processing stage run inside the invoke after the

@@ -1,0 +1,509 @@
+"""Causal transformer LM with a streaming KV-cache decode step — port of
+nnstreamer_tpu/models/causal_lm.py.
+
+Parameters keep the JAX package's layout, so a converted JAX tree
+(models/convert.causal_lm_params) computes the same function: ``x @ w``
+with w (K, N); the GEMM stacks wqkv (L, D, 3D), wo (L, D, D), w1 (L, D, F),
+w2 (L, F, D) and the norms ln1/ln2 (L, D) carry a leading layer axis;
+``embed`` (V, D) doubles as the unembedding; ``pos_embed`` (max_len, D).
+A w8a8 tree (``quantize_lm_params``) holds ``{"__w8a8__", "s"}`` dicts for
+the four GEMM stacks and runs every execution form through the same
+``matmul_any``/``mlp_matmul`` sites (ops/int8.py).
+
+Execution forms: the full causal forward (``lm_forward``, the oracle),
+prefill (``lm_prefill``: dense, or the hand-written flash kernel per layer
+with ``flash=True`` / ``NNS_LM_FLASH=1``; ``lm_prefill_masked`` for a
+right-padded prompt), the decode step and the speculative verify window
+(``lm_decode_step``, ``lm_verify_window``) and their per-slot forms for
+continuous batching (``*_slots``). Exactness between forms is the
+family's contract: step decoding reproduces the forward's logits.
+
+Contracts carried over, each pinned by a CPU test:
+  * float32 matmuls run in full float32: every form runs under
+    ``torch.set_float32_matmul_precision("highest")`` (no TF32);
+  * LayerNorm has no bias, ε = 1e-6, and computes (x − μ)·rsqrt(var + ε)·scale;
+  * the dense mask fill is −1e30, not −inf;
+  * a window past the cache (pos + W > max_len) clamps its pos_embed slice
+    and its cache write to the last W rows, as ``dynamic_slice`` and
+    ``dynamic_update_slice`` clamp their start, and NaN-poisons its logits;
+  * new K/V are cast to the cache's dtype before the write.
+
+Unlike JAX's functional updates, the step forms write their K/V into the
+caches they are given, in place, and return those same tensors: a serving
+engine's stores (hundreds of MB at serving widths) are never copied per
+step. The paged forms wait for the port of serving/kv_cache.py.
+
+The step forms are batch-invariant, which the serving engine's exactness
+contract needs (a stream's tokens equal its isolated run's): a slot's row
+gets the same bits in a step of up to ``ops.int8.MIN_ROWS`` slots as alone.
+LayerNorm sums its statistics in float64, the GEMMs pad their rows
+(ops/int8.py) and the step's attention is products and sums
+(``_attend_cache``), because PyTorch's float32 reductions and cuBLAS pick
+their kernels by the batch.
+
+Cache transport layout: rank-3 ``(layers·batch·heads, max_len, head_dim)``.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+import os
+from typing import Any, Dict, Iterator, Optional, Tuple
+
+import numpy as np
+import torch
+
+from ..core.hw import resolve_device
+from ..core.types import TensorsInfo
+from ..ops.int8 import layer as _layer
+from ..ops.int8 import matmul_any, mlp_matmul, quantize_weight, stack_shape
+from ..ops.kernels.flash_attention import flash_attention
+from .zoo import ModelBundle, register_model
+
+Params = Dict[str, Any]
+
+#: the dense attention mask's fill: finite, as the JAX package's
+_MASK = -1e30
+#: LayerNorm epsilon
+_LN_EPS = 1e-6
+#: the four GEMM stacks (the leaves w8a8 quantizes)
+GEMM_KEYS = ("wqkv", "wo", "w1", "w2")
+
+
+def init_causal_lm(seed: int, vocab: int, d_model: int, n_heads: int,
+                   n_layers: int, max_len: int,
+                   d_ff: int = 0) -> Dict[str, np.ndarray]:
+    """Seeded placeholder parameters as float32 numpy arrays, in the JAX
+    package's layout and with ``init_causal_lm``'s statistics (normal ·
+    0.02 embeddings, normal / sqrt(fan-in) GEMM stacks, unit norms). The
+    draws are numpy's, not ``jax.random``'s: parity with the JAX package
+    comes from converting its params, never from matching its bits."""
+    d_ff = d_ff or 4 * d_model
+    rng = np.random.default_rng(seed)
+    s, sf, L = 1.0 / math.sqrt(d_model), 1.0 / math.sqrt(d_ff), n_layers
+
+    def normal(shape, scale):
+        return (rng.standard_normal(shape, dtype=np.float32)
+                * np.float32(scale))
+
+    return {
+        "embed": normal((vocab, d_model), 0.02),
+        "pos_embed": normal((max_len, d_model), 0.02),
+        "wqkv": normal((L, d_model, 3 * d_model), s),
+        "wo": normal((L, d_model, d_model), s),
+        "w1": normal((L, d_model, d_ff), s),
+        "w2": normal((L, d_ff, d_model), sf),
+        "ln1": np.ones((L, d_model), np.float32),
+        "ln2": np.ones((L, d_model), np.float32),
+        "lnf": np.ones((d_model,), np.float32),
+    }
+
+
+def quantize_lm_params(params: Params) -> Params:
+    """w8a8 serving form of an LM param tree: the four GEMM stacks become
+    int8 payloads plus per-output-channel scales (ops/int8.quantize_weight);
+    embeddings and norms stay float."""
+    qp = dict(params)
+    for k in GEMM_KEYS:
+        qp[k] = quantize_weight(params[k])
+    return qp
+
+
+@contextlib.contextmanager
+def _full_f32() -> Iterator[None]:
+    """Full float32 matmuls for the call (the JAX package pins
+    ``default_matmul_precision("float32")``): a caller's TF32 setting is
+    lifted for the duration and restored after."""
+    prev = torch.get_float32_matmul_precision()
+    if prev == "highest":
+        yield
+        return
+    torch.set_float32_matmul_precision("highest")
+    try:
+        yield
+    finally:
+        torch.set_float32_matmul_precision(prev)
+
+
+def _ln(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+    # the statistics are summed in float64 and rounded once to x's dtype:
+    # a float32 reduction splits a row over lanes by how many rows it
+    # reduces, so a slot's row would get other bits batched than alone
+    mu = x.mean(-1, keepdim=True, dtype=torch.float64).to(x.dtype)
+    d = x - mu
+    var = (d * d).mean(-1, keepdim=True, dtype=torch.float64).to(x.dtype)
+    return d * torch.rsqrt(var + _LN_EPS) * scale
+
+
+def _promote(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
+    """JAX's promotion for a mixed-dtype product (bf16 with f32 → f32)."""
+    dt = ts[0].dtype
+    for t in ts[1:]:
+        dt = torch.promote_types(dt, t.dtype)
+    return tuple(t.to(dt) for t in ts)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            mask: torch.Tensor) -> torch.Tensor:
+    """Dense masked softmax attention over (..., Lq, hd) × (..., Lk, hd)."""
+    q, k, v = _promote(q, k, v)
+    s = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    s = torch.where(mask, s, _MASK)
+    return torch.softmax(s, dim=-1) @ v
+
+
+def _attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  live: torch.Tensor) -> torch.Tensor:
+    """``_attend`` of a step's (..., W, hd) queries over (..., M, hd)
+    caches, as products and sums: cuBLAS's batched GEMM picks its kernel by
+    the batch count, so a slot's scores and output would get other bits
+    batched than alone; these reductions split each row alike at any slot
+    count."""
+    q, k, v = _promote(q, k, v)
+    s = (q.unsqueeze(-2) * k.unsqueeze(-3)).sum(-1) / math.sqrt(q.shape[-1])
+    s = torch.where(live, s, _MASK)
+    p = torch.softmax(s, dim=-1)
+    return (p.unsqueeze(-1) * v.unsqueeze(-3)).sum(-2)
+
+
+def _split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
+    b, length, d = t.shape
+    return t.reshape(b, length, n_heads, d // n_heads).transpose(1, 2)
+
+
+def _block_body(h: torch.Tensor, params: Params, li: int,
+                mask: Optional[torch.Tensor], n_heads: int, attention_fn=None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One transformer block over a full (masked) sequence; returns the new
+    hidden state and this layer's per-head K/V (B, H, T, hd). The one
+    definition every full-sequence form shares; ``attention_fn`` (q, k, v)
+    → o replaces the dense causal attention and applies causality itself."""
+    d_model = h.shape[-1]
+    a = _ln(h, params["ln1"][li])
+    q, k, v = torch.split(matmul_any(a, _layer(params["wqkv"], li)), d_model,
+                          dim=-1)
+    qh, kh, vh = (_split_heads(z, n_heads) for z in (q, k, v))
+    o = attention_fn(qh, kh, vh) if attention_fn is not None \
+        else _attend(qh, kh, vh, mask)
+    o = o.transpose(1, 2).reshape(h.shape[:-1] + (o.shape[-1] * n_heads,))
+    h = h + matmul_any(o, _layer(params["wo"], li))
+    m = _ln(h, params["ln2"][li])
+    return h + mlp_matmul(m, _layer(params["w1"], li),
+                          _layer(params["w2"], li)), kh, vh
+
+
+def _unembed(x: torch.Tensor, params: Params) -> torch.Tensor:
+    return matmul_any(_ln(x, params["lnf"]), params["embed"].T)
+
+
+def lm_forward(params: Params, tokens: torch.Tensor,
+               n_heads: int) -> torch.Tensor:
+    """Full causal forward (the oracle): (B, T) int → (B, T, vocab)."""
+    with _full_f32():
+        t = tokens.shape[1]
+        x = params["embed"][tokens.long()] + params["pos_embed"][:t][None]
+        mask = torch.ones((t, t), dtype=torch.bool,
+                          device=x.device).tril()
+        for li in range(stack_shape(params["wqkv"])[0]):
+            x, _, _ = _block_body(x, params, li, mask, n_heads)
+        return _unembed(x, params)
+
+
+def lm_prefill(params: Params, tokens: torch.Tensor, n_heads: int,
+               max_len: int, flash: Optional[bool] = None
+               ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                          torch.Tensor]:
+    """Process a whole prompt in one forward and emit the populated cache.
+
+    tokens: (B, T) int with T <= max_len. Returns (logits_last (B, vocab),
+    kcache, vcache, pos = [T]) in the flat transport layout. ``flash=True``
+    swaps the dense attention for the hand-written flash kernel (one
+    launch per layer, no (T, T) score matrix); ``None`` reads
+    ``NNS_LM_FLASH=1``. The JAX package's sequence-parallel ``mesh=`` form
+    waits for the port of parallel/."""
+    with _full_f32():
+        return _lm_prefill(params, tokens, n_heads, max_len, flash)
+
+
+def _lm_prefill(params: Params, tokens: torch.Tensor, n_heads: int,
+                max_len: int, flash: Optional[bool] = None,
+                true_len: Optional[int] = None):
+    b, t = tokens.shape
+    if t > max_len:
+        raise ValueError(
+            f"lm_prefill: prompt length {t} exceeds max_len={max_len}")
+    if true_len is not None and flash:
+        raise ValueError(
+            "lm_prefill: true_len= (padded-prompt masking) is a "
+            "dense-attention feature; the flash path applies causality "
+            "internally and cannot see it")
+    if true_len is not None:
+        tl = int(true_len)
+        if not 1 <= tl <= t:
+            raise ValueError(
+                f"lm_prefill: true_len={tl} outside [1, {t}] "
+                "(padded prompt length)")
+    n_layers = stack_shape(params["wqkv"])[0]
+    d_model = params["embed"].shape[1]
+    hd = d_model // n_heads
+    x = params["embed"][tokens.long()] + params["pos_embed"][:t][None]
+    attn = mask = None
+    if true_len is None and (flash if flash is not None
+                             else os.environ.get("NNS_LM_FLASH", "") == "1"):
+        # (true_len keeps the dense branch even under NNS_LM_FLASH=1: the
+        # kernel cannot column-mask a padded prompt)
+        def attn(qh, kh, vh):
+            return flash_attention(qh, kh, vh, causal=True)
+    else:
+        mask = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+        if true_len is not None:
+            mask = mask & (torch.arange(t, device=x.device) < tl)[None, :]
+    kc = vc = None
+    for li in range(n_layers):
+        x, kh, vh = _block_body(x, params, li, mask, n_heads, attn)
+        if kc is None:
+            kc = kh.new_zeros((n_layers, b, n_heads, max_len, hd))
+            vc = vh.new_zeros((n_layers, b, n_heads, max_len, hd))
+        kc[li, :, :, :t] = kh
+        vc[li, :, :, :t] = vh
+    if true_len is None:
+        last = x[:, -1:]
+        pos = t
+    else:
+        last = x[:, tl - 1:tl]
+        pos = tl
+    logits = _unembed(last, params)[:, 0]
+    flat = (n_layers * b * n_heads, max_len, hd)
+    return (logits, kc.reshape(flat), vc.reshape(flat),
+            torch.full((1,), pos, dtype=torch.int32, device=x.device))
+
+
+def lm_prefill_masked(params: Params, tokens: torch.Tensor, true_len: int,
+                      n_heads: int, max_len: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Prefill a right-padded prompt exactly: tokens (1, Tb) with the real
+    prompt in the first ``true_len`` positions. Attention columns are
+    limited to col < true_len and the logits come from row true_len − 1;
+    K/V written at positions >= true_len are garbage that a decode step
+    overwrites before it can attend to them. Returns (logits (1, vocab),
+    kcache, vcache, pos = [true_len])."""
+    with _full_f32():
+        return _lm_prefill(params, tokens, n_heads, max_len,
+                           true_len=true_len)
+
+
+def _verify_window(params: Params, tokens: torch.Tensor, kc: torch.Tensor,
+                   vc: torch.Tensor, pos: torch.Tensor, n_heads: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The one body of every step form. tokens (S, B, W); kc/vc views
+    (S, L, B, H, max_len, hd), written in place; pos (S,) int, each
+    stream's next write position. Returns (logits (S, B, W, vocab),
+    pos + W). Query row j of a window attends cache columns <= pos + j."""
+    s_, b, w = tokens.shape
+    n_layers, max_len = kc.shape[1], kc.shape[4]
+    d_model = params["embed"].shape[1]
+    hd = d_model // n_heads
+    dev = kc.device
+    p = pos.reshape(s_).to(torch.int64)
+    ar_w = torch.arange(w, device=dev)
+    pe = params["pos_embed"]
+    pe_rows = pe[(p.clamp(0, pe.shape[0] - w))[:, None] + ar_w]  # (S, W, D)
+    x = params["embed"][tokens.long()] + pe_rows[:, None]
+    live = (torch.arange(max_len, device=dev)[None, None, :]
+            <= (p[:, None] + ar_w)[:, :, None])[:, None, None]  # (S,1,1,W,M)
+    rows = (p.clamp(0, max_len - w)[:, None] + ar_w)  # (S, W): clamped start
+    slot = torch.arange(s_, device=dev)[:, None]
+    for li in range(n_layers):
+        a = _ln(x, params["ln1"][li])
+        q, k, v = torch.split(matmul_any(a, _layer(params["wqkv"], li)),
+                              d_model, dim=-1)  # (S, B, W, D)
+        q = q.reshape(s_, b, w, n_heads, hd).permute(0, 1, 3, 2, 4)
+        kl, vl = kc[:, li], vc[:, li]  # (S, B, H, M, hd)
+        # (S, M, B, H, hd) views: index (slot, row) takes (S, W, B, H, hd)
+        kl.permute(0, 3, 1, 2, 4)[slot, rows] = \
+            k.reshape(s_, b, w, n_heads, hd).permute(0, 2, 1, 3, 4).to(kc.dtype)
+        vl.permute(0, 3, 1, 2, 4)[slot, rows] = \
+            v.reshape(s_, b, w, n_heads, hd).permute(0, 2, 1, 3, 4).to(vc.dtype)
+        o = _attend_cache(q, kl, vl, live)  # (S, B, H, W, hd)
+        o = o.permute(0, 1, 3, 2, 4).reshape(s_, b, w, d_model)
+        x = x + matmul_any(o, _layer(params["wo"], li))
+        m = _ln(x, params["ln2"][li])
+        x = x + mlp_matmul(m, _layer(params["w1"], li),
+                           _layer(params["w2"], li))
+    logits = _unembed(x, params)
+    # a window past capacity surfaces as NaN logits, not as a silent
+    # clamped overwrite of the last slots
+    over = (p + w > max_len).reshape(s_, 1, 1, 1)
+    logits = torch.where(over, torch.nan, logits)
+    return logits, p + w
+
+
+def _stream_caches(kcache: torch.Tensor, vcache: torch.Tensor, s_: int,
+                   n_layers: int, n_heads: int):
+    """Flat transport caches → (S, L, B, H, max_len, hd) views."""
+    lbh, max_len, hd = kcache.shape[-3:]
+    b = lbh // (n_layers * n_heads)
+    shape = (s_, n_layers, b, n_heads, max_len, hd)
+    return kcache.view(shape), vcache.view(shape)
+
+
+def lm_verify_window(params: Params, tokens: torch.Tensor,
+                     kcache: torch.Tensor, vcache: torch.Tensor,
+                     pos: torch.Tensor, n_heads: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Speculative verify: consume a window of W tokens at cache positions
+    pos..pos+W−1 and return logits at every window position.
+
+    tokens (B, W) int; caches in the flat transport layout (written in
+    place); pos (1,) int. Returns (logits (B, W, vocab), kcache, vcache,
+    pos + W). Windows past capacity NaN-poison their logits."""
+    with _full_f32():
+        n_layers = stack_shape(params["wqkv"])[0]
+        kc, vc = _stream_caches(kcache, vcache, 1, n_layers, n_heads)
+        logits, p = _verify_window(params, tokens[None], kc, vc,
+                                   pos.reshape(1), n_heads)
+        return logits[0], kcache, vcache, p.to(torch.int32)
+
+
+def lm_decode_step(params: Params, token: torch.Tensor, kcache: torch.Tensor,
+                   vcache: torch.Tensor, pos: torch.Tensor, n_heads: int
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                              torch.Tensor]:
+    """One streaming decode step, the W = 1 verify window: token (B, 1);
+    returns (logits (B, vocab), kcache, vcache, pos + 1). Decoding past
+    capacity NaN-poisons the logits."""
+    logits, kc, vc, pos = lm_verify_window(params, token, kcache, vcache,
+                                           pos, n_heads)
+    return logits[:, 0], kc, vc, pos
+
+
+def lm_verify_window_slots(params: Params, tokens: torch.Tensor,
+                           kcaches: torch.Tensor, vcaches: torch.Tensor,
+                           poss: torch.Tensor, n_heads: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """Verify windows for S independent streams at per-slot positions (the
+    JAX package's vmap of ``lm_verify_window``, written as a slot axis).
+    tokens (S, W); caches (S, L·H, max_len, hd), written in place; poss
+    (S, 1). Returns (logits (S, W, vocab), kcaches, vcaches, poss + W).
+    A slot past capacity NaN-poisons its own rows only."""
+    with _full_f32():
+        n_layers = stack_shape(params["wqkv"])[0]
+        s_ = tokens.shape[0]
+        kc, vc = _stream_caches(kcaches, vcaches, s_, n_layers, n_heads)
+        logits, p = _verify_window(params, tokens[:, None], kc, vc,
+                                   poss.reshape(s_), n_heads)
+        return (logits[:, 0], kcaches, vcaches,
+                p.reshape(s_, 1).to(torch.int32))
+
+
+def lm_decode_step_slots(params: Params, tokens: torch.Tensor,
+                         kcaches: torch.Tensor, vcaches: torch.Tensor,
+                         poss: torch.Tensor, n_heads: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """One decode step for S independent streams: tokens (S, 1, 1);
+    returns (logits (S, 1, vocab), kcaches, vcaches, poss + 1)."""
+    return lm_verify_window_slots(params, tokens[:, :, 0], kcaches, vcaches,
+                                  poss, n_heads)
+
+
+def prefill_flops(batch: int, seq: int, d_model: int, n_layers: int,
+                  vocab: int, d_ff: int = 0) -> float:
+    """Analytic forward FLOPs of one prefill (last-token unembed only): per
+    token per layer 2·D·3D (QKV) + 2·D² (proj) + 4·D·d_ff (MLP); causal
+    attention QKᵀ + PV = 2·D·T·(T+1) per layer per sequence; plus the
+    last-token unembed 2·D·V."""
+    d_ff = d_ff or 4 * d_model
+    dense = 2 * d_model * 3 * d_model + 2 * d_model * d_model \
+        + 4 * d_model * d_ff
+    attn = 2 * d_model * seq * (seq + 1)
+    return float(batch) * (n_layers * (dense * seq + attn)
+                           + 2 * d_model * vocab)
+
+
+def decode_flops(batch: int, pos0: int, n_steps: int, d_model: int,
+                 n_layers: int, vocab: int, d_ff: int = 0) -> float:
+    """Analytic FLOPs of ``n_steps`` KV-cache decode steps from cache
+    position ``pos0`` (step i attends pos0 + i + 1 keys; each step pays
+    the dense stack plus one unembed)."""
+    d_ff = d_ff or 4 * d_model
+    dense = 2 * d_model * 3 * d_model + 2 * d_model * d_model \
+        + 4 * d_model * d_ff
+    attn = 4 * d_model * (n_steps * (pos0 + 1)
+                          + n_steps * (n_steps - 1) // 2)
+    return float(batch) * (n_layers * (dense * n_steps + attn)
+                           + n_steps * 2 * d_model * vocab)
+
+
+def empty_cache(n_layers: int, batch: int, n_heads: int, max_len: int,
+                head_dim: int, device: Any = None
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(kcache, vcache, pos) zero state in the flat transport layout on
+    ``device`` (cuda unless the caller names the CPU)."""
+    dev = resolve_device(device)
+    flat = (n_layers * batch * n_heads, max_len, head_dim)
+    return (torch.zeros(flat, dtype=torch.float32, device=dev),
+            torch.zeros(flat, dtype=torch.float32, device=dev),
+            torch.zeros((1,), dtype=torch.int32, device=dev))
+
+
+def decode_apply(params: Params, n_heads: int, token: torch.Tensor,
+                 kcache: torch.Tensor, vcache: torch.Tensor,
+                 pos: torch.Tensor):
+    """The zoo bundle's function: one decode step on copies of the
+    caches, so a pipeline's input buffers are never written."""
+    return lm_decode_step(params, token.to(torch.int32), kcache.clone(),
+                          vcache.clone(), pos, n_heads)
+
+
+def prefill_bundle(params: Params, n_heads: int, seq: int, batch: int,
+                   flash: bool) -> ModelBundle:
+    """The tensor_filter form of prompt scoring (the JAX package's
+    ``bench.py`` prefill lane): (B, T) int tokens → (B, vocab) float32
+    last-token logits through ``lm_prefill``, whose attention is dense or,
+    with ``flash``, one flash kernel launch per layer."""
+    vocab = params["embed"].shape[0]
+
+    def apply(tokens):
+        logits, _, _, _ = lm_prefill(params, tokens.to(torch.int32), n_heads,
+                                     seq, flash=flash)
+        return logits.to(torch.float32)
+
+    return ModelBundle(
+        "causal_lm_prefill", apply, device=params["embed"].device,
+        in_info=TensorsInfo.from_strings(f"{seq}:{batch}", "int32"),
+        out_info=TensorsInfo.from_strings(f"{vocab}:{batch}", "float32"))
+
+
+def make_causal_lm(device: torch.device, vocab: str = "256", dim: str = "64",
+                   heads: str = "4", layers: str = "2", max_len: str = "128",
+                   batch: str = "1", seed: str = "0", **_: Any) -> ModelBundle:
+    from .convert import causal_lm_params
+
+    V, D, H, L = int(vocab), int(dim), int(heads), int(layers)
+    M, B = int(max_len), int(batch)
+    if D % H:
+        raise ValueError(f"causal_lm: dim={D} not divisible by heads={H}")
+    hd = D // H
+    params = causal_lm_params(init_causal_lm(int(seed), V, D, H, L, M),
+                              device)
+    flat = L * B * H
+    return ModelBundle(
+        "causal_lm", lambda *xs: decode_apply(params, H, *xs),
+        device=device, params=params,
+        apply_params=lambda p, *xs: decode_apply(p, H, *xs),
+        in_info=TensorsInfo.from_strings(
+            f"1:{B},{hd}:{M}:{flat},{hd}:{M}:{flat},1",
+            "int32,float32,float32,int32"),
+        out_info=TensorsInfo.from_strings(
+            f"{V}:{B},{hd}:{M}:{flat},{hd}:{M}:{flat},1",
+            "float32,float32,float32,int32"),
+        metadata={"vocab": V, "dim": D, "heads": H, "layers": L,
+                  "max_len": M, "head_dim": hd, "batch": B})
+
+
+register_model("causal_lm", make_causal_lm)

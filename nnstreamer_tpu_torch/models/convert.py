@@ -15,11 +15,16 @@ as flax auto-names its submodules (``flax_children``: "ConvBNReLU_0",
 
 ``flax_shapes`` gives the same tree's shapes, from which the zoo synthesizes
 seeded placeholder weights.
+
+``causal_lm_params`` carries the JAX package's causal-LM parameter tree
+(``init_causal_lm`` or ``quantize_lm_params`` output, numpy leaves) onto a
+device unchanged in layout: the LM is written as a function of that tree
+(models/causal_lm.py), so no leaf is transposed.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -101,3 +106,27 @@ def from_flax_variables(variables: Dict[str, Any],
         new_state[key] = torch.from_numpy(np.ascontiguousarray(arr))
     module.load_state_dict(new_state, strict=True)
     return new_state
+
+
+def causal_lm_params(tree: Dict[str, Any], device: Any,
+                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
+    """The JAX package's causal-LM param tree (array leaves; a w8a8 GEMM
+    stack is ``{"__w8a8__": int8, "s": float32}``) → the same tree of
+    tensors on ``device``. ``dtype`` casts the float leaves (embeddings,
+    norms, float GEMM stacks); int8 payloads and their float32 scales keep
+    their dtypes, as ``quantize_lm_params`` made them."""
+    def tensor(a: Any) -> torch.Tensor:
+        arr = np.array(a)
+        if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: numpy has none
+            return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+        return torch.from_numpy(arr)
+
+    def leaf(a: Any) -> torch.Tensor:
+        t = tensor(a)
+        if dtype is not None and t.is_floating_point():
+            t = t.to(dtype)
+        return t.to(device)
+
+    return {k: ({kk: tensor(vv).to(device) for kk, vv in v.items()}
+                if isinstance(v, dict) else leaf(v))
+            for k, v in tree.items()}

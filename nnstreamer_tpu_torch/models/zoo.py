@@ -38,6 +38,10 @@ class ModelBundle:
     callables); its parameters live on ``device``. ``in_info``/``out_info``
     describe per-frame I/O (batch dim included). ``preprocess`` is the
     model's own input stage, which ``apply`` already runs for uint8 input.
+    A model written as a function of a parameter tree (the causal LM) also
+    carries ``params`` and ``apply_params(params, *inputs)``, with
+    ``apply(*xs) == apply_params(params, *xs)``: the quantizing passes
+    (models/quantize.py) rebind it to a transformed tree.
     """
 
     name: str
@@ -48,6 +52,8 @@ class ModelBundle:
     out_info: Optional[TensorsInfo] = None
     preprocess: Optional[Callable[..., Any]] = None
     metadata: Dict[str, Any] = field(default_factory=dict)
+    params: Any = None
+    apply_params: Optional[Callable[..., Any]] = None
 
     def fn(self) -> Callable[..., Any]:
         """The function over input tensors."""
@@ -149,6 +155,7 @@ def _ensure_builtin_models() -> None:
     global _builtins_loaded
     if _builtins_loaded:
         return
+    from . import causal_lm  # noqa: F401
     from . import deeplab  # noqa: F401
     from . import mobilenet_v2  # noqa: F401
     from . import posenet  # noqa: F401

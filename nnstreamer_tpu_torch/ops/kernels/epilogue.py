@@ -1,22 +1,26 @@
 """CUDA kernels for the post-filter epilogue, with their plain versions.
 
 Counterparts of the Pallas kernels in ``nnstreamer_tpu/ops/pallas/epilogue.py``
-that the SSD bounding-box reduce (decoders/bounding_box.py) and the
-segmentation decoder (decoders/image_segment.py) run:
+that the SSD bounding-box reduce (decoders/bounding_box.py), the
+segmentation decoder (decoders/image_segment.py) and the w8a8 MLP
+(ops/int8.py) run:
 
   * ``class_reduce``     — per-anchor best class score + first index
     attaining it (csrc/class_reduce.cu);
   * ``nms_sweep``        — greedy NMS alive-sweep over the top-K
     score-sorted candidates (csrc/nms_sweep.cu);
   * ``segment_colorize`` — per-pixel class argmax (or pre-argmaxed class
-    ids) → RGBA palette lookup (csrc/segment_colorize.cu).
+    ids) → RGBA palette lookup (csrc/segment_colorize.cu);
+  * ``dequant_gelu_requant`` — int32 GEMM accumulator → dequant → tanh
+    gelu → per-row int8 requant (csrc/dequant_gelu_requant.cu).
 
 Each wrapper launches its hand-written kernel for a CUDA tensor, raising on
 a device, dtype, shape or layout the kernel does not take, and adds one to
 its ``launches`` count for every launch. It runs the plain PyTorch version
 beside it only for a tensor on the CPU. The plain versions follow the JAX
 package's ``*_reference`` functions step by step and are bit-exact with
-them; they are what the kernels are held against on the card.
+them (``dequant_gelu_requant_plain`` up to torch's tanh against XLA's);
+they are what the kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import functools
+import math
 from typing import Tuple
 
 import torch
@@ -273,3 +278,105 @@ def segment_colorize(x: torch.Tensor, palette: torch.Tensor,
 
 
 segment_colorize.launches = 0
+
+
+# --------------------------------------------------------------------------- #
+# dequant_gelu_requant: the w8a8 MLP's inner epilogue, int8 end to end
+# --------------------------------------------------------------------------- #
+
+#: jax.nn.gelu's constants as each working dtype holds them (JAX casts
+#: sqrt(2/pi) and 0.044715 to the input's dtype)
+_GELU_C0 = math.sqrt(2.0 / math.pi)
+_GELU_C1 = 0.044715
+
+
+def gelu_constants(dtype: torch.dtype) -> Tuple[float, float]:
+    """(sqrt(2/pi), 0.044715) rounded to ``dtype``, as Python floats."""
+    return tuple(float(torch.tensor(c, dtype=torch.float64).to(dtype))
+                 for c in (_GELU_C0, _GELU_C1))
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu(x)`` (approximate=True, JAX's default) in JAX's op
+    order, every op in x's dtype: x * (0.5 * (1 + tanh(c0 * (x + c1 *
+    x**3)))), with x**3 = x * (x * x) as lax.integer_pow computes it.
+    ``F.gelu(approximate="tanh")`` orders these ops differently."""
+    c0, c1 = gelu_constants(x.dtype)
+    cube = x * (x * x)
+    return x * (0.5 * (1.0 + torch.tanh(c0 * (x + c1 * cube))))
+
+
+def absmax_scale(absmax: torch.Tensor) -> torch.Tensor:
+    """The int8 grid of an absmax: absmax / 127, and 1 where it is 0. The
+    divisor is a tensor, never a Python scalar: PyTorch's CUDA division by
+    a scalar multiplies by its reciprocal, which is not IEEE division."""
+    return torch.where(absmax == 0.0, 1.0,
+                       absmax / torch.full_like(absmax, 127.0))
+
+
+def dequant_gelu_requant_plain(y: torch.Tensor, xs: torch.Tensor,
+                               ws: torch.Tensor,
+                               out_dtype: torch.dtype = torch.bfloat16
+                               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """int32 accumulator (..., F) → dequant by (xs (..., 1) · ws (F,)) →
+    gelu in ``out_dtype`` → per-row int8 requant: returns (q (..., F)
+    int8, s (..., 1) float32). ``dequant_gelu_requant_reference`` step by
+    step: the dequant rounds ((f32(y) · xs) · ws) to out_dtype, the
+    requant is ``quant_act``'s (absmax / 127, 1 for an all-zero row,
+    round half to even, clip to ±127)."""
+    h = ((y.to(torch.float32) * xs) * ws).to(out_dtype)
+    xf = gelu_tanh(h).to(torch.float32)
+    s = absmax_scale(xf.abs().amax(dim=-1, keepdim=True))
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def dequant_gelu_requant(y: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
+                         out_dtype: torch.dtype = torch.bfloat16
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused w8a8 MLP inner epilogue: ``y`` the (..., F) int32 GEMM
+    accumulator, ``xs`` the (..., 1) float32 activation scales, ``ws`` the
+    (F,) float32 weight scales, all contiguous on one device; out_dtype
+    float32 or bfloat16. Returns the (..., F) int8 codes and their (..., 1)
+    float32 scales for the second GEMM."""
+    if y.device.type == "cpu":
+        return dequant_gelu_requant_plain(y, xs, ws, out_dtype)
+    _require(y.device.type == "cuda",
+             f"dequant_gelu_requant: unsupported device {y.device}")
+    _require(out_dtype in (torch.float32, torch.bfloat16),
+             f"dequant_gelu_requant: out_dtype float32 or bfloat16, got "
+             f"{out_dtype}")
+    _require(y.dtype == torch.int32 and y.dim() >= 1 and y.shape[-1] > 0,
+             f"dequant_gelu_requant: (..., F >= 1) int32 accumulator "
+             f"required, got {tuple(y.shape)} {y.dtype}")
+    lead, f = tuple(y.shape[:-1]), y.shape[-1]
+    rows = math.prod(lead)
+    _require(tuple(xs.shape) == lead + (1,) and xs.dtype == torch.float32,
+             f"dequant_gelu_requant: xs must be {lead + (1,)} float32, got "
+             f"{tuple(xs.shape)} {xs.dtype}")
+    _require(tuple(ws.shape) == (f,) and ws.dtype == torch.float32,
+             f"dequant_gelu_requant: ws must be ({f},) float32, got "
+             f"{tuple(ws.shape)} {ws.dtype}")
+    for t in (y, xs, ws):
+        _require(t.device == y.device,
+                 "dequant_gelu_requant: tensors on different devices")
+        _require(t.is_contiguous(),
+                 "dequant_gelu_requant: contiguous tensors required")
+    q = torch.empty(y.shape, device=y.device, dtype=torch.int8)
+    s = torch.empty(lead + (1,), device=y.device, dtype=torch.float32)
+    if rows == 0:
+        return q, s
+    c0, c1 = gelu_constants(out_dtype)
+    fn = _entry("dequant_gelu_requant", "nns_dequant_gelu_requant",
+                (_P,) * 5 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
+                             ctypes.c_float, ctypes.c_float, _P))
+    with _on(y.device):
+        rc = fn(y.data_ptr(), xs.data_ptr(), ws.data_ptr(), q.data_ptr(),
+                s.data_ptr(), rows, f, int(out_dtype == torch.bfloat16),
+                c0, c1, _stream_ptr(y))
+    _check_launch("dequant_gelu_requant", rc)
+    dequant_gelu_requant.launches += 1
+    return q, s
+
+
+dequant_gelu_requant.launches = 0

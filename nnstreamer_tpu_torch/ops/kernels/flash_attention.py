@@ -1,0 +1,142 @@
+"""Blockwise (flash) attention: the CUDA kernel, its wrapper and its plain
+version.
+
+Counterpart of the Pallas kernel in
+``nnstreamer_tpu/ops/pallas/flash_attention.py`` (``flash_attention``:
+``_flash_kernel`` and ``_flash_kernel_residual``), which the causal LM's
+flash prefill runs once per layer (models/causal_lm.py). The kernel is
+``csrc/flash_attention.cu``; its block sizes are fixed constants there (64
+query rows, 64-key tiles): the JAX package's autotuner hook is not ported.
+
+The wrapper launches the kernel for CUDA tensors, raising on a device,
+dtype, shape or layout it does not take, and adds one to ``launches`` for
+every launch. For CPU tensors it runs ``flash_attention_plain``, the same
+online-softmax recurrence over 64-key blocks in torch ops, which is what
+the kernel is held against on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+from typing import Tuple, Union
+
+import torch
+
+from .epilogue import _P, _check_launch, _entry, _on, _require, _stream_ptr
+
+#: keys per block of the plain version's recurrence (the kernel's tile)
+BLOCK_K = 64
+#: widest head the kernel takes
+MAX_HEAD_DIM = 128
+#: the mask value: finite, so m - m never makes a NaN
+_NEG_INF = -1e30
+
+Result = Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor, torch.Tensor]]
+
+
+def _scale(d: int) -> float:
+    """1/sqrt(D) as float32, from the true head dim (the TPU kernel's
+    ``np.float32(sm_scale)``)."""
+    return float(torch.tensor(1.0 / math.sqrt(d), dtype=torch.float32))
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          return_residuals: bool = False) -> Result:
+    """Attention over (B, H, L, D) q, k, v by the flash recurrence, in
+    torch ops: float32 scores scaled after the product, masked scores
+    -1e30, m starting at -1e30, p rounded to v's dtype before PV while l
+    sums it unrounded, output acc / max(l, 1e-30) in q's dtype. With
+    ``return_residuals`` returns (acc (B, H, L, D) float32, m (B, H, L),
+    l (B, H, L)) instead."""
+    b, h, length, d = q.shape
+    scale = _scale(d)
+    qf = q.to(torch.float32)
+    rows = torch.arange(length, device=q.device)[:, None]
+    acc = torch.zeros((b, h, length, d), device=q.device, dtype=torch.float32)
+    m = torch.full((b, h, length, 1), _NEG_INF, device=q.device,
+                   dtype=torch.float32)
+    l_sum = torch.zeros_like(m)
+    for k0 in range(0, length, BLOCK_K):
+        kb = k[:, :, k0:k0 + BLOCK_K].to(torch.float32)
+        vb = v[:, :, k0:k0 + BLOCK_K]
+        s = (qf @ kb.transpose(-1, -2)) * scale
+        if causal:
+            cols = torch.arange(k0, k0 + kb.shape[2], device=q.device)[None, :]
+            s = torch.where(rows >= cols, s, _NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.exp(s - m_new)
+        alpha = torch.exp(m - m_new)
+        l_sum = l_sum * alpha + p.sum(dim=-1, keepdim=True)
+        acc = acc * alpha + p.to(v.dtype).to(torch.float32) @ vb.to(torch.float32)
+        m = m_new
+    if return_residuals:
+        return acc, m[..., 0], l_sum[..., 0]
+    return (acc / torch.clamp(l_sum, min=1e-30)).to(q.dtype)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    _require(q.device.type == "cuda",
+             f"flash_attention: unsupported device {q.device}")
+    _require(q.dtype in (torch.float32, torch.bfloat16),
+             f"flash_attention: float32 or bfloat16 required, got {q.dtype}")
+    _require(q.dim() == 4 and 1 <= q.shape[-1] <= MAX_HEAD_DIM
+             and min(q.shape) > 0,
+             f"flash_attention: non-empty (B, H, L, D <= {MAX_HEAD_DIM}) "
+             f"tensors required, got {tuple(q.shape)}")
+    for t in (k, v):
+        _require(t.device == q.device and t.dtype == q.dtype
+                 and t.shape == q.shape,
+                 "flash_attention: q, k and v must share device, dtype and "
+                 f"shape, got {[(tuple(x.shape), x.dtype, str(x.device)) for x in (q, k, v)]}")
+    for t in (q, k, v):
+        _require(t.stride(3) == 1 or t.shape[3] == 1,
+                 f"flash_attention: the head axis must be contiguous, "
+                 f"strides {t.stride()}")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True,
+                    return_residuals: bool = False) -> Result:
+    """Causal (or full) attention over (B, H, L, D) tensors, float32 or
+    bfloat16, D <= 128, any L; the head axis contiguous, other strides
+    free. Returns (B, H, L, D) in q's dtype, or with ``return_residuals``
+    the unnormalised float32 accumulator and the per-row m and l
+    (B, H, L), which merge partial attentions over disjoint key sets."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, return_residuals)
+    _check(q, k, v)
+    b, h, length, d = q.shape
+    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
+                                        for s in t.stride()[:3]))
+    is_bf16 = int(q.dtype == torch.bfloat16)
+    if return_residuals:
+        acc = torch.empty((b, h, length, d), device=q.device,
+                          dtype=torch.float32)
+        m = torch.empty((b, h, length), device=q.device, dtype=torch.float32)
+        l_sum = torch.empty_like(m)
+        fn = _entry("flash_attention", "nns_flash_attention_residual",
+                    (_P,) * 6 + (ctypes.c_int,) * 4
+                    + (_P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P))
+        with _on(q.device):
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
+                    m.data_ptr(), l_sum.data_ptr(), b, h, length, d, strides,
+                    int(causal), _scale(d), is_bf16, _stream_ptr(q))
+        out: Result = (acc, m, l_sum)
+    else:
+        o = torch.empty((b, h, length, d), device=q.device, dtype=q.dtype)
+        fn = _entry("flash_attention", "nns_flash_attention",
+                    (_P,) * 4 + (ctypes.c_int,) * 4
+                    + (_P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P))
+        with _on(q.device):
+            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                    b, h, length, d, strides, int(causal), _scale(d), is_bf16,
+                    _stream_ptr(q))
+        out = o
+    _check_launch("flash_attention", rc)
+    flash_attention.launches += 1
+    return out
+
+
+flash_attention.launches = 0

@@ -1,6 +1,8 @@
-"""Where one detection or segmentation frame spends its time on the GPU.
+"""Where one detection or segmentation frame, or one LM decode step, spends
+its time on the GPU.
 
-    python3 scripts/profile_torch_ssd.py [--model ssd|deeplab] [--frames 32]
+    python3 scripts/profile_torch_ssd.py [--model ssd|deeplab|lm] [--frames 32]
+                                         [--quant float32|w8a8]
 
 Runs the torch port's invoke the way the pipeline does — the ``torch-cuda``
 filter with the decoder's device reduce fused in — then the decoder's host
@@ -15,8 +17,15 @@ under ``torch.profiler``:
     (MobileNet-v2 at output stride 16, ASPP, float32 bilinear upsample),
     ``segment_colorize`` kernel; host side = D2H of the (257, 257, 4)
     canvas and the decoder's copy of it.
+  * ``lm``: one decode step of the serving engine at the bench LM's full
+    width (V 8192, d_model 1024, 16 heads, 8 layers; max_len 1024, 8 slots
+    filled by prompts of the bench's serving mix), over float32 params or
+    (``--quant w8a8``) their w8a8 form: ``LMEngine._run_chunk`` of 16 steps,
+    the engine's unit of work between scheduler interventions, including
+    its one read-back of the chunk's tokens. ``--frames`` counts decode
+    steps (rounded to whole chunks).
 
-Prints per frame: host wall time of the invoke and of the host decode,
+Prints per frame (per decode step for ``lm``): host wall time of the invoke and of the host decode,
 device busy time and its share of the invoke's wall time, device time by
 kernel category, and the top kernels; then one JSON line with the same
 numbers. Needs a CUDA card.
@@ -40,8 +49,13 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 SPECS = {"ssd": ("zoo://ssd_mobilenet_v2?size=300&num_classes=91", 300),
          "deeplab": ("zoo://deeplab_v3?size=257&num_classes=21", 257)}
+#: the bench LM (bench.py _LM_DIMS: vocab, d_model, heads, layers) and its
+#: serving engine's shape
+LM_DIMS, LM_MAX_LEN, LM_SLOTS, LM_CHUNK = (8192, 1024, 16, 8), 1024, 8, 16
 
 CATEGORIES = (
+    ("flash_attention", ("flash_kernel",)),
+    ("dequant_gelu_requant", ("dgr_kernel",)),
     ("class_reduce", ("class_reduce",)),
     ("nms_sweep", ("nms_sweep",)),
     ("segment_colorize", ("colorize",)),
@@ -55,24 +69,27 @@ CATEGORIES = (
 )
 
 
-def category(name: str) -> str:
+#: the LM's kernels by what they compute: its GEMMs before the convolution
+#: keys (cuBLAS and its int8 path name theirs gemm, gemv, sm90 or cutlass)
+LM_CATEGORIES = (
+    ("matmul", ("gemm", "gemv", "sm90", "cutlass", "xmma", "dot")),
+    ("softmax", ("softmax",)),
+    ("index/scatter", ("index", "scatter", "gather")),
+)
+
+
+def category(name: str, lm: bool = False) -> str:
     low = name.lower()
-    for cat, keys in CATEGORIES:
+    for cat, keys in (CATEGORIES[:2] + LM_CATEGORIES + CATEGORIES[2:]
+                      if lm else CATEGORIES):
         if any(k in low for k in keys):
             return cat
     return "other"
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=sorted(SPECS), default="ssd")
-    ap.add_argument("--frames", type=int, default=32)
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_ssd: no CUDA device", file=sys.stderr)
-        return 1
-    from torch.profiler import ProfilerActivity, profile
-
+def _frame_work(model: str, n_frames: int):
+    """The filter's fused invoke over seeded frames: (frames, run all of
+    them, host decode ms per frame)."""
     from nnstreamer_tpu_torch.core.buffer import Buffer, TensorMemory
     from nnstreamer_tpu_torch.core.hw import resolve_device
     from nnstreamer_tpu_torch.decoders.bounding_box import BoundingBox
@@ -81,15 +98,8 @@ def main() -> int:
     from nnstreamer_tpu_torch.filters.torch_cuda import TorchCudaFilter
     from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-
-    spec, size = SPECS[args.model]
-    print(f"model {spec}", flush=True)
-    if args.model == "ssd":
+    spec, size = SPECS[model]
+    if model == "ssd":
         with tempfile.TemporaryDirectory() as tmp:
             priors = os.path.join(tmp, "priors.txt")
             write_box_priors(priors, size=300)
@@ -106,31 +116,93 @@ def main() -> int:
 
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, 256, (1, size, size, 3), dtype=np.uint8)
-              for _ in range(args.frames)]
+              for _ in range(n_frames)]
 
     def invoke(frame):
         return fw.invoke([TensorMemory(frame)])[0]
 
     for frame in frames[:4]:  # warm-up: cuDNN plans, kernel build
         invoke(frame).host()
-    torch.cuda.synchronize()
-
-    t0 = time.perf_counter()
     rows = [invoke(f) for f in frames]
     for r in rows:
         r.host()
-    invoke_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
     t0 = time.perf_counter()
     for r in rows:
         dec.decode(Buffer([r]), None)
     decode_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
 
+    def run(profiled: bool) -> None:
+        if profiled:  # one frame at a time, each read back before the next
+            for f in frames:
+                invoke(f).host()
+            return
+        for r in [invoke(f) for f in frames]:
+            r.host()
+
+    return len(frames), run, decode_ms
+
+
+def _lm_work(quant: str, n_steps: int):
+    """Decode chunks of the full-width serving engine with every slot
+    holding a prompt of the bench's serving mix: (steps, run them, None)."""
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.models.convert import causal_lm_params
+    from nnstreamer_tpu_torch.serving import LMEngine
+
+    v, d, h, n_layers = LM_DIMS
+    params = causal_lm_params(causal_lm.init_causal_lm(
+        0, v, d, h, n_layers, LM_MAX_LEN), "cuda")
+    if quant == "w8a8":
+        params = causal_lm.quantize_lm_params(params)
+    eng = LMEngine(params, h, LM_MAX_LEN, n_slots=LM_SLOTS, chunk=LM_CHUNK)
+    rng = np.random.default_rng(5)
+    for i in range(LM_SLOTS):
+        eng.submit(rng.integers(0, v, (64, 192, 384, 512)[i % 4]), max_new=256)
+    eng._admit()  # prefill every slot
+    chunks = max(1, n_steps // LM_CHUNK)
+    eng._run_chunk(LM_CHUNK).cpu()  # warm-up
+
+    def run(profiled: bool) -> None:
+        for _ in range(chunks):
+            eng._run_chunk(LM_CHUNK).cpu()  # the engine's one read-back
+
+    return chunks * LM_CHUNK, run, None
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(SPECS) + ["lm"], default="ssd")
+    ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--quant", choices=("float32", "w8a8"), default="float32")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_ssd: no CUDA device", file=sys.stderr)
+        return 1
+    from torch.profiler import ProfilerActivity, profile
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    lm = args.model == "lm"
+    print(f"model causal_lm {LM_DIMS} ({args.quant})" if lm
+          else f"model {SPECS[args.model][0]}", flush=True)
+    n, run, decode_ms = (_lm_work(args.quant, args.frames) if lm
+                         else _frame_work(args.model, args.frames))
+    unit = "decode step" if lm else "frame"
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(profiled=False)
+    torch.cuda.synchronize()
+    invoke_ms = (time.perf_counter() - t0) * 1e3 / n
+
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for f in frames:
-            invoke(f).host()
+        run(profiled=True)
         torch.cuda.synchronize()
-        profiled_ms = (time.perf_counter() - t0) * 1e3 / len(frames)
+        profiled_ms = (time.perf_counter() - t0) * 1e3 / n
 
     by_kernel = collections.Counter()
     launches = collections.Counter()
@@ -142,27 +214,28 @@ def main() -> int:
             us = evt.self_cuda_time_total
         by_kernel[evt.key] += us
         launches[evt.key] += evt.count
-    n = len(frames)
     device_ms = sum(by_kernel.values()) / 1e3 / n
     by_cat = collections.Counter()
     for name, us in by_kernel.items():
-        by_cat[category(name)] += us / 1e3 / n
-    print(f"per frame: invoke wall {invoke_ms:.4f} ms (profiled {profiled_ms:.4f}), "
-          f"host decode {decode_ms:.4f} ms, device busy "
+        by_cat[category(name, lm)] += us / 1e3 / n
+    print(f"per {unit}: {'wall' if lm else 'invoke wall'} {invoke_ms:.4f} ms (profiled "
+          f"{profiled_ms:.4f})"
+          + ("" if lm else f", host decode {decode_ms:.4f} ms") + ", device busy "
           + (f"{device_ms:.4f} ms = {device_ms / profiled_ms:.3f} of the "
-             "profiled invoke" if device_ms > 0 else "not measured"),
+             "profiled wall" if device_ms > 0 else "not measured"),
           flush=True)
-    print(f"device launches per frame: {sum(launches.values()) / n:.1f}", flush=True)
+    print(f"device launches per {unit}: {sum(launches.values()) / n:.1f}", flush=True)
     for cat, ms in by_cat.most_common():
-        print(f"  {cat:12s} {ms:.4f} ms/frame", flush=True)
+        print(f"  {cat:20s} {ms:.4f} ms/{unit}", flush=True)
     for name, us in by_kernel.most_common(10):
-        print(f"  {us / 1e3 / n:.4f} ms/frame x{launches[name] / n:.0f}  {name[:110]}",
+        print(f"  {us / 1e3 / n:.4f} ms/{unit} x{launches[name] / n:.1f}  {name[:110]}",
               flush=True)
     print(json.dumps({
-        "card": card, "model": args.model, "frames": n, "invoke_wall_ms": invoke_ms,
-        "profiled_invoke_wall_ms": profiled_ms, "host_decode_ms": decode_ms,
+        "card": card, "model": args.model, "quant": args.quant if lm else None,
+        "units": n, "unit": unit, "wall_ms": invoke_ms,
+        "profiled_wall_ms": profiled_ms, "host_decode_ms": decode_ms,
         "device_busy_ms": device_ms if device_ms > 0 else None,
-        "device_launches_per_frame": sum(launches.values()) / n,
+        "device_launches_per_unit": sum(launches.values()) / n,
         "device_ms_by_category": dict(by_cat)}), flush=True)
     return 0
 
