@@ -6,7 +6,8 @@ Phases (any failure exits non-zero before the result lines are printed):
   1. build the CUDA kernels from ``nnstreamer_tpu_torch/ops/kernels/csrc``
      (one nvcc per source, started together) and print the build time;
   2. print the card's name and power limit (nvidia-smi);
-  3. hold each kernel bit-exact against its plain PyTorch version on the card,
+  3. hold each of the seven kernels bit-exact against its plain PyTorch
+     version on the card (flash_attention within its stated tolerance),
      at its path's shapes and at edge cases, then time kernel, plain version
      and (where one exists) the PyTorch yardstick: device time per call from
      CUDA-graph replay (the ``ms`` numbers of the kernels line), and the
@@ -14,6 +15,8 @@ Phases (any failure exits non-zero before the result lines are printed):
      small; then run bounding_box's device reduce for the postprocess and
      OpenVINO modes on CUDA tensors against the same reduce on the CPU and
      the host decode;
+     the models' uint8 preprocess on all 256 values must be bit-equal on the
+     card and on the CPU;
   4. drive the SSD-MobileNet-v2 300x300 detection pipeline (91 classes,
      width 1.0, seeded random weights) over 64 random frames with the
      kernels' launch counts reset just before and read just after: the
@@ -21,7 +24,15 @@ Phases (any failure exits non-zero before the result lines are printed):
      card, detections must come out, and one frame's fused device reduce
      must agree with the host decode path (rtol 1e-4);
   5. drive the MobileNet-v2 224 classification pipeline over a few frames
-     and check each label against the model's own argmax;
+     and check each label against the model's own argmax; then README.md's
+     headline nns-launch pipeline (videotestsrc ! tensor_converter !
+     tensor_transform ! tensor_filter model=zoo://mobilenet_v2 !
+     tensor_decoder image_labeling ! tensor_sink; 64 random 224x224 frames,
+     width 1.0, 1001 classes, bf16) through the port's CLI, then parsed
+     with the transform fused into the filter's invoke and not: one invoke
+     per frame, logits on the card and bit-equal between the two runs,
+     labels equal to their argmax, SingleShot on a frame equal to its
+     pipeline logits;
   6. drive the DeepLab-v3 257x257 segmentation pipeline (21 classes, width
      1.0, bf16) over 64 random frames with ``segment_colorize`` fused into
      the filter's invoke: one launch per frame, canvases on the card, and
@@ -35,6 +46,8 @@ Phases (any failure exits non-zero before the result lines are printed):
   8. drive the PoseNet 257 pose pipeline (heatmap-offset) over 16 frames:
      the decoder's device reduce must give the host decode's keypoints,
      and tied heatmap cells must resolve to the first one on the card;
+     then gpu_smoke (utils/probes.py): every item passes, and the CUDA
+     normalize_u8 and quantize_affine launch;
   9. LM serving at the bench LM's full width (V 8192, d_model 1024, 16
      heads, 8 layers, d_ff 4096; seeded random weights): ``LMEngine`` with
      max_len 1024, 8 slots, chunk 16 serves the bench's 24-request greedy
@@ -53,7 +66,12 @@ Phases (any failure exits non-zero before the result lines are printed):
      path and read just after), the ``kernels`` JSON line, then the device
      line last.
 
-Phase 3 also holds ``flash_attention`` (causal and full, float32 and bf16,
+Phase 3 holds ``normalize_u8`` on every uint8 value at 1/127.5 and 1/255 to
+float32 and bf16, at sizes 1 to 1920x1080x3, on strided and unaligned views
+and float inputs, and ``quantize_affine`` on NaN, inf, 1e9, ties and zero
+points 0 and 128 (both timed at 224 and 1080p; ``quantize_affine`` beside
+``torch.quantize_per_tensor``, whose differing codes are counted). It also
+holds ``flash_attention`` (causal and full, float32 and bf16,
 normalised and residual, ragged L, D 16 to 128, strided views) and
 ``dequant_gelu_requant`` (R 8 and 512, F 4096, float32 and bf16, a zero
 row) against their plain versions, and one w8a8 MLP at the serving shape
@@ -92,12 +110,12 @@ LM_MAX_LEN, LM_SLOTS, LM_CHUNK = 1024, 8, 16
 LM_REQUESTS, LM_PROMPTS, LM_GENS = 24, (64, 192, 384, 512), (32, 64, 96, 128)
 LM_ISOLATED = (0, 9, 22)  # requests re-run alone in a 1-slot engine
 FLASH_B, FLASH_T, FLASH_FRAMES = 8, 1024, 8
-
-#: H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, float32
-#: operations/s outside the tensor cores, bf16 operations/s on them
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_F32_OPS_PER_S = 67e12
-PEAK_BF16_OPS_PER_S = 989e12
+#: README.md's headline nns-launch pipeline, as the README prints it
+HEADLINE = ("videotestsrc ! tensor_converter ! tensor_transform mode=arithmetic "
+            "option=typecast:float32,add:-127.5,div:127.5 ! tensor_filter "
+            "framework=xla-tpu model=zoo://mobilenet_v2 ! tensor_decoder "
+            "mode=image_labeling option1=labels.txt ! tensor_sink")
+HEADLINE_FRAMES = 64
 
 #: IoU arithmetic per candidate pair in nms_sweep: 2 min, 2 max, 2 sub,
 #: 2 clamp, 1 mul, 1 add, 1 sub, 1 div, 1 compare
@@ -112,10 +130,15 @@ DGR_OPS_PER_ELEMENT = 17
 FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (5e-2, 3e-2)}
 
 
-def _bound_ms(nbytes: float, ops: float,
-              peak_ops: float = PEAK_F32_OPS_PER_S) -> tuple:
-    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_ops = ops / peak_ops * 1e3
+def _bound_ms(nbytes: float, ops: float, dtype: torch.dtype = torch.float32) -> tuple:
+    """The least time for the work on this card: bytes over its memory
+    rate, operations over its peak for ``dtype`` (float32 on the CUDA
+    cores, bf16 on the tensor cores), the data sheet's numbers that
+    ``utils/probes.py`` holds."""
+    from nnstreamer_tpu_torch.utils import probes
+
+    t_bytes = nbytes / probes.chip_peak_hbm_bw() * 1e3
+    t_ops = ops / probes.chip_peak_flops(None, dtype) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -158,6 +181,19 @@ def _device_ms(fn, per_graph: int = 20, replays: int = 20) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / (replays * per_graph)
+
+
+def _rotating(make, nbytes: int) -> tuple:
+    """An iterator cycling over distinct inputs from ``make()`` (``nbytes``
+    each), enough that a CUDA graph of ``_device_ms``'s 20 calls reads
+    100 MB, twice the card's 50 MB L2, where 20 inputs can hold that
+    (1080p frames; a 224 frame's 20 stay in L2): each call then reads its
+    input from device memory, as a stream's next frame does. Returns the
+    iterator and the MB the graph's inputs span."""
+    import itertools
+
+    count = min(20, max(2, -(-100 * 2 ** 20 // nbytes)))
+    return itertools.cycle([make() for _ in range(count)]), count * nbytes / 2 ** 20
 
 
 def _same(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -214,7 +250,7 @@ def check_class_reduce(ep, dev, rng) -> dict:
           flush=True)
     return {"name": "class_reduce", "route": "cuda",
             "source": "nnstreamer_tpu_torch/ops/kernels/csrc/class_reduce.cu",
-            "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:157",
+            "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:173",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
@@ -258,7 +294,7 @@ def check_nms_sweep(ep, dev, rng) -> dict:
           f"sequential_steps={k}", flush=True)
     return {"name": "nms_sweep", "route": "cuda",
             "source": "nnstreamer_tpu_torch/ops/kernels/csrc/nms_sweep.cu",
-            "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:107",
+            "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:130",
             "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
@@ -326,7 +362,7 @@ def check_segment_colorize(ep, dev, rng) -> dict:
           f"bound_ms={id_bound:.8f} ({id_by})", flush=True)
     return {"name": "segment_colorize", "route": "cuda",
             "source": "nnstreamer_tpu_torch/ops/kernels/csrc/segment_colorize.cu",
-            "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:219",
+            "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:262",
             "max_abs_err": err, "ms": dev_ms["kernel"], "plain_ms": dev_ms["plain"],
             "bound_ms": bound, "bound_by": by, "library_ms": dev_ms["library"]}
 
@@ -395,9 +431,7 @@ def check_flash_attention(fa, dev, rng) -> dict:
         ms = {n: _device_ms(f, *reps[n]) for n, f in calls.items()}
         b, h, length, d = main_shape
         pairs = b * h * length * (length + 1) // 2  # causal (query, key) pairs
-        bound, by = _bound_ms(4 * q.numel() * q.element_size(), 4 * d * pairs,
-                              PEAK_BF16_OPS_PER_S if dt == torch.bfloat16
-                              else PEAK_F32_OPS_PER_S)
+        bound, by = _bound_ms(4 * q.numel() * q.element_size(), 4 * d * pairs, dt)
         print(f"flash_attention {main_shape} {str(dt)[6:]} causal device ms/call (CUDA "
               f"graph): kernel={ms['kernel']:.6f} plain={ms['plain']:.6f} "
               f"library(scaled_dot_product_attention)={ms['library']:.6f}; "
@@ -478,6 +512,148 @@ def check_mlp(ep, dev, rng) -> None:
                                  f"the plain epilogue at R={rows}")
     print(f"w8a8 MLP ({d} -> {f} -> {d}) at R={LM_SLOTS} and 512 on the card == its "
           f"composition with dequant_gelu_requant_plain, bit for bit", flush=True)
+
+
+#: the prologue kernels' test sizes: 1, odd, a 224 frame and a 1080p frame
+PRE_SIZES = [(1,), (7, 13), (129,), (224, 224, 3), (1080, 1920, 3)]
+
+
+def check_normalize_u8(pp, dev, rng) -> dict:
+    """normalize_u8 bit-exact against its plain version: every uint8 value
+    at 1/127.5 and 1/255, to float32 and bf16, at each test size, a strided
+    view (the wrapper copies it contiguous), a view off 16-byte alignment
+    and float inputs with NaN and inf; then timed at 224 and 1080p."""
+    u8 = torch.arange(256, dtype=torch.uint8, device=dev)
+    frames = {(256,): u8}
+    frames.update({shape: torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
+                   .to(dev) for shape in PRE_SIZES})
+    cases = [(f"{tuple(x.shape)} scale {sc:.6g} bias {b} to {str(od)[6:]}", x, sc, b, od)
+             for x in frames.values() for sc, b in ((1 / 127.5, -1.0), (1 / 255.0, 0.0))
+             for od in (torch.float32, torch.bfloat16)]
+    hd = frames[(1080, 1920, 3)]
+    cases.append(("strided view (1080, 1600, 3)", hd[:, 100:1700], 1 / 127.5, -1.0,
+                  torch.bfloat16))
+    cases.append(("view 1 byte off alignment", hd.reshape(-1)[1:100001], 1 / 127.5, -1.0,
+                  torch.float32))
+    floats = torch.from_numpy(np.concatenate([
+        [np.nan, np.inf, -np.inf, 1e9, -1e9, -0.0],
+        rng.uniform(-300, 300, 4099)]).astype(np.float32)).to(dev)
+    for src in (torch.float32, torch.bfloat16):
+        for od in (torch.float32, torch.bfloat16):
+            cases.append((f"{str(src)[6:]} input with NaN/inf to {str(od)[6:]}",
+                           floats.to(src), 1 / 127.5, -1.0, od))
+    for name, x, sc, b, od in cases:
+        got = pp.normalize_u8(x, sc, b, od)
+        want = pp.normalize_u8_plain(x, sc, b, od)
+        torch.cuda.synchronize()
+        if not _same(got, want):
+            raise AssertionError(f"normalize_u8 differs from plain: {name}")
+    print(f"normalize_u8: bit-exact with plain in {len(cases)} cases (all 256 uint8 "
+          f"values, sizes {PRE_SIZES}, strided and unaligned views, float inputs)",
+          flush=True)
+    rows = {}
+    for shape in ((224, 224, 3), (1080, 1920, 3)):
+        x = frames[shape]
+        cold, span = _rotating(lambda: torch.randint_like(x, 0, 256), x.numel())
+        for od in (torch.bfloat16, torch.float32):
+            calls = {"kernel": lambda: pp.normalize_u8(next(cold), out_dtype=od),
+                     "plain": lambda: pp.normalize_u8_plain(next(cold), out_dtype=od),
+                     "kernel, L2-warm": lambda: pp.normalize_u8(x, out_dtype=od)}
+            ms = {k: _device_ms(f) for k, f in calls.items()}
+            n = x.numel()
+            bound, by = _bound_ms(n * (1 + od.itemsize), 2 * n)
+            print(f"normalize_u8 {shape} uint8 -> {str(od)[6:]} device ms/call (CUDA graph, "
+                  f"inputs cycled over {span:.1f} MB): kernel={ms['kernel']:.7f} "
+                  f"plain={ms['plain']:.7f} library=none; one input replayed from L2: "
+                  f"kernel={ms['kernel, L2-warm']:.7f}; bound_ms={bound:.8f} ({by}); "
+                  f"kernel/bound={ms['kernel'] / bound:.2f}", flush=True)
+            rows[(shape, od)] = (ms, bound, by)
+    ms, bound, by = rows[((1080, 1920, 3), torch.bfloat16)]
+    err = _max_abs_err(pp.normalize_u8(hd), pp.normalize_u8_plain(hd))
+    return {"name": "normalize_u8", "route": "cuda",
+            "source": "nnstreamer_tpu_torch/ops/kernels/csrc/preprocess.cu",
+            "replaces": "nnstreamer_tpu/ops/pallas/preprocess.py:82",
+            "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def check_quantize_affine(pp, dev, rng) -> dict:
+    """quantize_affine bit-exact against its plain version: NaN, +-inf,
+    +-1e9, round-half-even ties and the value whose code the TPU body's
+    reciprocal moves, at zero points 0 and 128 and three scales, every test
+    size, a strided view and bf16 input; then timed at 224 and 1080p
+    against torch.quantize_per_tensor (the yardstick; its codes are
+    counted, not assumed equal)."""
+    scales = (1 / 127.5, 1 / 255.0, 0.02)
+    special = [np.nan, np.inf, -np.inf, 1e9, -1e9, 0.9686274528503418, 0.0, -0.0]
+    ties = [(k + 0.5) * np.float32(sc) for sc in scales for k in range(-20, 20)]
+    tensors = [torch.tensor(np.array(special + ties, np.float32), device=dev)]
+    tensors += [torch.from_numpy(rng.uniform(-1.2, 1.2, shape).astype(np.float32)).to(dev)
+                for shape in PRE_SIZES]
+    hd = tensors[-1]
+    tensors += [hd[:, 7:1800], hd.to(torch.bfloat16)]
+    n_cases = 0
+    for x in tensors:
+        for sc in scales:
+            for zp in (0, 128):
+                got = pp.quantize_affine(x, sc, zp)
+                want = pp.quantize_affine_plain(x, sc, zp)
+                torch.cuda.synchronize()
+                n_cases += 1
+                if not torch.equal(got, want):
+                    raise AssertionError(f"quantize_affine differs from plain: "
+                                         f"{tuple(x.shape)} {x.dtype} scale {sc} zp {zp}, "
+                                         f"{int((got != want).sum())} codes")
+    if int(pp.quantize_affine(tensors[0], 1 / 127.5, 128)[5]) != 251:
+        raise AssertionError("quantize_affine(0.9686274528503418) != 251")
+    library = lambda x: torch.quantize_per_tensor(x, 1 / 127.5, 128, torch.quint8)  # noqa: E731
+    differ = int((library(hd).int_repr() != pp.quantize_affine(hd, 1 / 127.5, 128)).sum())
+    print(f"quantize_affine: bit-exact with plain in {n_cases} cases (NaN/inf/1e9, "
+          f"ties, zero points 0 and 128, sizes {PRE_SIZES}, strided, bf16); "
+          f"torch.quantize_per_tensor differs on {differ} of {hd.numel()} codes at "
+          f"1080p, scale 1/127.5, zero point 128", flush=True)
+    rows = {}
+    for shape in ((224, 224, 3), (1080, 1920, 3)):
+        x = tensors[1 + PRE_SIZES.index(shape)]
+        cold, span = _rotating(lambda: torch.rand_like(x) * 2.4 - 1.2, x.numel() * 4)
+        calls = {"kernel": lambda: pp.quantize_affine(next(cold), 1 / 127.5, 128),
+                 "plain": lambda: pp.quantize_affine_plain(next(cold), 1 / 127.5, 128),
+                 "library": lambda: library(next(cold)),
+                 "kernel, L2-warm": lambda: pp.quantize_affine(x, 1 / 127.5, 128)}
+        ms = {k: _device_ms(f) for k, f in calls.items()}
+        n = x.numel()
+        bound, by = _bound_ms(n * 5, 5 * n)
+        print(f"quantize_affine {shape} float32 -> uint8 device ms/call (CUDA graph, inputs "
+              f"cycled over {span:.1f} MB): kernel={ms['kernel']:.7f} plain={ms['plain']:.7f} "
+              f"library(torch.quantize_per_tensor)={ms['library']:.7f}; one input "
+              f"replayed from L2: kernel={ms['kernel, L2-warm']:.7f}; bound_ms={bound:.8f} "
+              f"({by}); kernel/bound={ms['kernel'] / bound:.2f}", flush=True)
+        rows[shape] = (ms, bound, by)
+    ms, bound, by = rows[(1080, 1920, 3)]
+    return {"name": "quantize_affine", "route": "cuda",
+            "source": "nnstreamer_tpu_torch/ops/kernels/csrc/preprocess.cu",
+            "replaces": "nnstreamer_tpu/ops/pallas/preprocess.py:131",
+            "max_abs_err": 0.0, "ms": ms["kernel"], "plain_ms": ms["plain"],
+            "bound_ms": bound, "bound_by": by, "library_ms": ms["library"]}
+
+
+def check_preprocess_repair() -> None:
+    """The models' uint8 preprocess over all 256 values: on the card
+    bit-equal to the CPU (it divides by a tensor), where the form it
+    replaced (division by a Python scalar: a reciprocal multiply on CUDA)
+    is not."""
+    from nnstreamer_tpu_torch.models.mobilenet_v2 import preprocess_uint8
+
+    u8 = torch.arange(256, dtype=torch.uint8)
+    cpu = preprocess_uint8(u8)
+    card = preprocess_uint8(u8.cuda()).cpu()
+    if not torch.equal(card, cpu):
+        raise AssertionError(f"preprocess_uint8 on the card differs from the CPU on "
+                             f"{int((card != cpu).sum())} of 256 values")
+    old = (u8.cuda().to(torch.float32) / 127.5 - 1.0).cpu()
+    print(f"preprocess_uint8: card == CPU on all 256 uint8 values; the replaced "
+          f"scalar-division form differs on {int((old != cpu).sum())} of them "
+          f"({int((old.bfloat16() != cpu.bfloat16()).sum())} after bf16)", flush=True)
 
 
 def _post_inputs(m: int, seed: int, count: bool = True) -> tuple:
@@ -583,22 +759,24 @@ def _epilogue_inputs(decoder_cls):
 
 
 @contextlib.contextmanager
-def _decoder_inputs():
-    """Record every buffer that reaches a tensor_decoder while inside."""
+def _decoder_inputs(cls=None):
+    """Record every buffer that reaches a tensor_decoder (or an element of
+    class ``cls``) while inside."""
     from nnstreamer_tpu_torch.elements.decoder import TensorDecoder
 
+    cls = cls or TensorDecoder
     seen = []
-    chain = TensorDecoder.chain
+    chain = cls.chain
 
     def watching_chain(self, pad, buf):
         seen.append(buf)
         return chain(self, pad, buf)
 
-    TensorDecoder.chain = watching_chain
+    cls.chain = watching_chain
     try:
         yield seen
     finally:
-        TensorDecoder.chain = chain
+        cls.chain = chain
 
 
 def _devices(bufs) -> set:
@@ -918,6 +1096,115 @@ def run_classification(tmp: str) -> None:
           flush=True)
 
 
+def run_headline(tmp: str, counters) -> dict:
+    """The README's headline pipeline at full width: through the CLI as a
+    user runs it, then parsed twice (transform fused into the filter's
+    invoke, and not) with the frames' logits recorded at the decoder.
+    Returns each run's kernel launches."""
+    from nnstreamer_tpu_torch.cli import main as cli
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+    from nnstreamer_tpu_torch.graph import Pipeline, parse_pipeline
+    from nnstreamer_tpu_torch.single import SingleShot
+
+    labels = os.path.join(tmp, "labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"l{i}" for i in range(1001)))
+    source = (f"videotestsrc num-buffers={HEADLINE_FRAMES} pattern=random "
+              f"width=224 height=224")
+    launch = HEADLINE.replace("videotestsrc", source).replace("labels.txt", labels)
+    counters.reset()
+    t0 = time.perf_counter()
+    rc = cli([launch])
+    torch.cuda.synchronize()
+    launches = {"headline cli": counters.read()}
+    if rc != 0:
+        raise AssertionError(f"nns-launch exited {rc}: {launch}")
+    print(f"nns-launch (the README string, {HEADLINE_FRAMES} random 224x224 frames, "
+          f"MobileNet-v2 224 width 1.0, 1001 classes, bf16): exit 0 in "
+          f"{time.perf_counter() - t0:.3f} s incl. model build", flush=True)
+
+    # the unfused filter refuses a float32 stream against the model's uint8
+    # input, as the JAX package's does: declare the transformed stream
+    parsed = launch.replace(
+        "tensor_filter ", "tensor_filter name=filt input=3:224:224:1 inputtype=float32 "
+    ).replace("! tensor_sink", "! tensor_sink name=labels store=true")
+    runs, fps = {}, {True: [], False: []}
+    for fused in (True, False, False, True):  # in turns: fps spreads run to run
+        p = parse_pipeline(parsed, Pipeline())
+        p.auto_fuse = fused
+        arrivals = []
+        sink = p.get_by_name("labels")
+        sink.new_data = lambda b, a=arrivals: a.append(time.perf_counter())
+        with _decoder_inputs() as seen, _decoder_inputs(TensorFilter) as into_filter:
+            counters.reset()
+            t0 = time.perf_counter()
+            p.run(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches.setdefault(f"headline {'fused' if fused else 'unfused'}",
+                                counters.read())
+        invokes = p.get_by_name("filt").stats.total_invoke_num
+        raw = {str(b.memories[0].dtype) for b in into_filter}
+        if p._fused_count != int(fused) or invokes != HEADLINE_FRAMES \
+                or raw != {"uint8" if fused else "float32"}:
+            raise AssertionError(f"fused={fused}: {p._fused_count} transforms fused, "
+                                 f"{invokes} filter invokes, filter inputs {raw}")
+        if sink.num_buffers != HEADLINE_FRAMES or len(seen) != HEADLINE_FRAMES:
+            raise AssertionError(f"{sink.num_buffers} labels, {len(seen)} logits")
+        logits = [b.memories[0].device() for b in seen]
+        devices = {str(x.device) for x in logits}
+        if any(not d.startswith("cuda") for d in devices):
+            raise AssertionError(f"filter output left the card: {devices}")
+        for x, out in zip(logits, sink.buffers):
+            if x.shape != (1, 1001) or x.dtype != torch.float32 \
+                    or not torch.isfinite(x).all():
+                raise AssertionError(f"logits {tuple(x.shape)} {x.dtype} or not finite")
+            if out.meta["label_index"] != int(x.argmax(dim=-1)[0]):
+                raise AssertionError("label != argmax of its logits")
+        fps[fused].append(_steady_fps(arrivals))
+        if fused in runs:  # the repeat run: the same logits again
+            if not all(torch.equal(a, b) for a, b in zip(logits, runs[fused][0])):
+                raise AssertionError(f"fused={fused}: logits differ between two runs")
+            continue
+        runs[fused] = (logits, into_filter, wall)
+        for i, (a, b) in enumerate(zip(logits, runs.get(True, (logits,))[0])):
+            if not torch.equal(a, b):
+                raise AssertionError(f"frame {i}: fused and unfused logits differ by "
+                                     f"{_max_abs_err(a, b)}")
+    # SingleShot on the first frame as the unfused filter received it
+    frame = runs[False][1][0].memories[0].device()
+    with SingleShot(model="zoo://mobilenet_v2") as single:
+        out = single.invoke(frame)[0]
+    torch.cuda.synchronize()
+    if not torch.equal(out, runs[False][0][0]):
+        raise AssertionError("SingleShot logits differ from the pipeline's")
+    for fused in (True, False):
+        print(f"headline pipeline parsed, transform {'fused into' if fused else 'before'} "
+              f"the filter's invoke: {HEADLINE_FRAMES} frames, steady fps in two runs "
+              f"(fused, unfused, unfused, fused order)="
+              f"{', '.join(f'{v:.2f}' for v in fps[fused])}", flush=True)
+    print(f"headline: fused and unfused logits bit-equal on all {HEADLINE_FRAMES} "
+          f"frames, one filter invoke per frame, each label == argmax of its logits, "
+          f"logits on {sorted({str(x.device) for x in runs[True][0]})}; SingleShot("
+          f"zoo://mobilenet_v2) on frame 0 == its pipeline logits", flush=True)
+    return launches
+
+
+def run_gpu_smoke(counters) -> dict:
+    """utils/probes.gpu_smoke on the card: every item passes and the CUDA
+    prologue kernels launch."""
+    from nnstreamer_tpu_torch.utils.probes import gpu_smoke
+
+    counters.reset()
+    res = gpu_smoke()
+    launches = counters.read()
+    failed = {k: v for k, v in res.items() if k != "device" and v != "pass"}
+    if failed or launches["normalize_u8"] < 1 or launches["quantize_affine"] < 1:
+        raise AssertionError(f"gpu_smoke: {res}, launches {launches}")
+    print(f"gpu_smoke: {json.dumps(res)}", flush=True)
+    return launches
+
+
 def _lm_params(dtype=None):
     from nnstreamer_tpu_torch.models import causal_lm
     from nnstreamer_tpu_torch.models.convert import causal_lm_params
@@ -1100,6 +1387,7 @@ def main() -> int:
     from nnstreamer_tpu_torch.ops.kernels import build
     from nnstreamer_tpu_torch.ops.kernels import epilogue as ep
     from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+    from nnstreamer_tpu_torch.ops.kernels import preprocess as pp
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1124,19 +1412,24 @@ def main() -> int:
     rng = np.random.default_rng(0)
     kernels = [check_class_reduce(ep, dev, rng), check_nms_sweep(ep, dev, rng),
                check_segment_colorize(ep, dev, rng), check_flash_attention(fa, dev, rng),
-               check_dequant_gelu_requant(ep, dev, rng)]
+               check_dequant_gelu_requant(ep, dev, rng), check_normalize_u8(pp, dev, rng),
+               check_quantize_affine(pp, dev, rng)]
     check_box_modes(ep)
     check_mlp(ep, dev, rng)
+    check_preprocess_repair()
+    module = {"flash_attention": fa, "normalize_u8": pp, "quantize_affine": pp}
+    counters = _Counters({k["name"]: getattr(module.get(k["name"], ep), k["name"])
+                          for k in kernels})
 
     with tempfile.TemporaryDirectory() as tmp:
         launches = run_detection(ep, tmp)
         run_classification(tmp)
-    by_phase = {"ssd": dict(launches),
-                "deeplab fused": {"segment_colorize": run_segmentation(ep)},
-                "deeplab batched": {"segment_colorize": run_batched_segmentation(ep)}}
+        by_phase = run_headline(tmp, counters)
+    by_phase.update({"ssd": dict(launches),
+                     "deeplab fused": {"segment_colorize": run_segmentation(ep)},
+                     "deeplab batched": {"segment_colorize": run_batched_segmentation(ep)}})
     run_pose()
-    counters = _Counters({k["name"]: getattr(fa if k["name"] == "flash_attention" else ep,
-                                             k["name"]) for k in kernels})
+    by_phase["gpu_smoke"] = run_gpu_smoke(counters)
     params = _lm_params()
     by_phase["lm serving float32"] = run_lm_serving(params, "float32", counters)
     by_phase["lm serving w8a8"] = run_lm_serving(quantize_lm_params(params), "w8a8",

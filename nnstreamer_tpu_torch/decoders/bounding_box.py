@@ -61,10 +61,14 @@ def ssd_box_math(xp, locs, raw_scores, priors):
     locs = _f32(xp, locs.reshape(-1, 4))
     scores = 1.0 / (1.0 + xp.exp(
         -_f32(xp, raw_scores.reshape(locs.shape[0], -1))))
-    ycenter = locs[:, 0] / Y_SCALE * priors[2] + priors[0]
-    xcenter = locs[:, 1] / X_SCALE * priors[3] + priors[1]
-    hh = xp.exp(locs[:, 2] / H_SCALE) * priors[2]
-    ww = xp.exp(locs[:, 3] / W_SCALE) * priors[3]
+    # torch divides by tensors: its CUDA division by a Python scalar
+    # multiplies by the reciprocal (the halvings below are exact either way)
+    y_s, x_s, h_s, w_s = (Y_SCALE, X_SCALE, H_SCALE, W_SCALE) if xp is np else (
+        torch.full((), v, device=locs.device) for v in (Y_SCALE, X_SCALE, H_SCALE, W_SCALE))
+    ycenter = locs[:, 0] / y_s * priors[2] + priors[0]
+    xcenter = locs[:, 1] / x_s * priors[3] + priors[1]
+    hh = xp.exp(locs[:, 2] / h_s) * priors[2]
+    ww = xp.exp(locs[:, 3] / w_s) * priors[3]
     return (xcenter - ww / 2, ycenter - hh / 2,
             xcenter + ww / 2, ycenter + hh / 2, scores[:, 1:])
 

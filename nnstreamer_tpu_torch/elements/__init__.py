@@ -8,3 +8,4 @@ from . import filter  # noqa: F401
 from . import converter  # noqa: F401
 from . import decoder  # noqa: F401
 from . import batch  # noqa: F401
+from . import transform  # noqa: F401

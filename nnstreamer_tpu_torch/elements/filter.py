@@ -233,9 +233,12 @@ class TensorFilter(Element):
         in_info, out_info = self.fw.get_model_info()
         stream_info = in_config.info
         model_sees = self._picked_info(stream_info)
+        # with a fused preprocessing stage the wire caps describe the
+        # *transformed* stream while the raw tensors reach the invoke
+        fused = getattr(self.fw, "_fused_pre", None) is not None
         if in_info is None:
             out_info = self.fw.set_input_info(model_sees)
-        elif stream_info.format is TensorFormat.STATIC and \
+        elif not fused and stream_info.format is TensorFormat.STATIC and \
                 not in_info.is_compatible(model_sees):
             raise ValueError(
                 f"tensor_filter {self.name}: stream {model_sees} incompatible "

@@ -1,4 +1,4 @@
-"""Source elements: appsrc, videotestsrc.
+"""Source elements: appsrc, videotestsrc, audiotestsrc, filesrc.
 
 These replace the GStreamer base sources the reference pipelines use
 (videotestsrc/appsrc in tests/*/runTest.sh).
@@ -6,6 +6,7 @@ These replace the GStreamer base sources the reference pipelines use
 
 from __future__ import annotations
 
+import os
 import queue
 from fractions import Fraction
 from typing import Any, Callable, Iterable, Iterator, Optional
@@ -13,7 +14,7 @@ from typing import Any, Callable, Iterable, Iterator, Optional
 import numpy as np
 
 from ..core.buffer import Buffer, TensorMemory, NS_PER_SEC
-from ..core.types import Caps, TensorsConfig, VIDEO_FORMATS
+from ..core.types import AUDIO_FORMATS, Caps, TensorsConfig, VIDEO_FORMATS
 from ..graph.element import register_element
 from ..graph.pipeline import SourceElement
 
@@ -180,3 +181,74 @@ class VideoTestSrc(SourceElement):
         buf.offset = self._n
         self._n += 1
         return buf
+
+
+@register_element
+class AudioTestSrc(SourceElement):
+    """Synthesizes audio/x-raw (sine) in S16LE/F32LE etc."""
+
+    ELEMENT_NAME = "audiotestsrc"
+
+    def __init__(self, name: Optional[str] = None, **props: Any):
+        self.rate = 16000
+        self.channels = 1
+        self.format = "S16LE"
+        self.freq = 440.0
+        self.samplesperbuffer = 1024
+        super().__init__(name, **props)
+        self._pos = 0
+
+    def negotiate(self) -> Caps:
+        self._pos = 0
+        return Caps("audio/x-raw", {"format": self.format, "rate": self.rate,
+                                    "channels": self.channels})
+
+    def create(self) -> Optional[Buffer]:
+        n = self.samplesperbuffer
+        t = (np.arange(n) + self._pos) / self.rate
+        wave = np.sin(2 * np.pi * self.freq * t)
+        dt = np.dtype(AUDIO_FORMATS[self.format])
+        if dt.kind == "u":  # unsigned: offset sine around the midpoint
+            mx = np.iinfo(dt).max
+            samples = ((wave * 0.5 + 0.5) * mx).astype(dt)
+        elif dt.kind == "i":
+            samples = (wave * np.iinfo(dt).max).astype(dt)
+        else:
+            samples = wave.astype(dt)
+        frame = np.repeat(samples[:, None], self.channels, axis=1)
+        pts = self._pos * NS_PER_SEC // self.rate
+        dur = n * NS_PER_SEC // self.rate
+        self._pos += n
+        return Buffer.of(frame, pts=pts, duration=dur)
+
+
+@register_element
+class FileSrc(SourceElement):
+    """Reads a file as application/octet-stream in ``blocksize`` chunks
+    (GStreamer filesrc semantics; pairs with tensor_converter octet mode)."""
+
+    ELEMENT_NAME = "filesrc"
+
+    def __init__(self, name: Optional[str] = None, **props: Any):
+        self.location: Optional[str] = None
+        self.blocksize = 4096
+        super().__init__(name, **props)
+        self._fh = None
+
+    def negotiate(self) -> Caps:
+        if not self.location or not os.path.isfile(self.location):
+            raise FileNotFoundError(f"filesrc location {self.location!r}")
+        self._fh = open(self.location, "rb")
+        return Caps("application/octet-stream")
+
+    def create(self) -> Optional[Buffer]:
+        data = self._fh.read(self.blocksize)
+        if not data:
+            return None
+        return Buffer.of(np.frombuffer(data, dtype=np.uint8))
+
+    def stop(self) -> None:
+        super().stop()
+        if self._fh is not None:
+            self._fh.close()
+            self._fh = None

@@ -19,11 +19,11 @@ Design notes:
   * ``custom="quant=w8|int8|w8a8"`` quantizes the resolved bundle once
     (models/quantize.py; memoized on the base bundle, so filters sharing a
     spec share one pass);
-  * the invoke composes, in the JAX backend's order: stream→model layout
-    (``inputlayout=NCHW``), precision cast (``custom="precision=bf16"``),
-    the model, model→stream layout (``outputlayout=NCHW``), then a fused
-    epilogue (ops.epilogue). No jit and no CUDA graph yet: every frame is
-    eager PyTorch.
+  * the invoke composes, in the JAX backend's order: a fused preprocess
+    (ops.fusion), stream→model layout (``inputlayout=NCHW``), precision
+    cast (``custom="precision=bf16"``), the model, model→stream layout
+    (``outputlayout=NCHW``), then a fused epilogue (ops.epilogue). No jit
+    and no CUDA graph yet: every frame is eager PyTorch.
 """
 
 from __future__ import annotations
@@ -108,6 +108,7 @@ class TorchCudaFilter(FilterFramework):
         self._bundle: Optional[ModelBundle] = None
         self._fn: Optional[Callable] = None
         self._infer_fn: Optional[Callable] = None
+        self._fused_pre: Optional[Callable] = None
         self._fused_post: Optional[Callable] = None
         self._device: Optional[torch.device] = None
         self._in_info: Optional[TensorsInfo] = None
@@ -159,6 +160,16 @@ class TorchCudaFilter(FilterFramework):
             bundle.metadata[key] = cached
         return cached
 
+    def set_fused_preprocess(self, pre: Callable) -> None:
+        """Install a per-tensor preprocessing stage run inside the invoke
+        before the input-layout permute (ops.fusion pass): ``inputlayout``
+        describes the stream entering the filter, which is the fused
+        transform's output, while the invoke receives the raw upstream
+        tensors. Caps inference still runs the model alone on the
+        negotiated (transformed) stream."""
+        self._fused_pre = pre
+        self._build()
+
     def set_fused_epilogue(self, post: Callable) -> None:
         """Install a post-processing stage run inside the invoke after the
         stream-layout restore (ops.epilogue pass), so a filter→decoder tail
@@ -169,12 +180,12 @@ class TorchCudaFilter(FilterFramework):
         self._build()
 
     def _build(self) -> None:
-        """Compose the invoke: layout → precision → model → layout →
-        epilogue, the order of the JAX backend's ``_build_jit``."""
+        """Compose the invoke: preprocess → layout → precision → model →
+        layout → epilogue, the order of the JAX backend's ``_build_jit``."""
         fn = self._bundle.fn()
         precision = self._precision
         in_layout, out_layout = self._in_layout, self._out_layout
-        post = self._fused_post
+        pre, post = self._fused_pre, self._fused_post
 
         def base(*xs):
             xs = tuple(x.permute(0, 2, 3, 1)
@@ -190,11 +201,32 @@ class TorchCudaFilter(FilterFramework):
                          for j, y in enumerate(_as_tuple(fn(*xs))))
 
         def full(*xs):
+            if pre is not None:
+                xs = tuple(pre(x) for x in xs)
             ys = base(*xs)
             return tuple(post(ys)) if post is not None else ys
 
         self._infer_fn = base
         self._fn = full
+
+    def reload_model(self, model: Any) -> None:
+        """Hot swap: same I/O contract required (reference RELOAD
+        semantics); the old model stays when the new one's outputs
+        differ."""
+        opts = self.props.custom_dict() if self.props else {}
+        old = self._bundle
+        self._bundle = self._maybe_quantize(
+            resolve_model(model, opts, self._device), opts)
+        self._build()
+        if self._in_info is not None:
+            new_out = self._infer_out_info(self._in_info)
+            if self._out_info is not None and not new_out.is_compatible(self._out_info):
+                self._bundle = old
+                self._build()
+                raise ValueError(f"reload rejected: output info changed "
+                                 f"{self._out_info} -> {new_out}")
+            self._out_info = new_out
+        log.info("torch-cuda reloaded model=%s", self._bundle.name)
 
     def close(self) -> None:
         self._fn = None

@@ -269,9 +269,10 @@ class Pipeline:
         #: device handed to every element whose own device is unset
         #: (tensor_filter); None leaves each filter on its default, cuda
         self.device = device
-        #: fuse filter→decoder tails into the filter's invoke at start
-        #: (ops.epilogue)
+        #: fuse transform→filter prologues (ops.fusion) and filter→decoder
+        #: tails (ops.epilogue) into the filter's invoke at start
         self.auto_fuse = True
+        self._fused_count = 0
         self._epilogue_count = 0
 
     # -- construction -------------------------------------------------------- #
@@ -324,6 +325,10 @@ class Pipeline:
         if self.device is not None:
             for el in self.elements.values():
                 el.set_default_device(self.device)
+        if self.auto_fuse:
+            from ..ops.fusion import fuse_chains
+
+            self._fused_count = fuse_chains(self)
         # start non-sources first so threads/queues are ready, then sources
         try:
             for el in self.elements.values():

@@ -144,11 +144,17 @@ def _promote(*ts: torch.Tensor) -> Tuple[torch.Tensor, ...]:
     return tuple(t.to(dt) for t in ts)
 
 
+def _sqrt_d(q: torch.Tensor) -> torch.Tensor:
+    """sqrt(head dim) as a float32 tensor on q's device: a divisor that is
+    a Python scalar becomes a multiply by its reciprocal on the card."""
+    return torch.full((), math.sqrt(q.shape[-1]), dtype=torch.float32, device=q.device)
+
+
 def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             mask: torch.Tensor) -> torch.Tensor:
     """Dense masked softmax attention over (..., Lq, hd) × (..., Lk, hd)."""
     q, k, v = _promote(q, k, v)
-    s = (q @ k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+    s = (q @ k.transpose(-1, -2)) / _sqrt_d(q)
     s = torch.where(mask, s, _MASK)
     return torch.softmax(s, dim=-1) @ v
 
@@ -161,7 +167,7 @@ def _attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     batched than alone; these reductions split each row alike at any slot
     count."""
     q, k, v = _promote(q, k, v)
-    s = (q.unsqueeze(-2) * k.unsqueeze(-3)).sum(-1) / math.sqrt(q.shape[-1])
+    s = (q.unsqueeze(-2) * k.unsqueeze(-3)).sum(-1) / _sqrt_d(q)
     s = torch.where(live, s, _MASK)
     p = torch.softmax(s, dim=-1)
     return (p.unsqueeze(-1) * v.unsqueeze(-3)).sum(-2)

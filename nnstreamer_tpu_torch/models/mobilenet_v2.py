@@ -132,8 +132,12 @@ class MobileNetV2(nn.Module):
 
 
 def preprocess_uint8(x: torch.Tensor) -> torch.Tensor:
-    """uint8 RGB [0,255] → float [-1,1] (tflite mobilenet convention)."""
-    return x.to(torch.float32) / 127.5 - 1.0
+    """uint8 RGB [0,255] → float [-1,1] (tflite mobilenet convention):
+    x / 127.5 - 1 in float32. The divisor is a tensor on x's device:
+    PyTorch's CUDA division by a Python scalar multiplies by its float32
+    reciprocal, which differs from the division on 126 of the 256 values."""
+    xf = x.to(torch.float32)
+    return xf / torch.full((), 127.5, device=x.device) - 1.0
 
 
 def build_seeded(model_cls: Any, device: torch.device, seed: int,

@@ -159,5 +159,6 @@ def _ensure_builtin_models() -> None:
     from . import deeplab  # noqa: F401
     from . import mobilenet_v2  # noqa: F401
     from . import posenet  # noqa: F401
+    from . import simple  # noqa: F401
     from . import ssd_mobilenet  # noqa: F401
     _builtins_loaded = True

@@ -1,21 +1,24 @@
 """Epilogue fusion: run post-filter chains INSIDE the filter's invoke.
 
-Rewrites linear ``tensor_filter(torch-cuda) → tensor_converter*/
-tensor_decoder`` tails so the decoder's device reduction runs as an
-epilogue stage of the filter's invoke — for SSD box decode + NMS the
-device→host readback shrinks from the full model output (anchors × (4 +
-classes) floats) to the reduced (K, 6) rows, and no host decode waits on
-the raw logits.
+The downstream mirror of ops.fusion: rewrites linear
+``tensor_filter(torch-cuda) → tensor_transform*/tensor_converter*/
+tensor_decoder`` tails so the composed post-processing runs as an epilogue
+stage of the filter's invoke — for SSD box decode + NMS the device→host
+readback shrinks from the full model output (anchors × (4 + classes)
+floats) to the reduced (K, 6) rows, and no host decode waits on the raw
+logits.
 
 Enrolled elements stay in the graph for caps negotiation but forward
-buffers untouched (converters) or consume the pre-reduced tensor
-(decoders). Applied automatically in ``Pipeline.start()`` after elements
-are started (disable with ``pipeline.auto_fuse = False``).
+buffers untouched (transforms, converters) or consume the pre-reduced
+tensor (decoders). Fused output is bit-identical to the unfused chain: the
+epilogue applies exactly the functions the elements would have applied.
+Applied automatically in ``Pipeline.start()`` after elements are started
+(disable with ``pipeline.auto_fuse = False``).
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Tuple
+from typing import Any, Callable, List
 
 from ..core.log import logger
 
@@ -30,6 +33,7 @@ def fuse_epilogues(pipeline: Any) -> int:
     from ..elements.converter import TensorConverter
     from ..elements.decoder import TensorDecoder
     from ..elements.filter import TensorFilter
+    from ..elements.transform import TensorTransform
     from ..filters.torch_cuda import TorchCudaFilter
 
     fused = 0
@@ -43,11 +47,20 @@ def fuse_epilogues(pipeline: Any) -> int:
         if el._out_spec is not None:
             continue  # output combination reorders memories downstream
 
-        n_conv = 0
-        decoder_stage: Optional[Tuple[Any, Any, Callable]] = None
+        fns: List[Callable] = []
+        sig_parts: List[str] = []
         pad = el.src_pads[0]
         while pad.peer is not None:
             down = pad.peer.element
+            if isinstance(down, TensorTransform) and len(down.sink_pads) == 1 \
+                    and len(down.src_pads) == 1 and not down._fused \
+                    and not down._fused_post:
+                f = down.as_torch_fn()
+                fns.append(lambda outs, _f=f: tuple(_f(y) for y in outs))
+                down._fused_post = True
+                sig_parts.append(f"transform[{down.name}]")
+                pad = down.src_pads[0]
+                continue
             if isinstance(down, TensorConverter) and len(down.sink_pads) == 1 \
                     and len(down.src_pads) == 1 \
                     and down.mode in (None, "auto") \
@@ -56,24 +69,26 @@ def fuse_epilogues(pipeline: Any) -> int:
                 # static tensors→tensors passthrough: identity math, but
                 # enrolling skips the per-frame host round trip
                 down._fused_passthrough = True
-                n_conv += 1
+                sig_parts.append("converter[passthrough]")
                 pad = down.src_pads[0]
                 continue
             if isinstance(down, TensorDecoder) and len(down.sink_pads) == 1:
                 dec = down._decoder
                 red = dec.epilogue_reduce() if dec is not None else None
                 if red is not None and not dec._fused_epilogue:
-                    decoder_stage = (down, dec, red)
+                    fns.append(lambda outs, _r=red: (_r(outs),))
+                    dec._fused_epilogue = True
+                    sig_parts.append(f"decode[{dec.fusion_signature()}]")
             break
-        sig_parts: List[str] = ["converter[passthrough]"] * n_conv
-        if decoder_stage is not None:
-            _, dec, red = decoder_stage
-            fw.set_fused_epilogue(lambda outs, _r=red: (_r(outs),))
-            dec._fused_epilogue = True
-            sig_parts.append(f"decode[{dec.fusion_signature()}]")
-        count = len(sig_parts)
-        if count:
-            log.info("fused %d epilogue stage(s) into %s (%s)", count,
+        if fns:
+            def post(outs, _fns=tuple(fns)):
+                for f in _fns:
+                    outs = f(outs)
+                return outs
+
+            fw.set_fused_epilogue(post)
+        if sig_parts:
+            log.info("fused %d epilogue stage(s) into %s (%s)", len(sig_parts),
                      el.name, "|".join(sig_parts))
-        fused += count
+        fused += len(sig_parts)
     return fused

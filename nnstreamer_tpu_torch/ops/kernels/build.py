@@ -25,16 +25,17 @@ CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__)))), "_build")
 
-#: one entry per kernel source; flags beyond the common ones. nms_sweep and
-#: dequant_gelu_requant must match their plain versions bit for bit, so
-#: nothing may contract a multiply into an add there (the sources also spell
-#: their arithmetic with _rn intrinsics).
+#: one entry per kernel source; flags beyond the common ones. nms_sweep,
+#: dequant_gelu_requant and preprocess must match their plain versions bit
+#: for bit, so nothing may contract a multiply into an add there (the sources
+#: also spell their arithmetic with _rn intrinsics).
 KERNEL_FLAGS: Dict[str, List[str]] = {
     "class_reduce": [],
     "nms_sweep": ["-fmad=false"],
     "segment_colorize": [],
     "dequant_gelu_requant": ["-fmad=false"],
     "flash_attention": [],
+    "preprocess": ["-fmad=false"],
 }
 
 COMMON_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a", "-O3", "-std=c++17",
