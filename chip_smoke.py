@@ -60,8 +60,9 @@ Phases (any failure exits non-zero before the result lines are printed):
      bits of the slot stepped alone);
  10. the flash prefill pipeline ``appsrc ! tensor_filter ! tensor_sink``
      over a bf16 prefill bundle of the same model, B 8 × T 1024, with
-     flash attention (one ``flash_attention`` launch per layer) and dense:
-     last-token logits of the two within the bf16 bound, tokens/s of both;
+     flash attention (one ``flash_attention`` launch per layer, every one on
+     its ``wgmma`` route) and dense: last-token logits of the two within the
+     bf16 bound, tokens/s of both;
  11. print the launches of each path (every count set to 0 just before the
      path and read just after), the ``kernels`` JSON line, then the device
      line last.
@@ -72,10 +73,14 @@ and float inputs, and ``quantize_affine`` on NaN, inf, 1e9, ties and zero
 points 0 and 128 (both timed at 224 and 1080p; ``quantize_affine`` beside
 ``torch.quantize_per_tensor``, whose differing codes are counted). It also
 holds ``flash_attention`` (causal and full, float32 and bf16,
-normalised and residual, ragged L, D 16 to 128, strided views) and
-``dequant_gelu_requant`` (R 8 and 512, F 4096, float32 and bf16, a zero
-row) against their plain versions, and one w8a8 MLP at the serving shape
-bit for bit against its composition with the plain epilogue.
+normalised and residual, ragged L, D 16 to 128, strided views; each case
+printed with its route: ``wgmma`` for bf16 at D 64 and 128 with L 70, 200
+and 1000, the LM's split-head views uncopied and a view off 16-byte
+alignment copied, ``simt`` for the rest) and ``dequant_gelu_requant`` (R 1,
+3, 8, 33, 132 and 512 by F 4096, 1000, 11 and 70000, float32 and bf16, a
+zero row each; timed at R 8 and 512) against their plain versions, and one w8a8 MLP
+at the serving shape bit for bit against its composition with the plain
+epilogue.
 
 Exits non-zero without a card or without the package beside it.
 """
@@ -375,13 +380,19 @@ def _within(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float) -> 
 def _flash_case(fa, q, k, v, causal: bool, name: str) -> float:
     """Kernel against plain, normalised and residual; returns the
     normalised output's max abs error. The residual accumulator is held
-    as acc / l (it scales with l); m and l within float32 summation order."""
+    as acc / l (it scales with l); m and l within float32 summation order.
+    Prints the route both launches took."""
     rtol, atol = FLASH_TOL[q.dtype]
+    before = dict(fa.flash_attention.launches_by_route)
     got = fa.flash_attention(q, k, v, causal)
     want = fa.flash_attention_plain(q, k, v, causal)
     acc, m, l_sum = fa.flash_attention(q, k, v, causal, return_residuals=True)
     racc, rm, rl = fa.flash_attention_plain(q, k, v, causal, return_residuals=True)
     torch.cuda.synchronize()
+    routes = {r: n - before[r] for r, n in fa.flash_attention.launches_by_route.items()}
+    want_route = fa._route(q, k, v)
+    if routes[want_route] != 2 or sum(routes.values()) != 2:
+        raise AssertionError(f"flash_attention {name}: routes {routes}, expected 2 {want_route}")
     if got.dtype != q.dtype or not _within(got, want, rtol, atol):
         raise AssertionError(f"flash_attention differs from plain: {name}, max abs err "
                              f"{_max_abs_err(got, want)}")
@@ -391,7 +402,7 @@ def _flash_case(fa, q, k, v, causal: bool, name: str) -> float:
                              f"max abs err acc {_max_abs_err(acc, racc)} m "
                              f"{_max_abs_err(m, rm)} l {_max_abs_err(l_sum, rl)}")
     err = _max_abs_err(got, want)
-    print(f"  flash_attention {name}: max abs err {err:.3e} (residual acc "
+    print(f"  flash_attention {name} [{want_route}]: max abs err {err:.3e} (residual acc "
           f"{_max_abs_err(acc, racc):.3e}, m {_max_abs_err(m, rm):.3e}, l "
           f"{_max_abs_err(l_sum, rl):.3e})", flush=True)
     return err
@@ -407,18 +418,40 @@ def check_flash_attention(fa, dev, rng) -> dict:
              ((FLASH_B, 16, 1000, 64), torch.float32, False),
              ((2, 3, 200, 16), torch.float32, True),
              ((2, 3, 200, 128), torch.bfloat16, False),
-             ((1, 2, 70, 40), torch.float32, True)]
+             ((1, 2, 70, 40), torch.float32, True),
+             ((2, 3, 200, 96), torch.bfloat16, True)]
+    # the wgmma route: bf16 at D 64 and 128, ragged L, causal and full
+    cases += [((2, 3, length, d), torch.bfloat16, causal)
+              for d in (64, 128) for length in (70, 200, 1000) for causal in (True, False)]
     errs, inputs = {}, {}
     for shape, dt, causal in cases:
         name = f"{shape} {str(dt)[6:]} {'causal' if causal else 'full'}"
         inputs[(shape, dt)] = t = qkv(shape, dt)
         errs[name] = _flash_case(fa, *t, causal, name)
-    # the causal LM's split-head views of its (B, T, 3D) projection
+    # the causal LM's split-head views of its (B, T, 3D) projection: float32
+    # (simt) and bf16 at d_model 1024 (wgmma, which must take them uncopied)
     proj = torch.from_numpy(rng.standard_normal((2, 300, 3 * 256), dtype=np.float32)).to(dev)
     views = [z.reshape(2, 300, 4, 64).transpose(1, 2) for z in proj.split(256, -1)]
     got = fa.flash_attention(*views, causal=True)
     if not torch.equal(got, fa.flash_attention(*(z.contiguous() for z in views))):
         raise AssertionError("flash_attention on strided views != on contiguous copies")
+    proj = torch.from_numpy(rng.standard_normal((2, 300, 3 * 1024), dtype=np.float32)) \
+        .to(dev, torch.bfloat16)
+    copies = fa.flash_attention.tma_copies
+    views = [z.reshape(2, 300, 16, 64).transpose(1, 2) for z in proj.split(1024, -1)]
+    got = fa.flash_attention(*views, causal=True)
+    if fa.flash_attention.tma_copies != copies or not torch.equal(
+            got, fa.flash_attention(*(z.contiguous() for z in views))):
+        raise AssertionError("wgmma flash_attention copied the LM's split-head views or "
+                             "differs on contiguous copies")
+    # a view 2 bytes off 16-byte alignment takes the wrapper's contiguous copy
+    flat = torch.from_numpy(rng.standard_normal(2 * 3 * 200 * 64 + 1, dtype=np.float32)) \
+        .to(dev, torch.bfloat16)
+    odd = flat[1:].view(2, 3, 200, 64)
+    k, v = qkv((2, 3, 200, 64), torch.bfloat16)[:2]
+    errs["unaligned q"] = _flash_case(fa, odd, k, v, True, "unaligned q (2, 3, 200, 64) bf16")
+    if fa.flash_attention.tma_copies != copies + 2:
+        raise AssertionError(f"unaligned q: {fa.flash_attention.tma_copies - copies} copies")
 
     lines, main = {}, None
     for dt in (torch.bfloat16, torch.float32):
@@ -432,8 +465,8 @@ def check_flash_attention(fa, dev, rng) -> dict:
         b, h, length, d = main_shape
         pairs = b * h * length * (length + 1) // 2  # causal (query, key) pairs
         bound, by = _bound_ms(4 * q.numel() * q.element_size(), 4 * d * pairs, dt)
-        print(f"flash_attention {main_shape} {str(dt)[6:]} causal device ms/call (CUDA "
-              f"graph): kernel={ms['kernel']:.6f} plain={ms['plain']:.6f} "
+        print(f"flash_attention {main_shape} {str(dt)[6:]} causal [{fa._route(q, k, v)}] "
+              f"device ms/call (CUDA graph): kernel={ms['kernel']:.6f} plain={ms['plain']:.6f} "
               f"library(scaled_dot_product_attention)={ms['library']:.6f}; "
               f"bound_ms={bound:.8f} ({by})", flush=True)
         lines[dt] = (ms, bound, by)
@@ -448,31 +481,40 @@ def check_flash_attention(fa, dev, rng) -> dict:
 
 def _dgr_inputs(rng, rows: int, f: int, dev) -> tuple:
     y = rng.integers(-40000, 40000, (rows, f)).astype(np.int32)
-    y[1] = 0  # an all-zero row: scale 1
+    y[min(1, rows - 1)] = 0  # an all-zero row: scale 1
     xs = rng.uniform(1e-4, 1e-3, (rows, 1)).astype(np.float32)
     ws = rng.uniform(1e-4, 1e-3, (f,)).astype(np.float32)
     return tuple(torch.from_numpy(a).to(dev) for a in (y, xs, ws))
 
 
 def check_dequant_gelu_requant(ep, dev, rng) -> dict:
-    f = 4 * LM_DIMS[1]
+    f_serve = 4 * LM_DIMS[1]
+    for rows in (1, 3, 8, 33, 132, 512):
+        # F 70000 overflows a block's registers: its columns are recomputed
+        for f in (f_serve, 1000, 11, 70000):
+            for dt in (torch.float32, torch.bfloat16):
+                y, xs, ws = _dgr_inputs(rng, rows, f, dev)
+                q, s = ep.dequant_gelu_requant(y, xs, ws, dt)
+                pq, ps = ep.dequant_gelu_requant_plain(y, xs, ws, dt)
+                torch.cuda.synchronize()
+                if not (torch.equal(q, pq) and torch.equal(s, ps)) \
+                        or float(s[min(1, rows - 1)]) != 1.0:
+                    raise AssertionError(
+                        f"dequant_gelu_requant differs from plain: R={rows} F={f} {dt}, "
+                        f"{int((q != pq).sum())} codes, {int((s != ps).sum())} scales")
+        print(f"dequant_gelu_requant R={rows}: bit-exact at F {f_serve}, 1000, 11, 70000, "
+              f"float32 and bf16 (cluster {ep.dgr_cluster_size(rows, f_serve)} blocks a row "
+              f"at F {f_serve})", flush=True)
     timed = {}
     for rows in (8, 512):
         for dt in (torch.float32, torch.bfloat16):
-            y, xs, ws = _dgr_inputs(rng, rows, f, dev)
-            q, s = ep.dequant_gelu_requant(y, xs, ws, dt)
-            pq, ps = ep.dequant_gelu_requant_plain(y, xs, ws, dt)
-            torch.cuda.synchronize()
-            if not (torch.equal(q, pq) and torch.equal(s, ps)) or float(s[1]) != 1.0:
-                raise AssertionError(f"dequant_gelu_requant differs from plain: R={rows} "
-                                     f"{dt}, {int((q != pq).sum())} codes, "
-                                     f"{int((s != ps).sum())} scales")
+            y, xs, ws = _dgr_inputs(rng, rows, f_serve, dev)
             calls = {"kernel": lambda: ep.dequant_gelu_requant(y, xs, ws, dt),
                      "plain": lambda: ep.dequant_gelu_requant_plain(y, xs, ws, dt)}
             ms = {n: _device_ms(fn) for n, fn in calls.items()}
-            bound, by = _bound_ms(rows * f * 5 + rows * 8 + f * 4,
-                                  DGR_OPS_PER_ELEMENT * rows * f)
-            print(f"dequant_gelu_requant R={rows} F={f} {str(dt)[6:]}: bit-exact; device "
+            bound, by = _bound_ms(rows * f_serve * 5 + rows * 8 + f_serve * 4,
+                                  DGR_OPS_PER_ELEMENT * rows * f_serve)
+            print(f"dequant_gelu_requant R={rows} F={f_serve} {str(dt)[6:]}: device "
                   f"ms/call (CUDA graph): kernel={ms['kernel']:.6f} plain={ms['plain']:.6f} "
                   f"library=none; bound_ms={bound:.8f} ({by})", flush=True)
             timed[(rows, dt)] = (ms, bound, by)
@@ -1298,8 +1340,10 @@ def run_lm_serving(params, quant: str, counters) -> dict:
 
 def run_flash_prefill(counters) -> dict:
     """appsrc ! tensor_filter (prefill bundle, bf16) ! tensor_sink with
-    flash and dense attention; returns the flash run's launches."""
+    flash and dense attention; returns the flash run's launches, every one
+    of which must take flash_attention's wgmma route."""
     from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
     from nnstreamer_tpu_torch.graph import Pipeline
     from nnstreamer_tpu_torch.models.causal_lm import prefill_bundle, prefill_flops
 
@@ -1326,18 +1370,24 @@ def run_flash_prefill(counters) -> dict:
         return [b.memories[0].device() for b in sink.buffers], \
             time.perf_counter() - t0, arrivals
 
-    results = {}
+    results, routes = {}, {}
     for flash in (True, False):
         run(flash, frames[:2])  # warm-up
         counters.reset()
+        before = dict(fa.flash_attention.launches_by_route)
         logits, wall, arrivals = run(flash, frames)
         results[flash] = (logits, wall, counters.read(), arrivals)
+        routes[flash] = {r: n - before[r] for r, n in fa.flash_attention.launches_by_route.items()}
     launches = results[True][2]
     if launches["flash_attention"] != n_layers * FLASH_FRAMES \
             or results[False][2]["flash_attention"] != 0:
         raise AssertionError(f"flash_attention launches {launches['flash_attention']} "
                              f"(flash) and {results[False][2]['flash_attention']} (dense) "
                              f"for {FLASH_FRAMES} batches of {n_layers} layers")
+    if routes[True] != {"wgmma": n_layers * FLASH_FRAMES, "simt": 0}:
+        raise AssertionError(f"flash prefill launches by route {routes[True]}: all "
+                             f"{n_layers * FLASH_FRAMES} must take the wgmma route")
+    print(f"flash prefill flash_attention launches by route: {routes[True]}", flush=True)
     rtol, atol = FLASH_TOL[torch.bfloat16]
     worst, agree = 0.0, 0
     for fl, dn in zip(results[True][0], results[False][0]):

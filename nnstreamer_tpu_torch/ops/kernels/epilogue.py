@@ -331,6 +331,24 @@ def dequant_gelu_requant_plain(y: torch.Tensor, xs: torch.Tensor,
     return q, s
 
 
+#: the card's SMs (H100 SXM): the blocks a launch aims to fill
+_SMS = 132
+#: the widest cluster the kernel takes: the portable maximum (16 blocks,
+#: the non-portable one, ran R 1 and R 8 slower on the H100)
+MAX_CLUSTER = 8
+#: fewest columns worth a block of their own
+_MIN_CLUSTER_COLS = 256
+
+
+def dgr_cluster_size(rows: int, f: int) -> int:
+    """Blocks that share one row of ``dequant_gelu_requant``: at most
+    ``_SMS`` blocks in all (8 at a decode step's R = 8, 4 at R = 33, 1
+    from R = 132), at most ``MAX_CLUSTER``, and no more than F / 256 (a
+    row of up to 256 columns stays in one block)."""
+    return max(1, min(MAX_CLUSTER, _SMS // max(rows, 1),
+                      -(-f // _MIN_CLUSTER_COLS)))
+
+
 def dequant_gelu_requant(y: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
                          out_dtype: torch.dtype = torch.bfloat16
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -338,7 +356,8 @@ def dequant_gelu_requant(y: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
     accumulator, ``xs`` the (..., 1) float32 activation scales, ``ws`` the
     (F,) float32 weight scales, all contiguous on one device; out_dtype
     float32 or bfloat16. Returns the (..., F) int8 codes and their (..., 1)
-    float32 scales for the second GEMM."""
+    float32 scales for the second GEMM. The kernel runs each row on a
+    thread-block cluster of ``dgr_cluster_size(R, F)`` blocks."""
     if y.device.type == "cpu":
         return dequant_gelu_requant_plain(y, xs, ws, out_dtype)
     _require(y.device.type == "cuda",
@@ -369,11 +388,11 @@ def dequant_gelu_requant(y: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
     c0, c1 = gelu_constants(out_dtype)
     fn = _entry("dequant_gelu_requant", "nns_dequant_gelu_requant",
                 (_P,) * 5 + (ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
-                             ctypes.c_float, ctypes.c_float, _P))
+                             ctypes.c_int, ctypes.c_float, ctypes.c_float, _P))
     with _on(y.device):
         rc = fn(y.data_ptr(), xs.data_ptr(), ws.data_ptr(), q.data_ptr(),
-                s.data_ptr(), rows, f, int(out_dtype == torch.bfloat16),
-                c0, c1, _stream_ptr(y))
+                s.data_ptr(), rows, f, dgr_cluster_size(rows, f),
+                int(out_dtype == torch.bfloat16), c0, c1, _stream_ptr(y))
     _check_launch("dequant_gelu_requant", rc)
     dequant_gelu_requant.launches += 1
     return q, s

@@ -4,15 +4,29 @@ version.
 Counterpart of the Pallas kernel in
 ``nnstreamer_tpu/ops/pallas/flash_attention.py`` (``flash_attention``:
 ``_flash_kernel`` and ``_flash_kernel_residual``), which the causal LM's
-flash prefill runs once per layer (models/causal_lm.py). The kernel is
-``csrc/flash_attention.cu``; its block sizes are fixed constants there (64
-query rows, 64-key tiles): the JAX package's autotuner hook is not ported.
+flash prefill runs once per layer (models/causal_lm.py). The kernels are
+in ``csrc/flash_attention.cu``, with two routes that ``_route`` picks from
+the dtype and the head width alone:
 
-The wrapper launches the kernel for CUDA tensors, raising on a device,
-dtype, shape or layout it does not take, and adds one to ``launches`` for
-every launch. For CPU tensors it runs ``flash_attention_plain``, the same
-online-softmax recurrence over 64-key blocks in torch ops, which is what
-the kernel is held against on the card.
+  * ``wgmma``: bfloat16 at D 64 or 128 (the zoo's head width and the wide
+    one) — tensor-core products (wgmma) on tiles that TMA loads, 128 query
+    rows a block;
+  * ``simt``: every other case (float32, bf16 at other D) — float32 FMAs on
+    the CUDA cores, 64 query rows a block.
+
+Block sizes are fixed constants in the source: the JAX package's autotuner
+hook is not ported. TMA needs a 16-byte aligned base and B, H and L strides
+that are multiples of 16 bytes; the wrapper copies a tensor that breaks
+them contiguous before a wgmma launch (``_tma_ready``; the causal LM's
+split-head views meet them and take no copy) and counts the copies in
+``flash_attention.tma_copies``.
+
+The wrapper launches a kernel for CUDA tensors, raising on a device, dtype,
+shape or layout it does not take, and adds one to ``launches`` and to
+``launches_by_route[route]`` for every launch. For CPU tensors it runs
+``flash_attention_plain``, the same online-softmax recurrence over 64-key
+blocks in torch ops, which is what both kernels are held against on the
+card.
 """
 
 from __future__ import annotations
@@ -29,6 +43,8 @@ from .epilogue import _P, _check_launch, _entry, _on, _require, _stream_ptr
 BLOCK_K = 64
 #: widest head the kernel takes
 MAX_HEAD_DIM = 128
+#: head widths of the wgmma route (bfloat16 only)
+WGMMA_HEAD_DIMS = (64, 128)
 #: the mask value: finite, so m - m never makes a NaN
 _NEG_INF = -1e30
 
@@ -96,6 +112,31 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
                  f"strides {t.stride()}")
 
 
+def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a launch takes (q, k and v share dtype and shape, as
+    ``_check`` holds): "wgmma" for bfloat16 at D 64 or 128, else "simt". The layout never changes the route: a tensor that
+    TMA cannot read is copied first (``_tma_ready``)."""
+    return "wgmma" if (q.dtype == torch.bfloat16
+                       and q.shape[-1] in WGMMA_HEAD_DIMS) else "simt"
+
+
+def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
+    """The (B, H, L) element strides a tensor map gets: torch leaves the
+    stride of a size-1 axis free, TMA checks every stride, so such an axis
+    takes the stride a contiguous tensor would have."""
+    shape = t.shape
+    return tuple(t.stride(i) if shape[i] > 1 else math.prod(shape[i + 1:])
+                 for i in range(3))
+
+
+def _tma_ready(t: torch.Tensor) -> bool:
+    """TMA's rules for a bf16 (B, H, L, D) tensor: a 16-byte aligned base,
+    a contiguous head axis, and B, H and L strides multiples of 16 bytes
+    (8 elements)."""
+    return t.data_ptr() % 16 == 0 and t.stride(3) == 1 \
+        and all(s % 8 == 0 for s in _tma_strides(t))
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     return_residuals: bool = False) -> Result:
@@ -108,35 +149,50 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal, return_residuals)
     _check(q, k, v)
     b, h, length, d = q.shape
-    strides = (ctypes.c_longlong * 9)(*(s for t in (q, k, v)
-                                        for s in t.stride()[:3]))
+    route = _route(q, k, v)
+    if route == "wgmma" and not all(_tma_ready(t) for t in (q, k, v)):
+        q, k, v = (t if _tma_ready(t) else t.clone(
+            memory_format=torch.contiguous_format) for t in (q, k, v))
+        flash_attention.tma_copies += 1
+    strides = (ctypes.c_longlong * 9)(*(
+        s for t in (q, k, v)
+        for s in (_tma_strides(t) if route == "wgmma" else t.stride()[:3])))
     is_bf16 = int(q.dtype == torch.bfloat16)
     if return_residuals:
         acc = torch.empty((b, h, length, d), device=q.device,
                           dtype=torch.float32)
         m = torch.empty((b, h, length), device=q.device, dtype=torch.float32)
         l_sum = torch.empty_like(m)
-        fn = _entry("flash_attention", "nns_flash_attention_residual",
-                    (_P,) * 6 + (ctypes.c_int,) * 4
-                    + (_P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P))
-        with _on(q.device):
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), acc.data_ptr(),
-                    m.data_ptr(), l_sum.data_ptr(), b, h, length, d, strides,
-                    int(causal), _scale(d), is_bf16, _stream_ptr(q))
         out: Result = (acc, m, l_sum)
+        ptrs = (acc.data_ptr(), m.data_ptr(), l_sum.data_ptr())
     else:
         o = torch.empty((b, h, length, d), device=q.device, dtype=q.dtype)
-        fn = _entry("flash_attention", "nns_flash_attention",
-                    (_P,) * 4 + (ctypes.c_int,) * 4
-                    + (_P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P))
-        with _on(q.device):
-            rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                    b, h, length, d, strides, int(causal), _scale(d), is_bf16,
-                    _stream_ptr(q))
         out = o
+        ptrs = (o.data_ptr(), None, None)
+    qkv = (q.data_ptr(), k.data_ptr(), v.data_ptr())
+    tail = (b, h, length, d, strides, int(causal), _scale(d))
+    with _on(q.device):
+        if route == "wgmma":
+            fn = _entry("flash_attention", "nns_flash_attention_wgmma",
+                        (_P,) * 6 + (ctypes.c_int,) * 4
+                        + (_P, ctypes.c_int, ctypes.c_float, _P))
+            rc = fn(*qkv, *ptrs, *tail, _stream_ptr(q))
+        elif return_residuals:
+            fn = _entry("flash_attention", "nns_flash_attention_residual",
+                        (_P,) * 6 + (ctypes.c_int,) * 4
+                        + (_P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P))
+            rc = fn(*qkv, *ptrs, *tail, is_bf16, _stream_ptr(q))
+        else:
+            fn = _entry("flash_attention", "nns_flash_attention",
+                        (_P,) * 4 + (ctypes.c_int,) * 4
+                        + (_P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P))
+            rc = fn(*qkv, ptrs[0], *tail, is_bf16, _stream_ptr(q))
     _check_launch("flash_attention", rc)
     flash_attention.launches += 1
+    flash_attention.launches_by_route[route] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+flash_attention.tma_copies = 0

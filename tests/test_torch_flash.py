@@ -143,3 +143,136 @@ def test_kernel_matches_plain(cuda_device, shape, dtype, causal, residual):
     torch.testing.assert_close(acc / l_sum[..., None], racc / rl[..., None], **tol)
     torch.testing.assert_close(m, rm, **F32)
     torch.testing.assert_close(l_sum, rl, **F32)
+
+
+# --------------------------------------------------------------------------- #
+# the two routes: which kernel a launch takes, and when TMA needs a copy
+# --------------------------------------------------------------------------- #
+
+@pytest.mark.parametrize("d", [16, 32, 40, 63, 64, 96, 100, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+def test_route_is_wgmma_only_for_bf16_at_d64_and_d128(dtype, d):
+    q = torch.zeros((1, 2, 10, d), dtype=dtype)
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    assert tfa._route(q, q, q) == want
+    # the layout never changes the route
+    wide = torch.zeros((1, 10, 2, d + 8), dtype=dtype)[..., 1:d + 1]
+    assert tfa._route(*(wide.transpose(1, 2),) * 3) == want
+
+
+def _split_heads(b, t, h, d, extra=0, dtype=torch.bfloat16):
+    proj = torch.zeros((b, t, 3 * h * d + extra), dtype=dtype)
+    return [z.reshape(b, t, h, d).transpose(1, 2)
+            for z in proj[..., :3 * h * d].split(h * d, -1)]
+
+
+@pytest.mark.parametrize("d", [64, 128])
+def test_tma_ready_takes_the_lm_split_head_views(d):
+    # d_model 1024: an L stride of 3 * 1024 elements (6144 bytes at D 64),
+    # view offsets of 1024 elements (2048 bytes): no copy
+    views = _split_heads(2, 50, 1024 // d, d)
+    assert all(not t.is_contiguous() and tfa._tma_ready(t) for t in views)
+    assert tfa._tma_strides(views[1]) == (50 * 3 * 1024, d, 3 * 1024)
+
+
+@pytest.mark.parametrize("case", ["offset_one_element", "l_stride_odd",
+                                  "h_stride_odd", "head_axis_strided"])
+def test_tma_ready_refuses_what_tma_cannot_read(case):
+    base = torch.zeros((2, 4, 30, 64 + 8), dtype=torch.bfloat16)
+    if case == "offset_one_element":
+        t = base.flatten()[1:1 + 2 * 4 * 30 * 64].view(2, 4, 30, 64)
+    elif case == "l_stride_odd":
+        t = _split_heads(2, 30, 4, 64, extra=3)[0]
+        assert t.stride(2) % 8 != 0
+    elif case == "h_stride_odd":
+        t = torch.zeros((2, 30, 4 * 65), dtype=torch.bfloat16).reshape(
+            2, 30, 4, 65)[..., :64].transpose(1, 2)
+    else:
+        t = torch.zeros((2, 4, 30, 128), dtype=torch.bfloat16)[..., ::2]
+    assert not tfa._tma_ready(t)
+    # the copy the wrapper makes is always ready
+    assert tfa._tma_ready(t.clone(memory_format=torch.contiguous_format))
+
+
+def test_tma_strides_fill_in_size_one_axes():
+    t = torch.zeros((1, 1, 30, 64), dtype=torch.bfloat16)
+    odd = t.as_strided(t.shape, (7, 3, 64, 1))
+    assert tfa._tma_strides(odd) == (30 * 64, 30 * 64, 64)
+    assert tfa._tma_ready(odd)
+
+
+def _route_delta(before):
+    return {r: tfa.flash_attention.launches_by_route[r] - before[r]
+            for r in before}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("length", [70, 200, 1000])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("residual", [False, True], ids=["normalised", "residual"])
+def test_wgmma_route_matches_plain(cuda_device, length, causal, d, residual):
+    q, k, v = (torch.from_numpy(x).to(torch.bfloat16).to(cuda_device)
+               for x in _qkv((2, 3, length, d), seed=length + d))
+    before = dict(tfa.flash_attention.launches_by_route)
+    got = tfa.flash_attention(q, k, v, causal, return_residuals=residual)
+    want = tfa.flash_attention_plain(q, k, v, causal, return_residuals=residual)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"wgmma": 1, "simt": 0}
+    if not residual:
+        torch.testing.assert_close(got.float(), want.float(), **BF16)
+        return
+    (acc, m, l_sum), (racc, rm, rl) = got, want
+    torch.testing.assert_close(acc / l_sum[..., None], racc / rl[..., None], **BF16)
+    torch.testing.assert_close(m, rm, **F32)
+    torch.testing.assert_close(l_sum, rl, **F32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+def test_wgmma_route_takes_lm_split_head_views_without_copy(cuda_device, d):
+    proj = torch.from_numpy(np.random.default_rng(11).standard_normal(
+        (2, 300, 3 * 1024)).astype(np.float32)).to(torch.bfloat16).to(cuda_device)
+    views = [z.reshape(2, 300, 1024 // d, d).transpose(1, 2)
+             for z in proj.split(1024, -1)]
+    before, copies = dict(tfa.flash_attention.launches_by_route), tfa.flash_attention.tma_copies
+    got = tfa.flash_attention(*views, causal=True)
+    want = tfa.flash_attention_plain(*views, causal=True)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"wgmma": 1, "simt": 0}
+    assert tfa.flash_attention.tma_copies == copies
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+def test_wgmma_route_copies_an_unaligned_view(cuda_device):
+    flat = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        2 * 3 * 200 * 64 + 1).astype(np.float32)).to(torch.bfloat16).to(cuda_device)
+    q = flat[1:].view(2, 3, 200, 64)  # 2 bytes off 16-byte alignment
+    k, v = (torch.from_numpy(x).to(torch.bfloat16).to(cuda_device)
+            for x in _qkv((2, 3, 200, 64), seed=13)[:2])
+    assert q.data_ptr() % 16 != 0
+    before, copies = dict(tfa.flash_attention.launches_by_route), tfa.flash_attention.tma_copies
+    got = tfa.flash_attention(q, k, v, causal=True)
+    want = tfa.flash_attention_plain(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"wgmma": 1, "simt": 0}
+    assert tfa.flash_attention.tma_copies == copies + 1
+    torch.testing.assert_close(got.float(), want.float(), **BF16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,dtype", [
+    ((2, 3, 200, 64), torch.float32), ((2, 3, 200, 32), torch.bfloat16),
+    ((1, 2, 130, 96), torch.bfloat16)], ids=["f32_D64", "bf16_D32", "bf16_D96"])
+def test_simt_route_takes_the_rest(cuda_device, shape, dtype):
+    q, k, v = (torch.from_numpy(x).to(dtype).to(cuda_device)
+               for x in _qkv(shape, seed=14))
+    before = dict(tfa.flash_attention.launches_by_route)
+    got = tfa.flash_attention(q, k, v, True)
+    want = tfa.flash_attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"wgmma": 0, "simt": 1}
+    torch.testing.assert_close(got.float(), want.float(),
+                               **(F32 if dtype == torch.float32 else BF16))

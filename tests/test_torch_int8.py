@@ -217,3 +217,32 @@ def test_mlp_matmul_on_card_is_the_composition(cuda_device):
     fused = ti8.mlp_matmul(x, w1, w2)
     unfused = ti8.matmul_any(tep.gelu_tanh(ti8.matmul_any(x, w1)), w2)
     assert torch.equal(fused, unfused)
+
+
+@pytest.mark.parametrize("rows,f,want", [
+    (1, 4096, 8), (3, 4096, 8), (8, 4096, 8), (17, 4096, 7), (33, 4096, 4),
+    (66, 4096, 2), (131, 4096, 1), (132, 4096, 1), (512, 4096, 1),
+    (8, 1000, 4), (8, 256, 1), (8, 257, 2), (1, 11, 1), (1, 1 << 20, 8)])
+def test_dgr_cluster_size(rows, f, want):
+    # at most 132 blocks in all, at most 8 a row, one per 256 columns
+    assert tep.dgr_cluster_size(rows, f) == want
+    assert 1 <= want <= tep.MAX_CLUSTER
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 3, 8, 33, 132, 512])
+@pytest.mark.parametrize("f", [4096, 1000, 11, 70000])  # 70000: recomputed columns
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_dgr_cluster_kernel_bit_exact_with_plain(cuda_device, rows, f, dtype):
+    tdt = DTYPES[dtype][0]
+    y, xs, ws = _dgr_inputs(max(rows, 2), f, seed=rows * f)
+    y, xs = y[:rows].copy(), xs[:rows].copy()
+    y[0] = 0  # an all-zero row at every R: scale 1
+    y, xs, ws = (torch.from_numpy(a).to(cuda_device) for a in (y, xs, ws))
+    before = tep.dequant_gelu_requant.launches
+    q, s = tep.dequant_gelu_requant(y, xs, ws, tdt)
+    pq, ps = tep.dequant_gelu_requant_plain(y, xs, ws, tdt)
+    torch.cuda.synchronize()
+    assert tep.dequant_gelu_requant.launches == before + 1
+    assert float(s[0, 0]) == 1.0
+    assert torch.equal(q, pq) and torch.equal(s, ps)
