@@ -59,11 +59,16 @@ Phases (any failure exits non-zero before the result lines are printed):
      decode step over 8 slots must give each slot's K/V and logits the
      bits of the slot stepped alone);
  10. the flash prefill pipeline ``appsrc ! tensor_filter ! tensor_sink``
-     over a bf16 prefill bundle of the same model, B 8 × T 1024, with
-     flash attention (one ``flash_attention`` launch per layer, every one on
-     its ``wgmma`` route) and dense: last-token logits of the two within the
-     bf16 bound, tokens/s of both;
- 11. print the launches of each path (every count set to 0 just before the
+     over a prefill bundle of the same model, B 8 × T 1024, with flash
+     attention (one ``flash_attention`` launch per layer) and dense, in two
+     lanes: bf16 params (every launch on the ``wgmma`` route; last-token
+     logits of flash and dense within the bf16 bound) and float32 params
+     (every launch on the ``tf32x3`` route; within PREFILL_F32_TOL); the
+     tokens/s of all four runs;
+ 11. the filter's own options on the card: a ``bucket=4`` pipeline of
+     flexible frames and a ``bucket=4,resize=12:9`` one, each bit-equal to
+     the same pipeline on CPU tensors;
+ 12. print the launches of each path (every count set to 0 just before the
      path and read just after), the ``kernels`` JSON line, then the device
      line last.
 
@@ -73,10 +78,15 @@ and float inputs, and ``quantize_affine`` on NaN, inf, 1e9, ties and zero
 points 0 and 128 (both timed at 224 and 1080p; ``quantize_affine`` beside
 ``torch.quantize_per_tensor``, whose differing codes are counted). It also
 holds ``flash_attention`` (causal and full, float32 and bf16,
-normalised and residual, ragged L, D 16 to 128, strided views; each case
+normalised and residual, ragged L, D 1 to 512, strided views; each case
 printed with its route: ``wgmma`` for bf16 at D 64 and 128 with L 70, 200
 and 1000, the LM's split-head views uncopied and a view off 16-byte
-alignment copied, ``simt`` for the rest) and ``dequant_gelu_requant`` (R 1,
+alignment copied, ``tf32x3`` for the rest, float32 always, D 136 to 512 in
+128-column chunks), ``nms_sweep`` bit for bit at K 1 to 2048 (past the
+shared-memory relation at K 1025 and 2048) and on IoUs that sit exactly on
+or one float above the threshold, with the launch floor (a one-element
+fill replayed as the kernel is) beside its bound and the phase split of
+``scripts/nms_phase_split.py``, and ``dequant_gelu_requant`` (R 1,
 3, 8, 33, 132 and 512 by F 4096, 1000, 11 and 70000, float32 and bf16, a
 zero row each; timed at R 8 and 512) against their plain versions, and one w8a8 MLP
 at the serving shape bit for bit against its composition with the plain
@@ -99,6 +109,7 @@ from fractions import Fraction
 import numpy as np
 import torch
 
+ROOT = os.path.dirname(os.path.abspath(__file__))
 SSD_SPEC = "zoo://ssd_mobilenet_v2?size=300&num_classes=91"
 CLS_SPEC = "zoo://mobilenet_v2"
 SEG_SPEC = "zoo://deeplab_v3?size=257&num_classes=21"
@@ -133,13 +144,20 @@ DGR_OPS_PER_ELEMENT = 17
 #: JAX package's bf16 bound (tests/test_pallas.py); the float32 one from
 #: summation order (both accumulate in float32 over the same 64-key tiles)
 FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (5e-2, 3e-2)}
+#: the float32 prefill's last-token logits, flash (tf32x3) against dense
+#: (cuBLAS float32): each layer's attention agrees to about 1e-6, and 8
+#: layers with their LayerNorms and MLPs may carry that to the logits
+#: amplified; stated before the first run on the card
+PREFILL_F32_TOL = (1e-4, 1e-4)
+#: the route every flash launch of a prefill lane must take, by dtype
+PREFILL_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
 
 
-def _bound_ms(nbytes: float, ops: float, dtype: torch.dtype = torch.float32) -> tuple:
+def _bound_ms(nbytes: float, ops: float, dtype=torch.float32) -> tuple:
     """The least time for the work on this card: bytes over its memory
     rate, operations over its peak for ``dtype`` (float32 on the CUDA
-    cores, bf16 on the tensor cores), the data sheet's numbers that
-    ``utils/probes.py`` holds."""
+    cores, bf16 and "tf32" on the tensor cores), the data sheet's numbers
+    that ``utils/probes.py`` holds."""
     from nnstreamer_tpu_torch.utils import probes
 
     t_bytes = nbytes / probes.chip_peak_hbm_bw() * 1e3
@@ -260,6 +278,16 @@ def check_class_reduce(ep, dev, rng) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": library_ms}
 
 
+def _nms_edge_boxes(dev) -> list:
+    """Five boxes whose IoUs are exactly 1/3 (boxes 0 and 1, 2 and 3) and
+    1/2 (0 and 2's neighbours), so a threshold at or one float below them
+    puts inter / union where only its rounding decides the test."""
+    cols = ([0.0, 0.5, 0.0, 1.0, 0.0], [0.0, 0.0, 0.0, 0.0, 0.0],
+            [1.0, 1.5, 2.0, 2.0, 1.0], [1.0, 1.0, 1.0, 1.0, 1.0],
+            [0.9, 0.8, 0.7, 0.6, 0.5])
+    return [torch.tensor(c, dtype=torch.float32, device=dev) for c in cols]
+
+
 def check_nms_sweep(ep, dev, rng) -> dict:
     def run_both(cols, iou, thr, name):
         got = ep.nms_sweep(*cols, iou_threshold=iou, threshold=thr)
@@ -268,8 +296,11 @@ def check_nms_sweep(ep, dev, rng) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"nms_sweep differs from plain: {name}")
 
-    for k in (1, 7, 64, 256, 300, 512):
+    # K 1000 and 2048: past the earlier one-block kernel's limit (512) and
+    # past the shared-memory relation (1024)
+    for k in (1, 7, 33, 64, 256, 300, 512, 1000, 1024, 1025, 2048):
         run_both(_random_boxes(rng, k, dev), 0.5, 0.5, f"K={k}")
+        run_both(_random_boxes(rng, k, dev), 0.1, 0.2, f"K={k} IoU 0.1")
     cols = _random_boxes(rng, 256, dev)
     run_both(cols, 0.5, 2.0, "all below threshold")
     zero = _random_boxes(rng, 64, dev)
@@ -280,6 +311,10 @@ def check_nms_sweep(ep, dev, rng) -> dict:
         c[10:20] = c[10]  # identical boxes: IoU exactly 1
     run_both(same, 0.5, 0.0, "duplicate boxes")
     run_both(cols, 0.3, 0.2, "thresholds 0.3/0.2")
+    third = float(np.float32(1 / 3))
+    for thr in (third, float(np.nextafter(np.float32(third), np.float32(0))), 0.5,
+                float(np.nextafter(np.float32(0.5), np.float32(0))), 0.0, -0.5):
+        run_both(_nms_edge_boxes(dev), thr, 0.0, f"IoU on the rounding edge, threshold {thr!r}")
 
     k = 256
     main = _random_boxes(rng, k, dev)
@@ -292,11 +327,21 @@ def check_nms_sweep(ep, dev, rng) -> dict:
     plain_ms = _device_ms(plain, per_graph=2, replays=5)
     eager_ms = _eager_ms(call)
     eager_plain_ms = _eager_ms(plain, iters=10, warmup=2)
+    one = torch.zeros(1, device=dev)
+    floor_ms = _device_ms(one.zero_)
     bound, by = _bound_ms(6 * k * 4, NMS_OPS_PER_PAIR * k * (k - 1) / 2)
+    big = _random_boxes(rng, 2048, dev)
+    big_ms = _device_ms(lambda: ep.nms_sweep(*big, iou_threshold=0.5, threshold=0.5), 5, 5)
     print(f"nms_sweep K={k} device ms/call (CUDA graph): kernel={ms:.6f} "
           f"plain={plain_ms:.6f} library=none; eager ms/call: kernel={eager_ms:.6f} "
-          f"plain={eager_plain_ms:.6f}; bound_ms={bound:.8f} ({by}) "
-          f"sequential_steps={k}", flush=True)
+          f"plain={eager_plain_ms:.6f}; bound_ms={bound:.8f} ({by}), launch floor "
+          f"{floor_ms:.6f} (a one-element fill_ replayed the same way); K=2048 "
+          f"kernel={big_ms:.6f}", flush=True)
+    split = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "nms_phase_split.py")],
+                           capture_output=True, text=True, timeout=300)
+    if split.returncode != 0:
+        raise AssertionError(f"nms_phase_split failed:\n{split.stderr[-3000:]}")
+    print(split.stdout.rstrip(), flush=True)
     return {"name": "nms_sweep", "route": "cuda",
             "source": "nnstreamer_tpu_torch/ops/kernels/csrc/nms_sweep.cu",
             "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:130",
@@ -419,7 +464,13 @@ def check_flash_attention(fa, dev, rng) -> dict:
              ((2, 3, 200, 16), torch.float32, True),
              ((2, 3, 200, 128), torch.bfloat16, False),
              ((1, 2, 70, 40), torch.float32, True),
-             ((2, 3, 200, 96), torch.bfloat16, True)]
+             ((2, 3, 200, 96), torch.bfloat16, True),
+             ((1, 1, 1, 1), torch.float32, True), ((2, 3, 300, 8), torch.float32, False)]
+    # wide heads (D > 128: the tf32x3 route's 128-column chunks), both dtypes
+    cases += [((1, 2, length, d), dt, causal)
+              for d, length, causal in ((136, 130, True), (192, 200, False), (256, 129, True),
+                                        (512, 70, False))
+              for dt in (torch.float32, torch.bfloat16)]
     # the wgmma route: bf16 at D 64 and 128, ragged L, causal and full
     cases += [((2, 3, length, d), torch.bfloat16, causal)
               for d in (64, 128) for length in (70, 200, 1000) for causal in (True, False)]
@@ -429,7 +480,7 @@ def check_flash_attention(fa, dev, rng) -> dict:
         inputs[(shape, dt)] = t = qkv(shape, dt)
         errs[name] = _flash_case(fa, *t, causal, name)
     # the causal LM's split-head views of its (B, T, 3D) projection: float32
-    # (simt) and bf16 at d_model 1024 (wgmma, which must take them uncopied)
+    # (tf32x3) and bf16 at d_model 1024 (wgmma, which must take them uncopied)
     proj = torch.from_numpy(rng.standard_normal((2, 300, 3 * 256), dtype=np.float32)).to(dev)
     views = [z.reshape(2, 300, 4, 64).transpose(1, 2) for z in proj.split(256, -1)]
     got = fa.flash_attention(*views, causal=True)
@@ -464,11 +515,19 @@ def check_flash_attention(fa, dev, rng) -> dict:
         ms = {n: _device_ms(f, *reps[n]) for n, f in calls.items()}
         b, h, length, d = main_shape
         pairs = b * h * length * (length + 1) // 2  # causal (query, key) pairs
-        bound, by = _bound_ms(4 * q.numel() * q.element_size(), 4 * d * pairs, dt)
+        nbytes, ops = 4 * q.numel() * q.element_size(), 4 * d * pairs
+        if dt == torch.float32:
+            # the tf32x3 route: three tf32 products for each float32 one
+            bound, by = _bound_ms(nbytes, 3 * ops, "tf32")
+            cuda_cores, _ = _bound_ms(nbytes, ops, torch.float32)
+            extra = f" (one float32 product on the CUDA cores: {cuda_cores:.8f})"
+        else:
+            bound, by = _bound_ms(nbytes, ops, dt)
+            extra = ""
         print(f"flash_attention {main_shape} {str(dt)[6:]} causal [{fa._route(q, k, v)}] "
               f"device ms/call (CUDA graph): kernel={ms['kernel']:.6f} plain={ms['plain']:.6f} "
               f"library(scaled_dot_product_attention)={ms['library']:.6f}; "
-              f"bound_ms={bound:.8f} ({by})", flush=True)
+              f"bound_ms={bound:.8f} ({by}){extra}", flush=True)
         lines[dt] = (ms, bound, by)
     ms, bound, by = lines[torch.bfloat16]
     main = f"{main_shape} bfloat16 causal"
@@ -1338,17 +1397,19 @@ def run_lm_serving(params, quant: str, counters) -> dict:
     return launches
 
 
-def run_flash_prefill(counters) -> dict:
-    """appsrc ! tensor_filter (prefill bundle, bf16) ! tensor_sink with
-    flash and dense attention; returns the flash run's launches, every one
-    of which must take flash_attention's wgmma route."""
+def run_flash_prefill(counters, dtype: torch.dtype) -> dict:
+    """appsrc ! tensor_filter (prefill bundle over ``dtype`` params) !
+    tensor_sink with flash and dense attention; returns the flash run's
+    launches, every one of which must take flash_attention's route for
+    ``dtype`` (PREFILL_ROUTE)."""
     from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
     from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
     from nnstreamer_tpu_torch.graph import Pipeline
     from nnstreamer_tpu_torch.models.causal_lm import prefill_bundle, prefill_flops
 
     v, d, h, n_layers = LM_DIMS
-    params = _lm_params(torch.bfloat16)
+    name = str(dtype)[6:]
+    params = _lm_params(None if dtype == torch.float32 else dtype)
     rng = np.random.default_rng(0)
     frames = [rng.integers(0, v, (FLASH_B, FLASH_T)).astype(np.int32)
               for _ in range(FLASH_FRAMES)]
@@ -1381,19 +1442,23 @@ def run_flash_prefill(counters) -> dict:
     launches = results[True][2]
     if launches["flash_attention"] != n_layers * FLASH_FRAMES \
             or results[False][2]["flash_attention"] != 0:
-        raise AssertionError(f"flash_attention launches {launches['flash_attention']} "
+        raise AssertionError(f"{name}: flash_attention launches {launches['flash_attention']} "
                              f"(flash) and {results[False][2]['flash_attention']} (dense) "
                              f"for {FLASH_FRAMES} batches of {n_layers} layers")
-    if routes[True] != {"wgmma": n_layers * FLASH_FRAMES, "simt": 0}:
-        raise AssertionError(f"flash prefill launches by route {routes[True]}: all "
-                             f"{n_layers * FLASH_FRAMES} must take the wgmma route")
-    print(f"flash prefill flash_attention launches by route: {routes[True]}", flush=True)
-    rtol, atol = FLASH_TOL[torch.bfloat16]
+    want = {r: 0 for r in routes[True]}
+    want[PREFILL_ROUTE[dtype]] = n_layers * FLASH_FRAMES
+    if routes[True] != want:
+        raise AssertionError(f"{name} flash prefill launches by route {routes[True]}: all "
+                             f"{n_layers * FLASH_FRAMES} must take the "
+                             f"{PREFILL_ROUTE[dtype]} route")
+    print(f"flash prefill ({name}) flash_attention launches by route: {routes[True]}",
+          flush=True)
+    rtol, atol = FLASH_TOL[dtype] if dtype == torch.bfloat16 else PREFILL_F32_TOL
     worst, agree = 0.0, 0
     for fl, dn in zip(results[True][0], results[False][0]):
         if fl.shape != (FLASH_B, v) or fl.dtype != torch.float32 \
                 or not torch.isfinite(fl).all() or not _within(fl, dn, rtol, atol):
-            raise AssertionError(f"flash prefill logits differ from dense: "
+            raise AssertionError(f"{name} flash prefill logits differ from dense: "
                                  f"{tuple(fl.shape)} {fl.dtype}, max abs err "
                                  f"{_max_abs_err(fl, dn)}")
         worst = max(worst, _max_abs_err(fl, dn))
@@ -1402,16 +1467,50 @@ def run_flash_prefill(counters) -> dict:
     for flash in (True, False):
         _, wall, _, arrivals = results[flash]
         tps = FLASH_FRAMES * FLASH_B * FLASH_T / wall
-        print(f"lm prefill pipeline ({'flash' if flash else 'dense'} attention, bf16, "
+        print(f"lm prefill pipeline ({'flash' if flash else 'dense'} attention, {name}, "
               f"B {FLASH_B} x T {FLASH_T}): {FLASH_FRAMES} batches in {wall:.3f} s = "
               f"{tps:.1f} tokens/s, steady {_steady_fps(arrivals):.3f} batches/s = "
               f"{flops * _steady_fps(arrivals) / 1e12:.2f} TFLOP/s (analytic)", flush=True)
-    print(f"flash vs dense last-token logits: max abs err {worst:.4e} (bound rtol {rtol} "
-          f"atol {atol}), argmax agree {agree}/{FLASH_FRAMES * FLASH_B}", flush=True)
+    print(f"{name} flash vs dense last-token logits: max abs err {worst:.4e} (bound rtol "
+          f"{rtol} atol {atol}), argmax agree {agree}/{FLASH_FRAMES * FLASH_B}", flush=True)
     devices = {str(x.device) for x in results[True][0] + results[False][0]}
     if any(not d.startswith("cuda") for d in devices):
         raise AssertionError(f"prefill logits left the card: {devices}")
     return launches
+
+
+def run_filter_options() -> None:
+    """The filter's own options on the card: a ``bucket=4`` pipeline (a
+    frame's regions stacked, padded and invoked once) and a
+    ``bucket=4,resize=H:W`` one, each against the same pipeline on CPU
+    tensors, bit for bit."""
+    from nnstreamer_tpu_torch.core.types import Caps, TensorFormat, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    rng = np.random.default_rng(3)
+    same = [tuple(rng.standard_normal((7, 5, 3)).astype(np.float32) for _ in range(n))
+            for n in (3, 1, 6, 9)]
+    ragged = [tuple(rng.integers(0, 256, (int(hh), int(ww), 3)).astype(np.uint8)
+                    for hh, ww in rng.integers(1, 40, (n, 2))) for n in (2, 5, 4)]
+    caps = Caps.tensors(TensorsConfig(TensorsInfo((), TensorFormat.FLEXIBLE), 30))
+    for custom, frames in (("bucket=4", same), ("bucket=4,resize=12:9", ragged)):
+        outs = {}
+        for device in ("cuda", "cpu"):
+            p = Pipeline(device=device)
+            src = p.add_new("appsrc", caps=caps, data=list(frames))
+            filt = p.add_new("tensor_filter", framework="torch-cuda",
+                             model=lambda x: x.amax(dim=(1, 2)), custom=custom)
+            sink = p.add_new("tensor_sink", store=True)
+            Pipeline.link(src, filt, sink)
+            p.run(timeout=120)
+            outs[device] = [b.memories[0].device() for b in sink.buffers]
+        if [tuple(o.shape) for o in outs["cuda"]] != [(len(f), 3) for f in frames] \
+                or any(o.device.type != "cuda" for o in outs["cuda"]) \
+                or not all(torch.equal(a.cpu(), b) for a, b in zip(outs["cuda"], outs["cpu"])):
+            raise AssertionError(f"filter custom={custom!r} on the card differs from the CPU run")
+        print(f"filter custom={custom!r}: {len(frames)} flexible frames of "
+              f"{[len(f) for f in frames]} regions, on the card == on CPU tensors, bit "
+              f"for bit", flush=True)
 
 
 class _Counters:
@@ -1485,7 +1584,9 @@ def main() -> int:
     by_phase["lm serving w8a8"] = run_lm_serving(quantize_lm_params(params), "w8a8",
                                                  counters)
     del params
-    by_phase["lm flash prefill"] = run_flash_prefill(counters)
+    by_phase["lm flash prefill"] = run_flash_prefill(counters, torch.bfloat16)
+    by_phase["lm flash prefill float32"] = run_flash_prefill(counters, torch.float32)
+    run_filter_options()
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)
     for k in kernels:
         k["launches"] = sum(phase.get(k["name"], 0) for phase in by_phase.values())

@@ -236,6 +236,14 @@ class TensorFilter(Element):
         # with a fused preprocessing stage the wire caps describe the
         # *transformed* stream while the raw tensors reach the invoke
         fused = getattr(self.fw, "_fused_pre", None) is not None
+        if getattr(self.fw, "flexible_output", False):
+            # bucketed dynamic-count invoke: the region count varies per
+            # frame, so both ends of the element stay flexible-format
+            pad.caps = caps
+            self._out_config = TensorsConfig(
+                TensorsInfo((), TensorFormat.FLEXIBLE), in_config.rate)
+            self.send_caps_all(Caps.tensors(self._out_config))
+            return
         if in_info is None:
             out_info = self.fw.set_input_info(model_sees)
         elif not fused and stream_info.format is TensorFormat.STATIC and \

@@ -23,7 +23,25 @@ Design notes:
     (ops.fusion), stream→model layout (``inputlayout=NCHW``), precision
     cast (``custom="precision=bf16"``), the model, model→stream layout
     (``outputlayout=NCHW``), then a fused epilogue (ops.epilogue). No jit
-    and no CUDA graph yet: every frame is eager PyTorch.
+    and no CUDA graph yet: every frame is eager PyTorch;
+  * ``custom="sync=true"`` blocks on the outputs before ``invoke`` returns
+    (synchronous per-invoke latency accounting);
+  * ``custom="donate=true"`` is accepted and changes nothing: torch has no
+    buffer donation, and the outputs are the same either way;
+  * dynamic-count streams (tensor_crop regions): ``custom="bucket=N"``
+    stacks a frame's n same-shape tensors into one batch, zero-pads it to
+    the next multiple of N, invokes once and emits the first n rows of
+    each output (``flexible_output``); the padded sizes stop at
+    ``bucket_max`` (default 8·N), and a frame with more tensors is chunked
+    into invokes of that size whose outputs are concatenated.
+    ``resize=H:W`` first conforms each region to H×W by the JAX filter's
+    bilinear region resize, in float32;
+  * ``arch``/``arch_*`` are kept out of the model options, as in the JAX
+    filter (checkpoint restore, their only reader, is not ported).
+  The JAX filter's hooks into layers the port has not ported yet are
+  dropped: the scheduler's bucket telemetry (``record_bucket_hit``/
+  ``record_bucket_miss``), the tuner's bucket-rung pick (``TUNE_HOOK``)
+  and the profiler's dispatch hook (``DISPATCH_HOOK``).
 """
 
 from __future__ import annotations
@@ -31,6 +49,7 @@ from __future__ import annotations
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from ..core.buffer import TensorMemory
@@ -44,11 +63,63 @@ log = logger("torch_cuda")
 #: custom= keys consumed by the filter itself, not by model factories;
 #: stripped before model resolution so identical model specs memoize to one
 #: bundle regardless of filter-level settings
-_FILTER_ONLY_OPTS = frozenset({"precision", "quant"})
+_FILTER_ONLY_OPTS = frozenset(
+    {"sync", "precision", "donate", "bucket", "bucket_max", "resize",
+     "arch", "quant"})
 
 
 def _model_options(options: Dict[str, str]) -> Dict[str, str]:
-    return {k: v for k, v in options.items() if k not in _FILTER_ONLY_OPTS}
+    return {k: v for k, v in options.items()
+            if k not in _FILTER_ONLY_OPTS and not k.startswith("arch_")}
+
+
+def _flag(options: Dict[str, str], key: str) -> bool:
+    return options.get(key, "false").lower() in ("1", "true", "yes")
+
+
+def _div(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x / n in float32 with an IEEE division on every device (the card
+    turns a division by a Python scalar into a reciprocal multiply)."""
+    return x / torch.full((), n, dtype=torch.float32, device=x.device)
+
+
+def resize_region(region: np.ndarray, size: Tuple[int, int],
+                  device: Any) -> torch.Tensor:
+    """Bilinear-resize an (h, w, ...) region to ``size`` = (H, W) in
+    float32: the JAX filter's ``_resize_region`` (half-pixel centres,
+    sample coordinates clamped to the region, the four taps weighted in
+    its op order; jax.image.resize(antialias=False) semantics). The region
+    is zero-padded on the host to power-of-two extents as there; the
+    padding is never sampled."""
+    th, tw = size
+    h, w = region.shape[0], region.shape[1]
+    hp = 1 << max(3, (h - 1).bit_length())
+    wp = 1 << max(3, (w - 1).bit_length())
+    padded = np.zeros((hp, wp) + region.shape[2:], region.dtype)
+    padded[:h, :w] = region
+    trailing = region.shape[2:]
+    p = torch.from_numpy(padded).to(device).reshape(hp, wp, -1) \
+        .to(torch.float32)
+
+    def coords(n_out: int, n_in: int) -> Tuple[torch.Tensor, ...]:
+        nf = torch.full((), n_in, dtype=torch.float32, device=p.device)
+        c = _div((torch.arange(n_out, device=p.device, dtype=torch.float32)
+                  + 0.5) * nf, n_out) - 0.5
+        c = torch.minimum(torch.maximum(c, torch.zeros_like(nf)), nf - 1.0)
+        i0 = torch.floor(c).to(torch.int64)
+        i1 = torch.clamp(i0 + 1, max=n_in - 1)
+        return c - i0.to(torch.float32), i0, i1
+
+    wy, y0, y1 = coords(th, h)
+    wx, x0, x1 = coords(tw, w)
+    wy, wx = wy[:, None, None], wx[None, :, None]
+    a = p[y0[:, None], x0[None, :]]
+    b = p[y0[:, None], x1[None, :]]
+    c = p[y1[:, None], x0[None, :]]
+    d = p[y1[:, None], x1[None, :]]
+    out = (a * (1 - wy) * (1 - wx) + b * (1 - wy) * wx
+           + c * wy * (1 - wx) + d * wy * wx)
+    return out.reshape((th, tw) + trailing)
 
 
 def resolve_model(model: Any, options: Optional[Dict[str, str]] = None,
@@ -124,6 +195,23 @@ class TorchCudaFilter(FilterFramework):
         self._bundle = self._maybe_quantize(
             resolve_model(props.model, opts, self._device), opts)
         self._precision = opts.get("precision", "")
+        self._sync = _flag(opts, "sync")
+        self._bucket = int(opts.get("bucket", "0") or 0)
+        # bounded bucket ladder: padded sizes are bucket, 2*bucket, ... up
+        # to bucket_max (default 8*bucket); a frame with more tensors is
+        # chunked into cap-sized invokes (_invoke_bucketed)
+        bmax = int(opts.get("bucket_max", "0") or 0)
+        self._bucket_max = max(bmax, self._bucket) if bmax > 0 \
+            else self._bucket * 8
+        resize = opts.get("resize", "")
+        if resize:
+            parts = tuple(int(v) for v in resize.split(":"))
+            if len(parts) != 2:
+                raise ValueError(f"torch-cuda: resize wants H:W, got {resize!r}")
+            self._resize: Optional[Tuple[int, int]] = parts
+        else:
+            self._resize = None
+        self.flexible_output = self._bucket > 0
         # inputlayout/outputlayout=NCHW: the stream is channel-first while
         # zoo models take channel-last — the permutes run inside the
         # invoke. Normalized to () unless something actually permutes.
@@ -258,7 +346,46 @@ class TorchCudaFilter(FilterFramework):
 
     # -- execution ----------------------------------------------------------- #
     def invoke(self, inputs: Sequence[TensorMemory]) -> List[TensorMemory]:
+        if self._bucket > 0:
+            return self._invoke_bucketed(inputs)
         arrays = [m.device(self._device) for m in inputs]
+        return [TensorMemory(o) for o in self._run(arrays)]
+
+    def _run(self, arrays: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         with self._lock, torch.inference_mode():
             outs = self._fn(*arrays)
-        return [TensorMemory(o) for o in outs]
+        if self._sync and torch.device(self._device).type == "cuda":
+            torch.cuda.current_stream(self._device).synchronize()
+        return outs
+
+    def _invoke_bucketed(self, inputs: Sequence[TensorMemory]
+                         ) -> List[TensorMemory]:
+        """n tensors → one invoke on their stack, zero-padded to the next
+        multiple of ``bucket`` → one (n, ...) result per model output;
+        frames of more than ``bucket_max`` tensors are chunked and the
+        chunks' outputs concatenated."""
+        n = len(inputs)
+        if n == 0:
+            return []
+        cap = self._bucket_max
+        if n > cap:
+            chunks = [self._invoke_bucketed(inputs[i:i + cap])
+                      for i in range(0, n, cap)]
+            return [TensorMemory(torch.cat(
+                        [c[j].device(self._device) for c in chunks]))
+                    for j in range(len(chunks[0]))]
+        if self._resize is not None:
+            arrays = [resize_region(m.host(), self._resize, self._device)
+                      for m in inputs]
+        else:
+            arrays = [m.device(self._device) for m in inputs]
+        shapes = {tuple(a.shape) for a in arrays}
+        if len(shapes) != 1:
+            raise ValueError(
+                f"bucketed invoke needs same-shape tensors, got {shapes} "
+                "(add custom=\"resize=H:W\" for image regions)")
+        bucket = -(-n // self._bucket) * self._bucket
+        x = arrays[0]
+        batch = torch.cat([torch.stack(arrays), x.new_zeros(
+            (bucket - n,) + tuple(x.shape))])
+        return [TensorMemory(o[:n]) for o in self._run([batch])]

@@ -44,6 +44,8 @@ def fuse_epilogues(pipeline: Any) -> int:
         fw = el.fw
         if not isinstance(fw, TorchCudaFilter):
             continue
+        if getattr(fw, "flexible_output", False):
+            continue  # bucket ladder emits variable rows; caps won't pin
         if el._out_spec is not None:
             continue  # output combination reorders memories downstream
 

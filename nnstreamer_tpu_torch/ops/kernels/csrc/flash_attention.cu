@@ -3,15 +3,15 @@
 // Replaces the Pallas TPU kernels of nnstreamer_tpu/ops/pallas/
 // flash_attention.py flash_attention: _flash_kernel (normalised output) and
 // _flash_kernel_residual (unnormalised accumulator plus the per-row softmax
-// max m and normaliser l). Two routes, each with a normalised and a residual
-// entry:
+// max m and normaliser l). Two routes, each normalised or residual (residual
+// when m_out is given):
 //
-//   nns_flash_attention / nns_flash_attention_residual (the SIMT route):
-//     q, k, v (B, H, L, D) float32 or bfloat16, D <= 128, any L;
-//   nns_flash_attention_wgmma (the wgmma route; residual when m_out is given):
-//     q, k, v (B, H, L, D) bfloat16, D 64 or 128, any L, each a 16-byte
-//     aligned base with B, H and L strides multiples of 8 elements (TMA's
-//     rules; the wrapper copies a tensor that breaks them).
+//   nns_flash_attention_tf32x3 (the tf32x3 route): q, k, v (B, H, L, D)
+//     float32 or bfloat16, any D >= 1, any L;
+//   nns_flash_attention_wgmma (the wgmma route): q, k, v (B, H, L, D)
+//     bfloat16, D 64 or 128, any L, each a 16-byte aligned base with B, H
+//     and L strides multiples of 8 elements (TMA's rules; the wrapper copies
+//     a tensor that breaks them).
 //
 //   outputs: o (B, H, L, D) in q's dtype, or acc (B, H, L, D) f32 and
 //   m, l (B, H, L) f32; all contiguous.
@@ -25,25 +25,63 @@
 // causal) is -1e30, finite, and the running max starts at -1e30; the
 // softmax weights p are rounded to v's dtype before the PV product, while
 // l sums them before that rounding; the output is acc / max(l, 1e-30).
-// The tensor cores keep it: a bf16 x bf16 product is exact in float32 and
-// wgmma accumulates in float32; only the order of the sums differs.
+// Both routes keep it on the tensor cores: a bf16 x bf16 product is exact
+// in float32 (wgmma, and a bf16 value is a tf32 value), and a float32
+// product is taken as three tf32 products (below); every sum is float32,
+// only the order of the sums differs.
 //
-// Bound, at the flash prefill's (8, 16, 1024, 64) bf16 causal: 67.1 MB of
-// q, k, v and o (20.0 us at 3.35 TB/s) against 17.2 GFLOP (17.4 us at
-// 989 TFLOP/s on bf16 tensor cores).
+// Bounds, at the flash prefill's (8, 16, 1024, 64) causal: 4 D flops a
+// (query, key) pair, 17.2 GFLOP; bf16: 67.1 MB of q, k, v and o (20.0 us at
+// 3.35 TB/s) against 17.4 us at 989 TFLOP/s; float32: 3 x 17.2 GFLOP at
+// 495 TFLOP/s of tf32 = 104 us (the route's three products; one float32
+// product on the CUDA cores' 67 TFLOP/s would be 257 us), against 40 us of
+// bytes.
 //
-// SIMT route (float32, and bf16 at other D): grid (B*H, ceil(L/64)). A
-// block of 256 threads (8 warps) owns 64 query rows, 8 per warp, and loops
-// over 64-key tiles up to its causal bound (the TPU walked a sequential
-// grid axis; here the loop is inside the block and stops at the diagonal).
-// Q, K, V and the block's softmax weights P sit in shared memory as
-// float32, with D padded to DP (16, 32, 64 or 128) by zeros. For the scores
-// each lane owns keys lane and lane + 32 of the tile for its warp's 8 rows
-// and reads Q and K as float4 (K rows are DP + 4 floats apart, so the
-// lanes' rows fall in distinct banks); for PV each lane owns head columns
-// lane + 32 i and reads P as float4 broadcasts. Row max and sum are warp
-// shuffles. Both products run as float32 FMAs on the CUDA cores (67
-// TFLOP/s: 256 us for the prefill's FLOPs at best).
+// tf32x3 route (every float32 call, and bf16 at D other than 64 and 128):
+// warp-level mma.sync m16n8k8 on tf32 operands. A float32 operand x is
+// split in registers into hi = x rounded to tf32 (cvt.rna's rounding, done
+// as an integer add and mask at the ALU's full rate) and lo = x - hi, exact
+// in float32, of which the tensor core reads tf32's 19 top bits; a.b is
+// taken as hi_a.lo_b + lo_a.hi_b + hi_a.hi_b, the two small terms first,
+// all accumulated in float32: float32's accuracy (the lo.lo term, and lo's
+// truncation, are below float32's rounding). A bf16 operand, and p rounded
+// to bf16, is a tf32 value already, so bf16 takes the one product hi.hi.
+// Grid (B*H, ceil(L/BQ), ceil(D/DC)), the heaviest causal query blocks
+// issued first. A block of 4 warps owns BQ query rows: each warp two
+// m-tiles of 16 rows (mma's M) while the accumulators fit the registers (DC
+// <= 64, BQ 128), one at DC 128 (BQ 64), so a K or V fragment, loaded and
+// split once, feeds two products. The block loops over 64-key tiles up to
+// its causal bound. Q, K and V tiles sit in shared memory as float32, DC
+// columns wide (D padded by zeros to DC = 16, 32, 64 or 128), rows DC + 4
+// floats apart: with a row stride of 4 mod 8 words every fragment load
+// below is free of bank conflicts. The three points where a float32 port
+// of the wgmma design would break:
+//  * Transposes: wgmma reads a 32-bit B operand from shared memory only
+//    K-major, and V is MN-major for P.V. mma.sync takes its fragments from
+//    registers, loaded by hand, so V is read in place, a column of 8 keys
+//    at a time (two scalar loads a thread) and never transposed.
+//  * Where the split happens: in registers, on each fragment as it is
+//    loaded (Q's A fragment once per 8 columns and reused over the tile's 8
+//    key groups, K's and V's B fragments per product), so shared memory
+//    holds one float32 copy of each tile, not a hi and a lo copy.
+//  * Fragment layout: the m16n8 accumulator holds S columns (2t, 2t + 1) of
+//    each 8-key group, the tf32 A fragment wants (t, t + 4). The key
+//    order inside a group is free in a sum, so P.V's A fragment takes k = t
+//    as key 2t and k = t + 4 as key 2t + 1: the S fragment is P's A
+//    fragment as it stands (registers 0, 2, 1, 3), and the V fragment loads
+//    read rows 2t and 2t + 1 to match. P never leaves registers.
+// K and V tiles stream through two stages by cp.async (16-byte copies when
+// every base and stride allows them, else 4-byte ones; bf16 is converted
+// to float32 as it is staged, synchronously), so tile i + 1 loads while
+// tile i computes. The softmax is the wgmma route's form: one FMA and one
+// ex2 a score (the scale folded into log2 e; masked scores -inf before
+// scaling, so m keeps the -1e30 floor). P.V leaves out the 8-key groups
+// past a warp's diagonal and past L. D > 128 is taken in 128-column
+// chunks: each block owns one chunk of the output (grid z) and sums the
+// scores over all chunks, staging Q's and K's chunks in turn without
+// overlap; the scores
+// are computed once per output chunk (ceil(D / 128) times in all), the
+// price of keeping the accumulator in registers.
 //
 // wgmma route (bf16, D 64 or 128): the products run on the tensor cores.
 // Grid (B*H, ceil(L/128)), the heaviest causal query blocks issued first.
@@ -65,28 +103,23 @@
 // diagonal or the ragged tail, and each warpgroup skips the tiles past its
 // own diagonal (it still releases their stage).
 //
-// Debugging note: a wgmma descriptor that does not match the TMA swizzle
-// gives wrong numbers, not a fault; the card tests hold every shape
-// against the plain version.
+// Debugging note: a wgmma descriptor that does not match the TMA swizzle,
+// or a fragment index off by one, gives wrong numbers, not a fault; the
+// card tests hold every shape against the plain version.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
 namespace {
 
-constexpr int kBQ = 64;     // query rows per block
-constexpr int kBK = 64;     // keys per tile
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = kBQ / kWarps;  // query rows per warp
-constexpr float kNegInf = -1e30f;
-static_assert(kBQ == kBK, "stage() moves kBK rows for Q as for K and V");
+constexpr float kNegInf = -1e30f;  // the contract's mask value and m's start
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMinusInf = -__builtin_huge_valf();
 
-__device__ __forceinline__ float load_f(const float* p) { return *p; }
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p) { return __bfloat162float(*p); }
 __device__ __forceinline__ void store_f(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_f(__nv_bfloat16* p, float v) { *p = __float2bfloat16_rn(v); }
 
@@ -97,17 +130,27 @@ __device__ __forceinline__ float round_to<__nv_bfloat16>(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ float warp_max(float v) {
-  for (int off = 16; off > 0; off >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+// 2^x (ex2.approx: 2 ulp; results below 2^-126 flush to 0)
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-struct Args {
+// ---------------------------------------------------------------------------
+// The tf32x3 route: float32 (three tf32 products), bf16 at other D (one)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcWarps = 4;
+constexpr int kTcThreads = kTcWarps * 32;
+constexpr int kTcBK = 64;             // keys per tile
+constexpr int kTcNT = kTcBK / 8;      // 8-key groups of a tile
+
+struct TcArgs {
   const void* q;
   const void* k;
   const void* v;
@@ -117,155 +160,359 @@ struct Args {
   int h, len, d;
   long long sqb, sqh, sql, skb, skh, skl, svb, svh, svl;
   int causal;
+  int vec;  // float32 only: every base 16-byte aligned, strides and D multiples of 4
   float scale;
 };
 
-// Stage rows [row0, row0 + rows) of one head's (L, D) slice into `dst`
-// (row stride `ld` floats), zero past L and past D.
-template <typename T, int DP>
-__device__ __forceinline__ void stage(float* dst, int ld, const T* src, long long sl,
-                                      int row0, int len, int d) {
-  for (int i = threadIdx.x; i < kBK * DP; i += kThreads) {
-    const int r = i / DP, c = i % DP;
-    const int row = row0 + r;
-    dst[r * ld + c] = (row < len && c < d) ? load_f(src + row * sl + c) : 0.0f;
+// cvt.rna.tf32.f32 (round to nearest, ties away) of a finite x, in two
+// integer operations: half a tf32 ulp added to the magnitude bits, the 13
+// bits below tf32's mantissa cleared
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// the operand as tf32: hi, and for a float32 operand the remainder lo = x -
+// hi (exact), of which the tensor core reads the top 19 bits
+template <bool kSplit>
+__device__ __forceinline__ void to_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  if constexpr (kSplit) {
+    hi = tf32_rna(x);
+    lo = __float_as_uint(x - __uint_as_float(hi));
+  } else {
+    hi = __float_as_uint(x);  // a bf16 value: exact in tf32
+    lo = 0u;
   }
 }
 
-template <typename T, int DP, bool kResidual>
-__global__ void __launch_bounds__(kThreads) flash_kernel(Args a) {
-  constexpr int kLdK = DP + 4;
-  constexpr int kDL = (DP + 31) / 32;  // head columns per lane
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);  // [kBQ][DP]
-  float* ks = qs + kBQ * DP;                    // [kBK][DP + 4]
-  float* vs = ks + kBK * kLdK;                  // [kBK][DP]
-  float* ps = vs + kBK * DP;                    // [kBQ][kBK]
+// c (16 x 8, f32) += a (16 x 8, tf32, row-major) . b (8 x 8, tf32, col-major)
+__device__ __forceinline__ void mma_tf32(float* c, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// c += a . b, both given as hi/lo fragments
+template <bool kSplit>
+__device__ __forceinline__ void mma3(float* c, const uint32_t* ahi, const uint32_t* alo,
+                                     const uint32_t* bhi, const uint32_t* blo) {
+  if constexpr (kSplit) {
+    mma_tf32(c, ahi, blo[0], blo[1]);  // the two small terms first
+    mma_tf32(c, alo, bhi[0], bhi[1]);
+  }
+  mma_tf32(c, ahi, bhi[0], bhi[1]);
+}
+
+template <bool kSplit>
+__device__ __forceinline__ void frag_a(const float (&x)[4], uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) to_tf32<kSplit>(x[i], hi[i], lo[i]);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src), "r"(bytes)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// wait until at most N committed groups of this thread are still in flight
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [r0, r0 + ROWS) and columns [c0, c0 + DC) of one head's (L, D) slice
+// into dst (rows DC + 4 floats apart), zeros past L and past D. float32 by
+// cp.async (its zero fill: 0 source bytes), bf16 converted synchronously.
+template <typename T, int DC, int ROWS>
+__device__ __forceinline__ void tc_stage(float* dst, const T* src, long long sl, int r0, int c0,
+                                         int len, int d, int vec) {
+  constexpr int LD = DC + 4;
+  if constexpr (std::is_same<T, float>::value) {
+    if (vec) {
+      for (int i = threadIdx.x; i < ROWS * DC / 4; i += kTcThreads) {
+        const int r = i / (DC / 4), c = 4 * (i % (DC / 4));
+        const int row = r0 + r, col = c0 + c;
+        const bool ok = row < len && col < d;
+        cp_async16(smem_u32(dst + r * LD + c), ok ? src + row * sl + col : src, ok ? 16 : 0);
+      }
+    } else {
+      for (int i = threadIdx.x; i < ROWS * DC; i += kTcThreads) {
+        const int r = i / DC, c = i % DC;
+        const int row = r0 + r, col = c0 + c;
+        const bool ok = row < len && col < d;
+        cp_async4(smem_u32(dst + r * LD + c), ok ? src + row * sl + col : src, ok ? 4 : 0);
+      }
+    }
+  } else {
+    for (int i = threadIdx.x; i < ROWS * DC; i += kTcThreads) {
+      const int r = i / DC, c = i % DC;
+      const int row = r0 + r, col = c0 + c;
+      dst[r * LD + c] = (row < len && col < d) ? __bfloat162float(src[row * sl + col]) : 0.0f;
+    }
+  }
+}
+
+// s (this warp's MT m-tiles of 16 rows x 64 keys) += Q[:, chunk] .
+// K[:, chunk]^T over the chunk's first `ksteps` 8-column steps. A K
+// fragment, loaded and split once, serves all MT m-tiles. All 8 key groups
+// are computed, those past the diagonal or past L too (the softmax masks
+// them): a branch per group would split the 16 independent products of a
+// step into blocks the compiler cannot interleave, and cost more than the
+// few groups it saves.
+template <int DC, int MT, bool kSplit>
+__device__ __forceinline__ void tc_scores(float (&s)[MT][kTcNT][4], const float* qs,
+                                          const float* ks, int row_w, int g, int t, int ksteps) {
+  constexpr int LD = DC + 4;
+#pragma unroll
+  for (int kk = 0; kk < DC / 8; ++kk) {
+    if (kk < ksteps) {
+      uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float* qa = qs + (row_w + 16 * mt + g) * LD + 8 * kk + t;
+        const float a[4] = {qa[0], qa[8 * LD], qa[4], qa[8 * LD + 4]};
+        frag_a<kSplit>(a, ahi[mt], alo[mt]);
+      }
+#pragma unroll
+      for (int nt = 0; nt < kTcNT; ++nt) {
+        const float* kb = ks + (8 * nt + g) * LD + 8 * kk + t;
+        uint32_t bhi[2], blo[2];
+        to_tf32<kSplit>(kb[0], bhi[0], blo[0]);
+        to_tf32<kSplit>(kb[4], bhi[1], blo[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma3<kSplit>(s[mt][nt], ahi[mt], alo[mt], bhi, blo);
+      }
+    }
+  }
+}
+
+// The online softmax on one m-tile's scores (keys k0 .. k0 + 63), in place:
+// s becomes p rounded to T (l sums p before the rounding), m and l move
+// on, and o takes alpha. This thread holds rows r (registers 0, 1) and
+// r + 8 (2, 3) at keys 8 nt + 2t + (0, 1); a row's max and sum reduce over
+// the 4 lanes that hold it, l stays this thread's share until the end.
+template <typename T, int DC>
+__device__ __forceinline__ void tc_softmax(float (&s)[kTcNT][4], float (&o)[DC / 8][4], float* m,
+                                           float* l, int k0, int r, int t, bool edge,
+                                           const TcArgs& a) {
+  float mx[2] = {kMinusInf, kMinusInf};
+#pragma unroll
+  for (int nt = 0; nt < kTcNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      if (edge) {
+        const int col = k0 + 8 * nt + 2 * t + (e & 1);
+        if (col >= a.len || (a.causal && col > r + 8 * (e >> 1))) s[nt][e] = kMinusInf;
+      }
+      mx[e >> 1] = fmaxf(mx[e >> 1], s[nt][e]);
+    }
+  }
+  const float c = a.scale * kLog2e;
+  float mb[2], alpha[2];
+#pragma unroll
+  for (int hr = 0; hr < 2; ++hr) {
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 1));
+    mx[hr] = fmaxf(mx[hr], __shfl_xor_sync(0xffffffffu, mx[hr], 2));
+    const float m_new = fmaxf(m[hr], mx[hr] * a.scale);  // the -1e30 floor stays
+    alpha[hr] = ex2((m[hr] - m_new) * kLog2e);
+    m[hr] = m_new;
+    mb[hr] = m_new * kLog2e;
+    l[hr] *= alpha[hr];
+  }
+#pragma unroll
+  for (int nt = 0; nt < kTcNT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = ex2(fmaf(s[nt][e], c, -mb[e >> 1]));
+      l[e >> 1] += p;
+      s[nt][e] = round_to<T>(p);
+    }
+  }
+#pragma unroll
+  for (int j = 0; j < DC / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[j][e] *= alpha[e >> 1];
+  }
+}
+
+// o (MT m-tiles of 16 rows x DC columns) += P . V[:, chunk] for one tile.
+// P's 8-key step kk is the S fragment of key group kk with its keys
+// permuted (A's k = t is key 2t, k = t + 4 key 2t + 1), so the V fragment
+// reads rows 2t and 2t + 1 of the group; loaded and split once, it serves
+// all MT m-tiles.
+template <int DC, int MT, bool kSplit>
+__device__ __forceinline__ void tc_pv(float (&o)[MT][DC / 8][4], const float (&p)[MT][kTcNT][4],
+                                      const float* vs, int g, int t, int nt_end) {
+  constexpr int LD = DC + 4;
+#pragma unroll
+  for (int kk = 0; kk < kTcNT; ++kk) {
+    if (kk < nt_end) {
+      uint32_t ahi[MT][4], alo[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt) {
+        const float a[4] = {p[mt][kk][0], p[mt][kk][2], p[mt][kk][1], p[mt][kk][3]};
+        frag_a<kSplit>(a, ahi[mt], alo[mt]);
+      }
+      const float* vb = vs + (8 * kk + 2 * t) * LD + g;
+#pragma unroll
+      for (int j = 0; j < DC / 8; ++j) {
+        uint32_t bhi[2], blo[2];
+        to_tf32<kSplit>(vb[8 * j], bhi[0], blo[0]);
+        to_tf32<kSplit>(vb[LD + 8 * j], bhi[1], blo[1]);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) mma3<kSplit>(o[mt][j], ahi[mt], alo[mt], bhi, blo);
+      }
+    }
+  }
+}
+
+// m-tiles of 16 query rows per warp: two while the accumulators fit the
+// registers (DC <= 64), one at DC 128; query rows per block
+template <int DC>
+struct TcRows {
+  static constexpr int kMT = DC <= 64 ? 2 : 1;
+  static constexpr int kBQ = 16 * kMT * kTcWarps;
+};
+
+template <typename T, int DC, bool kResidual>
+__global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(TcArgs a) {
+  constexpr int MT = TcRows<DC>::kMT;
+  constexpr int BQ = TcRows<DC>::kBQ;
+  constexpr int kTile = kTcBK * (DC + 4);  // floats in one staged K or V tile
+  constexpr bool kSplit = std::is_same<T, float>::value;
+  extern __shared__ float4 tc_smem4[];
+  float* qs = reinterpret_cast<float*>(tc_smem4);  // BQ rows, then stage s: K, V
+  auto k_tile = [&](int s) { return qs + BQ * (DC + 4) + 2 * kTile * s; };
 
   const int bh = blockIdx.x;
   const int b = bh / a.h, hh = bh % a.h;
-  const int q0 = blockIdx.y * kBQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // heaviest causal blocks first
+  const int c_out = blockIdx.z * DC;                 // this block's output columns
+  const int nd = (a.d + DC - 1) / DC;                // column chunks of the scores
+  const int kend = a.causal ? min(a.len, q0 + BQ) : a.len;
+  const int ntiles = (kend + kTcBK - 1) / kTcBK;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int row_w = 16 * MT * warp;  // the warp's first row in the block
   const T* qp = static_cast<const T*>(a.q) + b * a.sqb + hh * a.sqh;
   const T* kp = static_cast<const T*>(a.k) + b * a.skb + hh * a.skh;
   const T* vp = static_cast<const T*>(a.v) + b * a.svb + hh * a.svh;
 
-  stage<T, DP>(qs, DP, qp, a.sql, q0, a.len, a.d);
-
-  float m[kRows], l[kRows], acc[kRows][kDL];
+  float o[MT][DC / 8][4], s[MT][kTcNT][4];
+  float m[MT][2], l[MT][2];
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    m[r] = kNegInf;
-    l[r] = 0.0f;
+  for (int mt = 0; mt < MT; ++mt) {
+    m[mt][0] = m[mt][1] = kNegInf;
+    l[mt][0] = l[mt][1] = 0.0f;
 #pragma unroll
-    for (int i = 0; i < kDL; ++i) acc[r][i] = 0.0f;
-  }
-
-  const int kend = a.causal ? min(a.len, q0 + kBQ) : a.len;
-  for (int k0 = 0; k0 < kend; k0 += kBK) {
-    __syncthreads();  // the previous tile's K, V and P are consumed
-    stage<T, DP>(ks, kLdK, kp, a.skl, k0, a.len, a.d);
-    stage<T, DP>(vs, DP, vp, a.svl, k0, a.len, a.d);
-    __syncthreads();
-
-    // scores for this warp's rows against keys lane and lane + 32
-    float s[kRows][2];
+    for (int j = 0; j < DC / 8; ++j) {
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) s[r][0] = s[r][1] = 0.0f;
-#pragma unroll 4
-    for (int d4 = 0; d4 < DP / 4; ++d4) {
-      const float4 ka = *reinterpret_cast<const float4*>(ks + lane * kLdK + 4 * d4);
-      const float4 kb = *reinterpret_cast<const float4*>(ks + (lane + 32) * kLdK + 4 * d4);
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 qv = *reinterpret_cast<const float4*>(qs + (warp * kRows + r) * DP + 4 * d4);
-        s[r][0] = fmaf(qv.x, ka.x, s[r][0]);
-        s[r][0] = fmaf(qv.y, ka.y, s[r][0]);
-        s[r][0] = fmaf(qv.z, ka.z, s[r][0]);
-        s[r][0] = fmaf(qv.w, ka.w, s[r][0]);
-        s[r][1] = fmaf(qv.x, kb.x, s[r][1]);
-        s[r][1] = fmaf(qv.y, kb.y, s[r][1]);
-        s[r][1] = fmaf(qv.z, kb.z, s[r][1]);
-        s[r][1] = fmaf(qv.w, kb.w, s[r][1]);
-      }
-    }
-
-    // online softmax update, one row at a time across the warp
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = q0 + warp * kRows + r;
-      float sc[2];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const int col = k0 + lane + 32 * c;
-        const bool valid = col < a.len && (!a.causal || row >= col);
-        sc[c] = valid ? s[r][c] * a.scale : kNegInf;
-      }
-      const float m_new = fmaxf(m[r], warp_max(fmaxf(sc[0], sc[1])));
-      const float p0 = expf(sc[0] - m_new);
-      const float p1 = expf(sc[1] - m_new);
-      const float alpha = expf(m[r] - m_new);
-      l[r] = l[r] * alpha + warp_sum(p0 + p1);
-      m[r] = m_new;
-      ps[(warp * kRows + r) * kBK + lane] = round_to<T>(p0);
-      ps[(warp * kRows + r) * kBK + lane + 32] = round_to<T>(p1);
-#pragma unroll
-      for (int i = 0; i < kDL; ++i) acc[r][i] *= alpha;
-    }
-    __syncwarp();
-
-    // acc += P V over the tile's keys
-#pragma unroll 2
-    for (int j4 = 0; j4 < kBK / 4; ++j4) {
-      float vv[4][kDL];
-#pragma unroll
-      for (int jj = 0; jj < 4; ++jj) {
-#pragma unroll
-        for (int i = 0; i < kDL; ++i) {
-          const int col = lane + 32 * i;
-          vv[jj][i] = col < DP ? vs[(4 * j4 + jj) * DP + col] : 0.0f;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const float4 p = *reinterpret_cast<const float4*>(ps + (warp * kRows + r) * kBK + 4 * j4);
-#pragma unroll
-        for (int i = 0; i < kDL; ++i) {
-          acc[r][i] = fmaf(p.x, vv[0][i], acc[r][i]);
-          acc[r][i] = fmaf(p.y, vv[1][i], acc[r][i]);
-          acc[r][i] = fmaf(p.z, vv[2][i], acc[r][i]);
-          acc[r][i] = fmaf(p.w, vv[3][i], acc[r][i]);
-        }
-      }
+      for (int e = 0; e < 4; ++e) o[mt][j][e] = 0.0f;
     }
   }
 
+  for (int i = 0; i < ntiles; ++i) {
+    const int k0 = i * kTcBK;
+    // key groups this warp needs: none past L, none past its last row
+    int nt_end = min(kTcNT, (a.len - k0 + 7) / 8);
+    if (a.causal) nt_end = min(nt_end, (q0 + row_w + 16 * MT - 1 - k0) / 8 + 1);
+    const bool edge = k0 + kTcBK > a.len || (a.causal && k0 + kTcBK - 1 > q0 + row_w);
+    const float* vt;
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) {
-    const int row = q0 + warp * kRows + r;
-    if (row >= a.len) continue;
-    const long long base = (static_cast<long long>(bh) * a.len + row) * a.d;
+    for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-    for (int i = 0; i < kDL; ++i) {
-      const int col = lane + 32 * i;
-      if (col >= a.d) continue;
-      if (kResidual) {
-        static_cast<float*>(a.o)[base + col] = acc[r][i];
-      } else {
-        store_f(static_cast<T*>(a.o) + base + col, acc[r][i] / fmaxf(l[r], 1e-30f));
+      for (int nt = 0; nt < kTcNT; ++nt) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[mt][nt][e] = 0.0f;
       }
     }
-    if (kResidual && lane == 0) {
-      a.m_out[static_cast<long long>(bh) * a.len + row] = m[r];
-      a.l_out[static_cast<long long>(bh) * a.len + row] = l[r];
+    if (nd == 1) {
+      // Q once; K and V double-buffered, tile i + 1 loading under tile i
+      if (i == 0) {
+        tc_stage<T, DC, BQ>(qs, qp, a.sql, q0, 0, a.len, a.d, a.vec);
+        tc_stage<T, DC, kTcBK>(k_tile(0), kp, a.skl, 0, 0, a.len, a.d, a.vec);
+        tc_stage<T, DC, kTcBK>(k_tile(0) + kTile, vp, a.svl, 0, 0, a.len, a.d, a.vec);
+        cp_async_commit();
+      }
+      if (i + 1 < ntiles) {
+        float* kn = k_tile((i + 1) & 1);
+        tc_stage<T, DC, kTcBK>(kn, kp, a.skl, k0 + kTcBK, 0, a.len, a.d, a.vec);
+        tc_stage<T, DC, kTcBK>(kn + kTile, vp, a.svl, k0 + kTcBK, 0, a.len, a.d, a.vec);
+      }
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();
+      const float* kt = k_tile(i & 1);
+      vt = kt + kTile;
+      tc_scores<DC, MT, kSplit>(s, qs, kt, row_w, g, t, (a.d + 7) / 8);
+    } else {
+      // D > DC: the scores sum over the column chunks, staged in turn
+      for (int j = 0; j < nd; ++j) {
+        tc_stage<T, DC, BQ>(qs, qp, a.sql, q0, j * DC, a.len, a.d, a.vec);
+        tc_stage<T, DC, kTcBK>(k_tile(0), kp, a.skl, k0, j * DC, a.len, a.d, a.vec);
+        cp_async_commit();
+        cp_async_wait<0>();
+        __syncthreads();
+        tc_scores<DC, MT, kSplit>(s, qs, k_tile(0), row_w, g, t, (min(DC, a.d - j * DC) + 7) / 8);
+        __syncthreads();
+      }
+      tc_stage<T, DC, kTcBK>(k_tile(0) + kTile, vp, a.svl, k0, c_out, a.len, a.d, a.vec);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+      vt = k_tile(0) + kTile;
+    }
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      tc_softmax<T, DC>(s[mt], o[mt], m[mt], l[mt], k0, q0 + row_w + 16 * mt + g, t, edge, a);
+    }
+    tc_pv<DC, MT, kSplit>(o, s, vt, g, t, nt_end);
+    __syncthreads();  // this tile's stage is consumed before it is refilled
+  }
+
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+#pragma unroll
+    for (int hr = 0; hr < 2; ++hr) {
+      float lt = l[mt][hr];
+      lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+      lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+      const int row = q0 + row_w + 16 * mt + g + 8 * hr;
+      if (row >= a.len) continue;
+      const long long base = (static_cast<long long>(bh) * a.len + row) * a.d;
+      const float den = fmaxf(lt, 1e-30f);
+#pragma unroll
+      for (int j = 0; j < DC / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = c_out + 8 * j + 2 * t + e;
+          if (col >= a.d) continue;
+          if (kResidual) {
+            static_cast<float*>(a.o)[base + col] = o[mt][j][2 * hr + e];
+          } else {
+            store_f(static_cast<T*>(a.o) + base + col, o[mt][j][2 * hr + e] / den);
+          }
+        }
+      }
+      if (kResidual && t == 0 && blockIdx.z == 0) {
+        a.m_out[static_cast<long long>(bh) * a.len + row] = m[mt][hr];
+        a.l_out[static_cast<long long>(bh) * a.len + row] = lt;
+      }
     }
   }
 }
 
-template <typename T, int DP, bool kResidual>
-int launch(const Args& a, int batch_heads, cudaStream_t stream) {
-  constexpr int kSmem = (kBQ * DP + kBK * (DP + 4) + kBK * DP + kBQ * kBK) * 4;
-  auto kernel = flash_kernel<T, DP, kResidual>;
+template <typename T, int DC, bool kResidual>
+int launch_tc(const TcArgs& a, int batch_heads, cudaStream_t stream) {
+  constexpr int BQ = TcRows<DC>::kBQ;
+  constexpr int kSmem = (BQ + 4 * kTcBK) * (DC + 4) * 4;  // Q and two stages of K and V
+  auto kernel = flash_tc_kernel<T, DC, kResidual>;
   static bool smem_set = false;  // once per instantiation (above 48 KB needs it)
   if (!smem_set) {
     const cudaError_t err =
@@ -273,58 +520,49 @@ int launch(const Args& a, int batch_heads, cudaStream_t stream) {
     if (err != cudaSuccess) return static_cast<int>(err);
     smem_set = true;
   }
-  const dim3 grid(static_cast<unsigned>(batch_heads), static_cast<unsigned>((a.len + kBQ - 1) / kBQ));
-  kernel<<<grid, kThreads, kSmem, stream>>>(a);
+  const dim3 grid(static_cast<unsigned>(batch_heads), static_cast<unsigned>((a.len + BQ - 1) / BQ),
+                  static_cast<unsigned>((a.d + DC - 1) / DC));
+  kernel<<<grid, kTcThreads, kSmem, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T, bool kResidual>
-int dispatch(const Args& a, int batch_heads, cudaStream_t stream) {
-  if (a.d <= 16) return launch<T, 16, kResidual>(a, batch_heads, stream);
-  if (a.d <= 32) return launch<T, 32, kResidual>(a, batch_heads, stream);
-  if (a.d <= 64) return launch<T, 64, kResidual>(a, batch_heads, stream);
-  return launch<T, 128, kResidual>(a, batch_heads, stream);
-}
-
-int run(const void* q, const void* k, const void* v, void* o, float* m_out, float* l_out,
-        int batch, int heads, int len, int d, const long long* strides, int causal, float scale,
-        int is_bf16, void* stream) {
-  if (d < 1 || d > 128 || len < 1 || batch < 1 || heads < 1) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  Args a{q, k, v, o, m_out, l_out, heads, len, d,
-         strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
-         strides[6], strides[7], strides[8], causal, scale};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int bh = batch * heads;
-  const bool residual = m_out != nullptr;
-  if (is_bf16) {
-    return residual ? dispatch<__nv_bfloat16, true>(a, bh, st)
-                    : dispatch<__nv_bfloat16, false>(a, bh, st);
-  }
-  return residual ? dispatch<float, true>(a, bh, st) : dispatch<float, false>(a, bh, st);
+int dispatch_tc(const TcArgs& a, int batch_heads, cudaStream_t stream) {
+  if (a.d <= 16) return launch_tc<T, 16, kResidual>(a, batch_heads, stream);
+  if (a.d <= 32) return launch_tc<T, 32, kResidual>(a, batch_heads, stream);
+  if (a.d <= 64) return launch_tc<T, 64, kResidual>(a, batch_heads, stream);
+  return launch_tc<T, 128, kResidual>(a, batch_heads, stream);
 }
 
 }  // namespace
 
-// strides: 9 element strides, (B, H, L) of q, then of k, then of v. Each
-// launches on `stream` and returns the cudaError_t of the launch (0 =
-// success; cudaErrorInvalidValue for a shape the kernel does not take).
-extern "C" int nns_flash_attention(const void* q, const void* k, const void* v, void* o,
-                                   int batch, int heads, int len, int d,
-                                   const long long* strides, int causal, float scale,
-                                   int is_bf16, void* stream) {
-  return run(q, k, v, o, nullptr, nullptr, batch, heads, len, d, strides, causal, scale,
-             is_bf16, stream);
-}
-
-extern "C" int nns_flash_attention_residual(const void* q, const void* k, const void* v,
-                                            float* acc, float* m_out, float* l_out, int batch,
-                                            int heads, int len, int d,
-                                            const long long* strides, int causal, float scale,
-                                            int is_bf16, void* stream) {
-  return run(q, k, v, acc, m_out, l_out, batch, heads, len, d, strides, causal, scale, is_bf16,
-             stream);
+// The tf32x3 route: q, k, v (B, H, L, D) float32 (is_bf16 = 0) or bfloat16,
+// any D >= 1; strides: 9 element strides, (B, H, L) of q, then of k, then
+// of v. Writes o (B, H, L, D) in q's dtype when m_out is null, else the f32
+// accumulator to o and m, l (B, H, L). Launches on `stream`; returns the
+// cudaError_t of the launch (cudaErrorInvalidValue for an empty shape).
+extern "C" int nns_flash_attention_tf32x3(const void* q, const void* k, const void* v, void* o,
+                                          float* m_out, float* l_out, int batch, int heads,
+                                          int len, int d, const long long* strides, int causal,
+                                          float scale, int is_bf16, void* stream) {
+  if (d < 1 || len < 1 || batch < 1 || heads < 1) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  int vec = !is_bf16 && d % 4 == 0;
+  const void* bases[3] = {q, k, v};
+  for (const void* p : bases) vec = vec && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  for (int i = 0; i < 9; ++i) vec = vec && strides[i] % 4 == 0;
+  TcArgs a{q, k, v, o, m_out, l_out, heads, len, d,
+           strides[0], strides[1], strides[2], strides[3], strides[4], strides[5],
+           strides[6], strides[7], strides[8], causal, vec, scale};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int bh = batch * heads;
+  const bool residual = m_out != nullptr;
+  if (is_bf16) {
+    return residual ? dispatch_tc<__nv_bfloat16, true>(a, bh, st)
+                    : dispatch_tc<__nv_bfloat16, false>(a, bh, st);
+  }
+  return residual ? dispatch_tc<float, true>(a, bh, st) : dispatch_tc<float, false>(a, bh, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -338,8 +576,6 @@ constexpr int kWgConsumers = 256;            // two consumer warpgroups
 constexpr int kWgThreads = kWgConsumers + 32;  // and one producer warp
 constexpr int kWgStages = 3;                 // K/V ring depth
 constexpr int kSwizzleRow = 128;             // bytes in a 128-byte-swizzled row (64 bf16)
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kMinusInf = -__builtin_huge_valf();
 
 // keys per K/V tile: 128 at D 64, 64 at D 128 (the S and O fragments then
 // fit the registers: 64 + 32 or 32 + 64 floats a thread)
@@ -360,10 +596,6 @@ struct WgArgs {
   int h, len, causal;
   float scale;
 };
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
@@ -430,13 +662,6 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float* r) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-
-// 2^x (ex2.approx: 2 ulp; results below 2^-126 flush to 0)
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {

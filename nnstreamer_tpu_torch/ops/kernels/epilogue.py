@@ -120,8 +120,9 @@ class_reduce.launches = 0
 # nms_sweep: greedy suppression sweep over score-descending candidates
 # --------------------------------------------------------------------------- #
 
-#: candidates one launch takes (one block, one thread each; see the source)
-NMS_MAX_K = 512
+#: the largest K whose IoU relation the kernel keeps in shared memory;
+#: above it the wrapper hands it global scratch (see the source)
+NMS_SMEM_MAX_K = 1024
 
 
 def nms_sweep_plain(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
@@ -150,7 +151,7 @@ def nms_sweep_plain(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
 def nms_sweep(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
               y1: torch.Tensor, scores: torch.Tensor, *,
               iou_threshold: float, threshold: float) -> torch.Tensor:
-    """Greedy-NMS sweep over K ≤ 512 score-descending candidates (five
+    """Greedy-NMS sweep over K ≥ 1 score-descending candidates (five
     contiguous (K,) float32 columns on one device)."""
     cols = (x0, y0, x1, y1, scores)
     if scores.device.type == "cpu":
@@ -168,13 +169,17 @@ def nms_sweep(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
                  f"nms_sweep: five (K,) columns required, got "
                  f"{[tuple(t.shape) for t in cols]}")
         _require(c.is_contiguous(), "nms_sweep: contiguous columns required")
-    _require(0 < k <= NMS_MAX_K,
-             f"nms_sweep: 1 <= K <= {NMS_MAX_K} candidates, got {k}")
+    _require(k > 0, f"nms_sweep: K >= 1 candidates required, got {k}")
     out = torch.empty(k, device=scores.device, dtype=torch.float32)
+    scratch = None
+    if k > NMS_SMEM_MAX_K:  # the relation: ceil(K / 32) words of K | 1 rows
+        scratch = torch.empty(-(-k // 32) * (k | 1), device=scores.device,
+                              dtype=torch.int32)
     fn = _entry("nms_sweep", "nns_nms_sweep",
-                (_P,) * 6 + (ctypes.c_int, ctypes.c_float, ctypes.c_float, _P))
+                (_P,) * 7 + (ctypes.c_int, ctypes.c_float, ctypes.c_float, _P))
     with _on(scores.device):
-        rc = fn(*(c.data_ptr() for c in cols), out.data_ptr(), k,
+        rc = fn(*(c.data_ptr() for c in cols), out.data_ptr(),
+                None if scratch is None else scratch.data_ptr(), k,
                 float(iou_threshold), float(threshold), _stream_ptr(scores))
     _check_launch("nms_sweep", rc)
     nms_sweep.launches += 1

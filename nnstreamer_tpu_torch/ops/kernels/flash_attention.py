@@ -11,8 +11,11 @@ the dtype and the head width alone:
   * ``wgmma``: bfloat16 at D 64 or 128 (the zoo's head width and the wide
     one) — tensor-core products (wgmma) on tiles that TMA loads, 128 query
     rows a block;
-  * ``simt``: every other case (float32, bf16 at other D) — float32 FMAs on
-    the CUDA cores, 64 query rows a block.
+  * ``tf32x3``: every other case (float32 at any D, bf16 at other D) —
+    warp-level tf32 tensor-core products (mma.sync), a float32 operand
+    split into two tf32 halves and multiplied as three products, which
+    keeps float32's accuracy (a bf16 operand is a tf32 value and takes one
+    product); 64 query rows a block, D > 128 in 128-column chunks.
 
 Block sizes are fixed constants in the source: the JAX package's autotuner
 hook is not ported. TMA needs a 16-byte aligned base and B, H and L strides
@@ -41,8 +44,6 @@ from .epilogue import _P, _check_launch, _entry, _on, _require, _stream_ptr
 
 #: keys per block of the plain version's recurrence (the kernel's tile)
 BLOCK_K = 64
-#: widest head the kernel takes
-MAX_HEAD_DIM = 128
 #: head widths of the wgmma route (bfloat16 only)
 WGMMA_HEAD_DIMS = (64, 128)
 #: the mask value: finite, so m - m never makes a NaN
@@ -97,10 +98,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
              f"flash_attention: unsupported device {q.device}")
     _require(q.dtype in (torch.float32, torch.bfloat16),
              f"flash_attention: float32 or bfloat16 required, got {q.dtype}")
-    _require(q.dim() == 4 and 1 <= q.shape[-1] <= MAX_HEAD_DIM
-             and min(q.shape) > 0,
-             f"flash_attention: non-empty (B, H, L, D <= {MAX_HEAD_DIM}) "
-             f"tensors required, got {tuple(q.shape)}")
+    _require(q.dim() == 4 and min(q.shape) > 0,
+             "flash_attention: non-empty (B, H, L, D) tensors required, got "
+             f"{tuple(q.shape)}")
     for t in (k, v):
         _require(t.device == q.device and t.dtype == q.dtype
                  and t.shape == q.shape,
@@ -114,10 +114,11 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 def _route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     """The kernel a launch takes (q, k and v share dtype and shape, as
-    ``_check`` holds): "wgmma" for bfloat16 at D 64 or 128, else "simt". The layout never changes the route: a tensor that
-    TMA cannot read is copied first (``_tma_ready``)."""
+    ``_check`` holds): "wgmma" for bfloat16 at D 64 or 128, else "tf32x3".
+    The layout never changes the route: a tensor that TMA cannot read is
+    copied first (``_tma_ready``)."""
     return "wgmma" if (q.dtype == torch.bfloat16
-                       and q.shape[-1] in WGMMA_HEAD_DIMS) else "simt"
+                       and q.shape[-1] in WGMMA_HEAD_DIMS) else "tf32x3"
 
 
 def _tma_strides(t: torch.Tensor) -> Tuple[int, int, int]:
@@ -141,7 +142,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True,
                     return_residuals: bool = False) -> Result:
     """Causal (or full) attention over (B, H, L, D) tensors, float32 or
-    bfloat16, D <= 128, any L; the head axis contiguous, other strides
+    bfloat16, any D and L; the head axis contiguous, other strides
     free. Returns (B, H, L, D) in q's dtype, or with ``return_residuals``
     the unnormalised float32 accumulator and the per-row m and l
     (B, H, L), which merge partial attentions over disjoint key sets."""
@@ -177,16 +178,11 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         (_P,) * 6 + (ctypes.c_int,) * 4
                         + (_P, ctypes.c_int, ctypes.c_float, _P))
             rc = fn(*qkv, *ptrs, *tail, _stream_ptr(q))
-        elif return_residuals:
-            fn = _entry("flash_attention", "nns_flash_attention_residual",
+        else:
+            fn = _entry("flash_attention", "nns_flash_attention_tf32x3",
                         (_P,) * 6 + (ctypes.c_int,) * 4
                         + (_P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P))
             rc = fn(*qkv, *ptrs, *tail, is_bf16, _stream_ptr(q))
-        else:
-            fn = _entry("flash_attention", "nns_flash_attention",
-                        (_P,) * 4 + (ctypes.c_int,) * 4
-                        + (_P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P))
-            rc = fn(*qkv, ptrs[0], *tail, is_bf16, _stream_ptr(q))
     _check_launch("flash_attention", rc)
     flash_attention.launches += 1
     flash_attention.launches_by_route[route] += 1
@@ -194,5 +190,5 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 flash_attention.launches = 0
-flash_attention.launches_by_route = {"wgmma": 0, "simt": 0}
+flash_attention.launches_by_route = {"wgmma": 0, "tf32x3": 0}
 flash_attention.tma_copies = 0

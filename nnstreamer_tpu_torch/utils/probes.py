@@ -23,12 +23,12 @@ import numpy as np
 import torch
 
 #: per-card peak dense FLOP/s, keyed by a substring of the lower-cased CUDA
-#: device name, by operand dtype: bf16 on the tensor cores, float32 outside
-#: them (NVIDIA's H100 SXM data sheet; "cpu" is nominal, MFU there means
-#: nothing)
+#: device name, by operand type: bf16 and "tf32" on the tensor cores,
+#: float32 outside them (NVIDIA's H100 SXM data sheet; "cpu" is nominal,
+#: MFU there means nothing)
 PEAK_FLOPS = {
-    "h100": {torch.bfloat16: 989e12, torch.float32: 67e12},
-    "cpu": {torch.bfloat16: 1e11, torch.float32: 1e11},
+    "h100": {torch.bfloat16: 989e12, "tf32": 495e12, torch.float32: 67e12},
+    "cpu": {torch.bfloat16: 1e11, "tf32": 1e11, torch.float32: 1e11},
 }
 DEFAULT_PEAK = PEAK_FLOPS["h100"]
 
@@ -56,9 +56,10 @@ def _by_device_name(table: Dict[str, Any], default: Any, device: Any = None) -> 
     return default
 
 
-def chip_peak_flops(device: Any = None, dtype: torch.dtype = torch.bfloat16) -> float:
+def chip_peak_flops(device: Any = None, dtype: Any = torch.bfloat16) -> float:
     """Peak dense FLOP/s of ``device`` (None: the current CUDA card) for
-    ``dtype`` operands (bfloat16 or float32)."""
+    ``dtype`` operands: torch.bfloat16, "tf32" (float32 operands rounded
+    for the tensor cores) or torch.float32 (the CUDA cores)."""
     return _by_device_name(PEAK_FLOPS, DEFAULT_PEAK, device)[dtype]
 
 

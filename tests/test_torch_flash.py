@@ -57,6 +57,27 @@ def test_plain_matches_pallas_interpret(causal, length, d, dtype):
 
 
 @pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("d", [192, 256])
+def test_plain_matches_pallas_interpret_wide_heads(d, causal):
+    # the heads the card refused before the tf32x3 route (D > 128); the
+    # Pallas kernel pads them to a multiple of 128
+    q, k, v = _qkv((1, 2, 130, d), seed=d)
+    want = np.asarray(jflash(q, k, v, causal=causal, interpret=True))
+    got = tfa.flash_attention(*(torch.from_numpy(x) for x in (q, k, v)),
+                              causal=causal)
+    assert got.shape == (1, 2, 130, d)
+    np.testing.assert_allclose(got.numpy(), want, **F32)
+    jacc, jm, jl = (np.asarray(x) for x in jflash(
+        q, k, v, causal=causal, interpret=True, return_residuals=True))
+    acc, m, l_sum = tfa.flash_attention(
+        *(torch.from_numpy(x) for x in (q, k, v)), causal=causal,
+        return_residuals=True)
+    np.testing.assert_allclose(acc.numpy(), jacc, **F32)
+    np.testing.assert_allclose(m.numpy(), jm, rtol=1e-6, atol=1e-6)
+    np.testing.assert_allclose(l_sum.numpy(), jl, **F32)
+
+
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
 def test_residual_mode_matches_pallas_interpret(causal):
     q, k, v = _qkv((2, 2, 200, 64), seed=3)
     jacc, jm, jl = (np.asarray(x) for x in jflash(
@@ -149,12 +170,14 @@ def test_kernel_matches_plain(cuda_device, shape, dtype, causal, residual):
 # the two routes: which kernel a launch takes, and when TMA needs a copy
 # --------------------------------------------------------------------------- #
 
-@pytest.mark.parametrize("d", [16, 32, 40, 63, 64, 96, 100, 128])
+@pytest.mark.parametrize("d", [16, 32, 40, 63, 64, 96, 100, 128,
+                               1, 136, 192, 256, 512])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
                          ids=["float32", "bfloat16"])
 def test_route_is_wgmma_only_for_bf16_at_d64_and_d128(dtype, d):
+    # every float32 call, at every D, takes the tf32x3 route
     q = torch.zeros((1, 2, 10, d), dtype=dtype)
-    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "simt"
+    want = "wgmma" if dtype == torch.bfloat16 and d in (64, 128) else "tf32x3"
     assert tfa._route(q, q, q) == want
     # the layout never changes the route
     wide = torch.zeros((1, 10, 2, d + 8), dtype=dtype)[..., 1:d + 1]
@@ -219,7 +242,7 @@ def test_wgmma_route_matches_plain(cuda_device, length, causal, d, residual):
     got = tfa.flash_attention(q, k, v, causal, return_residuals=residual)
     want = tfa.flash_attention_plain(q, k, v, causal, return_residuals=residual)
     torch.cuda.synchronize()
-    assert _route_delta(before) == {"wgmma": 1, "simt": 0}
+    assert _route_delta(before) == {"wgmma": 1, "tf32x3": 0}
     if not residual:
         torch.testing.assert_close(got.float(), want.float(), **BF16)
         return
@@ -240,7 +263,7 @@ def test_wgmma_route_takes_lm_split_head_views_without_copy(cuda_device, d):
     got = tfa.flash_attention(*views, causal=True)
     want = tfa.flash_attention_plain(*views, causal=True)
     torch.cuda.synchronize()
-    assert _route_delta(before) == {"wgmma": 1, "simt": 0}
+    assert _route_delta(before) == {"wgmma": 1, "tf32x3": 0}
     assert tfa.flash_attention.tma_copies == copies
     torch.testing.assert_close(got.float(), want.float(), **BF16)
 
@@ -257,7 +280,7 @@ def test_wgmma_route_copies_an_unaligned_view(cuda_device):
     got = tfa.flash_attention(q, k, v, causal=True)
     want = tfa.flash_attention_plain(q, k, v, causal=True)
     torch.cuda.synchronize()
-    assert _route_delta(before) == {"wgmma": 1, "simt": 0}
+    assert _route_delta(before) == {"wgmma": 1, "tf32x3": 0}
     assert tfa.flash_attention.tma_copies == copies + 1
     torch.testing.assert_close(got.float(), want.float(), **BF16)
 
@@ -267,12 +290,59 @@ def test_wgmma_route_copies_an_unaligned_view(cuda_device):
     ((2, 3, 200, 64), torch.float32), ((2, 3, 200, 32), torch.bfloat16),
     ((1, 2, 130, 96), torch.bfloat16)], ids=["f32_D64", "bf16_D32", "bf16_D96"])
 def test_simt_route_takes_the_rest(cuda_device, shape, dtype):
+    # the CUDA-core route is gone: what it took now takes tf32x3
     q, k, v = (torch.from_numpy(x).to(dtype).to(cuda_device)
                for x in _qkv(shape, seed=14))
     before = dict(tfa.flash_attention.launches_by_route)
     got = tfa.flash_attention(q, k, v, True)
     want = tfa.flash_attention_plain(q, k, v, True)
     torch.cuda.synchronize()
-    assert _route_delta(before) == {"wgmma": 0, "simt": 1}
+    assert _route_delta(before) == {"wgmma": 0, "tf32x3": 1}
     torch.testing.assert_close(got.float(), want.float(),
                                **(F32 if dtype == torch.float32 else BF16))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [
+    (1, 1, 1, 1), (2, 3, 63, 8), (2, 3, 65, 40), (1, 2, 1000, 64),
+    (1, 2, 130, 136), (2, 2, 200, 192), (1, 2, 129, 256), (1, 1, 70, 512)],
+    ids=["L1_D1", "L63_D8", "L65_D40", "L1000_D64", "D136", "D192", "D256",
+         "D512"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("residual", [False, True], ids=["normalised", "residual"])
+def test_tf32x3_route_matches_plain(cuda_device, shape, dtype, causal, residual):
+    if dtype == torch.bfloat16 and shape[-1] == 64:
+        shape = shape[:-1] + (72,)  # bf16 at D 64 is the wgmma route's
+    q, k, v = (torch.from_numpy(x).to(dtype).to(cuda_device)
+               for x in _qkv(shape, seed=sum(shape)))
+    before = dict(tfa.flash_attention.launches_by_route)
+    got = tfa.flash_attention(q, k, v, causal, return_residuals=residual)
+    want = tfa.flash_attention_plain(q, k, v, causal, return_residuals=residual)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"wgmma": 0, "tf32x3": 1}
+    tol = F32 if dtype == torch.float32 else BF16
+    if not residual:
+        assert got.dtype == dtype
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        return
+    (acc, m, l_sum), (racc, rm, rl) = got, want
+    torch.testing.assert_close(acc / l_sum[..., None], racc / rl[..., None], **tol)
+    torch.testing.assert_close(m, rm, **F32)
+    torch.testing.assert_close(l_sum, rl, **F32)
+
+
+@pytest.mark.cuda
+def test_tf32x3_route_takes_unaligned_and_strided_float32(cuda_device):
+    # the 4-byte copy path: a base off 16-byte alignment, odd L strides
+    flat = torch.from_numpy(np.random.default_rng(15).standard_normal(
+        3 * 2 * 3 * 90 * 48 + 1).astype(np.float32)).to(cuda_device)
+    q, k, v = (flat[1 + i * 2 * 3 * 90 * 48:].as_strided(
+        (2, 3, 90, 45), (3 * 90 * 48, 90 * 48, 48, 1)) for i in range(3))
+    before = dict(tfa.flash_attention.launches_by_route)
+    got = tfa.flash_attention(q, k, v, True)
+    want = tfa.flash_attention_plain(q, k, v, True)
+    torch.cuda.synchronize()
+    assert _route_delta(before) == {"wgmma": 0, "tf32x3": 1}
+    torch.testing.assert_close(got, want, **F32)

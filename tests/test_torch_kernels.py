@@ -103,6 +103,18 @@ def test_nms_sweep_plain_bit_exact_with_pallas(name, k, iou, thr, kw):
         assert (plain.numpy() == -1.0).all()
 
 
+@pytest.mark.parametrize("k", [1000, 1025])
+def test_nms_sweep_plain_bit_exact_with_reference_large_k(k):
+    # K past the old one-block limit of 512, and past the kernel's
+    # shared-memory relation (1024)
+    cols = _boxes(k, seed=k)
+    ref = np.asarray(jep.nms_sweep_reference(*cols, 0.5, 0.3))
+    plain = tep.nms_sweep_plain(*(torch.from_numpy(c) for c in cols),
+                                iou_threshold=0.5, threshold=0.3)
+    np.testing.assert_array_equal(ref, plain.numpy())
+    assert 0 < int((plain.numpy() > 0).sum()) < k
+
+
 def test_nms_sweep_duplicate_boxes_keep_first():
     cols = _boxes(32, seed=5)
     for c in cols[:4]:
@@ -272,6 +284,20 @@ def test_nms_sweep_kernel_matches_plain(cuda_device, name, k, iou, thr, kw):
     before = tep.nms_sweep.launches
     got = tep.nms_sweep(*cols, iou_threshold=iou, threshold=thr)
     want = tep.nms_sweep_plain(*cols, iou_threshold=iou, threshold=thr)
+    assert tep.nms_sweep.launches == before + 1
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [31, 33, 513, 1000, 1024, 1025, 2048])
+@pytest.mark.parametrize("iou", [0.5, 0.1], ids=["iou0.5", "iou0.1"])
+def test_nms_sweep_kernel_bit_exact_up_to_k2048(cuda_device, k, iou):
+    # the chunked sweep across word boundaries, the shared-memory relation
+    # up to K 1024 and the global one past it
+    cols = [torch.from_numpy(c).to(cuda_device) for c in _boxes(k, seed=k)]
+    before = tep.nms_sweep.launches
+    got = tep.nms_sweep(*cols, iou_threshold=iou, threshold=0.2)
+    want = tep.nms_sweep_plain(*cols, iou_threshold=iou, threshold=0.2)
     assert tep.nms_sweep.launches == before + 1
     assert torch.equal(got, want)
 

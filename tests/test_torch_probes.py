@@ -31,6 +31,7 @@ def on_h100(monkeypatch):
 def test_h100_peaks_by_device_name(on_h100):
     assert probes.chip_peak_flops("cuda:0") == 989e12
     assert probes.chip_peak_flops("cuda:0", torch.float32) == 67e12
+    assert probes.chip_peak_flops("cuda:0", "tf32") == 495e12
     assert probes.chip_peak_hbm_bw("cuda:0") == 3.35e12
     assert probes.ridge_intensity("cuda:0") == pytest.approx(989e12 / 3.35e12)
     assert probes.ridge_intensity("cuda:0", torch.float32) == pytest.approx(20.0, rel=1e-2)
