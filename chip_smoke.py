@@ -35,14 +35,16 @@ Phases (any failure exits non-zero before the result lines are printed):
      pipeline logits;
   6. drive the DeepLab-v3 257x257 segmentation pipeline (21 classes, width
      1.0, bf16) over 64 random frames with ``segment_colorize`` fused into
-     the filter's invoke: one launch per frame, canvases on the card, and
+     the filter's invoke: one launch per frame, every one on the ``bulk``
+     route (``launches_by_route``), canvases on the card, and
      every canvas bit-equal to the host decode of the logits the fused
      invoke produced for it, with more than one class in each;
   7. drive the same model behind ``tensor_batch max_batch=4`` …
      ``tensor_unbatch`` over 30 frames (the last group padded), the decoder
      at its default ``async_depth``: 30 canvases in order with their pts,
-     one launch per frame, each canvas bit-equal to the host decode of its
-     own slice of the batched logits;
+     one launch per frame, all on the ``bulk`` route (the slices sit 4, 8
+     and 12 bytes off 16-byte alignment), each canvas bit-equal to the host
+     decode of its own slice of the batched logits;
   8. drive the PoseNet 257 pose pipeline (heatmap-offset) over 16 frames:
      the decoder's device reduce must give the host decode's keypoints,
      and tied heatmap cells must resolve to the first one on the card;
@@ -72,7 +74,18 @@ Phases (any failure exits non-zero before the result lines are printed):
      path and read just after), the ``kernels`` JSON line, then the device
      line last.
 
-Phase 3 holds ``normalize_u8`` on every uint8 value at 1/127.5 and 1/255 to
+Phase 3 first times three untimed rounds of the launch floor (a process's
+first two timings read short), then measures the floor (a one-element fill
+replayed as the kernels are) right after ``class_reduce``, ``nms_sweep``
+and the ids route of ``segment_colorize`` and prints it beside each. It holds ``class_reduce`` bit for bit
+(index, score and the score's bits, which are the winning element's own:
++0.0/-0.0 ties, NaN payloads) at L 1 to 4096, N not a multiple of a
+block's rows, strided rows and a base one float off, and
+``segment_colorize`` on each route (``bulk``, ``row``, ``ids``,
+each case asserting its route): the ragged last block, C 1 to 12000,
+strided rows, a base one float off, the batched (4, 257, 257, 21) input and
+its four slices, ids offset by one, and a palette off 4-byte alignment.
+It holds ``normalize_u8`` on every uint8 value at 1/127.5 and 1/255 to
 float32 and bf16, at sizes 1 to 1920x1080x3, on strided and unaligned views
 and float inputs, and ``quantize_affine`` on NaN, inf, 1e9, ties and zero
 points 0 and 128 (both timed at 224 and 1080p; ``quantize_affine`` beside
@@ -238,23 +251,63 @@ def _random_boxes(rng, k: int, dev) -> list:
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev) for a in cols]
 
 
+def _launch_floor_ms(dev) -> float:
+    """A one-element ``fill_`` replayed as the kernels are: the least
+    device time of any launch, the floor under a kernel whose bound is
+    below it. Measured right after the kernel it is printed beside."""
+    return _device_ms(torch.zeros(1, device=dev).zero_)
+
+
+def _settle_timing(dev) -> list:
+    """The first two ``_device_ms`` readings of a process come out short
+    (at the same clock), so three untimed rounds of the launch floor go
+    before the first kernel is timed. Returns their readings."""
+    return [_launch_floor_ms(dev) for _ in range(3)]
+
+
+def _bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    return torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32))
+
+
 def check_class_reduce(ep, dev, rng) -> dict:
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
     cases = []
-    x = torch.from_numpy(rng.normal(size=(2916, 91)).astype(np.float32)).to(dev)
+    x = normal(2916, 91)
     cases.append(("slice (2916, 91)[:, 1:]", x[:, 1:]))
     ties = torch.from_numpy(rng.integers(0, 4, (300, 45)).astype(np.float32)).to(dev)
     ties[0] = 2.0  # all-equal row
     cases.append(("ties, L=45", ties))
-    cases.append(("L=1", torch.from_numpy(rng.normal(size=(7, 1)).astype(np.float32)).to(dev)))
-    odd = torch.from_numpy(rng.normal(size=(33, 97)).astype(np.float32)).to(dev)
+    cases.append(("L=1", normal(7, 1)))
+    odd = normal(33, 97)
     odd[3, 5] = float("nan")
     odd[4] = float("-inf")
     cases.append(("L=97, NaN and -inf rows", odd))
+    # +0.0 and -0.0 tie (the first stands, its own sign returned); the first
+    # NaN wins with its own payload and sign
+    z = torch.full((301, 90), -1.0, device=dev)
+    z[0, [3, 7]] = torch.tensor([-0.0, 0.0], device=dev)
+    z[1, [3, 7]] = torch.tensor([0.0, -0.0], device=dev)
+    z[2, [5, 80]] = -0.0
+    payloads = np.array([0x7FC00001, 0xFFC00002, 0xFFC00003, 0x7FC00004, 0x7F800001],
+                        np.uint32).view(np.int32)
+    for (r, c), w in zip([(3, 10), (3, 40), (4, 2), (4, 70), (6, 89)], payloads):
+        z.view(torch.int32)[r, c] = int(w)
+    z[5] = float("-inf")
+    cases.append(("+0.0/-0.0 ties and NaN payloads (N 301, not a multiple of R)", z))
+    for l in (1, 21, 150, 300, 4096):
+        cases.append((f"L={l}, N 1001", normal(1001, l)))
+    cases.append(("base offset by one float", normal(1001 * 90 + 1)[1:].view(1001, 90)))
+    cases.append(("strided rows, offset base", normal(77, 301)[:, 3:300]))
     for name, t in cases:
+        before = ep.class_reduce.launches
         got = ep.class_reduce(t)
         want = ep.class_reduce_plain(t)
         torch.cuda.synchronize()
-        if not (_same(got[0], want[0]) and torch.equal(got[1], want[1])):
+        own = t[torch.arange(t.shape[0], device=dev), got[1].long()]
+        if not (_same(got[0], want[0]) and torch.equal(got[1], want[1])
+                and _bits_equal(got[0], own) and ep.class_reduce.launches == before + 1):
             raise AssertionError(f"class_reduce differs from plain: {name}")
     main = cases[0][1]
     n, l = main.shape
@@ -262,15 +315,18 @@ def check_class_reduce(ep, dev, rng) -> dict:
     calls = {"kernel": lambda: ep.class_reduce(main),
              "plain": lambda: ep.class_reduce_plain(main),
              "library": lambda: torch.max(main, dim=-1)}
-    dev = {k: _device_ms(f) for k, f in calls.items()}
+    dev_ms = {k: _device_ms(f) for k, f in calls.items()}
+    floor_ms = _launch_floor_ms(dev)
     eager = {k: _eager_ms(f) for k, f in calls.items()}
-    ms, plain_ms, library_ms = dev["kernel"], dev["plain"], dev["library"]
+    ms, plain_ms, library_ms = dev_ms["kernel"], dev_ms["plain"], dev_ms["library"]
     bound, by = _bound_ms(n * l * 4 + n * 8, n * l)
-    print(f"class_reduce N={n} L={l} device ms/call (CUDA graph): kernel={ms:.6f} "
-          f"plain={plain_ms:.6f} library(torch.max)={library_ms:.6f}; "
+    print(f"class_reduce N={n} L={l} (a warp a row, {-(-n // 8)} blocks of 8) device "
+          f"ms/call (CUDA graph): kernel={ms:.6f} plain={plain_ms:.6f} "
+          f"library(torch.max)={library_ms:.6f}; "
           f"eager ms/call: kernel={eager['kernel']:.6f} plain={eager['plain']:.6f} "
-          f"library={eager['library']:.6f}; bound_ms={bound:.8f} ({by})",
-          flush=True)
+          f"library={eager['library']:.6f}; bound_ms={bound:.8f} ({by}); launch floor "
+          f"{floor_ms:.6f} (a one-element fill_ replayed the same way); bit-exact on "
+          f"{len(cases)} cases (score bits = the winning element's)", flush=True)
     return {"name": "class_reduce", "route": "cuda",
             "source": "nnstreamer_tpu_torch/ops/kernels/csrc/class_reduce.cu",
             "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:173",
@@ -324,11 +380,10 @@ def check_nms_sweep(ep, dev, rng) -> dict:
     plain = lambda: ep.nms_sweep_plain(  # noqa: E731
         *main, iou_threshold=0.5, threshold=0.5)
     ms = _device_ms(call)
+    floor_ms = _launch_floor_ms(dev)
     plain_ms = _device_ms(plain, per_graph=2, replays=5)
     eager_ms = _eager_ms(call)
     eager_plain_ms = _eager_ms(plain, iters=10, warmup=2)
-    one = torch.zeros(1, device=dev)
-    floor_ms = _device_ms(one.zero_)
     bound, by = _bound_ms(6 * k * 4, NMS_OPS_PER_PAIR * k * (k - 1) / 2)
     big = _random_boxes(rng, 2048, dev)
     big_ms = _device_ms(lambda: ep.nms_sweep(*big, iou_threshold=0.5, threshold=0.5), 5, 5)
@@ -349,39 +404,71 @@ def check_nms_sweep(ep, dev, rng) -> dict:
             "bound_ms": bound, "bound_by": by, "library_ms": None}
 
 
+def _route_delta(before: dict, after: dict) -> dict:
+    return {r: n - before.get(r, 0) for r, n in after.items() if n != before.get(r, 0)}
+
+
 def check_segment_colorize(ep, dev, rng) -> dict:
     pal = torch.from_numpy(rng.integers(0, 256, (256, 4), dtype=np.uint8)).to(dev)
 
     def logits(*shape):
         return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
 
-    cases = [("(257, 257, 21)", logits(257, 257, 21), False)]
+    # (name, input, pre_argmaxed, the route its launch must take)
+    cases = [("(257, 257, 21), ragged last tile", logits(257, 257, 21), False, "bulk")]
     ties = torch.from_numpy(rng.integers(0, 4, (500, 21)).astype(np.float32)).to(dev)
     ties[0] = 2.0  # all-equal pixel
-    cases.append(("ties and all-equal rows", ties, False))
+    cases.append(("ties and all-equal rows", ties, False, "bulk"))
     odd = logits(300, 21)
     odd[3, 5] = float("nan")
     odd[4, [0, 7]] = float("nan")
     odd[5] = float("-inf")
     odd[6, 2] = float("-inf")
-    cases.append(("NaN and -inf pixels", odd, False))
-    for c in (1, 21, 150, 300):
-        x = logits(129, 33, c)
+    odd[7] = -1.0
+    odd[7, [2, 9]] = torch.tensor([-0.0, 0.0], device=dev)  # zeros tie: class 2
+    cases.append(("NaN, -inf and +0.0/-0.0 pixels", odd, False, "bulk"))
+    for c in (1, 21, 150, 300, 4096, 12000):
+        x = logits(67, c) if c >= 4096 else logits(129, 33, c)
         if c == 300:
             x[:64, :, 270] = 40.0  # argmax >= 256: the uint8 fill
-        cases.append((f"C={c}", x, False))
-    cases.append(("strided rows (257, 257, 30)[..., 4:25]",
-                  logits(257, 257, 30)[..., 4:25], False))
+        # pixels wider than a block stages (C > 11772) go by the row route
+        cases.append((f"C={c}", x, False, "row" if c > 11772 else "bulk"))
+        cases.append((f"C={c}, strided rows", logits(67, c + 3)[:, 1:c + 1], False, "row"))
+    strided = logits(257, 257, 30)[..., 4:25]
+    cases.append(("strided rows (257, 257, 30)[..., 4:25]", strided, False, "row"))
+    cases.append(("base offset by one float",
+                  logits(257 * 257 * 21 + 1)[1:].view(257, 257, 21), False, "bulk"))
+    batched = logits(SEG_BATCH, 257, 257, 21)
+    cases.append((f"batched ({SEG_BATCH}, 257, 257, 21)", batched, False, "bulk"))
+    for i in range(SEG_BATCH):  # tensor_unbatch's slices: 4, 8, 12 bytes off 16
+        cases.append((f"batched slice {i}", batched[i:i + 1][0], False, "bulk"))
     ids = torch.from_numpy(rng.integers(-300, 300, (257, 257)).astype(np.int32)).to(dev)
-    cases.append(("int32 ids, negative and out of range", ids, True))
-    cases.append(("float ids (truncated)", ids.to(torch.float32) * 0.37, True))
-    cases.append(("uint8 ids", ids.to(torch.uint8), True))
-    for name, x, pre in cases:
+    cases.append(("int32 ids, negative and out of range", ids, True, "ids"))
+    cases.append(("int32 ids offset by one", torch.from_numpy(rng.integers(
+        -300, 300, 257 * 257 + 1).astype(np.int32)).to(dev)[1:], True, "ids"))
+    cases.append(("float ids (truncated)", ids.to(torch.float32) * 0.37, True, "ids"))
+    cases.append(("uint8 ids", ids.to(torch.uint8), True, "ids"))
+    cases.append(("7 ids", ids.reshape(-1)[:7], True, "ids"))
+    for name, x, pre, route in cases:
+        before = dict(ep.segment_colorize.launches_by_route)
         got = ep.segment_colorize(x, pal, pre_argmaxed=pre)
         want = ep.segment_colorize_plain(x, pal, pre_argmaxed=pre)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             raise AssertionError(f"segment_colorize differs from plain: {name}")
+        routes = _route_delta(before, ep.segment_colorize.launches_by_route)
+        if routes != {route: 1}:
+            raise AssertionError(f"segment_colorize {name}: routes {routes}, not {route}")
+    # a palette one byte into its storage: the wrapper copies it to a word boundary
+    buf = torch.zeros(256 * 4 + 1, dtype=torch.uint8, device=dev)
+    buf[1:] = pal.reshape(-1)
+    for name, x, pre, _ in (cases[0], cases[-5]):
+        if not torch.equal(ep.segment_colorize(x, buf[1:].view(256, 4), pre_argmaxed=pre),
+                           ep.segment_colorize_plain(x, pal, pre_argmaxed=pre)):
+            raise AssertionError(f"segment_colorize differs from plain: {name}, palette "
+                                 "off 4-byte alignment")
+    print(f"segment_colorize: bit-exact on {len(cases)} cases, routes taken "
+          f"{json.dumps(ep.segment_colorize.launches_by_route)}", flush=True)
 
     main = cases[0][1]
     h, w, c = main.shape
@@ -394,22 +481,24 @@ def check_segment_colorize(ep, dev, rng) -> dict:
     eager = {k: _eager_ms(f) for k, f in calls.items()}
     p = h * w
     bound, by = _bound_ms(p * c * 4 + p * 4 + 256 * 4, p * c)
-    print(f"segment_colorize logits ({h}*{w}, {c}) device ms/call (CUDA graph): "
+    strided_ms = _device_ms(lambda: ep.segment_colorize(strided, pal))
+    print(f"segment_colorize logits ({h}*{w}, {c}) route bulk device ms/call (CUDA graph): "
           f"kernel={dev_ms['kernel']:.6f} plain={dev_ms['plain']:.6f} "
           f"library(pal[x.argmax(-1)], two calls)={dev_ms['library']:.6f}; "
           f"eager ms/call: kernel={eager['kernel']:.6f} plain={eager['plain']:.6f} "
-          f"library={eager['library']:.6f}; bound_ms={bound:.8f} ({by})",
-          flush=True)
-    ids = cases[-3][1]
+          f"library={eager['library']:.6f}; bound_ms={bound:.8f} ({by}); share of "
+          f"bound {bound / dev_ms['kernel']:.3f}; strided (257, 257, 30)[..., 4:25], route "
+          f"row: kernel={strided_ms:.6f}", flush=True)
     id_calls = {"kernel": lambda: ep.segment_colorize(ids, pal, pre_argmaxed=True),
                 "plain": lambda: ep.segment_colorize_plain(ids, pal, pre_argmaxed=True)}
     id_dev = {k: _device_ms(f) for k, f in id_calls.items()}
+    floor_ms = _launch_floor_ms(dev)
     id_eager = {k: _eager_ms(f) for k, f in id_calls.items()}
     id_bound, id_by = _bound_ms(p * 4 + p * 4 + 256 * 4, p)
     print(f"segment_colorize ids ({h}*{w},) int32 device ms/call (CUDA graph): "
           f"kernel={id_dev['kernel']:.6f} plain={id_dev['plain']:.6f}; eager "
           f"ms/call: kernel={id_eager['kernel']:.6f} plain={id_eager['plain']:.6f}; "
-          f"bound_ms={id_bound:.8f} ({id_by})", flush=True)
+          f"bound_ms={id_bound:.8f} ({id_by}); launch floor {floor_ms:.6f}", flush=True)
     return {"name": "segment_colorize", "route": "cuda",
             "source": "nnstreamer_tpu_torch/ops/kernels/csrc/segment_colorize.cu",
             "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:262",
@@ -922,11 +1011,15 @@ def run_segmentation(ep) -> int:
     p, _, sink, arrivals = _seg_pipeline(SEG_SPEC, SEG_FRAMES)
     with _decoder_inputs() as seen, _epilogue_inputs(ImageSegment) as logits:
         ep.segment_colorize.launches = 0
+        before = dict(ep.segment_colorize.launches_by_route)
         t0 = time.perf_counter()
         p.run(timeout=600)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ep.segment_colorize.launches
+        routes = _route_delta(before, ep.segment_colorize.launches_by_route)
+    if routes != {"bulk": SEG_FRAMES}:
+        raise AssertionError(f"fused deeplab colorize routes {routes}, not all bulk")
     if p._epilogue_count != 1:
         raise AssertionError(f"segmentation decoder not fused: {p._epilogue_count}")
     if sink.num_buffers != SEG_FRAMES or launches != SEG_FRAMES \
@@ -956,9 +1049,9 @@ def run_segmentation(ep) -> int:
     if min(colours) < 2:
         raise AssertionError(f"a canvas holds one class only: {colours}")
     print(f"deeplab_v3 257x257 21 classes (fused colorize): {SEG_FRAMES} frames in "
-          f"{wall:.3f} s, steady fps={_steady_fps(arrivals):.2f}, launches={launches}, "
-          f"output devices={sorted(devices)}; every canvas == host decode of the "
-          f"logits the fused invoke produced, bit for bit (classes per canvas "
+          f"{wall:.3f} s, steady fps={_steady_fps(arrivals):.2f}, launches={launches} "
+          f"(by route {json.dumps(routes)}), output devices={sorted(devices)}; every "
+          f"canvas == host decode of the logits the fused invoke produced, bit for bit (classes per canvas "
           f"{min(colours)}..{max(colours)})", flush=True)
     return launches
 
@@ -977,11 +1070,15 @@ def run_batched_segmentation(ep) -> int:
     p, chain, sink, arrivals = _seg_pipeline(spec, SEG_BATCH_FRAMES, batch=SEG_BATCH)
     with _decoder_inputs() as seen:
         ep.segment_colorize.launches = 0
+        before = dict(ep.segment_colorize.launches_by_route)
         t0 = time.perf_counter()
         p.run(timeout=600)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = ep.segment_colorize.launches
+        routes = _route_delta(before, ep.segment_colorize.launches_by_route)
+    if routes != {"bulk": SEG_BATCH_FRAMES}:
+        raise AssertionError(f"batched deeplab colorize routes {routes}, not all bulk")
     batcher = chain[2]
     if p._epilogue_count != 0:
         raise AssertionError("fused across tensor_unbatch")
@@ -1007,7 +1104,8 @@ def run_batched_segmentation(ep) -> int:
     print(f"deeplab_v3 257x257 batched (tensor_batch max_batch={SEG_BATCH} ... "
           f"tensor_unbatch, colorize on the decoder): {SEG_BATCH_FRAMES} frames in "
           f"{wall:.3f} s, steady fps={_steady_fps(arrivals):.2f}, groups emitted="
-          f"{groups} (frames grouped {batcher.frames_grouped}), launches={launches}; "
+          f"{groups} (frames grouped {batcher.frames_grouped}), launches={launches} "
+          f"(by route {json.dumps(routes)}); "
           f"every canvas == host decode of its slice", flush=True)
     return launches
 
@@ -1559,8 +1657,12 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
+    settle = _settle_timing(dev)
+    print("timing warm-up, the launch floor's first three readings (ms): "
+          + ", ".join(f"{t:.6f}" for t in settle), flush=True)
     kernels = [check_class_reduce(ep, dev, rng), check_nms_sweep(ep, dev, rng),
-               check_segment_colorize(ep, dev, rng), check_flash_attention(fa, dev, rng),
+               check_segment_colorize(ep, dev, rng),
+               check_flash_attention(fa, dev, rng),
                check_dequant_gelu_requant(ep, dev, rng), check_normalize_u8(pp, dev, rng),
                check_quantize_affine(pp, dev, rng)]
     check_box_modes(ep)

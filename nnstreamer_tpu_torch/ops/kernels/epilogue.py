@@ -16,11 +16,12 @@ segmentation decoder (decoders/image_segment.py) and the w8a8 MLP
 
 Each wrapper launches its hand-written kernel for a CUDA tensor, raising on
 a device, dtype, shape or layout the kernel does not take, and adds one to
-its ``launches`` count for every launch. It runs the plain PyTorch version
-beside it only for a tensor on the CPU. The plain versions follow the JAX
-package's ``*_reference`` functions step by step and are bit-exact with
-them (``dequant_gelu_requant_plain`` up to torch's tanh against XLA's);
-they are what the kernels are held against on the card.
+its ``launches`` count for every launch (``segment_colorize`` also to
+``launches_by_route``: "bulk", "row" or "ids"). It runs the plain PyTorch
+version beside it only for a tensor on the CPU. The plain versions follow
+the JAX package's ``*_reference`` functions step by step and are bit-exact
+with them (``dequant_gelu_requant_plain`` up to torch's tanh against
+XLA's); they are what the kernels are held against on the card.
 """
 
 from __future__ import annotations
@@ -88,7 +89,8 @@ def class_reduce_plain(cls: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 def class_reduce(cls: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """(N, L) float32 class scores → (best_score (N,), best_index (N,)
     int32). Rows may be strided (a column slice of a wider tensor); the
-    last axis must be contiguous."""
+    last axis must be contiguous. The score is the winning element itself
+    (its sign of zero, its NaN payload)."""
     if cls.device.type == "cpu":
         return class_reduce_plain(cls)
     _require(cls.device.type == "cuda",
@@ -195,6 +197,11 @@ nms_sweep.launches = 0
 
 #: palette rows one launch takes (the kernel stages them in shared memory)
 PALETTE_MAX_ROWS = 256
+#: the logits routes, by the code the C entry point reports: "bulk" stages
+#: contiguous rows in shared memory by TMA, "row" reads strided rows (and
+#: pixels too wide to stage) in place; the entry point chooses from C and
+#: the row stride alone
+_COLORIZE_ROUTES = ("bulk", "row")
 
 
 def segment_colorize_plain(x: torch.Tensor, palette: torch.Tensor,
@@ -243,12 +250,15 @@ def segment_colorize(x: torch.Tensor, palette: torch.Tensor,
     _require(x.device.type == "cuda",
              f"segment_colorize: unsupported device {x.device}")
     _check_palette(palette, x.device)
+    if palette.data_ptr() % 4:  # the kernels read a palette row as one word
+        palette = palette.clone()
     if pre_argmaxed:
         _require(x.dtype != torch.bool and not x.is_complex(),
                  f"segment_colorize: real class ids required, got {x.dtype}")
         lead = tuple(x.shape)
         ids = x.to(torch.int32).reshape(-1).contiguous()
         p = ids.shape[0]
+        route = "ids"
     else:
         _require(x.dtype == torch.float32,
                  f"segment_colorize: float32 logits required, got {x.dtype}")
@@ -274,15 +284,22 @@ def segment_colorize(x: torch.Tensor, palette: torch.Tensor,
         else:
             fn = _entry("segment_colorize", "nns_argmax_colorize",
                         (_P, _P, ctypes.c_int, _P, ctypes.c_longlong,
-                         ctypes.c_int, ctypes.c_longlong, _P))
+                         ctypes.c_int, ctypes.c_longlong,
+                         ctypes.POINTER(ctypes.c_int), _P))
+            code = ctypes.c_int(-1)
             rc = fn(flat.data_ptr(), palette.data_ptr(), palette.shape[0],
-                    out.data_ptr(), p, c, flat.stride(0), _stream_ptr(x))
+                    out.data_ptr(), p, c, flat.stride(0), ctypes.byref(code),
+                    _stream_ptr(x))
     _check_launch("segment_colorize", rc)
+    if not pre_argmaxed:
+        route = _COLORIZE_ROUTES[code.value]
     segment_colorize.launches += 1
+    segment_colorize.launches_by_route[route] += 1
     return out
 
 
 segment_colorize.launches = 0
+segment_colorize.launches_by_route = {"bulk": 0, "row": 0, "ids": 0}
 
 
 # --------------------------------------------------------------------------- #

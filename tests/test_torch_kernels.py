@@ -247,9 +247,11 @@ def test_segment_colorize_wrapper_on_cpu_runs_plain_on_strided_rows():
     view = base[..., 4:25]  # 21 classes, rows 30 apart
     pal = torch.from_numpy(_palette())
     before = tep.segment_colorize.launches
+    routes = dict(tep.segment_colorize.launches_by_route)
     got = tep.segment_colorize(view, pal)
     want = tep.segment_colorize_plain(view.contiguous(), pal)
     assert tep.segment_colorize.launches == before  # no kernel on the CPU
+    assert tep.segment_colorize.launches_by_route == routes
     assert torch.equal(got, want)
 
 
@@ -314,9 +316,161 @@ def test_segment_colorize_kernel_matches_plain(cuda_device, case):
                          dtype=torch.int32, device=cuda_device)
     else:
         x = torch.from_numpy(_logits(case)).to(cuda_device)
+    route = {"strided": "row", "ids": "ids"}.get(case, "bulk")
+    _colorize_on_card(x, pal, pre, route)
+
+
+def _colorize_on_card(x, pal, pre: bool, route: str) -> None:
     before = tep.segment_colorize.launches
+    routes = dict(tep.segment_colorize.launches_by_route)
     got = tep.segment_colorize(x, pal, pre_argmaxed=pre)
     want = tep.segment_colorize_plain(x, pal, pre_argmaxed=pre)
     torch.cuda.synchronize()
     assert tep.segment_colorize.launches == before + 1
+    routes[route] += 1
+    assert tep.segment_colorize.launches_by_route == routes
     assert torch.equal(got, want)
+
+
+def _card_logits(case: str, dev) -> torch.Tensor:
+    rng = np.random.default_rng(23)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    if case == "ragged_last_tile":  # 66049 = 258 * 256 + 1 pixels
+        return normal(257, 257, 21)
+    if case == "offset_by_one_float":  # a base 4 bytes off 16-byte alignment
+        return normal(257 * 257 * 21 + 1)[1:].view(257, 257, 21)
+    if case == "batched":
+        return normal(4, 257, 257, 21)
+    if case.startswith("batched_slice"):  # tensor_unbatch's per-frame views
+        i = int(case[-1])
+        return normal(4, 257, 257, 21)[i:i + 1][0]
+    if case.startswith("strided_C"):
+        c = int(case[len("strided_C"):])
+        return normal(67, c + 3)[:, 1:c + 1]
+    if case == "zeros_and_nan":
+        x = normal(300, 21)
+        x[3, 5] = float("nan")
+        x[4, [0, 7]] = float("nan")
+        x[5] = float("-inf")
+        x[6] = -1.0
+        x[6, [2, 9]] = torch.tensor([-0.0, 0.0], device=dev)  # a tie: class 2
+        return x
+    c = int(case[1:])  # "C<classes>"
+    x = normal(67, c)
+    x[::7, c // 2] = float("nan")
+    return x
+
+
+COLORIZE_CARD_CASES = [
+    ("ragged_last_tile", "bulk"), ("offset_by_one_float", "bulk"),
+    ("batched", "bulk"), ("batched_slice1", "bulk"), ("batched_slice2", "bulk"),
+    ("batched_slice3", "bulk"), ("zeros_and_nan", "bulk"),
+    ("C1", "bulk"), ("C21", "bulk"), ("C150", "bulk"), ("C300", "bulk"),
+    ("C4096", "bulk"), ("C12000", "row"), ("strided_C1", "row"),
+    ("strided_C21", "row"), ("strided_C150", "row"), ("strided_C4096", "row"),
+    ("strided_C12000", "row"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case,route", COLORIZE_CARD_CASES,
+                         ids=[c[0] for c in COLORIZE_CARD_CASES])
+def test_segment_colorize_kernel_routes_bit_exact(cuda_device, case, route):
+    pal = torch.from_numpy(_palette()).to(cuda_device)
+    _colorize_on_card(_card_logits(case, cuda_device), pal, False, route)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["aligned", "offset_by_one", "seven"])
+def test_segment_colorize_ids_kernel_bit_exact(cuda_device, case):
+    pal = torch.from_numpy(_palette()).to(cuda_device)
+    ids = torch.from_numpy(np.random.default_rng(29).integers(
+        -300, 300, 257 * 257 + 1).astype(np.int32)).to(cuda_device)
+    x = {"aligned": ids[:-1], "offset_by_one": ids[1:], "seven": ids[:7]}[case]
+    _colorize_on_card(x, pal, True, "ids")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pre", [False, True], ids=["logits", "ids"])
+def test_segment_colorize_palette_off_word_alignment(cuda_device, pre):
+    # a contiguous palette view one byte into its storage: the wrapper
+    # copies it, since the kernels read a row as one 4-byte word
+    buf = torch.zeros(256 * 4 + 1, dtype=torch.uint8, device=cuda_device)
+    buf[1:] = torch.from_numpy(_palette().reshape(-1)).to(cuda_device)
+    pal = buf[1:].view(256, 4)
+    assert pal.is_contiguous() and pal.data_ptr() % 4 == 1
+    x = (torch.from_numpy(np.random.default_rng(37).integers(-300, 300, (33, 17)).astype(
+        np.int32)).to(cuda_device) if pre else _card_logits("C21", cuda_device))
+    _colorize_on_card(x, pal, pre, "ids" if pre else "bulk")
+
+
+def _card_scores(case: str, dev) -> torch.Tensor:
+    rng = np.random.default_rng(31)
+
+    def normal(*shape):
+        return torch.from_numpy(rng.normal(size=shape).astype(np.float32)).to(dev)
+
+    if case == "zeros_and_nan_payloads":
+        x = torch.full((301, 90), -1.0, device=dev)  # not a multiple of 8 rows a block
+        x[0, [3, 7]] = torch.tensor([-0.0, 0.0], device=dev)
+        x[1, [3, 7]] = torch.tensor([0.0, -0.0], device=dev)
+        x[2, [5, 80]] = -0.0
+        words = np.array([0x7FC00001, 0xFFC00002, 0xFFC00003, 0x7FC00004,
+                          0x7F800001], np.uint32).view(np.int32)
+        bits = x.view(torch.int32)
+        for (r, c), w in zip([(3, 10), (3, 40), (4, 2), (4, 70), (6, 89)], words):
+            bits[r, c] = int(w)
+        x[5] = float("-inf")
+        return x
+    if case == "n_not_multiple_of_rows":  # 2917 rows, 365 blocks of 8
+        return normal(2917, 91)[:, 1:]
+    if case == "offset_by_one_float":
+        return normal(1001 * 90 + 1)[1:].view(1001, 90)
+    if case == "strided":
+        return normal(77, 301)[:, 3:300]
+    return normal(1001, int(case[1:]))  # "L<classes>"
+
+
+CLASS_CARD_CASES = ["zeros_and_nan_payloads", "n_not_multiple_of_rows",
+                    "offset_by_one_float", "strided", "L1", "L21", "L150", "L300",
+                    "L4096"]
+
+
+@pytest.mark.parametrize("case", CLASS_CARD_CASES)
+def test_class_reduce_wrapper_on_cpu_matches_reference_on_card_cases(case):
+    # the inputs the card's cases hold the kernel to, on the CPU: the plain
+    # version the kernel is compared with follows the JAX reference there
+    x = _card_scores(case, torch.device("cpu"))
+    best, idx = tep.class_reduce(x)
+    rb, ri = jep.class_reduce_reference(x.contiguous().numpy())
+    np.testing.assert_array_equal(np.asarray(ri), idx.numpy())
+    np.testing.assert_array_equal(np.asarray(rb), best.numpy())
+
+
+@pytest.mark.parametrize("case", [c[0] for c in COLORIZE_CARD_CASES])
+def test_segment_colorize_wrapper_on_cpu_matches_reference_on_card_cases(case):
+    x = _card_logits(case, torch.device("cpu"))
+    pal = _palette()
+    got = tep.segment_colorize(x, torch.from_numpy(pal))
+    want = np.asarray(jep.segment_colorize_reference(x.contiguous().numpy(), pal))
+    np.testing.assert_array_equal(want, got.numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CLASS_CARD_CASES)
+def test_class_reduce_kernel_bit_exact_on_card_cases(cuda_device, case):
+    x = _card_scores(case, cuda_device)
+    before = tep.class_reduce.launches
+    got = tep.class_reduce(x)
+    want = tep.class_reduce_plain(x)
+    torch.cuda.synchronize()
+    assert tep.class_reduce.launches == before + 1
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].isnan(), want[0].isnan())
+    assert torch.equal(got[0][~got[0].isnan()], want[0][~want[0].isnan()])
+    # the score is the winning element itself: its sign of zero, its payload
+    own = x[torch.arange(x.shape[0], device=cuda_device), got[1].long()]
+    assert torch.equal(got[0].view(torch.int32), own.contiguous().view(torch.int32))
