@@ -88,8 +88,15 @@ its four slices, ids offset by one, and a palette off 4-byte alignment.
 It holds ``normalize_u8`` on every uint8 value at 1/127.5 and 1/255 to
 float32 and bf16, at sizes 1 to 1920x1080x3, on strided and unaligned views
 and float inputs, and ``quantize_affine`` on NaN, inf, 1e9, ties and zero
-points 0 and 128 (both timed at 224 and 1080p; ``quantize_affine`` beside
-``torch.quantize_per_tensor``, whose differing codes are counted). It also
+points 0 and 128; both for each type pair at every boundary of their
+tiling (``preprocess.tiling``: n 1, 15, 16, 17, a tile +-1, the persistent
+grid's tiles +-1), on views 1-15 bytes off alignment and on an output that
+shares the input's offset, ``normalize_u8`` also uint8 to bf16 at 2^31 + 17
+elements, each call one launch (both timed at 224 and 1080p:
+``normalize_u8`` beside ``torch.add(bias, x, alpha=scale, out=y)``,
+``quantize_affine`` beside ``torch.quantize_per_tensor``, whose differing
+values are counted). The ids route of ``segment_colorize`` is also timed on
+ids in range beside ``pal[ids]``. It also
 holds ``flash_attention`` (causal and full, float32 and bf16,
 normalised and residual, ragged L, D 1 to 512, strided views; each case
 printed with its route: ``wgmma`` for bf16 at D 64 and 128 with L 70, 200
@@ -495,10 +502,19 @@ def check_segment_colorize(ep, dev, rng) -> dict:
     floor_ms = _launch_floor_ms(dev)
     id_eager = {k: _eager_ms(f) for k, f in id_calls.items()}
     id_bound, id_by = _bound_ms(p * 4 + p * 4 + 256 * 4, p)
+    # ids in range (each id modulo 256): there pal[ids] is the same function
+    in_range = ids.remainder(256)
+    if not torch.equal(ep.segment_colorize(in_range, pal, pre_argmaxed=True), pal[in_range]):
+        raise AssertionError("segment_colorize ids in range differs from pal[ids]")
+    in_range_ms = {"kernel": _device_ms(
+        lambda: ep.segment_colorize(in_range, pal, pre_argmaxed=True)),
+        "library": _device_ms(lambda: pal[in_range])}
     print(f"segment_colorize ids ({h}*{w},) int32 device ms/call (CUDA graph): "
           f"kernel={id_dev['kernel']:.6f} plain={id_dev['plain']:.6f}; eager "
           f"ms/call: kernel={id_eager['kernel']:.6f} plain={id_eager['plain']:.6f}; "
-          f"bound_ms={id_bound:.8f} ({id_by}); launch floor {floor_ms:.6f}", flush=True)
+          f"bound_ms={id_bound:.8f} ({id_by}); launch floor {floor_ms:.6f}; ids in range "
+          f"(modulo 256): kernel={in_range_ms['kernel']:.6f} "
+          f"library(pal[ids])={in_range_ms['library']:.6f}", flush=True)
     return {"name": "segment_colorize", "route": "cuda",
             "source": "nnstreamer_tpu_torch/ops/kernels/csrc/segment_colorize.cu",
             "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:262",
@@ -706,57 +722,150 @@ def check_mlp(ep, dev, rng) -> None:
 
 #: the prologue kernels' test sizes: 1, odd, a 224 frame and a 1080p frame
 PRE_SIZES = [(1,), (7, 13), (129,), (224, 224, 3), (1080, 1920, 3)]
+#: past 2^31 elements: the 64-bit indexing of normalize_u8's tiles
+PRE_BIG_N = 2 ** 31 + 17
+
+
+def _same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit for bit, but any NaN for a NaN (the card's bf16 conversion and
+    torch's give NaNs other payloads)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.dtype == torch.uint8:
+        return torch.equal(a, b)
+    an, bn = a.float().isnan(), b.float().isnan()
+    bits = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return torch.equal(an, bn) and torch.equal(a.view(bits)[~an], b.view(bits)[~bn])
+
+
+def _pre_input(dtype: torch.dtype, n: int, dev, gen: torch.Generator) -> torch.Tensor:
+    """n elements: uint8 codes, or floats in (-300, 300) led by NaN, +-inf,
+    +-1e9, -0.0 and halfway values."""
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, (n,), dtype=torch.uint8, device=dev, generator=gen)
+    x = torch.rand(n, device=dev, generator=gen) * 600 - 300
+    lead = torch.tensor([np.nan, np.inf, -np.inf, 1e9, -1e9, -0.0, 0.5, 2.5], device=dev)[:n]
+    x[:lead.numel()] = lead
+    return x.to(dtype)
+
+
+def _pre_boundaries(pp, src: torch.dtype, out: torch.dtype, dev, gen) -> list:
+    """(name, input, output view or None) at every boundary of the tiling
+    from ``src`` to ``out``: n 1, 15, 16, 17, a tile +-1 and the persistent
+    grid's tiles +-1; views 1-15 bytes off 16-byte alignment (whole
+    elements; the output aligned); and views whose output shares the
+    input's element offset (the head goes by plain loads; launched with
+    that output directly)."""
+    t = pp.tiling(src, out, dev)
+    tile, full = t["tile"], t["blocks"] * t["tile"]
+    tag = f"{str(src)[6:]} -> {str(out)[6:]}"
+    cases = [(f"{tag} n={n}", _pre_input(src, n, dev, gen), None)
+             for n in sorted({1, 15, 16, 17, tile - 1, tile, tile + 1, full - 1, full, full + 1})]
+    size = src.itemsize
+    buf = _pre_input(src, 100_003 + 16, dev, gen)
+    cases += [(f"{tag} view {off * size} bytes off", buf[off:off + 100_003], None)
+              for off in range(1, 16 // size)]
+    n = 3 * tile + 5
+    for off in range(1, t["vector"]):
+        y = torch.empty(n + off, dtype=out, device=dev)[off:]
+        cases.append((f"{tag} input and output {off} elements off", buf[off:off + n], y))
+    return cases
 
 
 def check_normalize_u8(pp, dev, rng) -> dict:
     """normalize_u8 bit-exact against its plain version: every uint8 value
     at 1/127.5 and 1/255, to float32 and bf16, at each test size, a strided
     view (the wrapper copies it contiguous), a view off 16-byte alignment
-    and float inputs with NaN and inf; then timed at 224 and 1080p."""
+    and float inputs with NaN and inf; each input type to each output type
+    at every boundary of the kernel's tiling and off alignment; uint8 to
+    bf16 past 2^31 elements; each launch counted once. Then timed at 224
+    and 1080p beside torch.add(bias, x, alpha=scale, out=y), whose
+    differing values are counted."""
     u8 = torch.arange(256, dtype=torch.uint8, device=dev)
     frames = {(256,): u8}
     frames.update({shape: torch.from_numpy(rng.integers(0, 256, shape, dtype=np.uint8))
                    .to(dev) for shape in PRE_SIZES})
-    cases = [(f"{tuple(x.shape)} scale {sc:.6g} bias {b} to {str(od)[6:]}", x, sc, b, od)
+    cases = [(f"{tuple(x.shape)} scale {sc:.6g} bias {b} to {str(od)[6:]}", x, sc, b, od, None)
              for x in frames.values() for sc, b in ((1 / 127.5, -1.0), (1 / 255.0, 0.0))
              for od in (torch.float32, torch.bfloat16)]
     hd = frames[(1080, 1920, 3)]
     cases.append(("strided view (1080, 1600, 3)", hd[:, 100:1700], 1 / 127.5, -1.0,
-                  torch.bfloat16))
+                  torch.bfloat16, None))
     cases.append(("view 1 byte off alignment", hd.reshape(-1)[1:100001], 1 / 127.5, -1.0,
-                  torch.float32))
+                  torch.float32, None))
     floats = torch.from_numpy(np.concatenate([
         [np.nan, np.inf, -np.inf, 1e9, -1e9, -0.0],
         rng.uniform(-300, 300, 4099)]).astype(np.float32)).to(dev)
     for src in (torch.float32, torch.bfloat16):
         for od in (torch.float32, torch.bfloat16):
             cases.append((f"{str(src)[6:]} input with NaN/inf to {str(od)[6:]}",
-                           floats.to(src), 1 / 127.5, -1.0, od))
-    for name, x, sc, b, od in cases:
-        got = pp.normalize_u8(x, sc, b, od)
+                           floats.to(src), 1 / 127.5, -1.0, od, None))
+    gen = torch.Generator(device=dev).manual_seed(8)
+    for src in (torch.uint8, torch.float32, torch.bfloat16):
+        for od in (torch.float32, torch.bfloat16):
+            cases += [(name, x, 1 / 127.5, -1.0, od, y)
+                      for name, x, y in _pre_boundaries(pp, src, od, dev, gen)]
+    for name, x, sc, b, od, y in cases:
+        before = pp.normalize_u8.launches
+        if y is None:
+            got = pp.normalize_u8(x, sc, b, od)
+        else:
+            pp._launch_normalize(x, y, sc, b)
+            got = y
         want = pp.normalize_u8_plain(x, sc, b, od)
         torch.cuda.synchronize()
-        if not _same(got, want):
+        if pp.normalize_u8.launches != before + 1:
+            raise AssertionError(f"normalize_u8 did not launch once: {name}")
+        if not _same_bits(got, want):
             raise AssertionError(f"normalize_u8 differs from plain: {name}")
+    big = torch.randint(0, 256, (PRE_BIG_N,), dtype=torch.uint8, device=dev, generator=gen)
+    before = pp.normalize_u8.launches
+    got = pp.normalize_u8(big)
+    step = 2 ** 28
+    for i in range(0, PRE_BIG_N, step):
+        if not torch.equal(got[i:i + step], pp.normalize_u8_plain(big[i:i + step])):
+            raise AssertionError(f"normalize_u8 differs from plain at n={PRE_BIG_N}, "
+                                 f"elements {i} to {i + step}")
+    if pp.normalize_u8.launches != before + 1:
+        raise AssertionError(f"normalize_u8 did not launch once at n={PRE_BIG_N}")
+    del big, got
+    torch.cuda.empty_cache()
     print(f"normalize_u8: bit-exact with plain in {len(cases)} cases (all 256 uint8 "
-          f"values, sizes {PRE_SIZES}, strided and unaligned views, float inputs)",
-          flush=True)
+          f"values, sizes {PRE_SIZES}, strided and unaligned views, float inputs, each type "
+          f"pair at its tiling's boundaries and 1-15 bytes off) and uint8 -> bf16 at "
+          f"n={PRE_BIG_N}, one launch each", flush=True)
+
+    bias = torch.full((), -1.0, device=dev)
+
+    def library(x, od):
+        return torch.add(bias, x, alpha=1 / 127.5, out=torch.empty(x.shape, dtype=od,
+                                                                   device=dev))
+
+    differ = {od: (int((library(u8, od) != pp.normalize_u8_plain(u8, out_dtype=od)).sum()),
+                   int((library(hd, od) != pp.normalize_u8_plain(hd, out_dtype=od)).sum()))
+              for od in (torch.float32, torch.bfloat16)}
+    print("normalize_u8 library torch.add(bias, x, alpha=1/127.5, out=y) differs from plain "
+          "on " + ", ".join(f"{a} of 256 uint8 values and {b} of {hd.numel()} 1080p elements "
+                            f"to {str(od)[6:]}" for od, (a, b) in differ.items()), flush=True)
     rows = {}
     for shape in ((224, 224, 3), (1080, 1920, 3)):
         x = frames[shape]
         cold, span = _rotating(lambda: torch.randint_like(x, 0, 256), x.numel())
         for od in (torch.bfloat16, torch.float32):
+            y = torch.empty(x.shape, dtype=od, device=dev)
             calls = {"kernel": lambda: pp.normalize_u8(next(cold), out_dtype=od),
                      "plain": lambda: pp.normalize_u8_plain(next(cold), out_dtype=od),
+                     "library": lambda: torch.add(bias, next(cold), alpha=1 / 127.5, out=y),
                      "kernel, L2-warm": lambda: pp.normalize_u8(x, out_dtype=od)}
             ms = {k: _device_ms(f) for k, f in calls.items()}
             n = x.numel()
             bound, by = _bound_ms(n * (1 + od.itemsize), 2 * n)
             print(f"normalize_u8 {shape} uint8 -> {str(od)[6:]} device ms/call (CUDA graph, "
                   f"inputs cycled over {span:.1f} MB): kernel={ms['kernel']:.7f} "
-                  f"plain={ms['plain']:.7f} library=none; one input replayed from L2: "
-                  f"kernel={ms['kernel, L2-warm']:.7f}; bound_ms={bound:.8f} ({by}); "
-                  f"kernel/bound={ms['kernel'] / bound:.2f}", flush=True)
+                  f"plain={ms['plain']:.7f} library(torch.add)={ms['library']:.7f}; one "
+                  f"input replayed from L2: kernel={ms['kernel, L2-warm']:.7f}; "
+                  f"bound_ms={bound:.8f} ({by}); kernel/bound={ms['kernel'] / bound:.2f}",
+                  flush=True)
             rows[(shape, od)] = (ms, bound, by)
     ms, bound, by = rows[((1080, 1920, 3), torch.bfloat16)]
     err = _max_abs_err(pp.normalize_u8(hd), pp.normalize_u8_plain(hd))
@@ -764,16 +873,17 @@ def check_normalize_u8(pp, dev, rng) -> dict:
             "source": "nnstreamer_tpu_torch/ops/kernels/csrc/preprocess.cu",
             "replaces": "nnstreamer_tpu/ops/pallas/preprocess.py:82",
             "max_abs_err": err, "ms": ms["kernel"], "plain_ms": ms["plain"],
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+            "bound_ms": bound, "bound_by": by, "library_ms": ms["library"]}
 
 
 def check_quantize_affine(pp, dev, rng) -> dict:
     """quantize_affine bit-exact against its plain version: NaN, +-inf,
     +-1e9, round-half-even ties and the value whose code the TPU body's
     reciprocal moves, at zero points 0 and 128 and three scales, every test
-    size, a strided view and bf16 input; then timed at 224 and 1080p
-    against torch.quantize_per_tensor (the yardstick; its codes are
-    counted, not assumed equal)."""
+    size, a strided view and bf16 input; float32 and bf16 inputs at every
+    boundary of the kernel's tiling and off alignment; each launch counted
+    once. Then timed at 224 and 1080p against torch.quantize_per_tensor
+    (the yardstick; its codes are counted, not assumed equal)."""
     scales = (1 / 127.5, 1 / 255.0, 0.02)
     special = [np.nan, np.inf, -np.inf, 1e9, -1e9, 0.9686274528503418, 0.0, -0.0]
     ties = [(k + 0.5) * np.float32(sc) for sc in scales for k in range(-20, 20)]
@@ -786,20 +896,41 @@ def check_quantize_affine(pp, dev, rng) -> dict:
     for x in tensors:
         for sc in scales:
             for zp in (0, 128):
+                before = pp.quantize_affine.launches
                 got = pp.quantize_affine(x, sc, zp)
                 want = pp.quantize_affine_plain(x, sc, zp)
                 torch.cuda.synchronize()
                 n_cases += 1
+                if pp.quantize_affine.launches != before + 1:
+                    raise AssertionError(f"quantize_affine did not launch once: "
+                                         f"{tuple(x.shape)} {x.dtype}")
                 if not torch.equal(got, want):
                     raise AssertionError(f"quantize_affine differs from plain: "
                                          f"{tuple(x.shape)} {x.dtype} scale {sc} zp {zp}, "
                                          f"{int((got != want).sum())} codes")
+    gen = torch.Generator(device=dev).manual_seed(9)
+    for src in (torch.float32, torch.bfloat16):
+        for name, x, q in _pre_boundaries(pp, src, torch.uint8, dev, gen):
+            before = pp.quantize_affine.launches
+            if q is None:
+                got = pp.quantize_affine(x, 1 / 127.5, 128)
+            else:
+                pp._launch_quantize(x, q, 1 / 127.5, 128)
+                got = q
+            want = pp.quantize_affine_plain(x, 1 / 127.5, 128)
+            torch.cuda.synchronize()
+            n_cases += 1
+            if pp.quantize_affine.launches != before + 1:
+                raise AssertionError(f"quantize_affine did not launch once: {name}")
+            if not torch.equal(got, want):
+                raise AssertionError(f"quantize_affine differs from plain: {name}")
     if int(pp.quantize_affine(tensors[0], 1 / 127.5, 128)[5]) != 251:
         raise AssertionError("quantize_affine(0.9686274528503418) != 251")
     library = lambda x: torch.quantize_per_tensor(x, 1 / 127.5, 128, torch.quint8)  # noqa: E731
     differ = int((library(hd).int_repr() != pp.quantize_affine(hd, 1 / 127.5, 128)).sum())
     print(f"quantize_affine: bit-exact with plain in {n_cases} cases (NaN/inf/1e9, "
-          f"ties, zero points 0 and 128, sizes {PRE_SIZES}, strided, bf16); "
+          f"ties, zero points 0 and 128, sizes {PRE_SIZES}, strided, bf16, each input type "
+          f"at its tiling's boundaries and 4-14 bytes off), one launch each; "
           f"torch.quantize_per_tensor differs on {differ} of {hd.numel()} codes at "
           f"1080p, scale 1/127.5, zero point 128", flush=True)
     rows = {}

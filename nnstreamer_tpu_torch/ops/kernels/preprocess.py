@@ -12,7 +12,8 @@ Each wrapper launches its kernel for a CUDA tensor, raising on a device or
 dtype the kernel does not take, and adds one to its ``launches`` count for
 every launch. A non-contiguous input is made contiguous first (one copy);
 any shape and size is taken, the empty tensor included. For a tensor on the
-CPU it runs the plain version. The plain versions follow the JAX package's
+CPU it runs the plain version. ``tiling`` reports the kernels' tiling on
+the card (the tests and ``chip_smoke.py`` size their boundary cases by it). The plain versions follow the JAX package's
 ``normalize_u8_reference`` and ``quantize_affine_reference``: a multiply
 then an add, each rounded, and an IEEE division (PyTorch's CUDA division by
 a Python scalar multiplies by the reciprocal, so the divisor is a tensor
@@ -27,7 +28,7 @@ import torch
 
 from .epilogue import _P, _check_launch, _entry, _on, _require, _stream_ptr
 
-#: input type codes of csrc/preprocess.cu
+#: type codes of csrc/preprocess.cu
 _IN_TYPES = {torch.uint8: 0, torch.float32: 1, torch.bfloat16: 2}
 _OUT_TYPES = (torch.float32, torch.bfloat16)
 
@@ -59,17 +60,23 @@ def normalize_u8(x: torch.Tensor, scale: float = 1.0 / 127.5, bias: float = -1.0
              f"normalize_u8: out_dtype float32 or bfloat16, got {out_dtype}")
     x = x.contiguous()
     y = torch.empty(x.shape, dtype=out_dtype, device=x.device)
-    if x.numel() == 0:
-        return y
+    if x.numel() > 0:
+        _launch_normalize(x, y, scale, bias)
+    return y
+
+
+def _launch_normalize(x: torch.Tensor, y: torch.Tensor, scale: float, bias: float) -> None:
+    """Launch ``normalize_u8``'s kernel from ``x`` into ``y``: contiguous
+    CUDA tensors of the same size (at least one element), of the types the
+    wrapper checks, on any alignment."""
     fn = _entry("preprocess", "nns_normalize_u8",
                 (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_int,
                  ctypes.c_float, ctypes.c_float, _P))
     with _on(x.device):
         rc = fn(x.data_ptr(), y.data_ptr(), x.numel(), _IN_TYPES[x.dtype],
-                int(out_dtype == torch.bfloat16), scale, bias, _stream_ptr(x))
+                int(y.dtype == torch.bfloat16), scale, bias, _stream_ptr(x))
     _check_launch("normalize_u8", rc)
     normalize_u8.launches += 1
-    return y
 
 
 normalize_u8.launches = 0
@@ -94,8 +101,14 @@ def quantize_affine(x: torch.Tensor, scale: float, zero_point: int = 0) -> torch
              f"quantize_affine: float32 or bfloat16 input, got {x.dtype}")
     x = x.contiguous()
     q = torch.empty(x.shape, dtype=torch.uint8, device=x.device)
-    if x.numel() == 0:
-        return q
+    if x.numel() > 0:
+        _launch_quantize(x, q, scale, zero_point)
+    return q
+
+
+def _launch_quantize(x: torch.Tensor, q: torch.Tensor, scale: float, zero_point: int) -> None:
+    """Launch ``quantize_affine``'s kernel from ``x`` into ``q``, as
+    ``_launch_normalize`` does."""
     fn = _entry("preprocess", "nns_quantize_affine",
                 (_P, _P, ctypes.c_longlong, ctypes.c_int, ctypes.c_float,
                  ctypes.c_float, _P))
@@ -104,7 +117,23 @@ def quantize_affine(x: torch.Tensor, scale: float, zero_point: int = 0) -> torch
                 float(zero_point), _stream_ptr(x))
     _check_launch("quantize_affine", rc)
     quantize_affine.launches += 1
-    return q
 
 
 quantize_affine.launches = 0
+
+
+def tiling(in_dtype: torch.dtype, out_dtype: torch.dtype,
+           device: torch.device) -> dict:
+    """The aligned path's tiling of the kernel taking ``in_dtype`` to
+    ``out_dtype`` (uint8: ``quantize_affine``; float32 or bfloat16:
+    ``normalize_u8``) on CUDA ``device``: ``vector``, the elements a lane
+    moves an access; ``tile``, the elements a block takes a step;
+    ``blocks``, its persistent grid (SMs times the blocks an SM holds)."""
+    _require(device.type == "cuda", f"tiling: a CUDA device, got {device}")
+    fn = _entry("preprocess", "nns_preprocess_tiling",
+                (ctypes.c_int, ctypes.c_int, ctypes.POINTER(ctypes.c_longlong)))
+    out = (ctypes.c_longlong * 3)()
+    with _on(device):
+        rc = fn(_IN_TYPES[in_dtype], _IN_TYPES[out_dtype], out)
+    _check_launch("tiling", rc)
+    return dict(zip(("vector", "tile", "blocks"), out))
