@@ -71,8 +71,32 @@ Phases (any failure exits non-zero before the result lines are printed):
      flexible frames and a ``bucket=4,resize=12:9`` one, each bit-equal to
      the same pipeline on CPU tensors;
  12. print the launches of each path (every count set to 0 just before the
-     path and read just after), the ``kernels`` JSON line, then the device
-     line last.
+     path and read just after), the graphs of each path, the ``kernels``
+     JSON line, then the device line last.
+
+Every pipeline path (SSD, classification, the headline fused and unfused,
+DeepLab fused and batched, PoseNet, the flash and dense prefill lanes, the
+``bucket=`` and ``resize=`` pipelines), SingleShot and both LM engines run
+their filter invokes (the engine: its admit prefill, decode chunk and verify
+window) as CUDA graphs (``core/graphs.py``): the first call of a signature
+runs eagerly and is captured, later calls replay. Each path's graph counts
+are reset just before it and read just after: it fails unless it replayed,
+and unless it captured at least one and at most as many signatures as its
+inputs have distinct shapes, each after one eager warm-up; its captures,
+replays, warm-ups, rate and the memory reserved after it are printed. Each
+path then runs again on the same inputs inside ``graphs.disabled()`` (the
+eager reference): every output must be bit-equal to the replayed one (the
+SSD reduce rows and detections, the DeepLab canvases and slices, the pose
+heatmaps, the headline logits, the prefill logits, the filter options'
+rows), the LM mix must give the same tokens and stats, and both rates are
+printed side by side; one 8-slot decode step replayed as a graph must give
+the eager step's K/V and logits bit for bit. The kernels' launch counts are
+asserted on the graph runs, where replays add each graph's launches (SSD
+64 and 64, DeepLab 64 and 30 all on ``bulk``, flash one per layer per batch
+on its route, ``dequant_gelu_requant`` once per layer per w8a8 prefill and
+decode step). The fused DeepLab run checks its canvases against the host
+decode of the logits its eager run hands the epilogue (a replay runs no
+Python, so only the eager run can record them).
 
 Phase 3 first times three untimed rounds of the launch floor (a process's
 first two timings read short), then measures the floor (a one-element fill
@@ -1108,6 +1132,59 @@ def _steady_fps(arrivals) -> float:
     return (len(arrivals) - 1) / (arrivals[-1] - arrivals[0])
 
 
+def _identical(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Same shape, dtype and bytes (NaN payloads included): a replayed
+    graph runs the eager run's kernels on the same inputs."""
+    return a.shape == b.shape and a.dtype == b.dtype and torch.equal(
+        a.reshape(-1).contiguous().view(torch.uint8),
+        b.reshape(-1).contiguous().view(torch.uint8))
+
+
+def _all_identical(xs, ys) -> bool:
+    return len(xs) == len(ys) and all(_identical(x, y) for x, y in zip(xs, ys))
+
+
+def _memories(bufs) -> list:
+    """Every memory of every buffer, as device tensors, in order."""
+    return [m.device() for b in bufs for m in b.memories]
+
+
+@contextlib.contextmanager
+def _mode(eager: bool):
+    """The run's mode: CUDA graphs (the port's default), or every graph
+    disabled (``graphs.disabled()``, the eager reference). Resets the graph
+    counts just before."""
+    from nnstreamer_tpu_torch.core import graphs
+
+    graphs.reset_stats()
+    with graphs.disabled() if eager else contextlib.nullcontext():
+        yield
+
+
+#: per path: graph captures, replays, eager warm-ups, the distinct
+#: signatures the path feeds, both rates and the memory reserved after it
+GRAPH_PATHS = {}
+
+
+def _record_graphs(path: str, distinct: int, unit: str, rate: float,
+                   eager_rate: float, st: dict) -> None:
+    """Check and print one path's graphs: it must have replayed, and
+    captured at least one and at most ``distinct`` signatures (the distinct
+    shapes its inputs have), each after one eager warm-up."""
+    if st["replays"] < 1 or not 1 <= st["captures"] <= distinct \
+            or st["warmups"] != st["captures"]:
+        raise AssertionError(f"{path}: graphs {st} for {distinct} distinct "
+                             "signatures")
+    reserved = torch.cuda.memory_reserved() / 2 ** 20
+    GRAPH_PATHS[path] = dict(st, distinct=distinct, unit=unit, graphs=rate,
+                             eager=eager_rate, reserved_mib=reserved)
+    print(f"graphs {path}: {st['captures']} captured (its inputs have at most "
+          f"{distinct} signatures), {st['replays']} replays, {st['warmups']} eager "
+          f"warm-ups; "
+          f"{unit} graphs {rate:.2f}, eager {eager_rate:.2f}; memory reserved "
+          f"{reserved:.1f} MiB", flush=True)
+
+
 def _seg_pipeline(spec, frames, batch=1):
     from nnstreamer_tpu_torch.graph import Pipeline
 
@@ -1131,6 +1208,11 @@ def _seg_pipeline(spec, frames, batch=1):
 
 
 def run_segmentation(ep) -> int:
+    """The fused DeepLab path with graphs, then eagerly on the same frames:
+    the eager run records the logits its invoke hands the epilogue, each
+    eager canvas must be the host decode of them, and each graph canvas
+    the eager one, bit for bit."""
+    from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.core.buffer import Buffer, TensorMemory
     from nnstreamer_tpu_torch.decoders.image_segment import ImageSegment
 
@@ -1139,33 +1221,50 @@ def run_segmentation(ep) -> int:
     torch.cuda.synchronize()
     print(f"deeplab warm-up (model build + 4 frames): {time.perf_counter() - t0:.3f} s",
           flush=True)
-    p, _, sink, arrivals = _seg_pipeline(SEG_SPEC, SEG_FRAMES)
-    with _decoder_inputs() as seen, _epilogue_inputs(ImageSegment) as logits:
-        ep.segment_colorize.launches = 0
-        before = dict(ep.segment_colorize.launches_by_route)
-        t0 = time.perf_counter()
-        p.run(timeout=600)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = ep.segment_colorize.launches
-        routes = _route_delta(before, ep.segment_colorize.launches_by_route)
-    if routes != {"bulk": SEG_FRAMES}:
-        raise AssertionError(f"fused deeplab colorize routes {routes}, not all bulk")
-    if p._epilogue_count != 1:
-        raise AssertionError(f"segmentation decoder not fused: {p._epilogue_count}")
-    if sink.num_buffers != SEG_FRAMES or launches != SEG_FRAMES \
-            or len(logits) != SEG_FRAMES:
-        raise AssertionError(f"{sink.num_buffers} canvases, {launches} launches, "
-                             f"{len(logits)} epilogue calls for {SEG_FRAMES} frames")
-    devices = _devices(seen) | {str(x.device) for x in logits}
+    runs = {}
+    for eager in (False, True):
+        p, _, sink, arrivals = _seg_pipeline(SEG_SPEC, SEG_FRAMES)
+        # a replay runs no Python: only the eager run shows the epilogue
+        # its inputs
+        recording = _epilogue_inputs(ImageSegment) if eager \
+            else contextlib.nullcontext([])
+        with _decoder_inputs() as seen, recording as logits, _mode(eager):
+            ep.segment_colorize.launches = 0
+            before = dict(ep.segment_colorize.launches_by_route)
+            t0 = time.perf_counter()
+            p.run(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ep.segment_colorize.launches
+            routes = _route_delta(before, ep.segment_colorize.launches_by_route)
+            st = graphs.stats()
+        mode = "eager" if eager else "graphs"
+        if routes != {"bulk": SEG_FRAMES}:
+            raise AssertionError(f"fused deeplab colorize routes {routes} ({mode}), "
+                                 "not all bulk")
+        if p._epilogue_count != 1:
+            raise AssertionError(f"segmentation decoder not fused: {p._epilogue_count}")
+        if sink.num_buffers != SEG_FRAMES or launches != SEG_FRAMES \
+                or len(seen) != SEG_FRAMES:
+            raise AssertionError(f"{mode}: {sink.num_buffers} canvases, {launches} "
+                                 f"launches, {len(seen)} decoder inputs for "
+                                 f"{SEG_FRAMES} frames")
+        runs[eager] = dict(sink=sink, seen=seen, logits=logits, wall=wall,
+                           fps=_steady_fps(arrivals), launches=launches,
+                           routes=routes, st=st)
+    eager = runs[True]
+    if len(eager["logits"]) != SEG_FRAMES:
+        raise AssertionError(f"{len(eager['logits'])} epilogue calls for {SEG_FRAMES} "
+                             "eager frames")
+    devices = _devices(runs[False]["seen"]) | {str(x.device) for x in eager["logits"]}
     if any(not d.startswith("cuda") for d in devices):
         raise AssertionError(f"filter output left the card: {devices}")
-    # every frame: the canvas the pipeline produced vs the host decode of
-    # the logits the filter's fused invoke handed its epilogue
+    # every eager frame: the canvas vs the host decode of the logits the
+    # fused invoke handed its epilogue
     host_dec = ImageSegment()
     host_dec.init({1: "tflite-deeplab"})
     colours = []
-    for i, (x, out) in enumerate(zip(logits, sink.buffers)):
+    for i, (x, out) in enumerate(zip(eager["logits"], eager["sink"].buffers)):
         if x.shape != (1, 257, 257, 21) or x.dtype != torch.float32 \
                 or not torch.isfinite(x).all():
             raise AssertionError(f"frame {i}: logits {tuple(x.shape)} {x.dtype} "
@@ -1179,15 +1278,28 @@ def run_segmentation(ep) -> int:
         colours.append(len(np.unique(canvas.reshape(-1, 4), axis=0)))
     if min(colours) < 2:
         raise AssertionError(f"a canvas holds one class only: {colours}")
+    # every graph frame: the eager frame's device canvas and sink canvas
+    graph = runs[False]
+    if not _all_identical(_memories(graph["seen"]), _memories(eager["seen"])) \
+            or not all(np.array_equal(a.memories[0].host(), b.memories[0].host())
+                       for a, b in zip(graph["sink"].buffers, eager["sink"].buffers)):
+        raise AssertionError("fused deeplab: a replayed canvas differs from the eager one")
     print(f"deeplab_v3 257x257 21 classes (fused colorize): {SEG_FRAMES} frames in "
-          f"{wall:.3f} s, steady fps={_steady_fps(arrivals):.2f}, launches={launches} "
-          f"(by route {json.dumps(routes)}), output devices={sorted(devices)}; every "
-          f"canvas == host decode of the logits the fused invoke produced, bit for bit (classes per canvas "
-          f"{min(colours)}..{max(colours)})", flush=True)
-    return launches
+          f"{graph['wall']:.3f} s, steady fps={graph['fps']:.2f} (eager "
+          f"{eager['fps']:.2f}), launches={graph['launches']} (by route "
+          f"{json.dumps(graph['routes'])}; eager the same), output devices="
+          f"{sorted(devices)}; every canvas == host decode of the logits the eager "
+          f"fused invoke produced, bit for bit (classes per canvas {min(colours)}.."
+          f"{max(colours)}), every replayed canvas == the eager one", flush=True)
+    _record_graphs("deeplab fused", 1, "fps", graph["fps"], eager["fps"], graph["st"])
+    return graph["launches"]
 
 
 def run_batched_segmentation(ep) -> int:
+    """The batched DeepLab path with graphs, then eagerly: the filter's
+    graph per group, the decoder colorizing each unbatched slice; every
+    replayed slice and canvas equal to the eager one."""
+    from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.core.buffer import Buffer, TensorMemory
     from nnstreamer_tpu_torch.decoders.image_segment import ImageSegment
 
@@ -1197,51 +1309,70 @@ def run_batched_segmentation(ep) -> int:
     torch.cuda.synchronize()
     print(f"batched deeplab warm-up (model build + 1 group): "
           f"{time.perf_counter() - t0:.3f} s", flush=True)
-    # the decoder keeps its default async_depth=0
-    p, chain, sink, arrivals = _seg_pipeline(spec, SEG_BATCH_FRAMES, batch=SEG_BATCH)
-    with _decoder_inputs() as seen:
-        ep.segment_colorize.launches = 0
-        before = dict(ep.segment_colorize.launches_by_route)
-        t0 = time.perf_counter()
-        p.run(timeout=600)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = ep.segment_colorize.launches
-        routes = _route_delta(before, ep.segment_colorize.launches_by_route)
-    if routes != {"bulk": SEG_BATCH_FRAMES}:
-        raise AssertionError(f"batched deeplab colorize routes {routes}, not all bulk")
-    batcher = chain[2]
-    if p._epilogue_count != 0:
-        raise AssertionError("fused across tensor_unbatch")
-    if sink.num_buffers != SEG_BATCH_FRAMES or launches != SEG_BATCH_FRAMES:
-        raise AssertionError(f"{sink.num_buffers} canvases, {launches} launches "
-                             f"for {SEG_BATCH_FRAMES} frames")
-    groups = batcher.groups_emitted
-    if groups != -(-SEG_BATCH_FRAMES // SEG_BATCH) or len(seen) != SEG_BATCH_FRAMES:
-        raise AssertionError(f"{groups} groups, {len(seen)} slices")
-    rate = sink.buffers[1].pts - sink.buffers[0].pts
-    if [b.pts for b in sink.buffers] != [i * rate for i in range(SEG_BATCH_FRAMES)]:
-        raise AssertionError("canvases out of order or pts lost")
-    devices = _devices(seen)
+    runs = {}
+    for eager in (False, True):
+        # the decoder keeps its default async_depth=0
+        p, chain, sink, arrivals = _seg_pipeline(spec, SEG_BATCH_FRAMES,
+                                                 batch=SEG_BATCH)
+        with _decoder_inputs() as seen, _mode(eager):
+            ep.segment_colorize.launches = 0
+            before = dict(ep.segment_colorize.launches_by_route)
+            t0 = time.perf_counter()
+            p.run(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = ep.segment_colorize.launches
+            routes = _route_delta(before, ep.segment_colorize.launches_by_route)
+            st = graphs.stats()
+        mode = "eager" if eager else "graphs"
+        if routes != {"bulk": SEG_BATCH_FRAMES}:
+            raise AssertionError(f"batched deeplab colorize routes {routes} ({mode}), "
+                                 "not all bulk")
+        batcher = chain[2]
+        if p._epilogue_count != 0:
+            raise AssertionError("fused across tensor_unbatch")
+        if sink.num_buffers != SEG_BATCH_FRAMES or launches != SEG_BATCH_FRAMES:
+            raise AssertionError(f"{mode}: {sink.num_buffers} canvases, {launches} "
+                                 f"launches for {SEG_BATCH_FRAMES} frames")
+        groups = batcher.groups_emitted
+        if groups != -(-SEG_BATCH_FRAMES // SEG_BATCH) or len(seen) != SEG_BATCH_FRAMES:
+            raise AssertionError(f"{mode}: {groups} groups, {len(seen)} slices")
+        rate = sink.buffers[1].pts - sink.buffers[0].pts
+        if [b.pts for b in sink.buffers] != [i * rate for i in range(SEG_BATCH_FRAMES)]:
+            raise AssertionError(f"{mode}: canvases out of order or pts lost")
+        runs[eager] = dict(sink=sink, seen=seen, wall=wall, fps=_steady_fps(arrivals),
+                           launches=launches, routes=routes, st=st, groups=groups,
+                           grouped=batcher.frames_grouped)
+    graph, eager = runs[False], runs[True]
+    devices = _devices(graph["seen"])
     if any(not d.startswith("cuda") for d in devices):
         raise AssertionError(f"unbatched slices left the card: {devices}")
     host_dec = ImageSegment()
     host_dec.init({1: "tflite-deeplab"})
-    for i, (buf, out) in enumerate(zip(seen, sink.buffers)):
+    for i, (buf, out) in enumerate(zip(graph["seen"], graph["sink"].buffers)):
         want = host_dec.decode(Buffer([TensorMemory(buf.memories[0].host())]), None)
         if not np.array_equal(out.memories[0].host(), want.memories[0].host()):
             raise AssertionError(f"batched canvas {i} differs from its slice's "
                                  "host decode")
+    if not _all_identical(_memories(graph["seen"]), _memories(eager["seen"])) \
+            or not all(np.array_equal(a.memories[0].host(), b.memories[0].host())
+                       for a, b in zip(graph["sink"].buffers, eager["sink"].buffers)):
+        raise AssertionError("batched deeplab: a replayed slice or canvas differs "
+                             "from the eager one")
     print(f"deeplab_v3 257x257 batched (tensor_batch max_batch={SEG_BATCH} ... "
           f"tensor_unbatch, colorize on the decoder): {SEG_BATCH_FRAMES} frames in "
-          f"{wall:.3f} s, steady fps={_steady_fps(arrivals):.2f}, groups emitted="
-          f"{groups} (frames grouped {batcher.frames_grouped}), launches={launches} "
-          f"(by route {json.dumps(routes)}); "
-          f"every canvas == host decode of its slice", flush=True)
-    return launches
+          f"{graph['wall']:.3f} s, steady fps={graph['fps']:.2f} (eager "
+          f"{eager['fps']:.2f}), groups emitted={graph['groups']} (frames grouped "
+          f"{graph['grouped']}), launches={graph['launches']} (by route "
+          f"{json.dumps(graph['routes'])}; eager the same); every canvas == host "
+          f"decode of its slice, every replayed slice and canvas == the eager one",
+          flush=True)
+    _record_graphs("deeplab batched", 1, "fps", graph["fps"], eager["fps"], graph["st"])
+    return graph["launches"]
 
 
 def run_pose() -> None:
+    from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.decoders.pose import PoseEstimation, keypoint_rows
     from nnstreamer_tpu_torch.graph import Pipeline
 
@@ -1262,14 +1393,24 @@ def run_pose() -> None:
         return p, sink, arrivals
 
     build(4)[0].run(timeout=600)
-    p, sink, arrivals = build(POSE_FRAMES)
-    with _decoder_inputs() as seen:
-        t0 = time.perf_counter()
-        p.run(timeout=600)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    if sink.num_buffers != POSE_FRAMES or len(seen) != POSE_FRAMES:
-        raise AssertionError(f"{sink.num_buffers} pose frames of {POSE_FRAMES}")
+    runs = {}
+    for eager in (False, True):
+        p, sink, arrivals = build(POSE_FRAMES)
+        with _decoder_inputs() as seen, _mode(eager):
+            t0 = time.perf_counter()
+            p.run(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            st = graphs.stats()
+        if sink.num_buffers != POSE_FRAMES or len(seen) != POSE_FRAMES:
+            raise AssertionError(f"{sink.num_buffers} pose frames of {POSE_FRAMES}")
+        runs[eager] = (sink, seen, wall, _steady_fps(arrivals), st)
+    sink, seen, wall, fps, st = runs[False]
+    if not _all_identical(_memories(seen), _memories(runs[True][1])) \
+            or [b.meta["keypoints"] for b in sink.buffers] \
+            != [b.meta["keypoints"] for b in runs[True][0].buffers]:
+        raise AssertionError("posenet: replayed heatmaps, offsets or keypoints differ "
+                             "from the eager ones")
     devices = _devices(seen)
     if any(not d.startswith("cuda") for d in devices):
         raise AssertionError(f"pose outputs left the card: {devices}")
@@ -1292,12 +1433,15 @@ def run_pose() -> None:
             or tuple(rows[5, :2].tolist()) != (2.0, 3.0):
         raise AssertionError(f"pose argmax tie-break on the card: {rows[:, :2]}")
     print(f"posenet 257 pose_estimation heatmap-offset: {POSE_FRAMES} frames in "
-          f"{wall:.3f} s, steady fps={_steady_fps(arrivals):.2f}; device reduce "
-          f"keypoints == host keypoints() on every frame; ties take the first "
-          f"cell", flush=True)
+          f"{wall:.3f} s, steady fps={fps:.2f} (eager {runs[True][3]:.2f}); device "
+          f"reduce keypoints == host keypoints() on every frame; ties take the first "
+          f"cell; replayed heatmaps, offsets and keypoints == the eager ones",
+          flush=True)
+    _record_graphs("posenet", 1, "fps", fps, runs[True][3], st)
 
 
 def run_detection(ep, tmp: str) -> dict:
+    from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.decoders import bounding_box as bb
     from nnstreamer_tpu_torch.decoders.util import nms
     from nnstreamer_tpu_torch.graph import Pipeline
@@ -1331,35 +1475,49 @@ def run_detection(ep, tmp: str) -> dict:
     print(f"ssd warm-up (model build + 4 frames): {time.perf_counter() - t0:.3f} s",
           flush=True)
 
-    # the decoder's input is the filter's output: record where it lives
-    p, filt, sink, arrivals = build(SSD_FRAMES)
-    with _decoder_inputs() as seen:
-        ep.class_reduce.launches = 0
-        ep.nms_sweep.launches = 0
-        t0 = time.perf_counter()
-        p.run(timeout=600)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"class_reduce": ep.class_reduce.launches,
-                    "nms_sweep": ep.nms_sweep.launches}
-    devices = _devices(seen)
-    if p._epilogue_count != 1:
-        raise AssertionError(f"decoder not fused: {p._epilogue_count}")
-    if sink.num_buffers != SSD_FRAMES:
-        raise AssertionError(f"{sink.num_buffers} of {SSD_FRAMES} frames out")
-    for name, n in launches.items():
-        if n != SSD_FRAMES:
-            raise AssertionError(f"{name} launched {n} times for {SSD_FRAMES} frames")
-    if not devices or any(not d.startswith("cuda") for d in devices):
-        raise AssertionError(f"filter output left the card: {devices}")
+    # the decoder's input is the filter's output (the fused reduce's rows):
+    # record where it lives; graphs, then eagerly on the same frames
+    runs = {}
+    for eager in (False, True):
+        p, filt, sink, arrivals = build(SSD_FRAMES)
+        with _decoder_inputs() as seen, _mode(eager):
+            ep.class_reduce.launches = 0
+            ep.nms_sweep.launches = 0
+            t0 = time.perf_counter()
+            p.run(timeout=600)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = {"class_reduce": ep.class_reduce.launches,
+                        "nms_sweep": ep.nms_sweep.launches}
+            st = graphs.stats()
+        devices = _devices(seen)
+        if p._epilogue_count != 1:
+            raise AssertionError(f"decoder not fused: {p._epilogue_count}")
+        if sink.num_buffers != SSD_FRAMES or len(seen) != SSD_FRAMES:
+            raise AssertionError(f"{sink.num_buffers} of {SSD_FRAMES} frames out")
+        for name, n in launches.items():
+            if n != SSD_FRAMES:
+                raise AssertionError(f"{name} launched {n} times for {SSD_FRAMES} "
+                                     f"frames ({'eager' if eager else 'graphs'})")
+        if not devices or any(not d.startswith("cuda") for d in devices):
+            raise AssertionError(f"filter output left the card: {devices}")
+        runs[eager] = (sink, seen, wall, _steady_fps(arrivals), launches, st, devices)
+    sink, seen, wall, steady, launches, st, devices = runs[False]
     counts = [len(b.meta["detections"]) for b in sink.buffers]
     if sum(counts) == 0:
         raise AssertionError("no detections")
-    steady = _steady_fps(arrivals)
+    if not _all_identical(_memories(seen), _memories(runs[True][1])) \
+            or [b.meta["detections"] for b in sink.buffers] \
+            != [b.meta["detections"] for b in runs[True][0].buffers]:
+        raise AssertionError("ssd: replayed reduce rows or detections differ from "
+                             "the eager ones")
     print(f"ssd_mobilenet_v2 300x300 91 classes: {SSD_FRAMES} frames in "
-          f"{wall:.3f} s, steady fps={steady:.2f}, detections/frame "
-          f"min={min(counts)} max={max(counts)}, anchors={n_anchors}, "
-          f"launches={launches}, output devices={sorted(devices)}", flush=True)
+          f"{wall:.3f} s, steady fps={steady:.2f} (eager {runs[True][3]:.2f}), "
+          f"detections/frame min={min(counts)} max={max(counts)}, anchors={n_anchors}, "
+          f"launches={launches} (eager the same), output devices={sorted(devices)}; "
+          f"every replayed (256, 6) reduce row block and detection == the eager one",
+          flush=True)
+    _record_graphs("ssd", 1, "fps", steady, runs[True][3], st)
 
     # one frame: fused device reduce (kernels) vs the host decode path,
     # through the filter's own (memoized) bundle
@@ -1390,6 +1548,7 @@ def run_detection(ep, tmp: str) -> dict:
 
 
 def run_classification(tmp: str) -> None:
+    from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.core.types import Caps
     from nnstreamer_tpu_torch.graph import Pipeline
     from nnstreamer_tpu_torch.models.zoo import get_model
@@ -1402,18 +1561,26 @@ def run_classification(tmp: str) -> None:
               for _ in range(CLS_FRAMES)]
     caps = Caps("video/x-raw", {"format": "RGB", "width": 224, "height": 224,
                                 "framerate": Fraction(30)})
-    p = Pipeline("cls")
-    src = p.add_new("appsrc", caps=caps, data=frames)
-    conv = p.add_new("tensor_converter")
-    filt = p.add_new("tensor_filter", framework="xla-tpu", model=CLS_SPEC)
-    dec = p.add_new("tensor_decoder", mode="image_labeling", option1=labels)
-    sink = p.add_new("tensor_sink", store=True)
-    Pipeline.link(src, conv, filt, dec, sink)
-    t0 = time.perf_counter()
-    p.run(timeout=600)
-    wall = time.perf_counter() - t0
-    if sink.num_buffers != CLS_FRAMES:
-        raise AssertionError(f"{sink.num_buffers} of {CLS_FRAMES} labels out")
+    runs = {}
+    for eager in (False, True):
+        p = Pipeline("cls")
+        src = p.add_new("appsrc", caps=caps, data=frames)
+        conv = p.add_new("tensor_converter")
+        filt = p.add_new("tensor_filter", framework="xla-tpu", model=CLS_SPEC)
+        dec = p.add_new("tensor_decoder", mode="image_labeling", option1=labels)
+        arrivals = []
+        sink = p.add_new("tensor_sink", store=True,
+                         new_data=lambda b, a=arrivals: a.append(time.perf_counter()))
+        Pipeline.link(src, conv, filt, dec, sink)
+        with _decoder_inputs() as seen, _mode(eager):
+            t0 = time.perf_counter()
+            p.run(timeout=600)
+            wall = time.perf_counter() - t0
+            st = graphs.stats()
+        if sink.num_buffers != CLS_FRAMES:
+            raise AssertionError(f"{sink.num_buffers} of {CLS_FRAMES} labels out")
+        runs[eager] = (sink, seen, wall, _steady_fps(arrivals), st)
+    sink, seen, wall, fps, st = runs[False]
     bundle = get_model(CLS_SPEC, device="cuda")
     for frame, buf in zip(frames, sink.buffers):
         with torch.inference_mode():
@@ -1421,17 +1588,25 @@ def run_classification(tmp: str) -> None:
         want = int(logits.argmax(dim=-1)[0])
         if buf.meta["label_index"] != want:
             raise AssertionError(f"label {buf.meta['label_index']} != argmax {want}")
+    if not _all_identical(_memories(seen), _memories(runs[True][1])) \
+            or [b.meta["label_index"] for b in sink.buffers] \
+            != [b.meta["label_index"] for b in runs[True][0].buffers]:
+        raise AssertionError("classification: replayed logits or labels differ from "
+                             "the eager ones")
     print(f"mobilenet_v2 224 image_labeling: {CLS_FRAMES} frames in {wall:.3f} s "
-          f"(incl. model build), labels {[b.meta['label'] for b in sink.buffers]}",
-          flush=True)
+          f"(incl. model build), labels {[b.meta['label'] for b in sink.buffers]}; "
+          f"replayed logits == the eager ones", flush=True)
+    _record_graphs("classification", 1, "fps", fps, runs[True][3], st)
 
 
 def run_headline(tmp: str, counters) -> dict:
     """The README's headline pipeline at full width: through the CLI as a
     user runs it, then parsed twice (transform fused into the filter's
-    invoke, and not) with the frames' logits recorded at the decoder.
+    invoke, and not) with the frames' logits recorded at the decoder, each
+    with graphs (in turns) and eagerly; then SingleShot on one frame.
     Returns each run's kernel launches."""
     from nnstreamer_tpu_torch.cli import main as cli
+    from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.elements.filter import TensorFilter
     from nnstreamer_tpu_torch.graph import Pipeline, parse_pipeline
     from nnstreamer_tpu_torch.single import SingleShot
@@ -1458,21 +1633,21 @@ def run_headline(tmp: str, counters) -> dict:
     parsed = launch.replace(
         "tensor_filter ", "tensor_filter name=filt input=3:224:224:1 inputtype=float32 "
     ).replace("! tensor_sink", "! tensor_sink name=labels store=true")
-    runs, fps = {}, {True: [], False: []}
-    for fused in (True, False, False, True):  # in turns: fps spreads run to run
+
+    def run(fused: bool, eager: bool) -> tuple:
         p = parse_pipeline(parsed, Pipeline())
         p.auto_fuse = fused
         arrivals = []
         sink = p.get_by_name("labels")
         sink.new_data = lambda b, a=arrivals: a.append(time.perf_counter())
-        with _decoder_inputs() as seen, _decoder_inputs(TensorFilter) as into_filter:
+        with _decoder_inputs() as seen, _decoder_inputs(TensorFilter) as into_filter, \
+                _mode(eager):
             counters.reset()
             t0 = time.perf_counter()
             p.run(timeout=600)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
-            launches.setdefault(f"headline {'fused' if fused else 'unfused'}",
-                                counters.read())
+            used, st = counters.read(), graphs.stats()
         invokes = p.get_by_name("filt").stats.total_invoke_num
         raw = {str(b.memories[0].dtype) for b in into_filter}
         if p._fused_count != int(fused) or invokes != HEADLINE_FRAMES \
@@ -1491,9 +1666,18 @@ def run_headline(tmp: str, counters) -> dict:
                 raise AssertionError(f"logits {tuple(x.shape)} {x.dtype} or not finite")
             if out.meta["label_index"] != int(x.argmax(dim=-1)[0]):
                 raise AssertionError("label != argmax of its logits")
-        fps[fused].append(_steady_fps(arrivals))
+        return logits, into_filter, wall, _steady_fps(arrivals), used, st
+
+    runs, fps, stats = {}, {True: [], False: []}, {}
+    for fused in (True, False, False, True):  # in turns: fps spreads run to run
+        logits, into_filter, wall, rate, used, st = run(fused, eager=False)
+        launches.setdefault(f"headline {'fused' if fused else 'unfused'}", used)
+        stats.setdefault(fused, st)
+        fps[fused].append(rate)
+        if st["captures"] != 1 or st["replays"] != HEADLINE_FRAMES - 1:
+            raise AssertionError(f"fused={fused}: graphs {st}")
         if fused in runs:  # the repeat run: the same logits again
-            if not all(torch.equal(a, b) for a, b in zip(logits, runs[fused][0])):
+            if not _all_identical(logits, runs[fused][0]):
                 raise AssertionError(f"fused={fused}: logits differ between two runs")
             continue
         runs[fused] = (logits, into_filter, wall)
@@ -1501,22 +1685,42 @@ def run_headline(tmp: str, counters) -> dict:
             if not torch.equal(a, b):
                 raise AssertionError(f"frame {i}: fused and unfused logits differ by "
                                      f"{_max_abs_err(a, b)}")
-    # SingleShot on the first frame as the unfused filter received it
+    eager_fps = {}
+    for fused in (True, False):
+        logits, _, _, eager_fps[fused], _, _ = run(fused, eager=True)
+        if not _all_identical(runs[fused][0], logits):
+            raise AssertionError(f"fused={fused}: replayed logits differ from the "
+                                 "eager ones")
+    # SingleShot on the first frame as the unfused filter received it: a
+    # capture, then two replays, and the eager call, all the pipeline's logits
     frame = runs[False][1][0].memories[0].device()
+    graphs.reset_stats()
     with SingleShot(model="zoo://mobilenet_v2") as single:
-        out = single.invoke(frame)[0]
+        outs = [single.invoke(frame)[0] for _ in range(3)]
+        st_single = graphs.stats()
+        with graphs.disabled():
+            outs.append(single.invoke(frame)[0])
     torch.cuda.synchronize()
-    if not torch.equal(out, runs[False][0][0]):
-        raise AssertionError("SingleShot logits differ from the pipeline's")
+    if st_single != {"captures": 1, "replays": 2, "warmups": 1} \
+            or not _all_identical(outs, [runs[False][0][0]] * 4):
+        raise AssertionError(f"SingleShot logits differ from the pipeline's, or "
+                             f"graphs {st_single}")
     for fused in (True, False):
         print(f"headline pipeline parsed, transform {'fused into' if fused else 'before'} "
               f"the filter's invoke: {HEADLINE_FRAMES} frames, steady fps in two runs "
               f"(fused, unfused, unfused, fused order)="
-              f"{', '.join(f'{v:.2f}' for v in fps[fused])}", flush=True)
+              f"{', '.join(f'{v:.2f}' for v in fps[fused])}, eager "
+              f"{eager_fps[fused]:.2f}", flush=True)
+        _record_graphs(f"headline {'fused' if fused else 'unfused'}", 1, "fps",
+                       fps[fused][0], eager_fps[fused], stats[fused])
     print(f"headline: fused and unfused logits bit-equal on all {HEADLINE_FRAMES} "
           f"frames, one filter invoke per frame, each label == argmax of its logits, "
-          f"logits on {sorted({str(x.device) for x in runs[True][0]})}; SingleShot("
-          f"zoo://mobilenet_v2) on frame 0 == its pipeline logits", flush=True)
+          f"logits on {sorted({str(x.device) for x in runs[True][0]})}, replayed "
+          f"logits == the eager ones; SingleShot(zoo://mobilenet_v2) on frame 0, "
+          f"captured, replayed twice and eager, == its pipeline logits", flush=True)
+    GRAPH_PATHS["singleshot"] = dict(st_single, distinct=1, unit="calls",
+                                     reserved_mib=torch.cuda.memory_reserved() / 2 ** 20)
+    print(f"graphs singleshot: {json.dumps(GRAPH_PATHS['singleshot'])}", flush=True)
     return launches
 
 
@@ -1544,21 +1748,29 @@ def _lm_params(dtype=None):
                             "cuda", dtype=dtype)
 
 
-def _serve(params, requests, n_slots: int) -> tuple:
+def _serve(params, requests, n_slots: int, eng=None) -> tuple:
+    """Serve ``requests`` on ``eng`` (a new engine when None): (tokens per
+    request, the stats this run added, wall seconds, the engine)."""
     from nnstreamer_tpu_torch.serving import LMEngine
 
-    eng = LMEngine(params, LM_DIMS[2], LM_MAX_LEN, n_slots=n_slots, chunk=LM_CHUNK)
+    if eng is None:
+        eng = LMEngine(params, LM_DIMS[2], LM_MAX_LEN, n_slots=n_slots, chunk=LM_CHUNK)
+    before = dict(eng.stats)
     rids = [eng.submit(p, max_new=g) for p, g in requests]
     t0 = time.perf_counter()
     res = eng.run()
     torch.cuda.synchronize()
-    return [res[r] for r in rids], eng.stats, time.perf_counter() - t0
+    wall = time.perf_counter() - t0
+    return ([res[r] for r in rids], {k: v - before[k] for k, v in eng.stats.items()},
+            wall, eng)
 
 
 def check_step_invariance(params, quant: str) -> None:
     """One decode step over 8 slots holding prompts of the serving mix:
     each slot's K/V writes and logits equal the same slot stepped alone,
-    bit for bit — what the engine's exactness contract rests on."""
+    bit for bit — what the engine's exactness contract rests on — and the
+    step replayed as a CUDA graph equals it eager."""
+    from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.models import causal_lm
 
     v, d, h, n_layers = LM_DIMS
@@ -1582,13 +1794,29 @@ def check_step_invariance(params, quant: str) -> None:
                 and torch.equal(lg1[0], lg8[s])):
             raise AssertionError(f"{quant}: slot {s}'s decode step differs batched "
                                  f"and alone, logits by {_max_abs_err(lg1[0], lg8[s])}")
+    # the same step as a CUDA graph: a capture, then a replay on fresh
+    # copies of the state, against the eager step above
+    step = graphs.CapturedFn(
+        lambda tok, kk, vv, pp: causal_lm.lm_decode_step_slots(params, tok, kk, vv, pp, h),
+        f"lm {quant} decode step")
+    for _ in range(2):
+        lgr, kr, vr, pr = step(tokens, kc.clone(), vc.clone(), pos.clone())
+    if len(step) != 1 or not (_identical(lgr, lg8) and _identical(kr, k8)
+                              and _identical(vr, v8)):
+        raise AssertionError(f"{quant}: a replayed decode step's K/V or logits differ "
+                             f"from the eager step's, logits by {_max_abs_err(lgr, lg8)}")
     print(f"lm {quant} decode step: all {LM_SLOTS} slots' K/V writes and logits == "
-          f"the slot stepped alone, bit for bit", flush=True)
+          f"the slot stepped alone, bit for bit; the step replayed as a CUDA graph == "
+          f"the eager step, bit for bit", flush=True)
 
 
 def run_lm_serving(params, quant: str, counters) -> dict:
-    """The bench's serving mix through the engine; returns the launches of
-    its run (counts set to 0 just before it)."""
+    """The bench's serving mix through the engine, with graphs and then
+    eagerly (the same tokens); returns the launches of its graph run
+    (counts set to 0 just before it)."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.serving import next_pow2_bucket
+
     v, _, _, n_layers = LM_DIMS
     rng = np.random.default_rng(5)
     requests = [(rng.integers(0, v, LM_PROMPTS[i % len(LM_PROMPTS)]).astype(np.int32),
@@ -1596,8 +1824,14 @@ def run_lm_serving(params, quant: str, counters) -> dict:
     check_step_invariance(params, quant)
     _serve(params, requests[:2], LM_SLOTS)  # warm-up: cuBLAS handles, allocator
     counters.reset()
-    outs, stats, wall = _serve(params, requests, LM_SLOTS)
-    launches = counters.read()
+    with _mode(eager=False):
+        # a new engine: its first run captures each signature it meets
+        outs, stats, wall, eng = _serve(params, requests, LM_SLOTS)
+        launches, st = counters.read(), graphs.stats()
+        # the same mix again on the same engine: replays only
+        again, _, warm_wall, _ = _serve(params, requests, LM_SLOTS, eng)
+        st_warm = graphs.stats()
+    del eng
     tokens = sum(len(o) for o in outs)
     for (p, g), o in zip(requests, outs):
         if len(o) != g or not all(0 <= t < v for t in o):
@@ -1609,8 +1843,21 @@ def run_lm_serving(params, quant: str, counters) -> dict:
         raise AssertionError(f"{quant}: {stats['prefills']} prefills, "
                              f"{launches['dequant_gelu_requant']} dequant_gelu_requant "
                              f"launches (want {want_dgr})")
+    if again != outs or st_warm["captures"] != st["captures"]:
+        raise AssertionError(f"{quant}: the mix served again on the same engine gave "
+                             f"other tokens, or captured again ({st_warm})")
+    with _mode(eager=True):
+        eager_outs, eager_stats, eager_wall, eng = _serve(params, requests, LM_SLOTS)
+        eager_again, _, eager_warm_wall, _ = _serve(params, requests, LM_SLOTS, eng)
+    del eng
+    if eager_outs != outs or eager_again != outs \
+            or {k: x for k, x in eager_stats.items() if k != "wall_s"} \
+            != {k: x for k, x in stats.items() if k != "wall_s"}:
+        first = next((i for i, (a, b) in enumerate(zip(outs, eager_outs)) if a != b), -1)
+        raise AssertionError(f"{quant}: request {first}'s tokens (or the stats) differ "
+                             "under graphs and eagerly")
     for i in LM_ISOLATED:
-        alone, _, _ = _serve(params, [requests[i]], 1)
+        alone, _, _, _ = _serve(params, [requests[i]], 1)
         if alone[0] != outs[i]:
             first = next(j for j, (a, b) in enumerate(zip(alone[0], outs[i])) if a != b)
             raise AssertionError(f"{quant}: request {i} in the {LM_SLOTS}-slot engine "
@@ -1619,10 +1866,19 @@ def run_lm_serving(params, quant: str, counters) -> dict:
     print(f"lm serving {quant} (V {v}, d {LM_DIMS[1]}, {LM_DIMS[2]} heads, {n_layers} "
           f"layers; max_len {LM_MAX_LEN}, {LM_SLOTS} slots, chunk {LM_CHUNK}; "
           f"{LM_REQUESTS} greedy requests): {tokens} tokens in {wall:.3f} s = "
-          f"{tokens / wall:.2f} tokens/s, prefills={stats['prefills']}, decode "
-          f"steps={stats['decode_steps']}, waste fraction={waste:.4f}, launches="
-          f"{json.dumps(launches)}; requests {list(LM_ISOLATED)} == their 1-slot runs",
+          f"{tokens / wall:.2f} tokens/s on a new engine, its captures included "
+          f"(eager {tokens / eager_wall:.2f}), served again on the same engine "
+          f"{tokens / warm_wall:.2f} (eager {tokens / eager_warm_wall:.2f}), "
+          f"prefills={stats['prefills']}, decode steps={stats['decode_steps']}, waste "
+          f"fraction={waste:.4f}, launches={json.dumps(launches)}; the same tokens "
+          f"eagerly and again; requests {list(LM_ISOLATED)} == their 1-slot runs",
           flush=True)
+    # signatures the mix can feed: a prefill per bucket (all greedy), a
+    # chunk per power of two up to the chunk
+    buckets = {min(next_pow2_bucket(len(p)), LM_MAX_LEN) for p, _ in requests}
+    _record_graphs(f"lm serving {quant}", len(buckets) + LM_CHUNK.bit_length(),
+                   "tokens/s (served again)", tokens / warm_wall,
+                   tokens / eager_warm_wall, st)
     return launches
 
 
@@ -1631,6 +1887,7 @@ def run_flash_prefill(counters, dtype: torch.dtype) -> dict:
     tensor_sink with flash and dense attention; returns the flash run's
     launches, every one of which must take flash_attention's route for
     ``dtype`` (PREFILL_ROUTE)."""
+    from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
     from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
     from nnstreamer_tpu_torch.graph import Pipeline
@@ -1660,14 +1917,21 @@ def run_flash_prefill(counters, dtype: torch.dtype) -> dict:
         return [b.memories[0].device() for b in sink.buffers], \
             time.perf_counter() - t0, arrivals
 
-    results, routes = {}, {}
+    results, routes, eager = {}, {}, {}
     for flash in (True, False):
         run(flash, frames[:2])  # warm-up
         counters.reset()
         before = dict(fa.flash_attention.launches_by_route)
-        logits, wall, arrivals = run(flash, frames)
-        results[flash] = (logits, wall, counters.read(), arrivals)
+        with _mode(eager=False):
+            logits, wall, arrivals = run(flash, frames)
+            st = graphs.stats()
+        results[flash] = (logits, wall, counters.read(), arrivals, st)
         routes[flash] = {r: n - before[r] for r, n in fa.flash_attention.launches_by_route.items()}
+        with _mode(eager=True):
+            eager[flash] = run(flash, frames)
+        if not _all_identical(logits, eager[flash][0]):
+            raise AssertionError(f"{name} {'flash' if flash else 'dense'} prefill: "
+                                 "replayed logits differ from the eager ones")
     launches = results[True][2]
     if launches["flash_attention"] != n_layers * FLASH_FRAMES \
             or results[False][2]["flash_attention"] != 0:
@@ -1694,12 +1958,21 @@ def run_flash_prefill(counters, dtype: torch.dtype) -> dict:
         agree += int((fl.argmax(-1) == dn.argmax(-1)).sum())
     flops = prefill_flops(FLASH_B, FLASH_T, d, n_layers, v)
     for flash in (True, False):
-        _, wall, _, arrivals = results[flash]
+        _, wall, _, arrivals, st = results[flash]
+        # the wall of a graph run holds its first batch's capture; the steady
+        # rate (first arrival to last) holds replays only
         tps = FLASH_FRAMES * FLASH_B * FLASH_T / wall
+        eager_tps = FLASH_FRAMES * FLASH_B * FLASH_T / eager[flash][1]
+        steady, eager_steady = (_steady_fps(a) * FLASH_B * FLASH_T
+                                for a in (arrivals, eager[flash][2]))
         print(f"lm prefill pipeline ({'flash' if flash else 'dense'} attention, {name}, "
               f"B {FLASH_B} x T {FLASH_T}): {FLASH_FRAMES} batches in {wall:.3f} s = "
-              f"{tps:.1f} tokens/s, steady {_steady_fps(arrivals):.3f} batches/s = "
-              f"{flops * _steady_fps(arrivals) / 1e12:.2f} TFLOP/s (analytic)", flush=True)
+              f"{tps:.1f} tokens/s incl. the capture (eager {eager_tps:.1f}), steady "
+              f"{steady:.1f} tokens/s (eager {eager_steady:.1f}) = "
+              f"{flops * _steady_fps(arrivals) / 1e12:.2f} TFLOP/s (analytic); replayed "
+              f"logits == the eager ones", flush=True)
+        _record_graphs(f"prefill {'flash' if flash else 'dense'} {name}", 1,
+                       "steady prompt tokens/s", steady, eager_steady, st)
     print(f"{name} flash vs dense last-token logits: max abs err {worst:.4e} (bound rtol "
           f"{rtol} atol {atol}), argmax agree {agree}/{FLASH_FRAMES * FLASH_B}", flush=True)
     devices = {str(x.device) for x in results[True][0] + results[False][0]}
@@ -1710,9 +1983,10 @@ def run_flash_prefill(counters, dtype: torch.dtype) -> dict:
 
 def run_filter_options() -> None:
     """The filter's own options on the card: a ``bucket=4`` pipeline (a
-    frame's regions stacked, padded and invoked once) and a
-    ``bucket=4,resize=H:W`` one, each against the same pipeline on CPU
-    tensors, bit for bit."""
+    frame's regions stacked, padded and invoked once, a graph per padded
+    size) and a ``bucket=4,resize=H:W`` one, each against the same
+    pipeline on CPU tensors and eagerly on the card, bit for bit."""
+    from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.core.types import Caps, TensorFormat, TensorsConfig, TensorsInfo
     from nnstreamer_tpu_torch.graph import Pipeline
 
@@ -1723,23 +1997,33 @@ def run_filter_options() -> None:
                     for hh, ww in rng.integers(1, 40, (n, 2))) for n in (2, 5, 4)]
     caps = Caps.tensors(TensorsConfig(TensorsInfo((), TensorFormat.FLEXIBLE), 30))
     for custom, frames in (("bucket=4", same), ("bucket=4,resize=12:9", ragged)):
-        outs = {}
-        for device in ("cuda", "cpu"):
+        outs, st = {}, None
+        for device, eager in (("cuda", False), ("cuda", True), ("cpu", True)):
             p = Pipeline(device=device)
             src = p.add_new("appsrc", caps=caps, data=list(frames))
             filt = p.add_new("tensor_filter", framework="torch-cuda",
                              model=lambda x: x.amax(dim=(1, 2)), custom=custom)
             sink = p.add_new("tensor_sink", store=True)
             Pipeline.link(src, filt, sink)
-            p.run(timeout=120)
-            outs[device] = [b.memories[0].device() for b in sink.buffers]
-        if [tuple(o.shape) for o in outs["cuda"]] != [(len(f), 3) for f in frames] \
-                or any(o.device.type != "cuda" for o in outs["cuda"]) \
-                or not all(torch.equal(a.cpu(), b) for a, b in zip(outs["cuda"], outs["cpu"])):
-            raise AssertionError(f"filter custom={custom!r} on the card differs from the CPU run")
+            with _mode(eager):
+                p.run(timeout=120)
+                if not eager:
+                    st = graphs.stats()
+            outs[device, eager] = [b.memories[0].device() for b in sink.buffers]
+        got = outs["cuda", False]
+        if [tuple(o.shape) for o in got] != [(len(f), 3) for f in frames] \
+                or any(o.device.type != "cuda" for o in got) \
+                or not all(torch.equal(a.cpu(), b) for a, b in zip(got, outs["cpu", True])) \
+                or not _all_identical(got, outs["cuda", True]):
+            raise AssertionError(f"filter custom={custom!r} on the card differs from the "
+                                 "CPU run or from the eager run")
+        # padded sizes: the next multiple of 4 (bucket_max 32 is never reached)
+        distinct = len({-(-len(f) // 4) for f in frames})
         print(f"filter custom={custom!r}: {len(frames)} flexible frames of "
-              f"{[len(f) for f in frames]} regions, on the card == on CPU tensors, bit "
-              f"for bit", flush=True)
+              f"{[len(f) for f in frames]} regions, on the card == on CPU tensors == "
+              f"eagerly on the card, bit for bit", flush=True)
+        _record_graphs(f"filter {custom}", distinct, "frames", len(frames),
+                       len(frames), st)
 
 
 class _Counters:
@@ -1821,6 +2105,7 @@ def main() -> int:
     by_phase["lm flash prefill float32"] = run_flash_prefill(counters, torch.float32)
     run_filter_options()
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)
+    print(f"graphs by path: {json.dumps(GRAPH_PATHS)}", flush=True)
     for k in kernels:
         k["launches"] = sum(phase.get(k["name"], 0) for phase in by_phase.values())
 

@@ -8,7 +8,15 @@ Model forms accepted by ``model=``:
   * ``zoo://<name>?opt=val`` — the torch model zoo (models/zoo.py), built on
     the filter's device;
   * a ModelBundle;
-  * an in-process callable ``fn(*tensors)``.
+  * an in-process callable ``fn(*tensors)``;
+  * a ``(fn, params)`` pair, run as ``fn(params, *tensors)``;
+  * a ``.py`` file exporting ``make_model(device=..., **options)``, which
+    returns a ModelBundle or a dict ``{name, apply, params, in_info,
+    out_info}`` (``apply(params, *tensors)`` when params are given; infos
+    as TensorsInfo or ``("3:224:224:1", "uint8")`` string pairs).
+  The JAX filter's ``.tflite``, ``.jaxexport``, checkpoint and flax-module
+  forms wait for the port of ``models/tflite_import.py``,
+  ``models/deploy.py`` and ``utils/checkpoints.py``.
 
 Design notes:
   * inputs are moved to the device once (``TensorMemory.device()``);
@@ -22,8 +30,14 @@ Design notes:
   * the invoke composes, in the JAX backend's order: a fused preprocess
     (ops.fusion), stream→model layout (``inputlayout=NCHW``), precision
     cast (``custom="precision=bf16"``), the model, model→stream layout
-    (``outputlayout=NCHW``), then a fused epilogue (ops.epilogue). No jit
-    and no CUDA graph yet: every frame is eager PyTorch;
+    (``outputlayout=NCHW``), then a fused epilogue (ops.epilogue). On the
+    card the composed invoke runs as one CUDA graph per static input
+    signature (core/graphs.py, the counterpart of the JAX filter's
+    ``_build_jit``): the first frame of a shape runs eagerly and is
+    captured, later frames replay. The graphs live with the composition:
+    ``open``, ``set_fused_preprocess``, ``set_fused_epilogue`` and
+    ``reload_model`` recompose and drop them, as the JAX cache dies with
+    its bundle, and ``close`` drops them. Caps inference runs eagerly;
   * ``custom="sync=true"`` blocks on the outputs before ``invoke`` returns
     (synchronous per-invoke latency accounting);
   * ``custom="donate=true"`` is accepted and changes nothing: torch has no
@@ -33,7 +47,8 @@ Design notes:
     the next multiple of N, invokes once and emits the first n rows of
     each output (``flexible_output``); the padded sizes stop at
     ``bucket_max`` (default 8·N), and a frame with more tensors is chunked
-    into invokes of that size whose outputs are concatenated.
+    into invokes of that size whose outputs are concatenated: one graph
+    per padded size.
     ``resize=H:W`` first conforms each region to H×W by the JAX filter's
     bilinear region resize, in float32;
   * ``arch``/``arch_*`` are kept out of the model options, as in the JAX
@@ -46,12 +61,15 @@ Design notes:
 
 from __future__ import annotations
 
+import importlib.util
+import os
 import threading
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..core.buffer import TensorMemory
 from ..core.log import logger
 from ..core.types import TensorInfo, TensorsInfo
@@ -128,14 +146,67 @@ def resolve_model(model: Any, options: Optional[Dict[str, str]] = None,
     options = _model_options(options or {})
     if isinstance(model, ModelBundle):
         return model
+    if isinstance(model, (list, tuple)) and len(model) == 2 \
+            and callable(model[0]):
+        fn, params = model
+        return _bundle_from_pair(getattr(fn, "__name__", "model"), fn, params,
+                                 device)
     if callable(model) and not isinstance(model, type):
         return ModelBundle(getattr(model, "__name__", "model"), model,
                            device=device)
-    if isinstance(model, str) and (model.startswith("zoo://")
-                                   or "/" not in model and "." not in model):
-        return get_model(model, device=device, **options)
-    raise ValueError(f"torch-cuda: cannot interpret model {model!r} (use "
-                     "zoo://, a ModelBundle or an in-process callable)")
+    if isinstance(model, str):
+        if model.startswith("zoo://") or "/" not in model and "." not in model:
+            return get_model(model, device=device, **options)
+        if model.endswith(".py"):
+            return _bundle_from_pyfile(model, options, device)
+        raise ValueError(
+            f"torch-cuda: unsupported model file {model!r} (use zoo://, a .py "
+            "exporting make_model, a (fn, params) pair, a ModelBundle or an "
+            "in-process callable; .tflite, .jaxexport and checkpoint models "
+            "wait for the port of models/tflite_import.py, models/deploy.py "
+            "and utils/checkpoints.py)")
+    raise ValueError(f"torch-cuda: cannot interpret model {model!r}")
+
+
+def _bundle_from_pair(name: str, fn: Callable, params: Any,
+                      device: Any) -> ModelBundle:
+    """A function of a parameter tree as a bundle: ``fn(params, *xs)``."""
+    return ModelBundle(name, lambda *xs: fn(params, *xs), device=device,
+                       params=params, apply_params=fn)
+
+
+def _bundle_from_pyfile(path: str, options: Dict[str, str],
+                        device: Any) -> ModelBundle:
+    """Load ``path`` and call its ``make_model(device=..., **options)``
+    (the JAX filter's ``_bundle_from_pyfile``, with the filter's device)."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(f"nns_torch_model_{name}",
+                                                  path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if not hasattr(mod, "make_model"):
+        raise ValueError(f"{path}: must export make_model(**options)")
+    bundle = mod.make_model(device=device, **options)
+    if isinstance(bundle, dict):
+        name = bundle.get("name", os.path.basename(path))
+        params = bundle.get("params")
+        made = ModelBundle(name, bundle["apply"], device=device) \
+            if params is None \
+            else _bundle_from_pair(name, bundle["apply"], params, device)
+        made.in_info = _coerce_info(bundle.get("in_info"))
+        made.out_info = _coerce_info(bundle.get("out_info"))
+        bundle = made
+    return bundle
+
+
+def _coerce_info(v: Any) -> Optional[TensorsInfo]:
+    if v is None or isinstance(v, TensorsInfo):
+        return v
+    if isinstance(v, (tuple, list)) and len(v) == 2:
+        return TensorsInfo.from_strings(v[0], v[1])
+    raise ValueError(f"bad tensor info spec {v!r}")
 
 
 def _as_tuple(out: Any) -> Tuple[Any, ...]:
@@ -295,7 +366,9 @@ class TorchCudaFilter(FilterFramework):
             return tuple(post(ys)) if post is not None else ys
 
         self._infer_fn = base
-        self._fn = full
+        # a new composition drops the old one's graphs
+        self._fn = graphs.CapturedFn(
+            full, f"torch-cuda invoke of {self._bundle.name}")
 
     def reload_model(self, model: Any) -> None:
         """Hot swap: same I/O contract required (reference RELOAD

@@ -49,7 +49,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -234,7 +234,7 @@ def lm_prefill(params: Params, tokens: torch.Tensor, n_heads: int,
 
 def _lm_prefill(params: Params, tokens: torch.Tensor, n_heads: int,
                 max_len: int, flash: Optional[bool] = None,
-                true_len: Optional[int] = None):
+                true_len: Union[int, torch.Tensor, None] = None):
     b, t = tokens.shape
     if t > max_len:
         raise ValueError(
@@ -244,17 +244,23 @@ def _lm_prefill(params: Params, tokens: torch.Tensor, n_heads: int,
             "lm_prefill: true_len= (padded-prompt masking) is a "
             "dense-attention feature; the flash path applies causality "
             "internally and cannot see it")
-    if true_len is not None:
-        tl = int(true_len)
-        if not 1 <= tl <= t:
+    if true_len is not None and not isinstance(true_len, torch.Tensor):
+        if not 1 <= int(true_len) <= t:
             raise ValueError(
-                f"lm_prefill: true_len={tl} outside [1, {t}] "
+                f"lm_prefill: true_len={int(true_len)} outside [1, {t}] "
                 "(padded prompt length)")
     n_layers = stack_shape(params["wqkv"])[0]
     d_model = params["embed"].shape[1]
     hd = d_model // n_heads
     x = params["embed"][tokens.long()] + params["pos_embed"][:t][None]
-    attn = mask = None
+    attn = mask = tl = None
+    if true_len is not None:
+        # one device scalar whether the caller gave an int or a tensor (a
+        # CUDA graph replays the tensor form for every prompt length)
+        tl = true_len.to(x.device, torch.int64).reshape(()) \
+            if isinstance(true_len, torch.Tensor) \
+            else torch.full((), int(true_len), dtype=torch.int64,
+                            device=x.device)
     if true_len is None and (flash if flash is not None
                              else os.environ.get("NNS_LM_FLASH", "") == "1"):
         # (true_len keeps the dense branch even under NNS_LM_FLASH=1: the
@@ -273,19 +279,19 @@ def _lm_prefill(params: Params, tokens: torch.Tensor, n_heads: int,
             vc = vh.new_zeros((n_layers, b, n_heads, max_len, hd))
         kc[li, :, :, :t] = kh
         vc[li, :, :, :t] = vh
-    if true_len is None:
+    if tl is None:
         last = x[:, -1:]
-        pos = t
+        pos = torch.full((1,), t, dtype=torch.int32, device=x.device)
     else:
-        last = x[:, tl - 1:tl]
-        pos = tl
+        last = x.index_select(1, (tl - 1).reshape(1))
+        pos = tl.reshape(1).to(torch.int32)
     logits = _unembed(last, params)[:, 0]
     flat = (n_layers * b * n_heads, max_len, hd)
-    return (logits, kc.reshape(flat), vc.reshape(flat),
-            torch.full((1,), pos, dtype=torch.int32, device=x.device))
+    return logits, kc.reshape(flat), vc.reshape(flat), pos
 
 
-def lm_prefill_masked(params: Params, tokens: torch.Tensor, true_len: int,
+def lm_prefill_masked(params: Params, tokens: torch.Tensor,
+                      true_len: Union[int, torch.Tensor],
                       n_heads: int, max_len: int
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                                  torch.Tensor]:
@@ -294,7 +300,11 @@ def lm_prefill_masked(params: Params, tokens: torch.Tensor, true_len: int,
     limited to col < true_len and the logits come from row true_len − 1;
     K/V written at positions >= true_len are garbage that a decode step
     overwrites before it can attend to them. Returns (logits (1, vocab),
-    kcache, vcache, pos = [true_len])."""
+    kcache, vcache, pos = [true_len]). ``true_len`` is an int (checked
+    against the padded length) or a 0-dim integer tensor on any device,
+    as the JAX engine traces it: the column mask, the logits row (a
+    gather) and ``pos`` all come from it on the device, unchecked, so one
+    CUDA graph per padded length serves every prompt length."""
     with _full_f32():
         return _lm_prefill(params, tokens, n_heads, max_len,
                            true_len=true_len)

@@ -17,7 +17,9 @@ segmentation decoder (decoders/image_segment.py) and the w8a8 MLP
 Each wrapper launches its hand-written kernel for a CUDA tensor, raising on
 a device, dtype, shape or layout the kernel does not take, and adds one to
 its ``launches`` count for every launch (``segment_colorize`` also to
-``launches_by_route``: "bulk", "row" or "ids"). It runs the plain PyTorch
+``launches_by_route``: "bulk", "row" or "ids"), through
+``core.graphs.count``: a launch captured into a CUDA graph counts once per
+replay, not for the capture. It runs the plain PyTorch
 version beside it only for a tensor on the CPU. The plain versions follow
 the JAX package's ``*_reference`` functions step by step and are bit-exact
 with them (``dequant_gelu_requant_plain`` up to torch's tanh against
@@ -34,6 +36,7 @@ from typing import Tuple
 
 import torch
 
+from ...core import graphs
 from . import build as _build
 
 _P = ctypes.c_void_p
@@ -111,7 +114,7 @@ def class_reduce(cls: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         rc = fn(cls.data_ptr(), best.data_ptr(), idx.data_ptr(), n, l,
                 cls.stride(0), _stream_ptr(cls))
     _check_launch("class_reduce", rc)
-    class_reduce.launches += 1
+    graphs.count(class_reduce)
     return best, idx
 
 
@@ -184,7 +187,7 @@ def nms_sweep(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
                 None if scratch is None else scratch.data_ptr(), k,
                 float(iou_threshold), float(threshold), _stream_ptr(scores))
     _check_launch("nms_sweep", rc)
-    nms_sweep.launches += 1
+    graphs.count(nms_sweep)
     return out
 
 
@@ -293,8 +296,8 @@ def segment_colorize(x: torch.Tensor, palette: torch.Tensor,
     _check_launch("segment_colorize", rc)
     if not pre_argmaxed:
         route = _COLORIZE_ROUTES[code.value]
-    segment_colorize.launches += 1
-    segment_colorize.launches_by_route[route] += 1
+    graphs.count(segment_colorize)
+    graphs.count(segment_colorize, "launches_by_route", route)
     return out
 
 
@@ -416,7 +419,7 @@ def dequant_gelu_requant(y: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
                 s.data_ptr(), rows, f, dgr_cluster_size(rows, f),
                 int(out_dtype == torch.bfloat16), c0, c1, _stream_ptr(y))
     _check_launch("dequant_gelu_requant", rc)
-    dequant_gelu_requant.launches += 1
+    graphs.count(dequant_gelu_requant)
     return q, s
 
 

@@ -26,7 +26,8 @@ split-head views meet them and take no copy) and counts the copies in
 
 The wrapper launches a kernel for CUDA tensors, raising on a device, dtype,
 shape or layout it does not take, and adds one to ``launches`` and to
-``launches_by_route[route]`` for every launch. For CPU tensors it runs
+``launches_by_route[route]`` for every launch (``core.graphs.count``: once
+per replay of a CUDA graph that captured it). For CPU tensors it runs
 ``flash_attention_plain``, the same online-softmax recurrence over 64-key
 blocks in torch ops, which is what both kernels are held against on the
 card.
@@ -40,6 +41,7 @@ from typing import Tuple, Union
 
 import torch
 
+from ...core import graphs
 from .epilogue import _P, _check_launch, _entry, _on, _require, _stream_ptr
 
 #: keys per block of the plain version's recurrence (the kernel's tile)
@@ -154,7 +156,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if route == "wgmma" and not all(_tma_ready(t) for t in (q, k, v)):
         q, k, v = (t if _tma_ready(t) else t.clone(
             memory_format=torch.contiguous_format) for t in (q, k, v))
-        flash_attention.tma_copies += 1
+        graphs.count(flash_attention, "tma_copies")
     strides = (ctypes.c_longlong * 9)(*(
         s for t in (q, k, v)
         for s in (_tma_strides(t) if route == "wgmma" else t.stride()[:3])))
@@ -184,8 +186,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         + (_P, ctypes.c_int, ctypes.c_float, ctypes.c_int, _P))
             rc = fn(*qkv, *ptrs, *tail, is_bf16, _stream_ptr(q))
     _check_launch("flash_attention", rc)
-    flash_attention.launches += 1
-    flash_attention.launches_by_route[route] += 1
+    graphs.count(flash_attention)
+    graphs.count(flash_attention, "launches_by_route", route)
     return out
 
 

@@ -10,7 +10,8 @@ Counterparts of the Pallas kernels in ``nnstreamer_tpu/ops/pallas/preprocess.py`
 
 Each wrapper launches its kernel for a CUDA tensor, raising on a device or
 dtype the kernel does not take, and adds one to its ``launches`` count for
-every launch. A non-contiguous input is made contiguous first (one copy);
+every launch (``core.graphs.count``: once per replay of a CUDA graph that
+captured it). A non-contiguous input is made contiguous first (one copy);
 any shape and size is taken, the empty tensor included. For a tensor on the
 CPU it runs the plain version. ``tiling`` reports the kernels' tiling on
 the card (the tests and ``chip_smoke.py`` size their boundary cases by it). The plain versions follow the JAX package's
@@ -26,6 +27,7 @@ import ctypes
 
 import torch
 
+from ...core import graphs
 from .epilogue import _P, _check_launch, _entry, _on, _require, _stream_ptr
 
 #: type codes of csrc/preprocess.cu
@@ -76,7 +78,7 @@ def _launch_normalize(x: torch.Tensor, y: torch.Tensor, scale: float, bias: floa
         rc = fn(x.data_ptr(), y.data_ptr(), x.numel(), _IN_TYPES[x.dtype],
                 int(y.dtype == torch.bfloat16), scale, bias, _stream_ptr(x))
     _check_launch("normalize_u8", rc)
-    normalize_u8.launches += 1
+    graphs.count(normalize_u8)
 
 
 normalize_u8.launches = 0
@@ -116,7 +118,7 @@ def _launch_quantize(x: torch.Tensor, q: torch.Tensor, scale: float, zero_point:
         rc = fn(x.data_ptr(), q.data_ptr(), x.numel(), _IN_TYPES[x.dtype], scale,
                 float(zero_point), _stream_ptr(x))
     _check_launch("quantize_affine", rc)
-    quantize_affine.launches += 1
+    graphs.count(quantize_affine)
 
 
 quantize_affine.launches = 0

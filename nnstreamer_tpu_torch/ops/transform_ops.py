@@ -33,7 +33,7 @@ What JAX does that a bare torch op does not, and each function here does:
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -86,9 +86,16 @@ def weak_scalar(value: float, x: torch.Tensor) -> torch.Tensor:
     return torch.full((), value, dtype=dtype, device=x.device)
 
 
-def _operand(value: Value, x: torch.Tensor) -> torch.Tensor:
+def _operand(value: Value, x: torch.Tensor,
+             on_device: Dict[torch.device, torch.Tensor]) -> torch.Tensor:
+    """A scalar as a weak scalar; a per-channel vector as a tensor on x's
+    device, copied there once (``on_device`` keeps it): a copy from host
+    memory cannot be captured into a CUDA graph."""
     if isinstance(value, np.ndarray):
-        return torch.from_numpy(value).to(x.device)
+        t = on_device.get(x.device)
+        if t is None:
+            t = on_device[x.device] = torch.from_numpy(value).to(x.device)
+        return t
     return weak_scalar(value, x)
 
 
@@ -174,13 +181,15 @@ def _arithmetic(option: str) -> Transform:
     if not steps:
         raise ValueError("empty arithmetic option")
 
+    on_device: List[Dict[torch.device, torch.Tensor]] = [{} for _ in steps]
+
     def fn(x):
         x = _canon(x)
-        for op, val in steps:
+        for (op, val), held in zip(steps, on_device):
             if op == "typecast":
                 x = astype(x, val)
             else:
-                x = _ARITH_OPS[op](x, _operand(val, x))
+                x = _ARITH_OPS[op](x, _operand(val, x, held))
         return x
 
     def out_info(i: TensorInfo) -> TensorInfo:

@@ -29,6 +29,17 @@ slots greedy"), this one decides on the host from its slot table, so a
 chunk adds no device→host read beyond its tokens. The caches are float32
 whatever the params are, and the step forms write them in place.
 
+The JAX engine's three jitted programs are CUDA graphs here
+(core/graphs.py), one per static signature, sharing one memory pool: the
+admit prefill keyed by (bucket, greedy), with the prompt, its true length
+and the slot as device inputs and the slot's seed key and sampling
+controls read from the slot state; the decode chunk keyed by (steps,
+greedy), the chunk or one of its power-of-two tails; the verify window
+keyed by its width. The slot state (caches, tokens, positions, seed keys,
+controls) is allocated once and every program writes it in place, so the
+graphs replay over it. On the CPU, and inside ``graphs.disabled()``, the
+same programs run eagerly.
+
 Not ported yet (ROADMAP): the paged KV cache (``kv_page_size`` > 0 raises),
 disaggregation roles and sessions (freeze/export/checkpoint), deadlines,
 the sched/engine tenancy, the autotuner, and the obs, diag, health,
@@ -45,6 +56,7 @@ from typing import Any, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
+from ..core import graphs
 from ..core.hw import resolve_device
 from ..models import causal_lm
 from ..ops.int8 import stack_shape
@@ -146,6 +158,14 @@ class LMEngine:
         self._temp = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
         self._topk = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self._topp = torch.ones((n_slots,), dtype=torch.float32, device=dev)
+        # the three programs, one graph per signature each, one pool
+        pool = graphs.Pool()
+        self._prefill_prog = graphs.CapturedFn(
+            self._prefill_program, "LMEngine admit prefill", pool, dev)
+        self._chunk_prog = graphs.CapturedFn(
+            self._chunk_program, "LMEngine decode chunk", pool, dev)
+        self._verify_prog = graphs.CapturedFn(
+            self._verify_program, "LMEngine verify window", pool, dev)
         # host-side scheduler state: positions are deterministic (true_len
         # at admission, +n per chunk), so capacity checks read no device
         # value; the temperature mirror picks the greedy fast path
@@ -235,20 +255,34 @@ class LMEngine:
         """Prefill one padded prompt, install its cache and sampling state
         into ``slot``; returns the first generated token (a device scalar)."""
         dev = self.device
-        logits, kc, vc, pos = causal_lm.lm_prefill_masked(
-            self.params, torch.from_numpy(padded).to(dev), true_len,
-            self.n_heads, self.max_len)
-        skey = sampling.seed_key(req.seed, dev)
-        # the first token is emitted having consumed true_len tokens
-        key = sampling.fold_in(skey, torch.tensor(true_len, device=dev))
-        first = sampling.sample_row(logits[0], key, req.temperature,
-                                    req.top_k, req.top_p)
-        self._kc[slot] = kc
-        self._vc[slot] = vc
-        self._pos[slot] = pos
-        self._tokens[slot] = first
-        self._skeys[slot] = skey
+        self._skeys[slot] = sampling.seed_key(req.seed, dev)
         self._set_controls(slot, req.temperature, req.top_k, req.top_p)
+        return self._prefill_prog(
+            torch.from_numpy(padded).to(dev),
+            torch.full((), true_len, dtype=torch.int32, device=dev),
+            torch.full((1,), slot, dtype=torch.int64, device=dev),
+            greedy=req.temperature <= 0.0)
+
+    def _prefill_program(self, tokens: torch.Tensor, true_len: torch.Tensor,
+                         slot: torch.Tensor, *, greedy: bool) -> torch.Tensor:
+        """The admit prefill: tokens (1, bucket), true_len (), slot (1,)
+        int64; writes the slot's cache, position and first token."""
+        logits, kc, vc, pos = causal_lm.lm_prefill_masked(
+            self.params, tokens, true_len, self.n_heads, self.max_len)
+        if greedy:  # skips the sampler's sort/softmax/cumsum
+            first = torch.argmax(logits[0], dim=-1).to(torch.int32)
+        else:
+            # the first token is emitted having consumed true_len tokens
+            key = sampling.fold_in(self._skeys.index_select(0, slot)[0],
+                                   true_len)
+            first = sampling.sample_row(
+                logits[0], key, self._temp.index_select(0, slot),
+                self._topk.index_select(0, slot),
+                self._topp.index_select(0, slot))
+        self._kc.index_copy_(0, slot, kc[None])
+        self._vc.index_copy_(0, slot, vc[None])
+        self._pos.index_copy_(0, slot, pos.reshape(1, 1))
+        self._tokens.index_copy_(0, slot, first.reshape(1, 1, 1))
         return first
 
     def _set_controls(self, slot: int, temperature: float, top_k: int,
@@ -302,32 +336,44 @@ class LMEngine:
     def _run_chunk(self, n: int) -> torch.Tensor:
         """Run ``n`` decode steps over all slots with the tokens fed back on
         the device; returns the (S, n) generated tokens (on the device)."""
-        greedy = all(t <= 0.0 for t in self._temp_host)
-        tokens, outs = self._tokens, []
+        return self._chunk_prog(
+            n=n, greedy=all(t <= 0.0 for t in self._temp_host))
+
+    def _chunk_program(self, *, n: int, greedy: bool) -> torch.Tensor:
+        """The decode chunk: ``n`` steps from the slot state, which it
+        advances in place; returns the (S, n) tokens."""
+        tokens, pos, outs = self._tokens, self._pos, []
         for _ in range(n):
-            logits, _, _, self._pos = causal_lm.lm_decode_step_slots(
-                self.params, tokens, self._kc, self._vc, self._pos,
-                self.n_heads)
+            logits, _, _, pos = causal_lm.lm_decode_step_slots(
+                self.params, tokens, self._kc, self._vc, pos, self.n_heads)
             if greedy:  # skips the sampler's sort/softmax/cumsum
                 nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
             else:
                 # pos is post-step = tokens consumed: keys depend on
                 # (seed, consumed) only
-                keys = sampling.step_keys(self._skeys, self._pos[:, 0])
+                keys = sampling.step_keys(self._skeys, pos[:, 0])
                 nxt = sampling.sample_logits(logits[:, 0], keys, self._temp,
                                              self._topk, self._topp)
             tokens = nxt[:, None, None]
             outs.append(nxt)
-        self._tokens = tokens
+        self._tokens.copy_(tokens)
+        self._pos.copy_(pos)
         return torch.stack(outs, dim=1)
 
-    def _run_verify(self, tokens_in: torch.Tensor):
-        """One speculative verify window over all slots: returns (carried
-        (S, 1, 1), pos + m, greedy (S, W), m (S,))."""
+    def _verify_program(self, drafts: torch.Tensor):
+        """One speculative verify window over all slots, the slot's last
+        token then its (S, g) drafts: advances the tokens and positions in
+        place past each slot's accepted drafts; returns (greedy (S, W),
+        m (S,))."""
+        tokens_in = torch.cat([self._tokens[:, 0], drafts], dim=1)
         logits, _, _, pos_w = causal_lm.lm_verify_window_slots(
             self.params, tokens_in, self._kc, self._vc, self._pos,
             self.n_heads)
-        return _accept_from_window(tokens_in, logits, pos_w)
+        carried, pos_m, greedy, m = _accept_from_window(tokens_in, logits,
+                                                        pos_w)
+        self._tokens.copy_(carried)
+        self._pos.copy_(pos_m)
+        return greedy, m
 
     def _decode_speculative(self, active: List[int]) -> None:
         """One speculative iteration: host-drafted prompt-lookup tokens
@@ -338,10 +384,7 @@ class LMEngine:
         drafts = np.zeros((self.n_slots, g), np.int32)
         for s in active:
             drafts[s] = self._draft_tokens(self._slot_req[s], g)
-        tokens_in = torch.cat(
-            [self._tokens[:, 0], torch.from_numpy(drafts).to(self.device)],
-            dim=1)  # (S, 1 + g)
-        self._tokens, self._pos, outs, m = self._run_verify(tokens_in)
+        outs, m = self._verify_prog(torch.from_numpy(drafts).to(self.device))
         outs = outs.cpu().numpy()
         m = m.cpu().numpy()
         for s in range(self.n_slots):

@@ -26,7 +26,7 @@ prefix of the sorted distribution whose mass reaches p, after top-k;
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Tuple, Union
 
 import torch
 
@@ -61,9 +61,11 @@ def threefry2x32(k1: torch.Tensor, k2: torch.Tensor, x1: torch.Tensor,
 
 def seed_key(seed: int, device=None) -> torch.Tensor:
     """``jax.random.PRNGKey(seed)``: a (2,) key of uint32 values (held in
-    int64) — high word 0, low word the seed's low 32 bits."""
-    return torch.tensor([0, int(seed) & _M32], dtype=torch.int64,
-                        device=device)
+    int64) — high word 0, low word the seed's low 32 bits. Filled on the
+    device: no copy from host memory."""
+    key = torch.zeros(2, dtype=torch.int64, device=device)
+    key[1] = int(seed) & _M32
+    return key
 
 
 def fold_in(keys: torch.Tensor, data: torch.Tensor) -> torch.Tensor:
@@ -125,12 +127,26 @@ def sample_logits(logits: torch.Tensor, keys: torch.Tensor,
     return torch.where(temperature <= 0.0, greedy, drawn).to(torch.int32)
 
 
+Control = Union[float, int, torch.Tensor]
+
+
+def _control(value: Control, dtype: torch.dtype,
+             device: torch.device) -> torch.Tensor:
+    """A sampling control as a (1,) tensor: a tensor of one value is
+    reshaped where it lies, a Python number filled on the device."""
+    if isinstance(value, torch.Tensor):
+        return value.reshape(1).to(dtype)
+    return torch.full((1,), value, dtype=dtype, device=device)
+
+
 def sample_row(logits: torch.Tensor, key: torch.Tensor,
-               temperature: float, top_k: int, top_p: float) -> torch.Tensor:
-    """One row of logits (V,) → () int32 (``sample_logits`` of one)."""
+               temperature: Control, top_k: Control,
+               top_p: Control) -> torch.Tensor:
+    """One row of logits (V,) → () int32 (``sample_logits`` of one). The
+    key is a (2,) tensor; each control a Python number or a tensor of one
+    value on the logits' device (no host round trip either way)."""
     dev = logits.device
     return sample_logits(
-        logits[None], key[None],
-        torch.tensor([temperature], dtype=torch.float32, device=dev),
-        torch.tensor([top_k], dtype=torch.int32, device=dev),
-        torch.tensor([top_p], dtype=torch.float32, device=dev))[0]
+        logits[None], key[None], _control(temperature, torch.float32, dev),
+        _control(top_k, torch.int32, dev),
+        _control(top_p, torch.float32, dev))[0]

@@ -10,7 +10,9 @@ Documentation/component-description.md:108-124).
 
 Outputs are the backend's tensors, resident on ``device`` (``.cpu()`` to
 fetch). ``device`` is cuda unless the caller asks for another; without a
-card the default raises.
+card the default raises. Each invoke goes through the filter, so on the
+card the first call of an input signature is captured into a CUDA graph
+and later calls replay it (core/graphs.py).
 """
 
 from __future__ import annotations

@@ -179,17 +179,34 @@ def phase_split(fn: Callable, example: Sequence[np.ndarray], device: Any = None,
     }
 
 
+#: the ``.py`` model file ``gpu_smoke``'s model_forms item writes: a
+#: function of a parameter tree, in the dict form, with string infos
+_PROBE_MODEL_PY = """
+import torch
+
+
+def make_model(device=None, scale="2"):
+    w = torch.full((4,), float(scale), dtype=torch.float32, device=device)
+    return {"name": "probe_scale", "apply": lambda p, x: x * p, "params": w,
+            "in_info": ("4:2", "float32"), "out_info": ("4:2", "float32")}
+"""
+
+
 def gpu_smoke(device: Any = None) -> Dict[str, str]:
     """On-card smoke lane (the JAX package's ``tpu_smoke``): exercises the
     paths the CPU test suite runs on the CPU and reports pass/fail per item.
 
     Items: device-resident element flow, decoder submit/complete device
-    reduce, and the CUDA ``normalize_u8`` kernel launched on a CUDA tensor,
-    its output quantized back to the input by ``quantize_affine`` (an item
-    that fails off the card, as ``tpu_smoke``'s Pallas item fails off the
-    TPU). ``tpu_smoke``'s ``bucketed_invoke`` and ``donate_invoke``
-    items wait for the filter's ``bucket=`` and ``donate=`` options, which
-    are not ported.
+    reduce, ``tpu_smoke``'s ``bucketed_invoke`` (``custom="bucket=4"``: a
+    frame's three tensors stacked, padded to 4, invoked once, three rows
+    out) and ``donate_invoke`` (``custom="donate=true,sync=true"`` on a
+    device-resident input), ``model_forms`` (a ``.py`` file exporting
+    ``make_model`` and a ``(fn, params)`` pair through the filter), and the
+    CUDA ``normalize_u8`` kernel launched on a CUDA tensor, its output
+    quantized back to the input by ``quantize_affine`` (an item that fails
+    off the card, as ``tpu_smoke``'s Pallas item fails off the TPU). Each
+    filter item invokes twice: on the card the first invoke is captured
+    into a CUDA graph and the second replays it.
     """
     device = torch.device("cuda" if device is None else device)
     results: Dict[str, str] = {"device": str(device)}
@@ -259,7 +276,63 @@ def gpu_smoke(device: Any = None) -> Dict[str, str]:
         assert preprocess.quantize_affine.launches == before + 1, "kernel not launched"
         assert torch.equal(back, x), "quantize_affine does not invert normalize_u8"
 
+    def twice(model: Any, custom: str, inputs: Callable[[], list],
+              check: Callable[[list], None]) -> None:
+        from ..filters.base import FilterProps
+        from ..filters.torch_cuda import TorchCudaFilter
+
+        f = TorchCudaFilter()
+        f.open(FilterProps(model=model, custom=custom, device=device))
+        try:
+            for _ in range(2):  # on the card: a capture, then a replay
+                outs = f.invoke(inputs())
+                assert all(o.is_device for o in outs), "output left the device"
+                check([o.host() for o in outs])
+        finally:
+            f.close()
+
+    def bucketed():
+        from ..core.buffer import TensorMemory
+
+        frames = [np.full((3, 3), i, np.float32) for i in range(3)]
+
+        def check(outs):
+            assert outs[0].shape == (3, 3, 3)
+            np.testing.assert_array_equal(outs[0], np.stack(frames) * 2)
+
+        twice("zoo://scaler?scale=2", "bucket=4",
+              lambda: [TensorMemory(x) for x in frames], check)
+
+    def donate():
+        from ..core.buffer import TensorMemory
+
+        x = np.ones((4, 4), np.float32)
+        twice("zoo://scaler?scale=3", "donate=true,sync=true",
+              lambda: [TensorMemory(torch.from_numpy(x).to(device))],
+              lambda outs: np.testing.assert_allclose(outs[0], x * 3))
+
+    def model_forms():
+        import os
+        import tempfile
+
+        from ..core.buffer import TensorMemory
+
+        x = np.arange(8, dtype=np.float32).reshape(2, 4)
+        w = torch.full((4,), 5.0, device=device)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "probe_model.py")
+            with open(path, "w", encoding="utf-8") as fh:
+                fh.write(_PROBE_MODEL_PY)
+            for model, custom, scale in ((path, "scale=3", 3.0),
+                                         ((lambda p, t: t * p, w), "", 5.0)):
+                twice(model, custom, lambda: [TensorMemory(x)],
+                      lambda outs, s=scale: np.testing.assert_array_equal(
+                          outs[0], x * s))
+
     run("device_resident_flow", device_resident_flow)
     run("decoder_submit_complete", submit_complete)
+    run("bucketed_invoke", bucketed)
+    run("donate_invoke", donate)
+    run("model_forms", model_forms)
     run("cuda_kernel", cuda_kernel)
     return results

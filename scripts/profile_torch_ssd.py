@@ -7,7 +7,10 @@ its time on the GPU.
 Runs the torch port's invoke the way the pipeline does — the ``torch-cuda``
 filter with the decoder's device reduce fused in — then the decoder's host
 side, over seeded random frames, first timed without the profiler, then
-under ``torch.profiler``:
+under ``torch.profiler``; in two modes, one after the other in the same
+process: with CUDA graphs (the port's default: the invoke, or the engine's
+decode chunk, replays one captured graph per signature) and eagerly
+(``graphs.disabled()``, every kernel launched from Python):
 
   * ``ssd`` (default): SSD-MobileNet-v2 300x300, 91 classes. Invoke = H2D
     copy of the uint8 frame, model, box decode, ``class_reduce`` and
@@ -25,16 +28,19 @@ under ``torch.profiler``:
     its one read-back of the chunk's tokens. ``--frames`` counts decode
     steps (rounded to whole chunks).
 
-Prints per frame (per decode step for ``lm``): host wall time of the invoke and of the host decode,
-device busy time and its share of the invoke's wall time, device time by
-kernel category, and the top kernels; then one JSON line with the same
-numbers. Needs a CUDA card.
+Prints for each mode, per frame (per decode step for ``lm``): host wall
+time of the invoke and of the host decode, device busy time and its share
+of the profiled wall time, the device's kernel launches and the host's
+launch calls (``cudaLaunchKernel`` and its kin, ``cudaGraphLaunch``), device
+time by kernel category, and the top kernels; then one JSON line with both
+modes' numbers. Needs a CUDA card.
 """
 
 from __future__ import annotations
 
 import argparse
 import collections
+import contextlib
 import json
 import os
 import subprocess
@@ -169,29 +175,17 @@ def _lm_work(quant: str, n_steps: int):
     return chunks * LM_CHUNK, run, None
 
 
-def main() -> int:
-    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--model", choices=sorted(SPECS) + ["lm"], default="ssd")
-    ap.add_argument("--frames", type=int, default=32)
-    ap.add_argument("--quant", choices=("float32", "w8a8"), default="float32")
-    args = ap.parse_args()
-    if not torch.cuda.is_available():
-        print("profile_torch_ssd: no CUDA device", file=sys.stderr)
-        return 1
+#: the host's CUDA launch calls, as the profiler names them: kernels one by
+#: one, and a whole captured graph
+HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                     "cuLaunchKernelEx", "cudaGraphLaunch", "cuGraphLaunch")
+
+
+def measure(run, n: int, unit: str, lm: bool) -> dict:
+    """One mode: the unprofiled wall per unit, then a profiled run's device
+    busy time, launches and categories."""
     from torch.profiler import ProfilerActivity, profile
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    card = smi.stdout.strip().splitlines()[0]
-    print(card, flush=True)
-
-    lm = args.model == "lm"
-    print(f"model causal_lm {LM_DIMS} ({args.quant})" if lm
-          else f"model {SPECS[args.model][0]}", flush=True)
-    n, run, decode_ms = (_lm_work(args.quant, args.frames) if lm
-                         else _frame_work(args.model, args.frames))
-    unit = "decode step" if lm else "frame"
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     run(profiled=False)
@@ -206,7 +200,10 @@ def main() -> int:
 
     by_kernel = collections.Counter()
     launches = collections.Counter()
+    host_calls = collections.Counter()
     for evt in prof.key_averages():
+        if evt.key in HOST_LAUNCH_CALLS:
+            host_calls[evt.key] += evt.count
         if evt.device_type != torch.autograd.DeviceType.CUDA:
             continue
         us = getattr(evt, "self_device_time_total", None)
@@ -218,25 +215,64 @@ def main() -> int:
     by_cat = collections.Counter()
     for name, us in by_kernel.items():
         by_cat[category(name, lm)] += us / 1e3 / n
-    print(f"per {unit}: {'wall' if lm else 'invoke wall'} {invoke_ms:.4f} ms (profiled "
-          f"{profiled_ms:.4f})"
-          + ("" if lm else f", host decode {decode_ms:.4f} ms") + ", device busy "
-          + (f"{device_ms:.4f} ms = {device_ms / profiled_ms:.3f} of the "
-             "profiled wall" if device_ms > 0 else "not measured"),
-          flush=True)
-    print(f"device launches per {unit}: {sum(launches.values()) / n:.1f}", flush=True)
-    for cat, ms in by_cat.most_common():
-        print(f"  {cat:20s} {ms:.4f} ms/{unit}", flush=True)
-    for name, us in by_kernel.most_common(10):
-        print(f"  {us / 1e3 / n:.4f} ms/{unit} x{launches[name] / n:.1f}  {name[:110]}",
-              flush=True)
+    return {"wall_ms": invoke_ms, "profiled_wall_ms": profiled_ms,
+            "device_busy_ms": device_ms if device_ms > 0 else None,
+            "busy_share": device_ms / profiled_ms if device_ms > 0 else None,
+            "device_launches_per_unit": sum(launches.values()) / n,
+            "host_launch_calls_per_unit": {k: c / n for k, c in host_calls.items()},
+            "device_ms_by_category": dict(by_cat),
+            "top": [(name, us / 1e3 / n, launches[name] / n)
+                    for name, us in by_kernel.most_common(10)]}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--model", choices=sorted(SPECS) + ["lm"], default="ssd")
+    ap.add_argument("--frames", type=int, default=32)
+    ap.add_argument("--quant", choices=("float32", "w8a8"), default="float32")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        print("profile_torch_ssd: no CUDA device", file=sys.stderr)
+        return 1
+    from nnstreamer_tpu_torch.core import graphs
+
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+
+    lm = args.model == "lm"
+    print(f"model causal_lm {LM_DIMS} ({args.quant})" if lm
+          else f"model {SPECS[args.model][0]}", flush=True)
+    n, run, decode_ms = (_lm_work(args.quant, args.frames) if lm
+                         else _frame_work(args.model, args.frames))
+    unit = "decode step" if lm else "frame"
+    modes = {}
+    for mode in ("graphs", "eager"):
+        with graphs.disabled() if mode == "eager" else contextlib.nullcontext():
+            graphs.reset_stats()
+            m = modes[mode] = measure(run, n, unit, lm)
+            m["graph_stats"] = graphs.stats()
+        busy = (f"{m['device_busy_ms']:.4f} ms = {m['busy_share']:.3f} of the "
+                "profiled wall" if m["device_busy_ms"] else "not measured")
+        print(f"[{mode}] per {unit}: {'wall' if lm else 'invoke wall'} "
+              f"{m['wall_ms']:.4f} ms (profiled {m['profiled_wall_ms']:.4f})"
+              + ("" if lm else f", host decode {decode_ms:.4f} ms")
+              + f", device busy {busy}", flush=True)
+        print(f"[{mode}] device launches per {unit}: "
+              f"{m['device_launches_per_unit']:.1f}; host launch calls per {unit}: "
+              f"{json.dumps(m['host_launch_calls_per_unit'])}; graphs "
+              f"{json.dumps(m['graph_stats'])}", flush=True)
+        for cat, ms in sorted(m["device_ms_by_category"].items(), key=lambda kv: -kv[1]):
+            print(f"[{mode}]   {cat:20s} {ms:.4f} ms/{unit}", flush=True)
+        for name, ms, count in m["top"]:
+            print(f"[{mode}]   {ms:.4f} ms/{unit} x{count:.1f}  {name[:100]}", flush=True)
     print(json.dumps({
         "card": card, "model": args.model, "quant": args.quant if lm else None,
-        "units": n, "unit": unit, "wall_ms": invoke_ms,
-        "profiled_wall_ms": profiled_ms, "host_decode_ms": decode_ms,
-        "device_busy_ms": device_ms if device_ms > 0 else None,
-        "device_launches_per_unit": sum(launches.values()) / n,
-        "device_ms_by_category": dict(by_cat)}), flush=True)
+        "units": n, "unit": unit, "host_decode_ms": decode_ms,
+        "modes": {k: {key: v for key, v in m.items() if key != "top"}
+                  for k, m in modes.items()}}), flush=True)
     return 0
 
 

@@ -5,7 +5,8 @@ The JAX package's params (``init_causal_lm``, and ``quantize_lm_params``
 for w8a8) are converted with ``models/convert.causal_lm_params`` and the
 same numpy tokens go through every execution form of both packages:
 ``lm_forward``, dense and flash ``lm_prefill`` (the JAX flash kernel in
-interpret mode), ``lm_prefill_masked``, the decode step, the verify window
+interpret mode), ``lm_prefill_masked`` (its true length an int or, as the
+serving engine's graphs give it, a 0-dim tensor), the decode step, the verify window
 and the per-slot forms, including windows past the cache. Tolerance:
 logits and caches within rtol 1e-4 / atol 1e-5 (float32 GEMMs contract in
 a different order in XLA and in torch) and greedy argmax equal; the w8a8
@@ -136,6 +137,30 @@ def test_prefill_masked_matches_jax(trees, kind):
                               MAXLEN)[0].numpy())
     with pytest.raises(ValueError, match="true_len"):
         tlm.lm_prefill_masked(tp, torch.from_numpy(tok), 33, H, MAXLEN)
+
+
+@pytest.mark.parametrize("kind", ["float", "w8a8"])
+@pytest.mark.parametrize("true_len", [1, 19, 32])
+def test_prefill_masked_takes_a_tensor_true_len(trees, kind, true_len):
+    # the serving engine's graph form: true_len a 0-dim device tensor, as
+    # the JAX engine traces it; bit-equal to the int form, and within the
+    # float tolerance of the jitted JAX function
+    jp, tp = trees[kind]
+    tok = np.zeros((1, 32), np.int32)
+    tok[0, :true_len] = _tokens(true_len, 6)
+    want = tlm.lm_prefill_masked(tp, torch.from_numpy(tok), true_len, H, MAXLEN)
+    for dtype in (torch.int32, torch.int64):
+        got = tlm.lm_prefill_masked(tp, torch.from_numpy(tok),
+                                    torch.tensor(true_len, dtype=dtype), H, MAXLEN)
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and g.shape == w.shape and torch.equal(g, w)
+    jl, jk, jv, jpos = jax.jit(jlm.lm_prefill_masked, static_argnums=(3, 4))(
+        jp, jnp.asarray(tok), jnp.int32(true_len), H, MAXLEN)
+    _close(got[0], jl)
+    _same_argmax(got[0], jl)
+    _close(got[1], jk)
+    _close(got[2], jv)
+    assert int(got[3][0]) == int(jpos[0]) == true_len
 
 
 @pytest.mark.parametrize("kind", ["float", "w8a8"])

@@ -92,6 +92,11 @@ def test_gpu_smoke_items_on_the_cpu():
     assert res["device"] == "cpu"
     assert res["device_resident_flow"] == "pass"
     assert res["decoder_submit_complete"] == "pass"
+    # tpu_smoke's bucketed_invoke and donate_invoke, and the filter's .py
+    # and (fn, params) model forms
+    assert res["bucketed_invoke"] == "pass"
+    assert res["donate_invoke"] == "pass"
+    assert res["model_forms"] == "pass"
     assert res["cuda_kernel"].startswith("FAIL: AssertionError")
 
 

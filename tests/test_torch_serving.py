@@ -5,13 +5,16 @@ Sampling: ``seed_key``/``fold_in``/``step_keys`` give the JAX keys bit for
 bit, the random bits and the categorical draws are ``jax.random``'s, and
 ``sample_logits`` draws the same tokens as the JAX sampler at several
 seeds, consumed counts and controls (tokens equal; Gumbel noise within
-1e-6 relative, the two libraries' logs).
+1e-6 relative, the two libraries' logs), with the controls as Python
+numbers or as tensors.
 
 Engine: the port's ``LMEngine`` (device="cpu") over the JAX package's
 params converted with ``models/convert.causal_lm_params`` serves the same
 requests as the JAX ``LMEngine``: greedy, sampled, speculative
 (``spec_draft=4``), static (``gang=True``) and w8a8 outputs are equal token
-for token, and the ``stats`` counters equal (wall time aside). Model:
+for token, and the ``stats`` counters equal (wall time aside); the admit
+prefill program installs the JAX ``_prefill_admit``'s first token,
+position and seed key, and its cache within rtol 1e-4 / atol 1e-5. Model:
 V 128, D 64, 4 heads, 2 layers, max_len 128 (examples/serve_lm.py).
 """
 
@@ -120,6 +123,24 @@ def test_sample_row_matches_categorical_when_filters_disabled():
                                   torch.from_numpy(np.asarray(key).astype(np.int64)),
                                   1.0, 0, 1.0)
         assert int(got) == want
+
+
+@pytest.mark.parametrize("seed", [0, 3, 11])
+def test_sample_row_takes_tensor_controls_and_keys(seed):
+    # the engine's admit prefill hands the slot's controls over as tensors
+    # of one value: the draws are the Python-number form's and JAX's
+    logits = (np.random.default_rng(seed).standard_normal(V) * 3).astype(np.float32)
+    for i, (t, k, p) in enumerate(CONTROLS):
+        key = jax.random.fold_in(jax.random.PRNGKey(seed * 10 + i), 7)
+        tkey = torch.from_numpy(np.asarray(key).astype(np.int64))
+        want = int(jsamp.sample_row(jnp.asarray(logits), key, jnp.float32(t),
+                                    jnp.int32(k), jnp.float32(p)))
+        plain = sampling.sample_row(torch.from_numpy(logits), tkey, t, k, p)
+        tensors = sampling.sample_row(
+            torch.from_numpy(logits), tkey, torch.tensor([t]),
+            torch.tensor([k], dtype=torch.int32), torch.tensor(p))
+        assert int(plain) == int(tensors) == want
+        assert tensors.dtype == torch.int32 and tensors.shape == ()
 
 
 # --------------------------------------------------------------------------- #
@@ -249,6 +270,38 @@ def test_engine_admission_rules(tparams):
     # the slot state lives where the params do; cuda is the default device
     with pytest.raises(Exception):
         LMEngine(tparams, H, MAXLEN)
+
+
+@pytest.mark.parametrize("temperature,seed", [(0.0, 0), (0.9, 5), (1.3, 77)])
+def test_admit_prefill_program_installs_the_jax_admit_state(jparams, tparams,
+                                                            temperature, seed):
+    # the prefill program (prompt, true length and slot as device tensors,
+    # seed key and controls read from the slot state) against the JAX
+    # engine's jitted _prefill_admit on the same padded prompt
+    from nnstreamer_tpu.serving.lm_engine import _prefill_admit
+    from nnstreamer_tpu_torch.serving.lm_engine import _Request
+
+    prompt = np.random.default_rng(seed).integers(0, V, 21).astype(np.int32)
+    padded = np.zeros((1, 32), np.int32)
+    padded[0, :21] = prompt
+    eng = LMEngine(tparams, H, MAXLEN, n_slots=3, device=CPU)
+    req = _Request(0, prompt, 5, None, temperature=temperature, top_k=12,
+                   top_p=0.95, seed=seed)
+    first = eng._prefill_into(2, padded, 21, req)
+    jfirst, jkc, jvc, jpos = _prefill_admit(
+        jparams, jnp.asarray(padded), jnp.int32(21), jax.random.PRNGKey(seed),
+        jnp.float32(temperature), jnp.int32(12), jnp.float32(0.95),
+        n_heads=H, max_len=MAXLEN)
+    assert int(first) == int(jfirst)
+    assert int(eng._tokens[2, 0, 0]) == int(jfirst) and int(eng._pos[2, 0]) == 21
+    np.testing.assert_allclose(eng._kc[2].numpy(), np.asarray(jkc),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(eng._vc[2].numpy(), np.asarray(jvc),
+                               rtol=1e-4, atol=1e-5)
+    np.testing.assert_array_equal(eng._skeys[2].numpy(),
+                                  np.asarray(jax.random.PRNGKey(seed)))
+    # the other slots are untouched
+    assert not eng._kc[:2].any() and not eng._pos[:2].any()
 
 
 def test_bucket_and_tail_rules():
