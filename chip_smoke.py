@@ -70,13 +70,33 @@ Phases (any failure exits non-zero before the result lines are printed):
  11. the filter's own options on the card: a ``bucket=4`` pipeline of
      flexible frames and a ``bucket=4,resize=12:9`` one, each bit-equal to
      the same pipeline on CPU tensors;
- 12. print the launches of each path (every count set to 0 just before the
-     path and read just after), the graphs of each path, the ``kernels``
-     JSON line, then the device line last.
+ 12. the repo-LSTM composite loop (bench.py:280-298 without its query
+     hop): ``appsrc → tensor_mux sync_mode=nosync ← tensor_reposrc →
+     tensor_filter model=zoo://lstm_cell?features=64&input_size=32 →
+     tensor_demux tensorpick=0,1:2 → [queue → tensor_sink], [queue →
+     tensor_reposink]``, one frame in flight, 16 warm-up frames then 192
+     timed: frames/s and round trip p50 (push to the sink's read), every
+     replayed output byte-equal to the eager one, the card within LSTM_TOL
+     of the CPU after 208 recurrent steps, and exactly one host-to-card and
+     one card-to-host copy a frame (the state stays on the card);
+ 13. crop → bucketed classifier: 64 1920x1080 frames with 1-9 seeded boxes
+     through ``tensor_crop → tensor_filter model=zoo://mobilenet_v2
+     custom="bucket=4,resize=224:224"``: one graph a padded size, frames/s
+     and regions/s over the steady frames, logits byte-equal to eager and
+     frame 0's to the bundle called on its own regions;
+ 14. tensor_mux/demux, tensor_merge/split (a strided view into flat
+     regions), tensor_aggregator, tensor_if, tensor_rate and the sparse
+     codec on tensors on the card, each byte for byte against the same
+     pipeline on CPU tensors, outputs on the card (the codec's on the
+     host);
+ 15. print the launches of each path (every count set to 0 just before the
+     path and read just after), the graphs of each path, the stream paths'
+     rates, the ``kernels`` JSON line, then the device line last.
 
 Every pipeline path (SSD, classification, the headline fused and unfused,
 DeepLab fused and batched, PoseNet, the flash and dense prefill lanes, the
-``bucket=`` and ``resize=`` pipelines), SingleShot and both LM engines run
+``bucket=`` and ``resize=`` pipelines, the repo loop and crop → bucketed
+filter), SingleShot and both LM engines run
 their filter invokes (the engine: its admit prefill, decode chunk and verify
 window) as CUDA graphs (``core/graphs.py``): the first call of a signature
 runs eagerly and is captured, later calls replay. Each path's graph counts
@@ -147,6 +167,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from fractions import Fraction
 
@@ -195,6 +216,18 @@ FLASH_TOL = {torch.float32: (1e-5, 1e-5), torch.bfloat16: (5e-2, 3e-2)}
 PREFILL_F32_TOL = (1e-4, 1e-4)
 #: the route every flash launch of a prefill lane must take, by dtype
 PREFILL_ROUTE = {torch.bfloat16: "wgmma", torch.float32: "tf32x3"}
+#: the repo-LSTM composite loop (bench.py:280-298 without its query hop): the
+#: bench's widths, 16 warm-up frames, then 192 timed
+LSTM_SPEC = "zoo://lstm_cell?features=64&input_size=32"
+LSTM_DIN, LSTM_F, LSTM_SLOT, LSTM_WARM, LSTM_FRAMES = 32, 64, 77, 16, 192
+#: the loop's outputs on the card against the CPU's, after 208 recurrent
+#: steps (rtol, atol): both sum each gate's products in float32 (TF32 off)
+#: in their own orders, about 3e-7 apart a step, and the gates contract
+#: the error; stated before the first run on the card
+LSTM_TOL = (1e-5, 1e-5)
+#: crop -> bucketed classifier: 1920x1080x3 frames with 1-9 boxes each
+CROP_SPEC = "zoo://mobilenet_v2"
+CROP_FRAMES, CROP_MAX_BOXES = 64, 9
 
 
 def _bound_ms(nbytes: float, ops: float, dtype=torch.float32) -> tuple:
@@ -1164,6 +1197,8 @@ def _mode(eager: bool):
 #: per path: graph captures, replays, eager warm-ups, the distinct
 #: signatures the path feeds, both rates and the memory reserved after it
 GRAPH_PATHS = {}
+#: the stream paths' rates, round trips and host copies
+LOOP_STATS = {}
 
 
 def _record_graphs(path: str, distinct: int, unit: str, rate: float,
@@ -2026,6 +2061,425 @@ def run_filter_options() -> None:
                        len(frames), st)
 
 
+# --------------------------------------------------------------------------- #
+# the N-input stream elements: the repo-LSTM loop, crop → bucketed filter,
+# and each element on tensors on the card
+# --------------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def _host_copies():
+    """Count the copies between the host and the card that go through a
+    ``TensorMemory`` while inside: ``h2d`` (a host array or CPU tensor made
+    resident on the card) and ``d2h`` (a card tensor read on the host)."""
+    from nnstreamer_tpu_torch.core.buffer import TensorMemory
+
+    counts = {"h2d": 0, "d2h": 0}
+    lock = threading.Lock()
+    to_device, to_host = TensorMemory.device, TensorMemory.host
+
+    def counting_device(self, device=None):
+        t = self._device
+        if device is not None and torch.device(device).type == "cuda" \
+                and (t is None or t.device.type != "cuda"):
+            with lock:
+                counts["h2d"] += 1
+        return to_device(self, device)
+
+    def counting_host(self):
+        if self._host is None and self._device is not None \
+                and self._device.device.type == "cuda":
+            with lock:
+                counts["d2h"] += 1
+        return to_host(self)
+
+    TensorMemory.device, TensorMemory.host = counting_device, counting_host
+    try:
+        yield counts
+    finally:
+        TensorMemory.device, TensorMemory.host = to_device, to_host
+
+
+def _repo_loop(device, frames, model) -> tuple:
+    """bench.py:280-298 without its query hop: ``appsrc → tensor_mux
+    sync_mode=nosync ← tensor_reposrc slot_index=77 → tensor_filter →
+    tensor_demux tensorpick=0,1:2 → [queue → tensor_sink], [queue →
+    tensor_reposink slot_index=77]``. One frame in flight: appsrc pushes a
+    frame once the previous one's output was read on the host at the sink
+    (the user's read, which waits for the frame's work). Returns the
+    outputs (host arrays), push and arrival times, and the host copies."""
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.elements.repo import reset_repo
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    reset_repo()
+    done = threading.Semaphore(0)
+    pushed, arrived, outs = [], [], []
+    it = iter(frames)
+
+    def next_frame():
+        if pushed and not done.acquire(timeout=60):
+            raise RuntimeError("repo loop: no result within 60 s")
+        x = next(it, None)
+        if x is not None:
+            pushed.append(time.perf_counter())
+        return x
+
+    def on_result(b):
+        outs.append(b.memories[0].host())
+        arrived.append(time.perf_counter())
+        done.release()
+
+    p = Pipeline("repo-lstm", device=device)
+    caps = Caps.tensors(TensorsConfig(
+        TensorsInfo.from_strings(f"{LSTM_DIN}:1", "float32"), 30))
+    src = p.add_new("appsrc", caps=caps, callback=next_frame, framerate=30)
+    state = p.add_new("tensor_reposrc", slot_index=LSTM_SLOT,
+                      dims=f"{LSTM_F}:1,{LSTM_F}:1", types="float32,float32")
+    mux = p.add_new("tensor_mux", sync_mode="nosync")
+    filt = p.add_new("tensor_filter", framework="xla-tpu", model=model)
+    demux = p.add_new("tensor_demux", tensorpick="0,1:2")
+    sink = p.add_new("tensor_sink", new_data=on_result)
+    rsink = p.add_new("tensor_reposink", slot_index=LSTM_SLOT)
+    Pipeline.link(src, mux)
+    Pipeline.link(state, mux)
+    Pipeline.link(mux, filt, demux)
+    Pipeline.link(demux, p.add_new("queue"), sink)
+    Pipeline.link(demux, p.add_new("queue"), rsink)
+    with _host_copies() as copies:
+        p.start()
+        try:
+            deadline = time.monotonic() + 300
+            while len(outs) < len(frames) and time.monotonic() < deadline:
+                time.sleep(0.005)
+        finally:
+            p.stop()
+    if len(outs) != len(frames):
+        raise AssertionError(f"repo loop on {device}: {len(outs)} of {len(frames)} "
+                             "frames out (the loop stalled)")
+    return outs, pushed, arrived, dict(copies)
+
+
+def run_repo_lstm(counters) -> dict:
+    """Path (a), the repo-LSTM composite loop at the bench's widths (d_in
+    32, features 64, batch 1): 16 warm-up frames, then 192 timed, with CUDA
+    graphs and eagerly, and on the CPU. Every replayed output byte-equal to
+    the eager one, the card within LSTM_TOL of the CPU after 208 recurrent
+    steps, and per frame exactly one host-to-card copy (the appsrc input; the
+    bootstrap frame's two zero states once) and one card-to-host copy (the
+    sink's read): the state stays on the card around the loop."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.models.zoo import get_model
+
+    rng = np.random.default_rng(7)
+    n = LSTM_WARM + LSTM_FRAMES
+    frames = [rng.standard_normal((1, LSTM_DIN)).astype(np.float32) for _ in range(n)]
+    runs = {}
+    for eager in (False, True):
+        counters.reset()
+        with _mode(eager):
+            outs, pushed, arrived, copies = _repo_loop("cuda", frames, LSTM_SPEC)
+            st = graphs.stats()
+        launches = counters.read()
+        rtt = np.median([a - s for a, s in zip(arrived[LSTM_WARM:], pushed[LSTM_WARM:])])
+        fps = (LSTM_FRAMES - 1) / (arrived[-1] - arrived[LSTM_WARM])
+        runs[eager] = (outs, fps, float(rtt) * 1e3, copies, st)
+        if copies != {"h2d": n + 2, "d2h": n}:
+            raise AssertionError(f"repo loop ({'eager' if eager else 'graphs'}): host "
+                                 f"copies {copies} for {n} frames, expected "
+                                 f"{{'h2d': {n + 2}, 'd2h': {n}}}")
+    outs, fps, rtt, copies, st = runs[False]
+    if not all(a.tobytes() == b.tobytes() for a, b in zip(outs, runs[True][0])):
+        raise AssertionError("repo loop: replayed outputs differ from the eager ones")
+    cpu_bundle = get_model(LSTM_SPEC, device="cpu")
+    cpu_outs = _repo_loop("cpu", frames, cpu_bundle)[0]
+    err = max(float(np.abs(a - b).max()) for a, b in zip(outs, cpu_outs))
+    rtol, atol = LSTM_TOL
+    if not all(np.allclose(a, b, rtol=rtol, atol=atol) and np.isfinite(a).all()
+               for a, b in zip(outs, cpu_outs)):
+        raise AssertionError(f"repo loop: the card's outputs leave the CPU's by {err} "
+                             f"(rtol {rtol}, atol {atol})")
+    print(f"repo-lstm loop (d_in {LSTM_DIN}, features {LSTM_F}): {LSTM_FRAMES} frames "
+          f"after {LSTM_WARM}; graphs {fps:.2f} fps, round trip p50 {rtt:.4f} ms; "
+          f"eager {runs[True][1]:.2f} fps, p50 {runs[True][2]:.4f} ms; host copies a "
+          f"frame: h2d {copies['h2d'] / n:.4f}, d2h {copies['d2h'] / n:.4f} "
+          f"({copies} over {n} frames, the bootstrap's two zero states included); "
+          f"replayed == eager; card vs CPU max abs err {err:.3e} over {n} steps",
+          flush=True)
+    _record_graphs("repo_lstm", 1, "fps", fps, runs[True][1], st)
+    LOOP_STATS["repo_lstm"] = {"fps": fps, "rtt_p50_ms": rtt, "eager_fps": runs[True][1],
+                               "eager_rtt_p50_ms": runs[True][2], "max_abs_err": err,
+                               "h2d_per_frame": copies["h2d"] / n,
+                               "d2h_per_frame": copies["d2h"] / n}
+    return launches
+
+
+def _crop_inputs() -> tuple:
+    """64 1920x1080x3 uint8 frames and 1-9 boxes a frame, each box's origin
+    inside the frame and its sides 16-400 pixels (clipped at the edges)."""
+    rng = np.random.default_rng(9)
+    frames = [rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+              for _ in range(CROP_FRAMES)]
+    boxes = []
+    for _ in range(CROP_FRAMES):
+        k = int(rng.integers(1, CROP_MAX_BOXES + 1))
+        xy = rng.integers(0, (1920 - 16, 1080 - 16), (k, 2))
+        wh = rng.integers(16, 401, (k, 2))
+        boxes.append(np.concatenate([xy, wh], axis=1).astype(np.int32))
+    return frames, boxes
+
+
+def _crop_pipeline(frames, boxes, on_logits):
+    """Path (b)'s pipeline on the card: ``appsrc (raw) → tensor_crop ←
+    appsrc (info)``, ``tensor_crop → tensor_filter model=zoo://mobilenet_v2
+    custom="bucket=4,resize=224:224" → tensor_sink new_data=on_logits``."""
+    from nnstreamer_tpu_torch.core.types import Caps, TensorFormat, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    raw_caps = Caps.tensors(TensorsConfig(
+        TensorsInfo.from_strings("3:1920:1080:1", "uint8"), 30))
+    flex = Caps.tensors(TensorsConfig(TensorsInfo((), TensorFormat.FLEXIBLE), 30))
+    p = Pipeline("crop-bucketed", device="cuda")
+    raw = p.add_new("appsrc", caps=raw_caps, data=[f[None] for f in frames],
+                    framerate=30)
+    info = p.add_new("appsrc", caps=flex, data=boxes, framerate=30)
+    crop = p.add_new("tensor_crop")
+    filt = p.add_new("tensor_filter", framework="xla-tpu", model=CROP_SPEC,
+                     custom="bucket=4,resize=224:224")
+    sink = p.add_new("tensor_sink", new_data=on_logits)
+    Pipeline.link(raw, crop)
+    Pipeline.link(info, crop)
+    Pipeline.link(crop, filt, sink)
+    return p
+
+
+def run_crop_bucketed(counters) -> dict:
+    """Path (b): tensor_crop → tensor_filter model=zoo://mobilenet_v2
+    custom="bucket=4,resize=224:224" → tensor_sink over 64 1080p frames of
+    1-9 regions, with CUDA graphs (one a padded size) and eagerly: every
+    frame's logits (n, 1001) on the card, finite, byte-equal between the
+    two runs, and frame 0's equal to the bundle called directly on its
+    resized, stacked and padded regions."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.filters.torch_cuda import resize_region
+    from nnstreamer_tpu_torch.models.zoo import get_model
+
+    frames, boxes = _crop_inputs()
+    counts = [len(b) for b in boxes]
+    # steady frames: each padded size's first frame warms up and captures
+    # its graph (eagerly: lets cuDNN choose), so rates count the others
+    sizes = [-(-k // 4) for k in counts]
+    steady = [k for k in range(1, len(counts)) if sizes[k] in sizes[:k]]
+    runs = {}
+    for eager in (False, True):
+        arrived, outs = [], []
+
+        def on_logits(b, arrived=arrived, outs=outs):
+            outs.append((b.memories[0].device(), b.memories[0].host()))
+            arrived.append(time.perf_counter())
+
+        p = _crop_pipeline(frames, boxes, on_logits)
+        counters.reset()
+        with _mode(eager):
+            p.run(timeout=600)
+            st = graphs.stats()
+        launches = counters.read()
+        if [h.shape for _, h in outs] != [(k, 1001) for k in counts]:
+            raise AssertionError(f"crop_bucketed: logits {[h.shape for _, h in outs]} "
+                                 f"for {counts} regions")
+        gaps = [arrived[k] - arrived[k - 1] for k in steady]
+        runs[eager] = (outs, len(steady) / sum(gaps),
+                       sum(counts[k] for k in steady) / sum(gaps), st,
+                       (len(outs) - 1) / (arrived[-1] - arrived[0]))
+    outs, fps, rps, st, wall_fps = runs[False]
+    if any(d.device.type != "cuda" for d, _ in outs) \
+            or not all(np.isfinite(h).all() for _, h in outs):
+        raise AssertionError("crop_bucketed: logits off the card or not finite")
+    if not all(a.tobytes() == b.tobytes() for (_, a), (_, b) in zip(outs, runs[True][0])):
+        raise AssertionError("crop_bucketed: replayed logits differ from the eager ones")
+    # frame 0 by hand: the crop's regions, resized, stacked, padded, invoked
+    img, regions = frames[0], []
+    for x, y, w, h in boxes[0].astype(np.int64):
+        regions.append(img[y:min(y + h, 1080), x:min(x + w, 1920)])
+    dev = torch.device("cuda")
+    batch = torch.stack([resize_region(r, (224, 224), dev) for r in regions])
+    k, bucket = len(regions), -(-len(regions) // 4) * 4
+    batch = torch.cat([batch, batch.new_zeros((bucket - k,) + tuple(batch.shape[1:]))])
+    with graphs.disabled(), torch.inference_mode():
+        want = get_model(CROP_SPEC, device=dev).fn()(batch)[:k].cpu().numpy()
+    if want.tobytes() != outs[0][1].tobytes():
+        raise AssertionError("crop_bucketed: frame 0's logits differ from the bundle "
+                             "called on its regions")
+    distinct = len(set(sizes))
+    print(f"crop -> bucket=4,resize=224:224 mobilenet_v2: {CROP_FRAMES} frames of "
+          f"1920x1080, {sum(counts)} regions ({min(counts)}-{max(counts)} a frame), "
+          f"padded sizes {sorted({k * 4 for k in sizes})}; steady ({len(steady)} "
+          f"frames): graphs {fps:.2f} frames/s, {rps:.2f} regions/s; eager "
+          f"{runs[True][1]:.2f} frames/s, {runs[True][2]:.2f} regions/s; by wall "
+          f"(captures included) {wall_fps:.2f} and eager {runs[True][4]:.2f} frames/s; "
+          "replayed == eager; frame 0 == the bundle on its regions", flush=True)
+    _record_graphs("crop_bucketed", distinct, "frames/s", fps, runs[True][1], st)
+    LOOP_STATS["crop_bucketed"] = {"fps": fps, "regions_per_s": rps,
+                                   "eager_fps": runs[True][1],
+                                   "eager_regions_per_s": runs[True][2],
+                                   "wall_fps": wall_fps, "eager_wall_fps": runs[True][4],
+                                   "regions": sum(counts), "steady_frames": len(steady)}
+    return launches
+
+
+def _record_sinks(sinks) -> dict:
+    """Each sink's buffers as (pts, duration, [(shape, dtype, bytes)])."""
+    return {key: [(b.pts, b.duration,
+                   [(tuple(m.shape), str(m.dtype), m.tobytes()) for m in b.memories])
+                  for b in s.buffers] for key, s in sinks.items()}
+
+
+def _stream_cases(dev) -> dict:
+    """name → (build, sinks whose tensors must stay on the card): each
+    builds a pipeline on ``dev`` fed tensors made on ``dev`` from seeded
+    numpy, and returns its sinks."""
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    rng = np.random.default_rng(11)
+
+    def caps(dims, types, rate=30):
+        return Caps.tensors(TensorsConfig(TensorsInfo.from_strings(dims, types), rate))
+
+    def on(arrs):
+        return [torch.from_numpy(a).to(dev) for a in arrs]
+
+    img = [rng.integers(0, 256, (1, 224, 224, 3)).astype(np.float32) for _ in range(8)]
+    img2 = [rng.standard_normal((1, 224, 224, 3)).astype(np.float32) for _ in range(8)]
+    logits = [rng.standard_normal((1, 1001)).astype(np.float32) for _ in range(8)]
+    feats = [rng.standard_normal((1, 32)).astype(np.float32) for _ in range(12)]
+    sparse = []
+    for _ in range(6):
+        a = np.zeros((1, 224, 224, 3), np.float32)
+        a.reshape(-1)[rng.choice(a.size, 1500, replace=False)] = rng.standard_normal(1500)
+        sparse.append(a)
+
+    def mux_demux():
+        p = Pipeline(device=dev)
+        a = p.add_new("appsrc", caps=caps("3:224:224:1", "float32"), data=on(img))
+        b = p.add_new("appsrc", caps=caps("1001:1", "float32"), data=on(logits))
+        mux = p.add_new("tensor_mux", sync_mode="nosync")
+        d = p.add_new("tensor_demux", tensorpick="1,0:1")
+        s0, s1 = (p.add_new("tensor_sink", store=True) for _ in range(2))
+        Pipeline.link(a, mux)
+        Pipeline.link(b, mux)
+        Pipeline.link(mux, d)
+        Pipeline.link(d, s0)
+        Pipeline.link(d, s1)
+        p.run(timeout=120)
+        return {"src_0": s0, "src_1": s1}
+
+    def merge_split():
+        p = Pipeline(device=dev)
+        a = p.add_new("appsrc", caps=caps("3:224:224:1", "float32"), data=on(img))
+        b = p.add_new("appsrc", caps=caps("3:224:224:1", "float32"), data=on(img2))
+        m = p.add_new("tensor_merge", option="first", sync_mode="slowest")
+        s = p.add_new("tensor_split", tensorseg="2,4", option="0")
+        ref = p.add_new("tensor_split", tensorseg="4:224:100:1,4:224:124:1")
+        s0, s1, s2 = (p.add_new("tensor_sink", store=True) for _ in range(3))
+        Pipeline.link(a, m)
+        Pipeline.link(b, m)
+        Pipeline.link(m, s)
+        Pipeline.link(s, s0)
+        Pipeline.link(s, ref)  # a strided view, split into flat regions
+        Pipeline.link(ref, s1)
+        Pipeline.link(ref, s2)
+        p.run(timeout=120)
+        return {"split_0": s0, "flat_0": s1, "flat_1": s2}
+
+    def aggregator():
+        sinks = {}
+        for key, props in (("window", dict(frames_out=4, frames_flush=2, frames_dim=1)),
+                           ("frames_in", dict(frames_in=1, frames_out=3, frames_dim=0))):
+            p = Pipeline(device=dev)
+            src = p.add_new("appsrc", caps=caps("32:1", "float32"), data=on(feats),
+                            framerate=30)
+            agg = p.add_new("tensor_aggregator", **props)
+            sinks[key] = p.add_new("tensor_sink", store=True)
+            Pipeline.link(src, agg, sinks[key])
+            p.run(timeout=120)
+        return sinks
+
+    def tensor_if():
+        sinks = {}
+        for key, props in (
+                ("average", dict(compared_value="TENSOR_AVERAGE_VALUE",
+                                 compared_value_option="0", operator="GT",
+                                 supplied_value="127.5")),
+                ("a_value", dict(compared_value="A_VALUE",
+                                 compared_value_option="1:10:20:0:0", operator="LT",
+                                 supplied_value="128"))):
+            p = Pipeline(device=dev)
+            src = p.add_new("appsrc", caps=caps("3:224:224:1", "float32"), data=on(img))
+            tif = p.add_new("tensor_if", then="PASSTHROUGH", **props)
+            tif.set_properties(**{"else": "PASSTHROUGH"})
+            tif.add_src_pad("src_else")
+            then, other = (p.add_new("tensor_sink", store=True) for _ in range(2))
+            Pipeline.link(src, tif)
+            tif.src_pads[0].link(then.sink_pad)
+            tif.src_pads[1].link(other.sink_pad)
+            p.run(timeout=120)
+            sinks[f"{key} then"], sinks[f"{key} else"] = then, other
+        return sinks
+
+    def tensor_rate():
+        sinks = {}
+        for rate in ("10/1", "45/1"):
+            p = Pipeline(device=dev)
+            src = p.add_new("appsrc", caps=caps("32:1", "float32"), data=on(feats),
+                            framerate=30)
+            r = p.add_new("tensor_rate", framerate=rate, throttle=False)
+            sinks[rate] = p.add_new("tensor_sink", store=True)
+            Pipeline.link(src, r, sinks[rate])
+            p.run(timeout=120)
+        return sinks
+
+    def sparse_codec():
+        p = Pipeline(device=dev)
+        src = p.add_new("appsrc", caps=caps("3:224:224:1", "float32"), data=on(sparse))
+        enc = p.add_new("tensor_sparse_enc")
+        tee = p.add_new("tee")
+        dec = p.add_new("tensor_sparse_dec")
+        wire, out = (p.add_new("tensor_sink", store=True) for _ in range(2))
+        Pipeline.link(src, enc, tee)
+        Pipeline.link(tee, p.add_new("queue"), wire)
+        Pipeline.link(tee, p.add_new("queue"), dec, out)
+        p.run(timeout=120)
+        return {"wire": wire, "decoded": out}
+
+    return {"mux/demux": (mux_demux, True), "merge/split": (merge_split, True),
+            "aggregator": (aggregator, True), "tensor_if": (tensor_if, True),
+            "tensor_rate": (tensor_rate, True), "sparse": (sparse_codec, False)}
+
+
+def run_stream_elements(counters) -> dict:
+    """Each stream element on tensors on the card, against the same
+    pipeline on CPU tensors, byte for byte (data, PTS, durations, buffer
+    counts); every output but the sparse codec's stays on the card."""
+    counters.reset()
+    cases = {dev: _stream_cases(dev) for dev in ("cuda", "cpu")}
+    for name, (build, resident) in cases["cuda"].items():
+        sinks = build()
+        got = _record_sinks(sinks)
+        want = _record_sinks(cases["cpu"][name][0]())
+        if got != want:
+            raise AssertionError(f"stream elements {name}: the card's outputs differ "
+                                 "from the CPU's")
+        where = {m.device().device.type if m.is_device else "host"
+                 for s in sinks.values() for b in s.buffers for m in b.memories}
+        if not all(s.buffers for s in sinks.values()) \
+                or (where != {"cuda"} if resident else "cuda" in where):
+            raise AssertionError(f"stream elements {name}: outputs on {where}")
+        print(f"stream elements {name} on the card == on the CPU, byte for byte: "
+              + ", ".join(f"{k} {len(v)} buffers" for k, v in got.items())
+              + f"; outputs on {sorted(where)}", flush=True)
+    return counters.read()
+
+
 class _Counters:
     """The kernels' launch counts: set all to 0, read all."""
 
@@ -2104,8 +2558,12 @@ def main() -> int:
     by_phase["lm flash prefill"] = run_flash_prefill(counters, torch.bfloat16)
     by_phase["lm flash prefill float32"] = run_flash_prefill(counters, torch.float32)
     run_filter_options()
+    by_phase["repo_lstm"] = run_repo_lstm(counters)
+    by_phase["crop_bucketed"] = run_crop_bucketed(counters)
+    by_phase["stream_elements"] = run_stream_elements(counters)
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)
     print(f"graphs by path: {json.dumps(GRAPH_PATHS)}", flush=True)
+    print(f"stream paths: {json.dumps(LOOP_STATS)}", flush=True)
     for k in kernels:
         k["launches"] = sum(phase.get(k["name"], 0) for phase in by_phase.values())
 

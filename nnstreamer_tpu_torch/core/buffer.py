@@ -224,5 +224,17 @@ class Buffer:
         return f"Buffer(pts={t}, {self.memories!r})"
 
 
+def concat_arrays(arrays: Sequence[Any], axis: int) -> Any:
+    """Concatenate host arrays and tensors along ``axis``: ``np.concatenate``
+    when all are host arrays, else ``torch.cat`` on the device of the first
+    tensor, host arrays copied there (the JAX package's switch to
+    ``jnp.concatenate`` when any input is on the device)."""
+    dev = next((a.device for a in arrays if isinstance(a, torch.Tensor)), None)
+    if dev is None:
+        return np.concatenate(arrays, axis=axis)
+    return torch.cat([a.to(dev) if isinstance(a, torch.Tensor)
+                      else TensorMemory(a).device(dev) for a in arrays], dim=axis)
+
+
 def now_ns() -> int:
     return time.monotonic_ns()

@@ -1,4 +1,4 @@
-"""Built-in pipeline elements of the slice. Importing this package
+"""Built-in pipeline elements of the port. Importing this package
 registers their classes (the reference's registerer/nnstreamer.c:88-114
 equivalent)."""
 
@@ -9,3 +9,11 @@ from . import converter  # noqa: F401
 from . import decoder  # noqa: F401
 from . import batch  # noqa: F401
 from . import transform  # noqa: F401
+from . import mux_demux  # noqa: F401
+from . import merge_split  # noqa: F401
+from . import aggregator  # noqa: F401
+from . import crop  # noqa: F401
+from . import cond  # noqa: F401
+from . import rate  # noqa: F401
+from . import repo  # noqa: F401
+from . import sparse  # noqa: F401

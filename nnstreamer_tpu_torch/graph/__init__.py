@@ -1,4 +1,4 @@
-"""Pipeline graph runtime: elements, pads, events, scheduling, the
+"""Pipeline graph runtime: elements, pads, events, scheduling, sync, the
 gst-launch-style parser."""
 
 from .element import (
@@ -14,6 +14,7 @@ from .element import (
 from .events import Bus, Event, EventType, Message, MessageType
 from .parse import CapsFilter, caps_to_gst_string, parse_caps_string, parse_pipeline
 from .pipeline import Join, Pipeline, PipelineError, Queue, SourceElement, Tee
+from .sync import CollectPads, SyncPolicy
 
 __all__ = [
     "Element", "FlowReturn", "Pad", "PadDirection", "all_element_names",
@@ -21,4 +22,5 @@ __all__ = [
     "Bus", "Event", "EventType", "Message", "MessageType",
     "CapsFilter", "caps_to_gst_string", "parse_caps_string", "parse_pipeline",
     "Join", "Pipeline", "PipelineError", "Queue", "SourceElement", "Tee",
+    "CollectPads", "SyncPolicy",
 ]

@@ -11,7 +11,9 @@ as flax auto-names its submodules (``flax_children``: "ConvBNReLU_0",
     ``(C, 1, 3, 3)``); ``bias`` as is;
   * ``BatchNorm``: params ``scale``/``bias`` → ``weight``/``bias``,
     batch_stats ``mean``/``var`` → ``running_mean``/``running_var``;
-  * ``nn.Linear``: flax ``(in, out)`` kernel → torch ``(out, in)``.
+  * ``nn.Linear``: flax ``(in, out)`` kernel → torch ``(out, in)``; a
+    ``Dense(use_bias=False)`` (the input kernels of flax's ``LSTMCell``,
+    ``models/lstm.py``) is a ``Linear`` without bias.
 
 ``flax_shapes`` gives the same tree's shapes, from which the zoo synthesizes
 seeded placeholder weights.
@@ -43,7 +45,8 @@ def _leaves(module: nn.Module, prefix: str = "",
             yield "params", path + ("bias",), prefix + "bias", "same"
     elif isinstance(module, nn.Linear):
         yield "params", path + ("kernel",), prefix + "weight", "dense"
-        yield "params", path + ("bias",), prefix + "bias", "same"
+        if module.bias is not None:
+            yield "params", path + ("bias",), prefix + "bias", "same"
     elif isinstance(module, BatchNorm):
         yield "params", path + ("scale",), prefix + "weight", "same"
         yield "params", path + ("bias",), prefix + "bias", "same"

@@ -157,6 +157,7 @@ def _ensure_builtin_models() -> None:
         return
     from . import causal_lm  # noqa: F401
     from . import deeplab  # noqa: F401
+    from . import lstm  # noqa: F401
     from . import mobilenet_v2  # noqa: F401
     from . import posenet  # noqa: F401
     from . import simple  # noqa: F401

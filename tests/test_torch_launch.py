@@ -44,8 +44,8 @@ SIZE, CLASSES = 32, 16
 MODEL = (f"zoo://mobilenet_v2?width=0.25&size={SIZE}&num_classes={CLASSES}"
          "&dtype=float32")
 
-#: tests/test_launch_sweep.py's PASS_CASES that use only ported elements
-#: (its tensor_aggregator case waits for that element)
+#: tests/test_launch_sweep.py's PASS_CASES that use only ported elements,
+#: then a string for each N-input and stream element
 PASS_CASES = [
     "videotestsrc num-buffers=4 width=16 height=16 ! tensor_converter ! "
     "tensor_sink",
@@ -74,6 +74,34 @@ PASS_CASES = [
     "tensor_converter ! fakesink",
     'audiotestsrc num-buffers=2 samplesperbuffer=64 ! tensor_converter ! '
     'appsink name="pull here"',
+    # the N-input and stream elements: one string each, pad references too
+    "videotestsrc num-buffers=8 width=8 height=8 ! tensor_converter ! "
+    "tensor_aggregator frames_in=1 frames_out=4 frames_flush=4 "
+    "frames_dim=3 ! tensor_sink",
+    "videotestsrc num-buffers=3 width=8 height=8 ! tensor_converter ! mux.sink_0 "
+    "videotestsrc num-buffers=3 width=4 height=4 ! tensor_converter ! mux.sink_1 "
+    "tensor_mux name=mux sync-mode=nosync ! tensor_demux name=d tensorpick=1,0 "
+    "d.src_0 ! queue ! tensor_sink d.src_1 ! queue ! tensor_sink",
+    "videotestsrc num-buffers=3 width=8 height=8 ! tensor_converter ! m.sink_0 "
+    "videotestsrc num-buffers=3 width=8 height=8 pattern=gradient ! "
+    "tensor_converter ! m.sink_1 tensor_merge name=m option=first "
+    "sync-mode=slowest ! tensor_split name=s tensorseg=2,4 "
+    "s.src_0 ! tensor_sink s.src_1 ! tensor_sink",
+    "tensor_crop name=c ! tensor_sink "
+    "videotestsrc num-buffers=2 width=16 height=16 ! tensor_converter ! c. "
+    "videotestsrc num-buffers=2 width=4 height=1 pattern=solid color=0x030303 ! "
+    "video/x-raw,format=GRAY8 ! tensor_converter ! "
+    "tensor_transform mode=typecast option=int32 ! c.",
+    "videotestsrc num-buffers=4 width=8 height=8 pattern=random ! tensor_converter ! "
+    "tensor_if compared-value=TENSOR_AVERAGE_VALUE compared-value-option=0 "
+    "supplied-value=120 operator=GT then=PASSTHROUGH ! tensor_sink",
+    "videotestsrc num-buffers=9 width=8 height=8 ! tensor_converter ! "
+    "tensor_rate framerate=10/1 throttle=false ! tensor_sink",
+    "videotestsrc num-buffers=3 width=8 height=8 ! tensor_converter ! "
+    "tensor_reposink slot-index=31 "
+    "tensor_reposrc slot-index=31 dims=3:8:8:1 types=uint8 ! tensor_sink",
+    "videotestsrc num-buffers=2 width=8 height=8 pattern=solid ! tensor_converter ! "
+    "tensor_sparse_enc ! tensor_sparse_dec ! tensor_sink",
 ]
 
 #: tests/test_launch_sweep.py's FAIL_CASES
@@ -162,7 +190,11 @@ def test_cli_lists_and_inspects():
     text = out.getvalue()
     for name in ("tensor_transform", "capsfilter", "appsink", "filesink",
                  "passthrough", "scaler", "average", "matmul", "mobilenet_v2",
-                 "transform-chain", "frameworks: ", "torch-cuda"):
+                 "transform-chain", "frameworks: ", "torch-cuda", "tensor_mux",
+                 "tensor_demux", "tensor_merge", "tensor_split", "tensor_crop",
+                 "tensor_aggregator", "tensor_if", "tensor_rate", "tensor_reposink",
+                 "tensor_reposrc", "tensor_sparse_enc", "tensor_sparse_dec",
+                 "lstm_cell"):
         assert name in text
     assert port_cli(["--inspect", "no_such_element"]) == 1
 
