@@ -89,7 +89,38 @@ Phases (any failure exits non-zero before the result lines are printed):
      codec on tensors on the card, each byte for byte against the same
      pipeline on CPU tensors, outputs on the card (the codec's on the
      host);
- 15. print the launches of each path (every count set to 0 just before the
+ 15. the media conversions on card tensors byte for byte against the CPU
+     (RGBA 1080p videoscale, BGRx -> RGB, RGB -> GRAY8, audioconvert S16LE
+     <-> F32LE and S16LE -> U8); then the video path, parsed from its launch
+     string on a card pipeline: 1920x1080 random frames ``! videoscale !
+     video/x-raw,width=300,height=300 ! videoconvert format=RGB !
+     tensor_converter ! tensor_filter model=SSD-300 ! tensor_decoder
+     mode=bounding_box ! tensor_sink``, 64 frames with graphs and 64 eagerly:
+     every scaled frame stays on the card and equals the same element run on
+     the CPU byte for byte (Pillow's BILINEAR, ops/resample.py), one 1080p
+     frame is copied up a frame (through videoscale's pinned staging) and no
+     memory is copied up after it, ``class_reduce`` and ``nms_sweep`` launch
+     once a frame; steady fps, videoscale's host ms a frame and device ms a
+     1080p frame;
+ 16. online fine-tuning at full width: ``appsrc ! tee ! queue !
+     tensor_trainer model=zoo://mobilenet_v2 optimizer=adam
+     learning_rate=1e-3 checkpoint_path=... resume=true`` beside ``t. !
+     queue ! tensor_filter model=zoo://mobilenet_v2 is-updatable=true !
+     tensor_sink`` (224, 1001 classes, bf16 compute, float32 masters), 24
+     frames of 16 images alternating two fixed batches: the loss falls, the
+     zoo's shared module is unchanged, the EOS checkpoint reloads bit-equal
+     to the masters; a second pipeline resumes at frame 24 and, hot-swapped
+     to the trained bundle while running, serves its eager forward's logits
+     bit for bit (unlike the initial model's); frames/s, step ms and peak
+     memory; then the element on the card against the CPU at float32 (TF32
+     off), 3 steps at batch 4 with adam and with sgd: losses within
+     TRAIN_LOSS_RTOL, each leaf's change of the masters within
+     TRAIN_CHANGE_RTOL of the CPU's (a fault of this run's own masters, a
+     skipped update, a flipped sign or a leaf left out, must fail that
+     check), sgd's masters within TRAIN_SGD_ATOL; adam's run again step by
+     step on both devices: each step's gradients and the masters beyond
+     1e-5 apart after it;
+ 17. print the launches of each path (every count set to 0 just before the
      path and read just after), the graphs of each path, the stream paths'
      rates, the ``kernels`` JSON line, then the device line last.
 
@@ -228,6 +259,28 @@ LSTM_TOL = (1e-5, 1e-5)
 #: crop -> bucketed classifier: 1920x1080x3 frames with 1-9 boxes each
 CROP_SPEC = "zoo://mobilenet_v2"
 CROP_FRAMES, CROP_MAX_BOXES = 64, 9
+#: the media path: 1920x1080 random frames scaled on the card into SSD-300
+MEDIA_FRAMES = 64
+#: online fine-tuning at full width: MobileNet-v2 224, 1001 classes, bf16
+#: compute with float32 masters; 24 frames of 16 images
+TRAIN_SPEC = "zoo://mobilenet_v2?batch=16"
+TRAIN_FRAMES, TRAIN_BATCH = 24, 16
+#: the trainer on the card against the CPU: float32, TF32 off, 3 steps at
+#: batch 4. Losses: both sum in float32 in their own orders (rtol, stated
+#: before the first run on the card, which measured 4.819e-06). Masters:
+#: each leaf's change from the initial masters, the card's against the
+#: CPU's, as the norm of their difference over the norm of the CPU's
+#: change; a skipped update or a leaf left out gives 1, a flipped sign 2,
+#: and the bound lies halfway to the least of them. Sound runs on the card
+#: (NVIDIA H100 80GB HBM3, 700.00 W) read 0.1543 with adam and 0.05898
+#: with sgd, each at its worst leaf: a BatchNorm leaf whose gradient is a
+#: sum that nearly cancels. sgd's masters also within lr times the
+#: gradients' difference, 1% of lr
+TRAIN_CHECK_SPEC = "zoo://mobilenet_v2?dtype=float32&batch=4"
+TRAIN_CHECK_STEPS = 3
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_CHANGE_RTOL = 0.5
+TRAIN_SGD_ATOL = 1e-5
 
 
 def _bound_ms(nbytes: float, ops: float, dtype=torch.float32) -> tuple:
@@ -2480,6 +2533,448 @@ def run_stream_elements(counters) -> dict:
     return counters.read()
 
 
+# --------------------------------------------------------------------------- #
+# the media path (1080p video scaled on the card into SSD) and online
+# fine-tuning of MobileNet-v2 hot-swapped into a serving filter
+# --------------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def _scale_watch():
+    """Record what ``videoscale`` pushes (its output memories, in order) and
+    its host seconds a frame (``chain`` less the push downstream)."""
+    from nnstreamer_tpu_torch.elements.media import VideoScale
+
+    chain = VideoScale.chain
+    out, host = [], []
+
+    def watched(self, pad, buf):
+        pushed = []
+        push = self.push
+
+        def recording_push(b, pad_index=0):
+            t1 = time.perf_counter()
+            out.append(b.memories[0])
+            try:
+                return push(b, pad_index)
+            finally:
+                pushed.append(time.perf_counter() - t1)
+
+        t0 = time.perf_counter()
+        self.push = recording_push
+        try:
+            return chain(self, pad, buf)
+        finally:
+            del self.push
+            host.append(time.perf_counter() - t0 - sum(pushed))
+
+    VideoScale.chain = watched
+    try:
+        yield out, host
+    finally:
+        VideoScale.chain = chain
+
+
+def _media_ssd_string(frames: int, labels: str, priors: str) -> str:
+    return (f"videotestsrc width=1920 height=1080 pattern=random num-buffers={frames} ! "
+            "videoscale ! video/x-raw,width=300,height=300 ! videoconvert format=RGB ! "
+            f'tensor_converter ! tensor_filter framework=xla-tpu model="{SSD_SPEC}" ! '
+            f"tensor_decoder mode=bounding_box option1=mobilenet-ssd option2={labels} "
+            f"option3={priors} option4=300:300 option5=300:300 ! tensor_sink store=true")
+
+
+def check_media_elements() -> None:
+    """The media conversions on tensors on the card against the same on the
+    CPU, byte for byte: RGBA 1080p → 300x300 (premultiplied alpha), BGRx →
+    RGB, RGB → GRAY8, and audioconvert S16LE ↔ F32LE and S16LE → U8."""
+    from nnstreamer_tpu_torch.elements.media import _audio_convert, convert_pixels
+    from nnstreamer_tpu_torch.ops import resample
+
+    rng = np.random.default_rng(12)
+    rgba = rng.integers(0, 256, (1080, 1920, 4), dtype=np.uint8)
+    rgba[..., 3][rng.random((1080, 1920)) < 0.3] = 0
+    bgrx = rng.integers(0, 256, (1080, 1920, 4), dtype=np.uint8)
+    rgb = rng.integers(0, 256, (1080, 1920, 3), dtype=np.uint8)
+    cases = [("videoscale RGBA 1920x1080 -> 300x300",
+              lambda x: resample.resize(x, 300, 300), rgba),
+             ("videoconvert BGRx -> RGB", lambda x: convert_pixels(x, "BGRx", "RGB"), bgrx),
+             ("videoconvert RGB -> GRAY8", lambda x: convert_pixels(x, "RGB", "GRAY8"), rgb)]
+    s16 = rng.integers(-32768, 32768, 48000).astype(np.int16)
+    s16[:2] = [-32768, 32767]
+    f32 = rng.uniform(-1.2, 1.2, 48000).astype(np.float32)
+    for src, dst, x in (("S16LE", "F32LE", s16), ("F32LE", "S16LE", f32),
+                        ("S16LE", "U8", s16)):
+        from nnstreamer_tpu_torch.core.types import AUDIO_FORMATS
+
+        sd, dd = np.dtype(AUDIO_FORMATS[src]), np.dtype(AUDIO_FORMATS[dst])
+        cases.append((f"audioconvert {src} -> {dst}",
+                      lambda t, sd=sd, dd=dd: _audio_convert(t, sd, dd), x))
+    for name, fn, x in cases:
+        card = fn(torch.from_numpy(x).cuda())
+        cpu = fn(torch.from_numpy(x))
+        if card.device.type != "cuda" or card.shape != cpu.shape or card.dtype != cpu.dtype \
+                or card.cpu().numpy().tobytes() != cpu.numpy().tobytes():
+            raise AssertionError(f"{name}: the card's output differs from the CPU's")
+        print(f"media {name} on the card == on the CPU, byte for byte: "
+              f"{tuple(cpu.shape)} {str(cpu.dtype).removeprefix('torch.')}", flush=True)
+
+
+def run_media_ssd(ep, tmp: str) -> dict:
+    """The video path: 1920x1080 random frames through ``videoscale ! 
+    video/x-raw,width=300,height=300 ! videoconvert format=RGB ! 
+    tensor_converter ! tensor_filter model=SSD ! tensor_decoder
+    mode=bounding_box ! tensor_sink``, parsed from its launch string on a
+    card pipeline, 64 frames with CUDA graphs and 64 eagerly: every scaled
+    frame on the card and byte-equal to the same element on the CPU, one
+    1080p frame copied up a frame and nothing through the filter's inputs,
+    ``class_reduce`` and ``nms_sweep`` once a frame, detections equal
+    between the two runs."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.graph.parse import parse_pipeline
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
+    from nnstreamer_tpu_torch.ops import resample
+
+    priors = os.path.join(tmp, "media_priors.txt")
+    write_box_priors(priors, size=300)
+    labels = os.path.join(tmp, "media_coco.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"c{i}" for i in range(91)))
+    desc = _media_ssd_string(MEDIA_FRAMES, labels, priors)
+    runs = {}
+    for eager in (False, True):
+        p = parse_pipeline(desc, Pipeline("media-ssd", device="cuda"))
+        sink = next(e for e in p.elements.values() if e.ELEMENT_NAME == "tensor_sink")
+        scale = next(e for e in p.elements.values() if e.ELEMENT_NAME == "videoscale")
+        arrivals = []
+        sink.new_data = lambda b, arrivals=arrivals: arrivals.append(time.perf_counter())
+        with _scale_watch() as (scaled, host), _host_copies() as copies, _mode(eager):
+            ep.class_reduce.launches = 0
+            ep.nms_sweep.launches = 0
+            p.run(timeout=600)
+            torch.cuda.synchronize()
+            launches = {"class_reduce": ep.class_reduce.launches,
+                        "nms_sweep": ep.nms_sweep.launches}
+            st = graphs.stats()
+        if sink.num_buffers != MEDIA_FRAMES or len(scaled) != MEDIA_FRAMES:
+            raise AssertionError(f"media ssd: {sink.num_buffers} of {MEDIA_FRAMES} out")
+        if launches != {"class_reduce": MEDIA_FRAMES, "nms_sweep": MEDIA_FRAMES}:
+            raise AssertionError(f"media ssd: launches {launches} for {MEDIA_FRAMES} frames")
+        if any(m.device().device.type != "cuda" or tuple(m.shape) != (300, 300, 3)
+               for m in scaled):
+            raise AssertionError("media ssd: a scaled frame left the card")
+        if scale.bytes_up != MEDIA_FRAMES * 1080 * 1920 * 3 or copies["h2d"] != 0:
+            raise AssertionError(f"media ssd: {scale.bytes_up} bytes copied up by "
+                                 f"videoscale and {copies} through memories for "
+                                 f"{MEDIA_FRAMES} frames")
+        runs[eager] = (sink, scaled, host, _steady_fps(arrivals), launches, st,
+                       scale.bytes_up / MEDIA_FRAMES, dict(copies))
+    sink, scaled, host, fps, launches, st, up, copies = runs[False]
+    counts = [len(b.meta["detections"]) for b in sink.buffers]
+    if sum(counts) == 0 or [b.meta["detections"] for b in sink.buffers] \
+            != [b.meta["detections"] for b in runs[True][0].buffers]:
+        raise AssertionError("media ssd: no detections, or replayed detections differ "
+                             "from the eager ones")
+    # the same frames scaled on the CPU
+    cpu = parse_pipeline(
+        f"videotestsrc width=1920 height=1080 pattern=random num-buffers={MEDIA_FRAMES} ! "
+        "videoscale ! video/x-raw,width=300,height=300 ! tensor_converter ! "
+        "tensor_sink store=true", Pipeline("media-cpu", device="cpu"))
+    cpu.run(timeout=600)
+    want = [b.memories[0].host()[0].tobytes() for b in
+            next(e for e in cpu.elements.values() if e.ELEMENT_NAME == "tensor_sink").buffers]
+    for frames in (scaled, runs[True][1]):
+        if [m.device().cpu().numpy().tobytes() for m in frames] != want:
+            raise AssertionError("media ssd: videoscale on the card differs from the CPU")
+    frame = torch.from_numpy(np.random.default_rng(3).integers(
+        0, 256, (1080, 1920, 3), dtype=np.uint8)).cuda()
+    scale_ms = _device_ms(lambda: resample.resize(frame, 300, 300))
+    host_ms = float(np.median(host[1:])) * 1e3
+    print(f"media -> ssd_mobilenet_v2 (1920x1080 random, videoscale to 300x300 on the "
+          f"card): {MEDIA_FRAMES} frames, steady fps={fps:.2f} (eager "
+          f"{runs[True][3]:.2f}); videoscale host {host_ms:.4f} ms a frame (eager run "
+          f"{float(np.median(runs[True][2][1:])) * 1e3:.4f}), device {scale_ms:.6f} ms a "
+          f"1080p frame; copied up {up:.0f} bytes a frame (one 1920x1080x3 frame), "
+          f"memories copied up {copies['h2d']}; launches={launches}; every scaled frame "
+          "on the card == the CPU's; replayed detections == eager", flush=True)
+    _record_graphs("media_ssd", 1, "fps", fps, runs[True][3], st)
+    LOOP_STATS["media_ssd"] = {"fps": fps, "eager_fps": runs[True][3],
+                               "videoscale_host_ms": host_ms,
+                               "videoscale_device_ms": scale_ms,
+                               "bytes_up_per_frame": up, "memories_h2d": copies["h2d"]}
+    return launches
+
+
+def _train_frames(n: int, batch: int, seed: int = 5) -> list:
+    """``n`` frames alternating two fixed seeded batches of ``batch`` uint8
+    224x224 images with int32 labels of 1001 classes."""
+    rng = np.random.default_rng(seed)
+    pairs = [(rng.integers(0, 256, (batch, 224, 224, 3), dtype=np.uint8),
+              rng.integers(0, 1001, (batch,)).astype(np.int32)) for _ in range(2)]
+    return [pairs[k % 2] for k in range(n)]
+
+
+def _train_pipeline(device, spec, ckpt, frames=None, serve=True, optimizer="adam"):
+    """``appsrc ! tee name=t ! queue ! tensor_trainer model=spec optimizer=adam
+    learning_rate=1e-3 checkpoint_path=ckpt resume=true`` and, with
+    ``serve``, ``t. ! queue ! tensor_filter model=spec is-updatable=true
+    input-combination=0 ! tensor_sink``. ``frames``: the appsrc's data, or
+    None to push by hand; ``ckpt`` None writes no checkpoint."""
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    batch = int(spec.split("batch=")[1].split("&")[0])
+    caps = Caps.tensors(TensorsConfig(TensorsInfo.from_strings(
+        f"3:224:224:{batch},{batch}", "uint8,int32"), 30))
+    p = Pipeline("train", device=device)
+    src = p.add_new("appsrc", caps=caps, **({} if frames is None else {"data": frames}))
+    tee = p.add_new("tee")
+    tr = p.add_new("tensor_trainer", model=spec, optimizer=optimizer, learning_rate=1e-3,
+                   **({"checkpoint_path": ckpt, "resume": True} if ckpt else {}))
+    Pipeline.link(src, tee, p.add_new("queue"), tr, p.add_new("fakesink"))
+    filt = sink = None
+    if serve:
+        filt = p.add_new("tensor_filter", framework="xla-tpu", model=spec,
+                         is_updatable=True, input_combination="0")
+        sink = p.add_new("tensor_sink", store=True)
+        Pipeline.link(tee, p.add_new("queue"), filt, sink)
+    return p, src, tr, filt, sink
+
+
+def _wait_for(pred, what: str, timeout: float = 300) -> None:
+    deadline = time.monotonic() + timeout
+    while not pred():
+        if time.monotonic() > deadline:
+            raise AssertionError(f"train: timed out waiting for {what}")
+        time.sleep(0.005)
+
+
+def run_train() -> None:
+    """Online fine-tuning at full width: 24 frames of 16 images through
+    ``tensor_trainer`` (MobileNet-v2 224, 1001 classes, bf16 compute, float32
+    masters, adam lr 1e-3) beside a serving filter of the same zoo spec. The
+    loss must fall, the zoo's shared module stay unchanged, the EOS
+    checkpoint reload bit-equal to the masters with frames 24; a second
+    pipeline resumes from it at 24, and its filter, hot-swapped to the first
+    run's trained bundle while running, serves logits bit-equal to that
+    bundle's eager forward and unlike the initial model's. Then the card
+    against the CPU at float32 (TF32 off), 3 steps at batch 4."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.elements.trainer import TensorTrainer
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.utils import checkpoints
+
+    dev = torch.device("cuda", 0)
+    shared = get_model(TRAIN_SPEC, device=dev)
+    before = {k: v.clone() for k, v in shared.module.state_dict().items()}
+    frames = _train_frames(TRAIN_FRAMES, TRAIN_BATCH)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "mobilenet_v2.msgpack")
+        p, _, tr, _, sink = _train_pipeline("cuda", TRAIN_SPEC, ckpt, frames)
+        steps, step = [], TensorTrainer.step
+
+        def timed_step(self, x, y):
+            t0 = time.perf_counter()
+            out = step(self, x, y)
+            float(out)  # the step's end, as the element reads it
+            steps.append(time.perf_counter() - t0)
+            return out
+
+        torch.cuda.reset_peak_memory_stats()
+        TensorTrainer.step = timed_step
+        try:
+            t0 = time.perf_counter()
+            p.run(timeout=900)
+            wall = time.perf_counter() - t0
+        finally:
+            TensorTrainer.step = step
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        losses = list(tr.losses)
+        if tr._n != TRAIN_FRAMES or sink.num_buffers != TRAIN_FRAMES \
+                or not all(np.isfinite(losses)):
+            raise AssertionError(f"train: {tr._n} steps, {sink.num_buffers} served, "
+                                 f"losses {losses}")
+        if not np.mean(losses[-4:]) < np.mean(losses[:4]):
+            raise AssertionError(f"train: the loss did not fall: {losses}")
+        if not all(torch.equal(before[k], v) for k, v in shared.module.state_dict().items()):
+            raise AssertionError("train: the zoo's shared module changed while training")
+        blob = checkpoints.load_variables(ckpt)
+        masters = [t.cpu().numpy() for t in _tree_leaves(tr.params)]
+        saved = _tree_leaves(blob["params"])
+        if blob["frames"] != TRAIN_FRAMES or int(blob["opt_state"]["0"]["count"]) \
+                != TRAIN_FRAMES or len(saved) != len(masters) \
+                or any(a.tobytes() != b.tobytes() for a, b in zip(saved, masters)):
+            raise AssertionError("train: the EOS checkpoint differs from the masters")
+        trained = tr.trained_bundle()
+        n_masters = sum(a.size for a in masters)
+
+        # resume, serve the initial model, hot-swap, replay
+        p2, src2, tr2, filt2, sink2 = _train_pipeline("cuda", TRAIN_SPEC, ckpt)
+        p2.start()
+        try:
+            if tr2._n != TRAIN_FRAMES:
+                raise AssertionError(f"train: resumed at {tr2._n}, not {TRAIN_FRAMES}")
+            src2.push_buffer(frames[0])
+            _wait_for(lambda: sink2.num_buffers == 1, "the first served frame")
+            filt2.update_model(trained)
+            for f in frames[:2]:
+                src2.push_buffer(f)
+            _wait_for(lambda: sink2.num_buffers == 3, "the replayed frames")
+            src2.end_of_stream()
+            if not p2.wait_eos(300):
+                raise AssertionError("train: the resumed pipeline did not end")
+        finally:
+            p2.stop()
+    x = [torch.from_numpy(f[0]).to(dev) for f in frames[:2]]
+    with graphs.disabled(), torch.inference_mode():
+        initial = [shared.fn()(t) for t in x]
+        want = [trained.fn()(t) for t in x]
+    served = [b.memories[0].device() for b in sink2.buffers]
+    if not _identical(served[0], initial[0]):
+        raise AssertionError("train: the filter did not serve the initial model first")
+    if not (_identical(served[1], want[0]) and _identical(served[2], want[1])):
+        raise AssertionError("train: the swapped filter's logits differ from the trained "
+                             "bundle's eager forward")
+    if _identical(served[1], initial[0]):
+        raise AssertionError("train: the swapped filter serves the initial weights")
+    steady = steps[1:]
+    step_ms = float(np.median(steady)) * 1e3
+    fps = len(steady) / sum(steady)
+    print(f"train mobilenet_v2 224 (1001 classes, bf16 compute, {n_masters} float32 "
+          f"masters, adam lr 1e-3): {TRAIN_FRAMES} frames of {TRAIN_BATCH}, loss "
+          f"{losses[0]:.4f} -> {losses[-1]:.4f} (first 4 {np.mean(losses[:4]):.4f}, last 4 "
+          f"{np.mean(losses[-4:]):.4f}); steady {fps:.2f} frames/s "
+          f"({fps * TRAIN_BATCH:.1f} images/s), step {step_ms:.3f} ms (median), wall "
+          f"{wall:.3f} s; peak memory {peak:.1f} MiB; zoo module unchanged; EOS "
+          f"checkpoint == masters bit for bit; resumed at {TRAIN_FRAMES} (its next "
+          f"losses {[round(v, 4) for v in tr2.losses]}); hot-swapped filter == trained "
+          "bundle's eager forward, != the initial model", flush=True)
+    LOOP_STATS["train"] = {"frames_per_s": fps, "images_per_s": fps * TRAIN_BATCH,
+                           "step_ms": step_ms, "peak_mib": peak,
+                           "loss_first": losses[0], "loss_last": losses[-1]}
+    check_train_card_vs_cpu()
+
+
+def _tree_items(tree, path: str = "") -> list:
+    """A nested dict's (path, leaf) pairs, keys sorted at each level (jax's
+    order)."""
+    if isinstance(tree, dict):
+        return [item for k in sorted(tree)
+                for item in _tree_items(tree[k], f"{path}/{k}" if path else k)]
+    return [(path, tree)]
+
+
+def _tree_leaves(tree) -> list:
+    """A nested dict's leaves, keys sorted at each level (jax's order)."""
+    return [leaf for _, leaf in _tree_items(tree)]
+
+
+def _change_gaps(start: list, card: list, cpu: list) -> list:
+    """Each leaf's change from ``start``, the card's against the CPU's:
+    |card − cpu| / |cpu − start| in the 2-norm (0 where neither moved)."""
+    out = []
+    for s, a, b in zip(start, card, cpu):
+        gap = float(np.linalg.norm((a - s) - (b - s)))
+        moved = float(np.linalg.norm(b - s))
+        out.append(0.0 if gap == 0 else gap / moved if moved else float("inf"))
+    return out
+
+
+def _started_trainer(dev: str, optimizer: str):
+    """A ``tensor_trainer`` of TRAIN_CHECK_SPEC started on ``dev``."""
+    from nnstreamer_tpu_torch.elements.trainer import TensorTrainer
+
+    tr = TensorTrainer(model=TRAIN_CHECK_SPEC, optimizer=optimizer, learning_rate=1e-3)
+    tr.set_default_device(dev)
+    tr.start()
+    return tr
+
+
+def check_train_card_vs_cpu() -> None:
+    """The same element on the card and on the CPU at float32 with TF32 off:
+    3 steps at batch 4 of MobileNet-v2 224 from the same seeded weights,
+    with adam and with sgd. Losses within TRAIN_LOSS_RTOL. Masters: every
+    leaf's change within TRAIN_CHANGE_RTOL of the CPU's (``_change_gaps``),
+    and the same check must reject three faults made of this run's card
+    masters: the update skipped, its sign flipped, the leaf that moved most
+    left at its start. sgd's masters also within TRAIN_SGD_ATOL, which the
+    two devices' gradient sums set. adam moves an element by about lr a
+    step whatever its gradient's size, so two devices whose gradients differ
+    in sign move it 2·lr apart; ``_adam_steps_apart`` shows how far apart
+    the two runs drift, step by step."""
+    frames = _train_frames(TRAIN_CHECK_STEPS, 4, seed=9)
+    for opt in ("adam", "sgd"):
+        start = [t.cpu().numpy() for t in _tree_leaves(_started_trainer("cpu", opt).params)]
+        got = {}
+        for dev in ("cuda", "cpu"):
+            p, _, tr, _, _ = _train_pipeline(dev, TRAIN_CHECK_SPEC, None, frames,
+                                             serve=False, optimizer=opt)
+            p.run(timeout=900)
+            got[dev] = (np.array(tr.losses),
+                        [t.cpu().numpy() for t in _tree_leaves(tr.params)])
+        (cl, cm), (hl, hm) = got["cuda"], got["cpu"]
+        paths = [path for path, _ in _tree_items(tr.params)]
+        loss_err = float(np.max(np.abs(cl - hl) / np.abs(hl)))
+        gaps = _change_gaps(start, cm, hm)
+        top = int(np.argmax(gaps))
+        moved = int(np.argmax([np.linalg.norm(b - s) for s, b in zip(start, hm)]))
+        faults = {"update skipped": start, "sign flipped": [2 * s - a for s, a in zip(start, cm)],
+                  f"{paths[moved]} left out": [s if k == moved else a for k, (s, a)
+                                               in enumerate(zip(start, cm))]}
+        fault_gaps = {name: max(_change_gaps(start, f, hm)) for name, f in faults.items()}
+        diffs = [np.abs(a - b) for a, b in zip(cm, hm)]
+        worst = max(float(d.max()) for d in diffs)
+        far = sum(int((d > 1e-5).sum()) for d in diffs)
+        total = sum(d.size for d in diffs)
+        print(f"train card vs CPU ({opt}, float32, TF32 off, {TRAIN_CHECK_STEPS} steps "
+              f"at batch 4): losses {cl.tolist()} vs {hl.tolist()}, max rel err "
+              f"{loss_err:.3e} (bound {TRAIN_LOSS_RTOL}); change gap max {gaps[top]:.3e} "
+              f"({paths[top]}; median {float(np.median(gaps)):.3e}, bound {TRAIN_CHANGE_RTOL}); the "
+              "check on faults: " + ", ".join(f"{k} {v:.3f}" for k, v in fault_gaps.items())
+              + f"; masters max abs err {worst:.3e}, {far} of {total} beyond 1e-5",
+              flush=True)
+        if loss_err > TRAIN_LOSS_RTOL or gaps[top] > TRAIN_CHANGE_RTOL \
+                or (opt == "sgd" and worst > TRAIN_SGD_ATOL):
+            raise AssertionError(f"train ({opt}): the card leaves the CPU beyond the "
+                                 "stated bounds")
+        if min(fault_gaps.values()) <= TRAIN_CHANGE_RTOL:
+            raise AssertionError(f"train ({opt}): the masters' check passes a fault")
+        stats = {"loss_rel_err": loss_err, "change_gap_max": gaps[top],
+                 "change_gap_leaf": paths[top], "fault_gaps": fault_gaps,
+                 "master_max_abs_err": worst, "beyond_1e-5": far, "elements": total}
+        if opt == "adam":
+            stats["steps"] = _adam_steps_apart(frames)
+        LOOP_STATS[f"train_card_vs_cpu_{opt}"] = stats
+
+
+def _adam_steps_apart(frames) -> list:
+    """adam's 3 steps again on both devices, each trainer stepping from its
+    own masters: for each step, the two devices' gradients before it (their
+    relative difference, the elements whose two gradients differ in sign)
+    and the masters beyond 1e-5 apart after it."""
+    trainers = {dev: _started_trainer(dev, "adam") for dev in ("cuda", "cpu")}
+    rows = []
+    for k, frame in enumerate(frames):
+        grads, masters = {}, {}
+        for dev, tr in trainers.items():
+            x, y = (torch.from_numpy(a).to(dev) for a in frame)
+            grads[dev] = tr.gradient(x, y)[1].cpu().numpy()
+            tr.step(x, y)
+            masters[dev] = tr._masters.flat.cpu().numpy()
+        gc, gh = grads["cuda"], grads["cpu"]
+        split = np.sign(gc) * np.sign(gh) < 0
+        far = np.abs(masters["cuda"] - masters["cpu"]) > 1e-5
+        rows.append({"step": k + 1,
+                     "grad_rel_err": float(np.linalg.norm(gc - gh) / np.linalg.norm(gh)),
+                     "grad_sign_split": int(split.sum()),
+                     "beyond_1e-5_after": int(far.sum()),
+                     "split_and_beyond": int((split & far).sum())})
+    print("train card vs CPU (adam), step by step: " + "; ".join(
+        f"step {r['step']}: gradients rel err {r['grad_rel_err']:.3e}, "
+        f"{r['grad_sign_split']} of other signs, then {r['beyond_1e-5_after']} masters "
+        f"beyond 1e-5 ({r['split_and_beyond']} of them split)" for r in rows), flush=True)
+    return rows
+
+
 class _Counters:
     """The kernels' launch counts: set all to 0, read all."""
 
@@ -2561,6 +3056,12 @@ def main() -> int:
     by_phase["repo_lstm"] = run_repo_lstm(counters)
     by_phase["crop_bucketed"] = run_crop_bucketed(counters)
     by_phase["stream_elements"] = run_stream_elements(counters)
+    check_media_elements()
+    with tempfile.TemporaryDirectory() as tmp:
+        by_phase["media_ssd"] = run_media_ssd(ep, tmp)
+    counters.reset()
+    run_train()
+    by_phase["train"] = counters.read()
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)
     print(f"graphs by path: {json.dumps(GRAPH_PATHS)}", flush=True)
     print(f"stream paths: {json.dumps(LOOP_STATS)}", flush=True)

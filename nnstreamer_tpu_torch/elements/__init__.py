@@ -17,3 +17,6 @@ from . import cond  # noqa: F401
 from . import rate  # noqa: F401
 from . import repo  # noqa: F401
 from . import sparse  # noqa: F401
+from . import trainer  # noqa: F401
+from . import media  # noqa: F401
+from . import iio  # noqa: F401

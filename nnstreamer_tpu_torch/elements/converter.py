@@ -26,11 +26,11 @@ handle any other media type: register a callable
 from __future__ import annotations
 
 from fractions import Fraction
-from typing import Any, List, Optional
+from typing import Any, List, Optional, Tuple
 
 import numpy as np
 
-from ..core.buffer import Buffer, TensorMemory
+from ..core.buffer import Buffer, TensorMemory, concat_arrays
 from ..core.meta import unwrap_flex
 from ..core.registry import SubpluginType, get_subplugin
 from ..core.types import (
@@ -60,7 +60,7 @@ class TensorConverter(Element):
         self.add_src_pad(template=Caps.any_tensors())
         self._media: Optional[str] = None
         self._out_config: Optional[TensorsConfig] = None
-        self._pending: List[Buffer] = []
+        self._pending: List[Tuple[Buffer, Any]] = []
         self._custom = None
         # set by ops.epilogue: static passthrough skips the host round trip
         self._fused_passthrough = False
@@ -160,17 +160,19 @@ class TensorConverter(Element):
         raise RuntimeError(f"converter: no caps negotiated ({media})")
 
     def _chain_video(self, buf: Buffer) -> Optional[FlowReturn]:
-        frame = buf.memories[0].host()
+        # a frame resident on the card (videoscale's output) stays there
+        m = buf.memories[0]
+        frame = m.device() if m.is_device and m.device().device.type == "cuda" \
+            else m.host()
         if frame.ndim == 3:
             frame = frame[None]  # (1,H,W,C): batch dim = frames-per-tensor
         fpt = int(self.frames_per_tensor)
         if fpt > 1:
-            self._pending.append(buf.with_memories([TensorMemory(frame)]))
+            self._pending.append((buf, frame))
             if len(self._pending) < fpt:
                 return FlowReturn.OK
-            frames = np.concatenate(
-                [b.memories[0].host() for b in self._pending], axis=0)
-            first = self._pending[0]
+            frames = concat_arrays([f for _, f in self._pending], axis=0)
+            first = self._pending[0][0]
             self._pending.clear()
             out = first.with_memories([TensorMemory(frames)], config=self._out_config)
             return self.push(out)

@@ -16,7 +16,16 @@ as flax auto-names its submodules (``flax_children``: "ConvBNReLU_0",
     ``models/lstm.py``) is a ``Linear`` without bias.
 
 ``flax_shapes`` gives the same tree's shapes, from which the zoo synthesizes
-seeded placeholder weights.
+seeded placeholder weights. ``to_flax_variables`` is the inverse of
+``from_flax_variables``: a module's state as the flax variables tree, numpy
+in flax's layout, with the batch statistics split out under
+``batch_stats``; ``flax_tree`` gives the same tree of tensors for any
+state_dict-keyed tensors in the module's layout (a trainer's masters), and
+``flax_leaves`` lists the mapping leaf by leaf.
+
+``tensor_tree`` carries any nested dict/list/tuple of arrays (a ``(fn,
+params)`` bundle's parameters) onto a device as tensors, unchanged in
+layout.
 
 ``causal_lm_params`` carries the JAX package's causal-LM parameter tree
 (``init_causal_lm`` or ``quantize_lm_params`` output, numpy leaves) onto a
@@ -26,7 +35,7 @@ device unchanged in layout: the LM is written as a function of that tree
 
 from __future__ import annotations
 
-from typing import Any, Dict, Iterator, Optional, Tuple
+from typing import Any, Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,12 +70,29 @@ def _leaves(module: nn.Module, prefix: str = "",
                                path + (flax_name,))
 
 
-def _to_torch(kind: str, arr: np.ndarray) -> np.ndarray:
+def flax_leaves(module: nn.Module) -> List[Tuple[str, Tuple[str, ...], str, str]]:
+    """(collection, flax path, state_dict key, leaf kind) of every leaf of
+    ``module``, in the module's order; the kind is "conv", "dense" or
+    "same" (see ``flax_layout``)."""
+    return list(_leaves(module))
+
+
+def flax_layout(kind: str, t: torch.Tensor) -> torch.Tensor:
+    """A leaf in torch layout → the same leaf in flax layout (a view)."""
     if kind == "conv":
-        return np.transpose(arr, (3, 2, 0, 1))
+        return t.permute(2, 3, 1, 0)
     if kind == "dense":
-        return arr.T
-    return arr
+        return t.t()
+    return t
+
+
+def torch_layout(kind: str, t: torch.Tensor) -> torch.Tensor:
+    """A leaf in flax layout → the same leaf in torch layout (a view)."""
+    if kind == "conv":
+        return t.permute(3, 2, 0, 1)
+    if kind == "dense":
+        return t.t()
+    return t
 
 
 def _from_torch_shape(kind: str, shape: Tuple[int, ...]) -> Tuple[int, ...]:
@@ -101,14 +127,68 @@ def from_flax_variables(variables: Dict[str, Any],
         node = variables[coll]
         for k in path:
             node = node[k]
-        arr = _to_torch(kind, np.asarray(node, np.float32))
+        t = torch_layout(kind, torch.from_numpy(np.array(node, np.float32)))
         want = tuple(state[key].shape)
-        if arr.shape != want:
+        if tuple(t.shape) != want:
             raise ValueError(f"{coll}/{'/'.join(path)}: flax shape "
                              f"{np.shape(node)} does not fit {key} {want}")
-        new_state[key] = torch.from_numpy(np.ascontiguousarray(arr))
+        new_state[key] = t.contiguous()
     module.load_state_dict(new_state, strict=True)
     return new_state
+
+
+def flax_tree(module: nn.Module, state: Dict[str, torch.Tensor],
+              sort_keys: bool = False) -> Dict[str, Any]:
+    """``state`` (state_dict keys → tensors in ``module``'s layout) as the
+    flax variables tree of tensors in flax's layout (views). Keys follow
+    the module's order (flax's own at ``init``), or are sorted at every
+    level with ``sort_keys`` (the order of a tree that went through
+    ``jax.tree_util``, such as a trained one)."""
+    tree: Dict[str, Any] = {}
+    for coll, path, key, kind in _leaves(module):
+        node = tree.setdefault(coll, {})
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = flax_layout(kind, state[key])
+    return sort_tree(tree) if sort_keys else tree
+
+
+def to_flax_variables(module: nn.Module, sort_keys: bool = False) -> Dict[str, Any]:
+    """The inverse of ``from_flax_variables``: the flax variables tree of
+    ``module``'s state as float32 numpy arrays in flax's layout
+    (``flax_tree``)."""
+    def host(node: Any) -> Any:
+        if isinstance(node, dict):
+            return {k: host(v) for k, v in node.items()}
+        return node.detach().to(torch.float32).cpu().contiguous().numpy()
+
+    return host(flax_tree(module, module.state_dict(), sort_keys))
+
+
+def sort_tree(tree: Any) -> Any:
+    """``tree`` with the keys of every dict sorted, as jax.tree_util
+    rebuilds a dict."""
+    if isinstance(tree, dict):
+        return {k: sort_tree(tree[k]) for k in sorted(tree)}
+    return tree
+
+
+def tensor_tree(tree: Any, device: Any) -> Any:
+    """Nested dicts, lists and tuples of arrays (numpy, ml_dtypes bfloat16,
+    tensors, scalars) → the same structure of tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: tensor_tree(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tensor_tree(v, device) for v in tree)
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+    else:
+        arr = np.array(tree)
+        if arr.dtype.name == "bfloat16":
+            t = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+        else:
+            t = torch.from_numpy(arr)
+    return t.to(device)
 
 
 def causal_lm_params(tree: Dict[str, Any], device: Any,
@@ -118,18 +198,11 @@ def causal_lm_params(tree: Dict[str, Any], device: Any,
     tensors on ``device``. ``dtype`` casts the float leaves (embeddings,
     norms, float GEMM stacks); int8 payloads and their float32 scales keep
     their dtypes, as ``quantize_lm_params`` made them."""
-    def tensor(a: Any) -> torch.Tensor:
-        arr = np.array(a)
-        if arr.dtype.name == "bfloat16":  # ml_dtypes' bf16: numpy has none
-            return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
-        return torch.from_numpy(arr)
-
     def leaf(a: Any) -> torch.Tensor:
-        t = tensor(a)
+        t = tensor_tree(a, "cpu")
         if dtype is not None and t.is_floating_point():
             t = t.to(dtype)
         return t.to(device)
 
-    return {k: ({kk: tensor(vv).to(device) for kk, vv in v.items()}
-                if isinstance(v, dict) else leaf(v))
+    return {k: (tensor_tree(v, device) if isinstance(v, dict) else leaf(v))
             for k, v in tree.items()}

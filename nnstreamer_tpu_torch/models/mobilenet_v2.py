@@ -10,6 +10,7 @@ expects.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, List, Optional, Sequence, Tuple
 
 import torch
@@ -41,6 +42,19 @@ def _make_divisible(v: float, divisor: int = 8) -> int:
     return new_v
 
 
+def relu6(x: torch.Tensor) -> torch.Tensor:
+    """min(max(x, 0), 6), the JAX model's ``jnp.minimum(jnp.maximum(x, 0.0),
+    6.0)``. Under autograd it takes torch.maximum/minimum, whose gradient
+    at a tie is half the incoming one on each side, as JAX's is (a clamp
+    passes all of it, and activations sit exactly on 0 wherever a layer's
+    input is all zeros); otherwise one clamp, the same values, which serves
+    a MobileNet-v2, SSD-300 or DeepLab-257 frame 0.21–0.31 ms sooner of
+    1.1–1.7 ms (scripts/relu6_ab.py; NVIDIA H100 80GB HBM3, 700.00 W)."""
+    if not torch.is_grad_enabled():
+        return x.clamp(0.0, 6.0)
+    return torch.minimum(torch.maximum(x, x.new_zeros(())), x.new_full((), 6.0))
+
+
 class ConvBNReLU(nn.Module):
     def __init__(self, in_ch: int, features: int, kernel: int = 3,
                  stride: int = 1, groups: int = 1,
@@ -54,7 +68,7 @@ class ConvBNReLU(nn.Module):
         return [("Conv_0", self.conv), ("BatchNorm_0", self.bn)]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.bn(conv2d_same(self.conv, x)).clamp(0.0, 6.0)  # ReLU6
+        return relu6(self.bn(conv2d_same(self.conv, x)))
 
 
 class InvertedResidual(nn.Module):
@@ -167,17 +181,18 @@ def make_mobilenet_bundle(name: str, model_cls: Any, device: torch.device,
     model = build_seeded(model_cls, device, int(seed), num_classes=nc,
                          width=w, dtype=DTYPES[dtype])
 
-    def apply(x):
+    def forward(module, x):
         if x.dtype == torch.uint8:
             x = preprocess_uint8(x)
-        return model(x)
+        return module(x)
 
     in_info = TensorsInfo.from_strings(f"3:{hw}:{hw}:{b}", "uint8")
     out_info = TensorsInfo.from_strings(f"{nc}:{b}", "float32")
-    return ModelBundle(name, apply, module=model, device=device,
-                       in_info=in_info, out_info=out_info,
+    return ModelBundle(name, functools.partial(forward, model), module=model,
+                       device=device, in_info=in_info, out_info=out_info,
                        preprocess=preprocess_uint8,
-                       metadata={"width": w, "size": hw, "classes": nc})
+                       metadata={"width": w, "size": hw, "classes": nc},
+                       forward=forward)
 
 
 def make_mobilenet_v2(device: torch.device, **options: Any) -> ModelBundle:

@@ -41,7 +41,10 @@ class ModelBundle:
     A model written as a function of a parameter tree (the causal LM) also
     carries ``params`` and ``apply_params(params, *inputs)``, with
     ``apply(*xs) == apply_params(params, *xs)``: the quantizing passes
-    (models/quantize.py) rebind it to a transformed tree.
+    (models/quantize.py) rebind it to a transformed tree. A module bundle
+    may carry ``forward(module, *inputs)``, its ``apply`` as a function of
+    a module of ``module``'s class (``apply(*xs) == forward(module, *xs)``):
+    ``tensor_trainer`` runs it on a copy of its own.
     """
 
     name: str
@@ -54,6 +57,7 @@ class ModelBundle:
     metadata: Dict[str, Any] = field(default_factory=dict)
     params: Any = None
     apply_params: Optional[Callable[..., Any]] = None
+    forward: Optional[Callable[..., Any]] = None
 
     def fn(self) -> Callable[..., Any]:
         """The function over input tensors."""

@@ -1,12 +1,15 @@
-"""ctypes bridge to the native runtime's sparse COO codec.
+"""ctypes bridge to the native runtime: the sparse COO codec, the aligned
+allocator and the lock-free SPSC ring.
 
-Port of the codec part of nnstreamer_tpu/utils/native.py. The library is
+Port of nnstreamer_tpu/utils/native.py. The library is
 ``native/nns_runtime.cpp`` at the root of the repository, built at first
 use with g++ into ``nnstreamer_tpu_torch/_build/libnns_runtime-<hash>.so``
 (the hash covers the source and the flags, so an edit rebuilds; the
 source's own directory is left alone). Without g++, or for an item size
-the library does not take, the codec runs numpy, as the JAX bridge does:
-that path is part of its contract, not a device fallback.
+the library does not take, the codec runs numpy and ``aligned_empty``
+numpy's allocator, as the JAX bridge does: that path is part of their
+contract, not a device fallback. ``SpscRing`` needs the library and raises
+without it.
 """
 
 from __future__ import annotations
@@ -60,7 +63,7 @@ def _build() -> Optional[str]:
 
 
 def get_lib() -> Optional[ctypes.CDLL]:
-    """The loaded codec library, built at the first call; None without g++."""
+    """The loaded library, built at the first call; None without g++."""
     global _lib, _tried
     with _lock:
         if _lib is not None or _tried:
@@ -70,6 +73,20 @@ def get_lib() -> Optional[ctypes.CDLL]:
         if so is None:
             return None
         lib = ctypes.CDLL(so)
+        lib.nns_aligned_alloc.restype = ctypes.c_void_p
+        lib.nns_aligned_alloc.argtypes = [ctypes.c_size_t, ctypes.c_size_t]
+        lib.nns_aligned_free.argtypes = [ctypes.c_void_p]
+        lib.nns_ring_create.restype = ctypes.c_void_p
+        lib.nns_ring_create.argtypes = [ctypes.c_uint64, ctypes.c_uint64]
+        lib.nns_ring_destroy.argtypes = [ctypes.c_void_p]
+        lib.nns_ring_push.restype = ctypes.c_int
+        lib.nns_ring_push.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                      ctypes.c_uint32]
+        lib.nns_ring_pop.restype = ctypes.c_int64
+        lib.nns_ring_pop.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
+                                     ctypes.c_uint64]
+        lib.nns_ring_size.restype = ctypes.c_uint64
+        lib.nns_ring_size.argtypes = [ctypes.c_void_p]
         lib.nns_sparse_encode.restype = ctypes.c_int64
         lib.nns_sparse_encode.argtypes = [
             ctypes.c_void_p, ctypes.c_uint64, ctypes.c_uint32,
@@ -122,3 +139,91 @@ def sparse_decode_arrays(indices: np.ndarray, values: np.ndarray,
     if ret < 0:
         raise ValueError("sparse index out of range")
     return out
+
+
+def native_available() -> bool:
+    return get_lib() is not None
+
+
+def aligned_empty(shape, dtype, alignment: int = 64) -> np.ndarray:
+    """numpy array over an ``alignment``-aligned native allocation, freed
+    with the array (tensor_allocator.c equivalent); numpy's allocator
+    without the library or for zero bytes."""
+    lib = get_lib()
+    dtype = np.dtype(dtype)
+    count = int(np.prod(shape)) if shape else 1
+    nbytes = count * dtype.itemsize
+    if lib is None or nbytes == 0:
+        return np.empty(shape, dtype)
+    ptr = lib.nns_aligned_alloc(nbytes, alignment)
+    if not ptr:
+        return np.empty(shape, dtype)
+    buf = (ctypes.c_uint8 * nbytes).from_address(ptr)
+    arr = np.frombuffer(buf, dtype=dtype, count=count).reshape(shape)
+    arr = arr.view(_AlignedArray)
+    arr._nns_ptr = ptr
+    return arr
+
+
+class _AlignedArray(np.ndarray):
+    """Owns a native allocation: the array ``aligned_empty`` returns frees
+    it when collected (views of it hold no pointer)."""
+
+    _nns_ptr = None
+
+    def __array_finalize__(self, obj):
+        if obj is not None and not hasattr(self, "_nns_ptr"):
+            self._nns_ptr = None
+
+    def __del__(self):
+        ptr = getattr(self, "_nns_ptr", None)
+        if ptr:
+            lib = get_lib()
+            if lib is not None:
+                lib.nns_aligned_free(ptr)
+
+
+class SpscRing:
+    """Lock-free single-producer/single-consumer ring of byte records
+    (``capacity_pow2`` slots of ``slot_size`` bytes)."""
+
+    def __init__(self, capacity_pow2: int = 1024, slot_size: int = 4096):
+        lib = get_lib()
+        if lib is None:
+            raise RuntimeError("native runtime unavailable")
+        self._lib = lib
+        self._ring = lib.nns_ring_create(capacity_pow2, slot_size)
+        if not self._ring:
+            raise RuntimeError("ring allocation failed (capacity must be 2^n)")
+        self._slot = slot_size
+
+    def push(self, data: bytes) -> bool:
+        """False when the ring is full; a record above the slot size raises."""
+        ret = self._lib.nns_ring_push(self._ring, data, len(data))
+        if ret == -1:
+            raise ValueError(f"record {len(data)}B exceeds slot {self._slot}B")
+        return ret == 1
+
+    def pop(self) -> Optional[bytes]:
+        """The oldest record, or None when the ring is empty."""
+        out = (ctypes.c_uint8 * self._slot)()
+        n = self._lib.nns_ring_pop(self._ring, out, self._slot)
+        if n == -1:
+            return None
+        if n == -2:
+            raise RuntimeError("slot larger than pop buffer")
+        return bytes(out[:n])
+
+    def __len__(self) -> int:
+        return int(self._lib.nns_ring_size(self._ring))
+
+    def close(self) -> None:
+        if self._ring:
+            self._lib.nns_ring_destroy(self._ring)
+            self._ring = None
+
+    def __del__(self):
+        try:
+            self.close()
+        except Exception:  # noqa: BLE001 — interpreter teardown
+            pass
