@@ -102,7 +102,26 @@ Phases (any failure exits non-zero before the result lines are printed):
      memory is copied up after it, ``class_reduce`` and ``nms_sweep`` launch
      once a frame; steady fps, videoscale's host ms a frame and device ms a
      1080p frame;
- 16. online fine-tuning at full width: ``appsrc ! tee ! queue !
+ 16. an interop hop into SSD-300, for each wire format (FlexBuffers,
+     FlatBuffers, protobuf; the port's own codecs): 300x300 random frames
+     ``! tensor_converter ! tensor_decoder mode=<fmt> ! other/<fmt> !
+     tensor_converter ! tensor_filter model=SSD-300 ! tensor_decoder
+     mode=bounding_box ! tensor_sink``, 64 frames with graphs: boxes, labels
+     and canvases byte-equal to the same frames without the hop,
+     ``class_reduce`` and ``nms_sweep`` once a frame; frames/s with and
+     without the hop, host ms a frame to encode and to parse, wire bytes a
+     frame; then SSD's two raw outputs of one frame through each format,
+     parsed back byte-equal;
+ 17. python3 post-processing at full width: MobileNet-v2 224's 1001 logits
+     ``! tee`` into ``tensor_filter framework=python3`` (a numpy softmax in
+     the reference's script contract) and a raw-logits sink, 32 frames: each
+     output byte-equal to the same numpy function on its frame's logits; the
+     filter's host ms and bytes copied from the card a frame;
+ 18. the C filters on card tensors: native/examples/scaler_filter.c built
+     with gcc under ``custom=factor=3.5``, a filter generated by
+     ``nns-new-filter-torch --kind c`` and built with its Makefile, and a
+     custom-easy callable whose card tensor reaches the sink on the card;
+ 19. online fine-tuning at full width: ``appsrc ! tee ! queue !
      tensor_trainer model=zoo://mobilenet_v2 optimizer=adam
      learning_rate=1e-3 checkpoint_path=... resume=true`` beside ``t. !
      queue ! tensor_filter model=zoo://mobilenet_v2 is-updatable=true !
@@ -120,9 +139,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      check), sgd's masters within TRAIN_SGD_ATOL; adam's run again step by
      step on both devices: each step's gradients and the masters beyond
      1e-5 apart after it;
- 17. print the launches of each path (every count set to 0 just before the
-     path and read just after), the graphs of each path, the stream paths'
-     rates, the ``kernels`` JSON line, then the device line last.
+ 20. print the card's name and power limit again, the launches of each path
+     (every count set to 0 just before the path and read just after), the
+     graphs of each path, the stream paths' rates, the ``kernels`` JSON line,
+     then the device line last.
 
 Every pipeline path (SSD, classification, the headline fused and unfused,
 DeepLab fused and batched, PoseNet, the flash and dense prefill lanes, the
@@ -147,7 +167,9 @@ asserted on the graph runs, where replays add each graph's launches (SSD
 on its route, ``dequant_gelu_requant`` once per layer per w8a8 prefill and
 decode step). The fused DeepLab run checks its canvases against the host
 decode of the logits its eager run hands the epilogue (a replay runs no
-Python, so only the eager run can record them).
+Python, so only the eager run can record them). The interop, python3 and C
+filter paths (16-18) run once, with graphs: their references are the same
+frames without the hop, numpy, and the C arithmetic.
 
 Phase 3 first times three untimed rounds of the launch floor (a process's
 first two timings read short), then measures the floor (a one-element fill
@@ -261,6 +283,36 @@ CROP_SPEC = "zoo://mobilenet_v2"
 CROP_FRAMES, CROP_MAX_BOXES = 64, 9
 #: the media path: 1920x1080 random frames scaled on the card into SSD-300
 MEDIA_FRAMES = 64
+#: the interop hops: 300x300 random frames serialised and parsed back in
+#: each wire format before SSD-300, against the same frames without a hop
+INTEROP_FRAMES = 64
+INTEROP_FORMATS = ("flexbuf", "flatbuf", "protobuf")
+#: python3 post-processing of MobileNet-v2's 1001 logits, a frame at a time
+PY3_FRAMES = 32
+#: the python3 script: the reference contract (nnstreamer_python shapes,
+#: one list of flat arrays in and out), a float32 softmax in numpy
+PY3_SCRIPT = """
+import numpy as np
+import nnstreamer_python as nns
+
+
+def softmax(x):
+    e = np.exp(x - x.max())
+    return (e / e.sum()).astype(np.float32)
+
+
+class CustomFilter:
+    def getInputDim(self):
+        return [nns.TensorShape([1001, 1, 1, 1], np.float32)]
+
+    def getOutputDim(self):
+        return [nns.TensorShape([1001, 1, 1, 1], np.float32)]
+
+    def invoke(self, input_array):
+        return [softmax(input_array[0])]
+"""
+#: framework=custom: card tensors of 4:1 float32 through the scaler
+C_FRAMES, C_FACTOR = 16, 3.5
 #: online fine-tuning at full width: MobileNet-v2 224, 1001 classes, bf16
 #: compute with float32 masters; 24 frames of 16 images
 TRAIN_SPEC = "zoo://mobilenet_v2?batch=16"
@@ -2704,6 +2756,296 @@ def run_media_ssd(ep, tmp: str) -> dict:
     return launches
 
 
+def _ssd_hop_string(fmt, frames: int, labels: str, priors: str) -> str:
+    hop = f"tensor_decoder mode={fmt} ! other/{fmt} ! tensor_converter ! " if fmt else ""
+    return (f"videotestsrc width=300 height=300 pattern=random num-buffers={frames} ! "
+            f"video/x-raw,format=RGB ! tensor_converter ! {hop}"
+            f'tensor_filter framework=xla-tpu model="{SSD_SPEC}" ! '
+            f"tensor_decoder mode=bounding_box option1=mobilenet-ssd option2={labels} "
+            f"option3={priors} option4=300:300 option5=300:300 ! tensor_sink store=true")
+
+
+@contextlib.contextmanager
+def _codec_clock(fmt: str):
+    """Host seconds of each frame's encode (the ``mode=fmt`` decoder's
+    decode) and parse (the ``fmt`` converter subplugin), and each blob's
+    bytes, while inside."""
+    from nnstreamer_tpu_torch.converters import register_converter
+    from nnstreamer_tpu_torch.core.registry import SubpluginType, get_subplugin
+    from nnstreamer_tpu_torch.decoders.base import find_decoder
+
+    cls = find_decoder(fmt)
+    decode, parse = cls.decode, get_subplugin(SubpluginType.CONVERTER, fmt)
+    rec = {"encode": [], "parse": [], "bytes": []}
+
+    def timed_decode(self, buf, config):
+        t0 = time.perf_counter()
+        out = decode(self, buf, config)
+        rec["encode"].append(time.perf_counter() - t0)
+        rec["bytes"].append(out.memories[0].nbytes)
+        return out
+
+    def timed_parse(buf, props):
+        t0 = time.perf_counter()
+        out = parse(buf, props)
+        rec["parse"].append(time.perf_counter() - t0)
+        return out
+
+    cls.decode = timed_decode
+    register_converter(fmt, timed_parse)
+    try:
+        yield rec
+    finally:
+        cls.decode = decode
+        register_converter(fmt, parse)
+
+
+def _median_ms(xs) -> float:
+    return float(np.median(xs)) * 1e3
+
+
+def run_interop_hops(tmp: str, counters) -> dict:
+    """A client serialising frames for a detector across a link: 300x300
+    random frames ``! tensor_converter ! tensor_decoder mode=<fmt> !
+    other/<fmt> ! tensor_converter ! tensor_filter model=SSD-300 !
+    tensor_decoder mode=bounding_box ! tensor_sink``, 64 frames with CUDA
+    graphs for each of FlexBuffers, FlatBuffers and protobuf, and the same
+    frames without the hop: boxes, labels and canvases byte-equal,
+    ``class_reduce`` and ``nms_sweep`` once a frame in every run. Then SSD's
+    two raw outputs of one frame (the leg a server returns) through each
+    format, parsed back byte-equal. Returns each hop's launches."""
+    from nnstreamer_tpu_torch.converters import fb_io, protobuf_io
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.core.buffer import Buffer
+    from nnstreamer_tpu_torch.core.types import TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.graph.parse import parse_pipeline
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
+    from nnstreamer_tpu_torch.models.zoo import get_model
+
+    priors = os.path.join(tmp, "interop_priors.txt")
+    write_box_priors(priors, size=300)
+    labels = os.path.join(tmp, "interop_coco.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"c{i}" for i in range(91)))
+    runs, by_phase = {}, {}
+    for fmt in (None,) + INTEROP_FORMATS:
+        p = parse_pipeline(_ssd_hop_string(fmt, INTEROP_FRAMES, labels, priors),
+                           Pipeline("interop", device="cuda"))
+        sink = next(e for e in p.elements.values() if e.ELEMENT_NAME == "tensor_sink")
+        arrivals = []
+        sink.new_data = lambda b, arrivals=arrivals: arrivals.append(time.perf_counter())
+        clock = _codec_clock(fmt) if fmt else contextlib.nullcontext({})
+        with clock as rec, _mode(False):
+            counters.reset()
+            p.run(timeout=600)
+            torch.cuda.synchronize()
+            launches = counters.read()
+            st = graphs.stats()
+        name = f"interop {fmt or 'none'}"
+        if sink.num_buffers != INTEROP_FRAMES or st["replays"] < 1:
+            raise AssertionError(f"{name}: {sink.num_buffers} of {INTEROP_FRAMES} frames "
+                                 f"out, graphs {st}")
+        if launches["class_reduce"] != INTEROP_FRAMES \
+                or launches["nms_sweep"] != INTEROP_FRAMES:
+            raise AssertionError(f"{name}: launches {launches} for {INTEROP_FRAMES} frames")
+        if fmt and not (len(rec["encode"]) == len(rec["parse"]) == INTEROP_FRAMES):
+            raise AssertionError(f"{name}: {len(rec['encode'])} encodes and "
+                                 f"{len(rec['parse'])} parses for {INTEROP_FRAMES} frames")
+        out = [(b.meta["detections"], b.memories[0].host().tobytes()) for b in sink.buffers]
+        runs[fmt] = (out, _steady_fps(arrivals), rec)
+        if fmt:
+            by_phase[name] = launches
+    base, base_fps, _ = runs[None]
+    if sum(len(d) for d, _ in base) == 0:
+        raise AssertionError("interop: no detections without the hop")
+    print(f"interop none -> ssd_mobilenet_v2 300x300: {INTEROP_FRAMES} frames, steady "
+          f"fps={base_fps:.2f}", flush=True)
+    for fmt in INTEROP_FORMATS:
+        out, fps, rec = runs[fmt]
+        if out != base:
+            raise AssertionError(f"interop {fmt}: boxes, labels or canvases differ from "
+                                 "the path without the hop")
+        stats = {"fps": fps, "fps_no_hop": base_fps,
+                 "encode_host_ms": _median_ms(rec["encode"]),
+                 "parse_host_ms": _median_ms(rec["parse"]),
+                 "wire_bytes": int(np.median(rec["bytes"]))}
+        LOOP_STATS[f"interop_{fmt}"] = stats
+        print(f"interop {fmt} -> ssd_mobilenet_v2 300x300: {INTEROP_FRAMES} frames, "
+              f"steady fps={fps:.2f} (no hop {base_fps:.2f}); host ms a frame: encode "
+              f"{stats['encode_host_ms']:.4f}, parse {stats['parse_host_ms']:.4f}; wire "
+              f"{stats['wire_bytes']} bytes a frame; launches={by_phase['interop ' + fmt]}; "
+              "boxes, labels and canvases == the path without the hop", flush=True)
+
+    # the leg a server returns: SSD's two raw outputs of one frame
+    bundle = get_model(SSD_SPEC, device="cuda")
+    frame = np.random.default_rng(11).integers(0, 256, (1, 300, 300, 3), dtype=np.uint8)
+    with torch.inference_mode():
+        outs = [t.cpu().numpy() for t in bundle.fn()(torch.from_numpy(frame).cuda())]
+    buf = Buffer.of(*outs)
+    cfg = TensorsConfig(TensorsInfo(tuple(m.info for m in buf.memories)), Fraction(30))
+    legs = {"flexbuf": (lambda: fb_io.flexbuf_blob(buf, cfg),
+                        lambda b: fb_io.flexbuf_to_frame(b)[0]),
+            "flatbuf": (lambda: fb_io.flatbuf_blob(buf, cfg),
+                        lambda b: fb_io.flatbuf_to_frame(b)[0]),
+            "protobuf": (lambda: protobuf_io.proto_blob(buf), protobuf_io.proto_to_frame)}
+    for fmt, (encode, parse) in legs.items():
+        enc, par = [], []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            blob = encode()
+            t1 = time.perf_counter()
+            back = parse(blob)
+            enc.append(t1 - t0)
+            par.append(time.perf_counter() - t1)
+        for a, m in zip(outs, back.memories):
+            if m.host().dtype != a.dtype or m.host().tobytes() != a.tobytes():
+                raise AssertionError(f"interop {fmt}: SSD's outputs came back changed")
+        LOOP_STATS[f"interop_{fmt}"].update(
+            outputs_wire_bytes=len(blob), outputs_encode_host_ms=_median_ms(enc),
+            outputs_parse_host_ms=_median_ms(par))
+        print(f"interop {fmt} SSD outputs {[a.shape for a in outs]} float32: {len(blob)} "
+              f"bytes, host ms encode {_median_ms(enc):.4f}, parse {_median_ms(par):.4f}; "
+              "parsed back byte-equal", flush=True)
+    return by_phase
+
+
+@contextlib.contextmanager
+def _d2h_bytes(cls):
+    """Bytes copied from the card for the inputs of ``cls.invoke`` while
+    inside (a card tensor read on the host for the first time)."""
+    invoke = cls.invoke
+    total = [0]
+
+    def counting_invoke(self, inputs):
+        total[0] += sum(m.nbytes for m in inputs if m._host is None
+                        and m.is_device and m.device().device.type == "cuda")
+        return invoke(self, inputs)
+
+    cls.invoke = counting_invoke
+    try:
+        yield total
+    finally:
+        cls.invoke = invoke
+
+
+def run_python3_post(tmp: str) -> None:
+    """python3 post-processing at full width: 224x224 random frames ``!
+    tensor_converter ! tensor_filter model=zoo://mobilenet_v2 ! tee`` into
+    ``tensor_filter framework=python3 model=<softmax script> ! tensor_sink``
+    and a raw-logits sink, 32 frames: each frame's script output equals,
+    byte for byte, the same numpy function on that frame's 1001 logits."""
+    import importlib.util
+
+    from nnstreamer_tpu_torch.filters.custom import Python3Filter
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.graph.parse import parse_pipeline
+
+    script = os.path.join(tmp, "softmax_post.py")
+    with open(script, "w") as f:
+        f.write(PY3_SCRIPT)
+    desc = (f"videotestsrc width=224 height=224 pattern=random num-buffers={PY3_FRAMES} ! "
+            f'tensor_converter ! tensor_filter framework=xla-tpu model="{CLS_SPEC}" ! '
+            "tee name=t ! queue ! tensor_filter name=post framework=python3 "
+            f"model={script} ! tensor_sink name=probs store=true "
+            "t. ! queue ! tensor_sink name=logits store=true")
+    p = parse_pipeline(desc, Pipeline("python3-post", device="cuda"))
+    t0 = time.perf_counter()
+    with _d2h_bytes(Python3Filter) as d2h:
+        p.run(timeout=600)
+    wall = time.perf_counter() - t0
+    post, probs, logits = (p.elements[n] for n in ("post", "probs", "logits"))
+    if probs.num_buffers != PY3_FRAMES or logits.num_buffers != PY3_FRAMES:
+        raise AssertionError(f"python3 post: {probs.num_buffers} and {logits.num_buffers} "
+                             f"of {PY3_FRAMES} frames out")
+    if post.resolved_framework != "python3" or any(
+            m.device().device.type != "cuda" for b in logits.buffers for m in b.memories):
+        raise AssertionError("python3 post: the logits did not come from the card")
+    spec = importlib.util.spec_from_file_location("softmax_reference", script)
+    ref = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ref)
+    for i, (pb, lb) in enumerate(zip(probs.buffers, logits.buffers)):
+        want = ref.softmax(np.ravel(lb.memories[0].host()))  # 1001:1:1:1 → (1001,)
+        got = pb.memories[0].host()
+        if got.shape != want.shape or got.dtype != want.dtype \
+                or got.tobytes() != want.tobytes():
+            raise AssertionError(f"python3 post: frame {i}'s output differs from numpy's")
+    host_ms = post.stats.total_invoke_latency_ns / post.stats.total_invoke_num / 1e6
+    LOOP_STATS["python3_post"] = {"host_ms": host_ms, "d2h_bytes": d2h[0] / PY3_FRAMES,
+                                  "frames": PY3_FRAMES, "wall_s": wall}
+    print(f"python3 softmax on mobilenet_v2 224's 1001 logits: {PY3_FRAMES} frames in "
+          f"{wall:.3f} s, the python3 filter {host_ms:.4f} ms of host a frame, "
+          f"{d2h[0] / PY3_FRAMES:.0f} bytes copied from the card a frame; every output "
+          "== numpy's softmax of its frame's logits, byte for byte", flush=True)
+
+
+def _serve_card_tensors(name: str, frames, **filter_props) -> list:
+    """appsrc of card tensors (4:1 float32) → tensor_filter → tensor_sink on
+    a card pipeline; the sink's memories."""
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    p = Pipeline(name, device="cuda")
+    src = p.add_new("appsrc", data=list(frames), caps=Caps.tensors(TensorsConfig(
+        TensorsInfo.from_strings("4:1", "float32"), Fraction(30))))
+    filt = p.add_new("tensor_filter", **filter_props)
+    sink = p.add_new("tensor_sink", store=True)
+    Pipeline.link(src, filt, sink)
+    p.run(timeout=120)
+    if sink.num_buffers != len(frames):
+        raise AssertionError(f"{name}: {sink.num_buffers} of {len(frames)} frames out")
+    return [b.memories[0] for b in sink.buffers]
+
+
+def run_c_filters(tmp: str) -> None:
+    """framework=custom and custom-easy on card tensors: the repository's
+    C scaler built with gcc here, a filter generated by
+    ``nns-new-filter-torch --kind c`` and built with its Makefile, and a
+    custom-easy callable returning a card tensor, which the next element
+    receives on the card."""
+    from nnstreamer_tpu_torch.codegen import main as new_filter
+    from nnstreamer_tpu_torch.filters import register_custom_easy, unregister_custom_easy
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    frames = [torch.randn((1, 4), generator=gen, device="cuda") for _ in range(C_FRAMES)]
+    want = [f.cpu().numpy() for f in frames]
+    so = os.path.join(tmp, "libscaler_filter.so")
+    subprocess.run(["gcc", "-O2", "-shared", "-fPIC", "-I", "native",
+                    "native/examples/scaler_filter.c", "-o", so],
+                   check=True, capture_output=True, cwd=ROOT, timeout=120)
+    out = _serve_card_tensors("c-scaler", frames, framework="custom", model=so,
+                              custom=f"factor={C_FACTOR}")
+    for m, w in zip(out, want):
+        if m.host().tobytes() != (w * np.float32(C_FACTOR)).tobytes():
+            raise AssertionError("c scaler: output is not the input times the factor")
+    gen_dir = os.path.join(tmp, "generated")
+    if new_filter(["smoke_scale", "--kind", "c", "--dir", gen_dir]) != 0:
+        raise AssertionError("nns-new-filter-torch --kind c failed")
+    subprocess.run(["make", "-C", gen_dir], check=True, capture_output=True, timeout=120)
+    out = _serve_card_tensors("c-generated", frames, framework="custom",
+                              model=os.path.join(gen_dir, "libsmoke_scale.so"))
+    for m, w in zip(out, want):
+        if m.host().tobytes() != (w * np.float32(2)).tobytes():
+            raise AssertionError("generated C filter: output is not the input times 2")
+    register_custom_easy("smoke_easy", lambda x: torch.from_numpy(x).cuda() * 2,
+                         ("4:1", "float32"), ("4:1", "float32"))
+    try:
+        out = _serve_card_tensors("custom-easy", frames, framework="custom-easy",
+                                  model="smoke_easy")
+    finally:
+        unregister_custom_easy("smoke_easy")
+    if any(m.device().device.type != "cuda" or m._host is not None
+           for m in out):
+        raise AssertionError("custom-easy: the card tensor left the card before the sink")
+    for m, w in zip(out, want):
+        if m.host().tobytes() != (w * np.float32(2)).tobytes():
+            raise AssertionError("custom-easy: output is not the input times 2")
+    print(f"framework=custom on card tensors: native/examples/scaler_filter.c (gcc) "
+          f"custom=factor={C_FACTOR} and a generated nns-new-filter-torch --kind c filter "
+          f"(make) over {C_FRAMES} frames == input x factor; custom-easy's card tensor "
+          "reached the sink on the card, == input x 2", flush=True)
+
+
 def _train_frames(n: int, batch: int, seed: int = 5) -> list:
     """``n`` frames alternating two fixed seeded batches of ``batch`` uint8
     224x224 images with int32 labels of 1001 classes."""
@@ -2975,6 +3317,14 @@ def _adam_steps_apart(frames) -> list:
     return rows
 
 
+def _card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60)
+    return smi.stdout.strip().splitlines()[0]
+
+
 class _Counters:
     """The kernels' launch counts: set all to 0, read all."""
 
@@ -3014,10 +3364,7 @@ def main() -> int:
             if "registers" in line or "smem" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    print(_card(), flush=True)
 
     dev = torch.device("cuda", 0)
     rng = np.random.default_rng(0)
@@ -3059,9 +3406,18 @@ def main() -> int:
     check_media_elements()
     with tempfile.TemporaryDirectory() as tmp:
         by_phase["media_ssd"] = run_media_ssd(ep, tmp)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_phase.update(run_interop_hops(tmp, counters))
+        counters.reset()
+        run_python3_post(tmp)
+        by_phase["python3 post"] = counters.read()
+        counters.reset()
+        run_c_filters(tmp)
+        by_phase["c filters"] = counters.read()
     counters.reset()
     run_train()
     by_phase["train"] = counters.read()
+    print(f"card, beside the numbers below: {_card()}", flush=True)
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)
     print(f"graphs by path: {json.dumps(GRAPH_PATHS)}", flush=True)
     print(f"stream paths: {json.dumps(LOOP_STATS)}", flush=True)

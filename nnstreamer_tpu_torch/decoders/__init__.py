@@ -15,6 +15,9 @@ def _ensure_builtin_decoders() -> None:
     from . import font  # noqa: F401
     from . import image_segment  # noqa: F401
     from . import pose  # noqa: F401
+    # the wire formats carry their own codecs: registered unconditionally
+    from ..converters import fb_io  # noqa: F401
+    from ..converters import protobuf_io  # noqa: F401
 
 
 _ensure_builtin_decoders()

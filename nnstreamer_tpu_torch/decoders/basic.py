@@ -1,8 +1,7 @@
-"""Basic decoders: direct_video, image_labeling.
+"""Basic decoders: direct_video, image_labeling, flex.
 
-References: tensordec-directvideo.c, tensordec-imagelabel.c. Port of
-nnstreamer_tpu/decoders/basic.py; its ``flex`` mode waits for the
-converters layer (flex/flatbuf framing) and is not ported yet."""
+References: tensordec-directvideo.c, tensordec-imagelabel.c,
+tensordec-flexbuf.cc. Port of nnstreamer_tpu/decoders/basic.py."""
 
 from __future__ import annotations
 
@@ -10,6 +9,7 @@ import numpy as np
 import torch
 
 from ..core.buffer import Buffer, TensorMemory
+from ..core.meta import wrap_flex
 from ..core.types import Caps, TensorsConfig
 from .base import Decoder, register_decoder
 from .util import load_labels
@@ -87,3 +87,21 @@ class ImageLabeling(Decoder):
                             label_indices=[int(i) for i, _ in pairs],
                             label_scores=[float(s) for _, s in pairs])
         return out
+
+
+@register_decoder
+class FlexBuf(Decoder):
+    """tensors → self-describing flex blobs using our native 128-byte meta
+    header wire format (the query/edge links' framing). For reference-style
+    FlexBuffers/FlatBuffers interop blobs use mode=flexbuf / mode=flatbuf
+    (converters/fb_io.py)."""
+
+    MODE = "flex"
+
+    def out_caps(self, config: TensorsConfig) -> Caps:
+        return Caps("application/octet-stream")
+
+    def decode(self, buf: Buffer, config: TensorsConfig) -> Buffer:
+        blobs = [np.frombuffer(wrap_flex(m.tobytes(), m.info), np.uint8).copy()
+                 for m in buf.memories]
+        return buf.with_memories([TensorMemory(b) for b in blobs])

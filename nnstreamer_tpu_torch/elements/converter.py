@@ -72,13 +72,16 @@ class TensorConverter(Element):
         self._pending.clear()
         fpt = int(self.frames_per_tensor)
         if self.mode and self.mode not in ("auto",):
-            # "custom:<name>" or a registered converter subplugin name
-            # (the custom-script python contract is not ported yet)
+            # "custom:<name>", "custom-script:<path.py>" (the reference's
+            # python CustomConverter contract), or a registered converter
+            # subplugin name (protobuf/flexbuf/flatbuf/...)
             name = self.mode.split(":", 1)[1] if ":" in self.mode else self.mode
             if self.mode.startswith("custom-script"):
-                raise ValueError("tensor_converter: mode=custom-script is "
-                                 "not supported by the torch port yet")
-            self._custom = get_subplugin(SubpluginType.CONVERTER, name)
+                from ..converters.pyscript import load_script_converter
+
+                self._custom = load_script_converter(name)
+            else:
+                self._custom = get_subplugin(SubpluginType.CONVERTER, name)
             if self._custom is None:
                 raise ValueError(f"tensor_converter: no converter subplugin "
                                  f"{name!r} (mode={self.mode!r})")

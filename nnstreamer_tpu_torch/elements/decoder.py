@@ -49,6 +49,18 @@ class TensorDecoder(Element):
     def start(self) -> None:
         if not self.mode:
             raise ValueError("tensor_decoder requires mode=")
+        if str(self.mode).startswith("custom-script"):
+            # reference python CustomDecoder contract
+            # (tensordec-python3.cc; mode=custom-script:<path.py>)
+            from ..converters.pyscript import ScriptDecoder
+
+            if ":" not in str(self.mode):
+                raise ValueError(
+                    "tensor_decoder: mode=custom-script needs a script "
+                    "path (custom-script:/path/to/decoder.py)")
+            self._decoder = ScriptDecoder(str(self.mode).split(":", 1)[1])
+            self._decoder.init(self._options_dict())
+            return
         cls = find_decoder(self.mode)
         if cls is None:
             raise ValueError(f"tensor_decoder: unknown mode {self.mode!r}")

@@ -1,4 +1,5 @@
-"""NN backend subplugins. Importing registers the built-ins."""
+"""NN backend subplugins. Importing registers the built-ins: torch-cuda,
+custom-easy and python3 (filters/custom.py), and the C custom filter."""
 
 from .base import (
     FilterFramework,
@@ -8,6 +9,7 @@ from .base import (
     find_filter,
     register_filter,
 )
+from .custom import register_custom_easy, unregister_custom_easy
 
 _loaded = False
 
@@ -18,11 +20,14 @@ def _ensure_builtin_filters() -> None:
         return
     _loaded = True
     from . import torch_cuda  # noqa: F401
+    from . import custom  # noqa: F401
+    from . import c_custom  # noqa: F401
 
 
 _ensure_builtin_filters()
 
 __all__ = [
     "FilterFramework", "FilterProps", "InvokeStats", "detect_framework",
-    "find_filter", "register_filter",
+    "find_filter", "register_custom_easy", "register_filter",
+    "unregister_custom_easy",
 ]

@@ -422,7 +422,21 @@ class TorchCudaFilter(FilterFramework):
         if self._bucket > 0:
             return self._invoke_bucketed(inputs)
         arrays = [m.device(self._device) for m in inputs]
-        return [TensorMemory(o) for o in self._run(arrays)]
+        return [TensorMemory(o) for o in self._run(self._model_shaped(inputs, arrays))]
+
+    def _model_shaped(self, inputs: Sequence[TensorMemory],
+                      arrays: List[torch.Tensor]) -> List[torch.Tensor]:
+        """Each input viewed in the model's declared shape. Negotiation
+        accepts a stream whose dims equal the model's up to trailing 1s
+        (the reference's gst_tensor_info_is_equal), and such a stream may
+        arrive with them dropped: a FlexBuffers or FlatBuffers hop trims
+        3:300:300:1 to 3:300:300. The bytes are the same, so the view is
+        exact; the JAX filter hands the model the trimmed array and fails."""
+        info = self._in_info
+        if info is None or len(info) != len(arrays) or self._fused_pre is not None:
+            return arrays
+        return [a.reshape(i.shape) if tuple(a.shape) != i.shape and m.info.is_compatible(i)
+                else a for a, m, i in zip(arrays, inputs, info)]
 
     def _run(self, arrays: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         with self._lock, torch.inference_mode():
