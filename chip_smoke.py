@@ -60,6 +60,23 @@ Phases (any failure exits non-zero before the result lines are printed):
      give the same tokens (the engine's exactness contract; before it, one
      decode step over 8 slots must give each slot's K/V and logits the
      bits of the slot stepped alone);
+  9b. the multi-tenant card (bench.py's ``_multiplex_lane`` at full width):
+     8 pipelines ``videotestsrc pattern=random seed=7+i ! tensor_converter !
+     tensor_filter model=zoo://mobilenet_v2?width=1.0&size=224 !
+     tensor_sink`` of 64 frames on one ``DeviceEngine(max_coalesce=8)`` and
+     then each dispatching alone; then the same 8 beside 2 fused SSD-300
+     pipelines (64 frames each) and the float32 LM engine serving the 24
+     requests, enrolled, on one engine and then without it: every MobileNet
+     label equal to the run without the engine (the logits' largest
+     difference printed), SSD boxes and canvases byte-equal with
+     ``class_reduce`` and ``nms_sweep`` once a frame, the LM's tokens equal;
+     merged steady frames/s (an engine run leaves out each width's first,
+     capturing batch; a direct run each stream's first frame), coalesce
+     widths, occupancy, tenant waits, captures by width, coalesce fallbacks,
+     the dispatch loop's seconds by tenant and the card's busy share
+     (nvidia-smi's utilization.gpu every 100 ms); then ``python -m
+     nnstreamer_tpu_torch.cli --sched 8 --sched-tenants cam:2`` on the
+     README's headline string exits 0 and prints its ``sched:`` line;
  10. the flash prefill pipeline ``appsrc ! tensor_filter ! tensor_sink``
      over a prefill bundle of the same model, B 8 × T 1024, with flash
      attention (one ``flash_attention`` launch per layer) and dense, in two
@@ -289,6 +306,12 @@ INTEROP_FRAMES = 64
 INTEROP_FORMATS = ("flexbuf", "flatbuf", "protobuf")
 #: python3 post-processing of MobileNet-v2's 1001 logits, a frame at a time
 PY3_FRAMES = 32
+#: the multi-tenant card (bench.py's _multiplex_lane at full width): 8
+#: MobileNet-v2 224 pipelines, 2 fused SSD-300 pipelines and the float32 LM
+#: engine on one DeviceEngine, against the same tenants without it
+MT_SPEC = "zoo://mobilenet_v2?width=1.0&size=224"
+MT_SIZE, MT_SSD_SIZE = 224, 300
+MT_PIPES, MT_FRAMES, MT_SSD, MT_SSD_FRAMES, MT_COALESCE = 8, 64, 2, 64, 8
 #: the python3 script: the reference contract (nnstreamer_python shapes,
 #: one list of flat arrays in and out), a float32 softmax in numpy
 PY3_SCRIPT = """
@@ -3317,6 +3340,328 @@ def _adam_steps_apart(frames) -> list:
     return rows
 
 
+# --------------------------------------------------------------------------- #
+# the multi-tenant card: N pipelines and an LM engine on one DeviceEngine
+# --------------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def _card_busy():
+    """The card's busy share while inside: nvidia-smi's utilization.gpu (the
+    share of each sample period in which a kernel ran) sampled every 100 ms;
+    yields a list that holds the samples (percent) after the block."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=utilization.gpu", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    samples: list = []
+    try:
+        yield samples
+    finally:
+        proc.terminate()
+        try:
+            out, _ = proc.communicate(timeout=30)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+        samples.extend(int(v) for v in out.split() if v.strip().isdigit())
+
+
+def _mt_tenants(engine, opts: dict, mixed: bool) -> dict:
+    """The tenants of the multi-tenant phase as pipelines on ``engine``
+    (None: each dispatches directly): MT_PIPES MobileNet-v2 224 streams and,
+    when ``mixed``, MT_SSD fused SSD-300 streams, each sink recording its
+    arrivals."""
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    built = {"cls": [], "ssd": []}
+    for kind, n, frames in (("cls", MT_PIPES, MT_FRAMES),
+                            ("ssd", MT_SSD if mixed else 0, MT_SSD_FRAMES)):
+        for i in range(n):
+            p = Pipeline(f"{kind}{i}", scheduler=engine)
+            size = MT_SIZE if kind == "cls" else MT_SSD_SIZE
+            src = p.add_new("videotestsrc", width=size, height=size, pattern="random",
+                            seed=(7 if kind == "cls" else 100) + i, num_buffers=frames)
+            filt = p.add_new("tensor_filter", name=f"{kind}{i}", framework="torch-cuda",
+                             model=MT_SPEC if kind == "cls" else SSD_SPEC)
+            els = [src, p.add_new("tensor_converter"), filt]
+            if kind == "ssd":
+                els.append(p.add_new("tensor_decoder", mode="bounding_box", **opts))
+            arrivals = []
+            sink = p.add_new("tensor_sink", store=True,
+                             new_data=lambda b, a=arrivals: a.append(time.perf_counter()))
+            Pipeline.link(*els, sink)
+            built[kind].append((p, filt, sink, arrivals))
+    return built
+
+
+def _mt_requests() -> list:
+    """run_lm_serving's 24-request greedy mix."""
+    rng = np.random.default_rng(5)
+    return [(rng.integers(0, LM_DIMS[0], LM_PROMPTS[i % len(LM_PROMPTS)]).astype(np.int32),
+             LM_GENS[i % len(LM_GENS)]) for i in range(LM_REQUESTS)]
+
+
+def _mt_run(params, opts: dict, counters, engine, mixed: bool) -> dict:
+    """One run of every tenant at once: the pipelines started together and,
+    when ``mixed``, the LM engine (enrolled on ``engine`` when there is one)
+    serving the mix from a thread of its own. Returns the outputs, rates and
+    counts."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.serving import LMEngine
+
+    built = _mt_tenants(engine, opts, mixed)
+    lm = LMEngine(params, LM_DIMS[2], LM_MAX_LEN, n_slots=LM_SLOTS, chunk=LM_CHUNK) \
+        if mixed else None
+    if engine is not None and lm is not None:
+        lm.enroll(engine)
+    batches = []
+    if engine is not None:
+        dispatch = engine._dispatch
+
+        def timed_dispatch(batch):
+            c0, t0 = graphs.stats()["captures"], time.perf_counter()
+            out = dispatch(batch)
+            batches.append((batch[0].label, len(batch), t0, time.perf_counter(),
+                            graphs.stats()["captures"] - c0))
+            return out
+
+        engine._dispatch = timed_dispatch
+    served: dict = {"lm": None}
+
+    def serve():
+        try:
+            if lm is not None:
+                served["lm"] = _serve(params, _mt_requests(), LM_SLOTS, lm)
+        except BaseException as e:  # noqa: BLE001 — reported by the caller
+            served["error"] = e
+
+    pipes = [b for kind in ("cls", "ssd") for b in built[kind]]
+    counters.reset()
+    graphs.reset_stats()
+    with _card_busy() as busy:
+        t_start = time.perf_counter()
+        lm_thread = threading.Thread(target=serve, name="mt-lm", daemon=True)
+        lm_thread.start()
+        for p, _, _, _ in pipes:
+            p.start()
+        try:
+            for p, _, _, _ in pipes:
+                if not p.wait_eos(600) or p.bus.error is not None:
+                    raise AssertionError(f"multi-tenant: {p.name} did not reach EOS "
+                                         f"({p.bus.error})")
+            lm_thread.join(900)
+            if lm_thread.is_alive() or "error" in served:
+                raise AssertionError(f"multi-tenant: the LM engine did not finish "
+                                     f"({served.get('error')})")
+            torch.cuda.synchronize()
+            t_end = time.perf_counter()
+            run = {"launches": counters.read(), "graphs": graphs.stats(),
+                   "lm": served["lm"], "t": (t_start, t_end)}
+            if engine is not None:
+                # read before stop() detaches the tenants
+                run["waits"] = {t.name: list(t.waits) for t in engine.tenants()}
+                run["occupancy"] = engine.occupancy()
+                run["widths"] = engine.coalesce_stats()
+                run["stats"] = dict(engine.stats)
+                if lm is not None:
+                    lm.unenroll()
+        finally:
+            for p, _, _, _ in pipes:
+                p.stop()
+    run["busy"] = busy
+    run["batches"] = batches
+    run["cls"] = [([b.memories[0].device().float() for b in sink.buffers], arrivals,
+                   filt.stats.total_invoke_num) for _, filt, sink, arrivals in built["cls"]]
+    run["ssd"] = [([(b.meta["detections"], b.memories[0].host().tobytes())
+                    for b in sink.buffers], filt.stats.total_invoke_num)
+                  for _, filt, sink, _ in built["ssd"]]
+    return run
+
+
+def _engine_steady_fps(run) -> float:
+    """Merged MobileNet frames/s of an engine run, the batches that captured
+    a graph (each width's first) left out with their time: the frames of the
+    other MobileNet batches over the time from the start to the last
+    MobileNet arrival, less the capturing batches' dispatch time."""
+    t_start, _ = run["t"]
+    t_end = max(a[-1] for _, a, _ in run["cls"])
+    items = sum(w for label, w, _, _, c in run["batches"]
+                if label.startswith("cls") and c == 0)
+    capture_s = sum(t1 - t0 for _, _, t0, t1, c in run["batches"]
+                    if c > 0 and t0 < t_end)
+    return items / (t_end - t_start - capture_s)
+
+
+def _dispatch_s(run) -> dict:
+    """Seconds the dispatch loop spent in each tenant kind's batches."""
+    out: dict = {}
+    for label, _, t0, t1, _ in run["batches"]:
+        kind = "lm" if label.endswith(".step") else label.rstrip("0123456789")
+        out[kind] = out.get(kind, 0.0) + t1 - t0
+    return out
+
+
+def _direct_steady_fps(streams) -> float:
+    """Merged frames/s of streams without an engine, each stream's first
+    frame (its capture) left out: the frames that arrive after the last
+    stream's first one, over the time from it to the last arrival."""
+    start = max(a[0] for a in streams)
+    after = sorted(t for a in streams for t in a if t > start)
+    return len(after) / (after[-1] - start)
+
+
+def run_multitenant(params, counters, tmp: str) -> dict:
+    """bench.py's _multiplex_lane at full width, with an SSD pair and the LM
+    engine beside it, on one DeviceEngine and then without it; then the CLI
+    with --sched. Returns the engine run's kernel launches."""
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.sched import DeviceEngine
+
+    priors = os.path.join(tmp, "mt_priors.txt")
+    write_box_priors(priors, size=MT_SSD_SIZE)
+    labels = os.path.join(tmp, "mt_coco.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"c{i}" for i in range(91)))
+    opts = dict(option1="mobilenet-ssd", option2=labels, option3=priors,
+                option4=f"{MT_SSD_SIZE}:{MT_SSD_SIZE}",
+                option5=f"{MT_SSD_SIZE}:{MT_SSD_SIZE}")
+    get_model(MT_SPEC, device="cuda")  # model builds outside both runs
+    get_model(SSD_SPEC, device="cuda")
+
+    # the MobileNet streams alone (bench.py's lane), then every tenant at once
+    runs = {}
+    for mixed in (False, True):
+        runs[mixed, "direct"] = _mt_run(params, opts, counters, None, mixed)
+        engine = DeviceEngine("smoke", max_coalesce=MT_COALESCE)
+        try:
+            runs[mixed, "engine"] = _mt_run(params, opts, counters, engine, mixed)
+        finally:
+            engine.stop()
+    direct, multi = runs[True, "direct"], runs[True, "engine"]
+
+    # every tenant's results equal its run without the engine
+    n_cls = MT_PIPES * MT_FRAMES
+    worst, label_diff = 0.0, 0
+    for other in (runs[False, "engine"], runs[False, "direct"], multi):
+        for (got, _, _), (want, _, _) in zip(other["cls"], direct["cls"]):
+            if len(got) != MT_FRAMES or len(want) != MT_FRAMES:
+                raise AssertionError(f"multi-tenant: {len(got)} / {len(want)} of "
+                                     f"{MT_FRAMES} MobileNet frames out")
+            for x, y in zip(got, want):
+                label_diff += int(x.argmax(-1).item() != y.argmax(-1).item())
+                worst = max(worst, _max_abs_err(x, y))
+    if label_diff:
+        raise AssertionError(f"multi-tenant: {label_diff} MobileNet labels differ "
+                             "from the run without the engine")
+    ssd_frames = MT_SSD * MT_SSD_FRAMES
+    for (got, _), (want, _) in zip(multi["ssd"], direct["ssd"]):
+        if got != want or len(got) != MT_SSD_FRAMES:
+            raise AssertionError("multi-tenant: SSD boxes or canvases differ from the "
+                                 "run without the engine")
+    for name, run in (("engine", multi), ("direct", direct)):
+        for k in ("class_reduce", "nms_sweep"):
+            if run["launches"][k] != ssd_frames:
+                raise AssertionError(f"multi-tenant {name}: {k} launched "
+                                     f"{run['launches'][k]} times for {ssd_frames} "
+                                     "SSD frames")
+    lm_tokens, lm_want = multi["lm"][0], direct["lm"][0]
+    if lm_tokens != lm_want:
+        first = next(i for i, (a, b) in enumerate(zip(lm_tokens, lm_want)) if a != b)
+        raise AssertionError(f"multi-tenant: the enrolled LM engine's request {first} "
+                             "differs from its run without the engine")
+
+    # rates: the engine runs leave out the batches that captured a graph
+    # (each width's first, and their time); the direct runs each stream's first
+    multi_fps = _engine_steady_fps(multi)
+    direct_fps = _direct_steady_fps([a for _, a, _ in direct["cls"]])
+    alone_fps = _engine_steady_fps(runs[False, "engine"])
+    alone_direct_fps = _direct_steady_fps([a for _, a, _ in runs[False, "direct"]["cls"]])
+    alone_ws = runs[False, "engine"]["widths"]
+    captures: dict = {}
+    for label, width, _, _, c in multi["batches"]:
+        if c:
+            kind = "lm" if label.endswith(".step") else label.rstrip("0123456789")
+            captures[f"{kind} x{width}"] = captures.get(f"{kind} x{width}", 0) + c
+    waits = sorted(w for name, ws in multi["waits"].items() if name.startswith("cls")
+                   for w in ws)
+    lm_waits = sorted(multi["waits"].get("lm", [0.0]))
+    ws = multi["widths"]
+    busy = {k: (sum(r["busy"]) / len(r["busy"]) / 100 if r["busy"] else None)
+            for k, r in (("engine", multi), ("direct", direct))}
+    ssd_invokes = sum(n for _, n in multi["ssd"]) / ssd_frames
+    tokens = sum(len(o) for o in lm_tokens)
+    lm_tps = {k: tokens / r["lm"][2] for k, r in (("engine", multi), ("direct", direct))}
+
+    def share(v):
+        return "not measured" if v is None else f"{v:.4f}"
+
+    def busy_of(run):
+        return share(sum(run["busy"]) / len(run["busy"]) / 100 if run["busy"] else None)
+
+    print(f"multi-tenant card, the {MT_PIPES} MobileNet-v2 224 streams alone "
+          f"({MT_FRAMES} frames each): merged steady frames/s "
+          f"{alone_fps:.2f} on the engine, {alone_direct_fps:.2f} without it; coalesce "
+          f"width median {alone_ws['median']:.1f} mean {alone_ws['mean']:.3f} max "
+          f"{alone_ws['max']} over {alone_ws['n']} batches; occupancy "
+          f"{runs[False, 'engine']['occupancy']:.4f}; card busy share "
+          f"{busy_of(runs[False, 'engine'])} (without the engine "
+          f"{busy_of(runs[False, 'direct'])})", flush=True)
+
+    print(f"multi-tenant card ({MT_PIPES} x MobileNet-v2 224 {MT_FRAMES} frames, "
+          f"{MT_SSD} x SSD-300 fused {MT_SSD_FRAMES} frames, the float32 LM engine "
+          f"serving {LM_REQUESTS} requests; DeviceEngine max_coalesce {MT_COALESCE}): "
+          f"MobileNet merged steady frames/s {multi_fps:.2f} on the engine (batches "
+          f"that captured left out), {direct_fps:.2f} without it (each stream's first "
+          f"frame left out); coalesce width median {ws['median']:.1f} mean "
+          f"{ws['mean']:.3f} max {ws['max']} over {ws['n']} batches; occupancy "
+          f"{multi['occupancy']:.4f}; MobileNet tenant wait median "
+          f"{waits[len(waits) // 2] * 1e3:.3f} ms max {waits[-1] * 1e3:.3f} ms, LM "
+          f"wait median {lm_waits[len(lm_waits) // 2] * 1e3:.3f} ms max "
+          f"{lm_waits[-1] * 1e3:.3f} ms; captures by width {json.dumps(captures)}; card "
+          f"busy share {share(busy['engine'])} (without the engine "
+          f"{share(busy['direct'])}; nvidia-smi utilization.gpu every 100 ms); dispatch "
+          f"loop seconds by tenant {json.dumps(_dispatch_s(multi))} of a "
+          f"{multi['t'][1] - multi['t'][0]:.3f} s run ({direct['t'][1] - direct['t'][0]:.3f} "
+          f"s without the engine)", flush=True)
+    print(f"multi-tenant results: all {n_cls} MobileNet labels of each run == the "
+          f"mixed run without the engine, logits' largest difference {worst:.9g}; SSD boxes and canvases "
+          f"byte-equal to it, {ssd_invokes:.3f} invokes a frame, class_reduce "
+          f"{multi['launches']['class_reduce']} and nms_sweep "
+          f"{multi['launches']['nms_sweep']} launches for {ssd_frames} frames, coalesce "
+          f"fallbacks {multi['stats']['coalesce_fallbacks']}; the enrolled LM engine's "
+          f"{tokens} tokens == its run without the engine, {lm_tps['engine']:.2f} "
+          f"tokens/s (without the engine {lm_tps['direct']:.2f}); engine stats "
+          f"{json.dumps(multi['stats'])}", flush=True)
+    LOOP_STATS["multi_tenant"] = {
+        "fps": multi_fps, "direct_fps": direct_fps, "alone_fps": alone_fps,
+        "alone_direct_fps": alone_direct_fps, "alone_width": alone_ws, "width": ws,
+        "occupancy": multi["occupancy"], "wait_median_ms": waits[len(waits) // 2] * 1e3,
+        "wait_max_ms": waits[-1] * 1e3, "captures_by_width": captures,
+        "busy_share": busy, "logits_max_diff": worst, "lm_tokens_per_s": lm_tps,
+        "fallbacks": multi["stats"]["coalesce_fallbacks"]}
+
+    # the CLI as a user runs it, on the card, in a process of its own
+    hl_labels = os.path.join(tmp, "mt_labels.txt")
+    with open(hl_labels, "w") as f:
+        f.write("\n".join(f"l{i}" for i in range(1001)))
+    launch = HEADLINE.replace(
+        "videotestsrc", f"videotestsrc num-buffers={HEADLINE_FRAMES} pattern=random "
+        "width=224 height=224").replace("labels.txt", hl_labels)
+    t0 = time.perf_counter()
+    cli = subprocess.run([sys.executable, "-m", "nnstreamer_tpu_torch.cli", "--sched",
+                          str(MT_COALESCE), "--sched-tenants", "cam:2", launch],
+                         cwd=ROOT, capture_output=True, text=True, timeout=600)
+    sched_lines = [ln for ln in cli.stderr.splitlines() if ln.startswith("sched: ")
+                   and "batches /" in ln]
+    if cli.returncode != 0 or not sched_lines:
+        raise AssertionError(f"nns-launch --sched exited {cli.returncode}: "
+                             f"{cli.stderr[-2000:]}")
+    print(f"nns-launch --sched {MT_COALESCE} --sched-tenants cam:2 (the README string, "
+          f"{HEADLINE_FRAMES} frames): exit 0 in {time.perf_counter() - t0:.3f} s, "
+          f"{sched_lines[-1]}", flush=True)
+    return multi["launches"]
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -3396,6 +3741,8 @@ def main() -> int:
     by_phase["lm serving float32"] = run_lm_serving(params, "float32", counters)
     by_phase["lm serving w8a8"] = run_lm_serving(quantize_lm_params(params), "w8a8",
                                                  counters)
+    with tempfile.TemporaryDirectory() as tmp:
+        by_phase["multi-tenant"] = run_multitenant(params, counters, tmp)
     del params
     by_phase["lm flash prefill"] = run_flash_prefill(counters, torch.bfloat16)
     by_phase["lm flash prefill float32"] = run_flash_prefill(counters, torch.float32)

@@ -21,11 +21,9 @@ sequence.
   * ``tensor_unbatch`` — splits a batched buffer back into per-frame
     buffers (device-resident slices — views of the batched tensor, no D2H),
     restoring each frame's PTS/offset from the batch metadata.
-
-The JAX package also shrinks the budget while a multi-tenant ``DeviceEngine``
-(sched/, ``sched_enroll``) has work queued. ``sched/`` is not ported: the
-``_sched_engine`` attribute stays ``None`` and the budget is the stream's
-own.
+  * under a multi-tenant ``DeviceEngine`` (sched/, ``sched_enroll``) the
+    budget shrinks while the engine has work queued: holding frames to fill
+    a group buys nothing while the device is backed up.
 
 Metadata contract (on the batched buffer):
   ``batch_frames`` — structural group size (= max_batch, incl. padding);
@@ -76,7 +74,8 @@ class TensorBatch(Element):
         #: injectable time source so the budget/deadline arithmetic is
         #: testable without real sleeps (tests swap in a fake clock)
         self._clock = time.monotonic
-        #: multi-tenant device engine (sched/, not ported): always None
+        #: the DeviceEngine this element's pipeline is enrolled on
+        #: (sched_enroll) — its queue depth shrinks the flush budget
         self._sched_engine: Optional[Any] = None
         if self.max_batch < 1:
             raise ValueError(f"tensor_batch: max_batch must be >= 1, "
@@ -171,12 +170,37 @@ class TensorBatch(Element):
         """Flush window for a new group. Fixed budget unless budget_ms=0
         (auto): ~1.3 × the time the stream needs to FILL max_batch at its
         observed rate, so groups normally reach full size and padding
-        stays exceptional (see module doc)."""
+        stays exceptional (see module doc). When the pipeline is enrolled
+        on a DeviceEngine (sched_enroll) and that engine already has
+        pending work queued, the window shrinks proportionally — holding
+        frames to fill a group buys nothing while the device is backed
+        up; it only stacks batching latency on top of queueing latency."""
         if self.budget_ms > 0:
-            return self.budget_ms / 1000.0
-        interval = self._ema_interval if self._ema_interval is not None \
-            else 0.005
-        return min(max(1.3 * self.max_batch * interval, 0.002), 0.5)
+            base = self.budget_ms / 1000.0
+        else:
+            interval = self._ema_interval if self._ema_interval is not None \
+                else 0.005
+            base = min(max(1.3 * self.max_batch * interval, 0.002), 0.5)
+        eng = self._sched_engine
+        if eng is not None:
+            try:
+                depth = eng.pending()
+            except Exception:  # noqa: BLE001 — engine mid-teardown
+                depth = 0
+            if depth > 0:
+                base = base / (1.0 + depth / float(self.max_batch))
+        return base
+
+    # -- scheduler opt-in ----------------------------------------------------- #
+    def sched_enroll(self, engine: Any, tenant: Any) -> None:
+        """Tenant-aware budget: remember the engine so _budget_s can read
+        its queue depth. Idempotent; no dispatch rerouting — batching still
+        happens on this element's own worker."""
+        self._sched_engine = engine
+
+    def sched_detach(self) -> None:
+        self._sched_engine = None
+        super().sched_detach()
 
     def _quit_worker(self) -> None:
         """Mark the element flushing before the worker exits early, so

@@ -40,6 +40,7 @@ from ..filters.base import (
 )
 from ..graph.element import Element, FlowReturn, Pad, register_element
 from ..graph.events import Event, EventType
+from ..resilience.policy import deadline_of
 
 log = logger("tensor_filter")
 
@@ -213,7 +214,18 @@ class TensorFilter(Element):
         self._open_fw()
         self._last_pushed_pts = None
 
+    def sched_enroll(self, engine: Any, tenant: Any) -> None:
+        """Route this filter's invokes through a sched.DeviceEngine:
+        same-model/same-shape work from OTHER tenants coalesces with ours
+        into one device batch. Installed by
+        ``DeviceEngine.attach_pipeline``; ``sched_detach`` (base class)
+        restores direct dispatch. chain() pays one attribute None check
+        either way."""
+        self._open_fw()
+        self._sched_exec = engine.executor(tenant, self.fw, label=self.name)
+
     def stop(self) -> None:
+        self._sched_exec = None  # closing fw invalidates the executor
         if self.fw is not None:
             if self._shared_key_used:
                 if shared_model_release(self._shared_key_used):
@@ -286,7 +298,13 @@ class TensorFilter(Element):
         else:
             model_inputs = inputs
         t0 = time.monotonic_ns()
-        outputs = self.fw.invoke(model_inputs)
+        if self._sched_exec is not None:
+            # scheduled path: the engine coalesces this invoke with
+            # same-shape work from other tenants; a deadline-shed result
+            # comes back as None and rides the soft-drop below
+            outputs = self._sched_exec(model_inputs, deadline_of(buf))
+        else:
+            outputs = self.fw.invoke(model_inputs)
         self.stats.record(time.monotonic_ns() - t0)
         if outputs is None:
             return FlowReturn.OK  # backend soft-drop

@@ -42,6 +42,15 @@ Design notes:
     (synchronous per-invoke latency accounting);
   * ``custom="donate=true"`` is accepted and changes nothing: torch has no
     buffer donation, and the outputs are the same either way;
+  * multi-tenant dispatch (sched/): ``coalesce_token`` names the function
+    the filter computes (bundle identity, device, precision, donate,
+    bucket, bucket_max, layouts, resize, and the fused prologue's and
+    epilogue's structural tokens), so filters of several pipelines over one
+    zoo spec coalesce; ``invoke_coalesced`` runs several tenants' items as
+    one device batch: under ``bucket=`` through the bucket ladder's graphs,
+    otherwise concatenated along axis 0 into one CUDA graph per batch width
+    (2 … the engine's ``max_coalesce``: a bounded capture set, shared by
+    every filter of one token), its batch-led outputs scattered back;
   * dynamic-count streams (tensor_crop regions): ``custom="bucket=N"``
     stacks a frame's n same-shape tensors into one batch, zero-pads it to
     the next multiple of N, invokes once and emits the first n rows of
@@ -77,6 +86,9 @@ from ..models.zoo import ModelBundle, get_model
 from .base import FilterFramework, FilterProps, register_filter
 
 log = logger("torch_cuda")
+
+#: guards the coalesced programs kept on a bundle (``_coalesced_fn``)
+_coalesce_lock = threading.Lock()
 
 #: custom= keys consumed by the filter itself, not by model factories;
 #: stripped before model resolution so identical model specs memoize to one
@@ -252,6 +264,12 @@ class TorchCudaFilter(FilterFramework):
         self._infer_fn: Optional[Callable] = None
         self._fused_pre: Optional[Callable] = None
         self._fused_post: Optional[Callable] = None
+        #: structural tokens of the fused stages (coalesce_token) and
+        #: whether the fused epilogue keeps each output's rows per frame
+        self._pre_token: Optional[str] = None
+        self._post_token: Optional[str] = None
+        self._post_batch_led = True
+        self._full: Optional[Callable] = None
         self._device: Optional[torch.device] = None
         self._in_info: Optional[TensorsInfo] = None
         self._out_info: Optional[TensorsInfo] = None
@@ -267,6 +285,7 @@ class TorchCudaFilter(FilterFramework):
             resolve_model(props.model, opts, self._device), opts)
         self._precision = opts.get("precision", "")
         self._sync = _flag(opts, "sync")
+        self._donate = _flag(opts, "donate")
         self._bucket = int(opts.get("bucket", "0") or 0)
         # bounded bucket ladder: padded sizes are bucket, 2*bucket, ... up
         # to bucket_max (default 8*bucket); a frame with more tensors is
@@ -319,24 +338,55 @@ class TorchCudaFilter(FilterFramework):
             bundle.metadata[key] = cached
         return cached
 
-    def set_fused_preprocess(self, pre: Callable) -> None:
+    def set_fused_preprocess(self, pre: Callable,
+                             token: Optional[str] = None) -> None:
         """Install a per-tensor preprocessing stage run inside the invoke
         before the input-layout permute (ops.fusion pass): ``inputlayout``
         describes the stream entering the filter, which is the fused
         transform's output, while the invoke receives the raw upstream
         tensors. Caps inference still runs the model alone on the
-        negotiated (transformed) stream."""
+        negotiated (transformed) stream. ``token`` is the chain's
+        structural signature (``coalesce_token``)."""
         self._fused_pre = pre
+        self._pre_token = token
         self._build()
 
-    def set_fused_epilogue(self, post: Callable) -> None:
+    def set_fused_epilogue(self, post: Callable, token: Optional[str] = None,
+                           batch_led: bool = True) -> None:
         """Install a post-processing stage run inside the invoke after the
         stream-layout restore (ops.epilogue pass), so a filter→decoder tail
         runs as one call per frame. Caps inference still reports the
         model's own (unreduced) outputs — downstream fused elements
-        negotiate the unreduced stream and consume the fused result."""
+        negotiate the unreduced stream and consume the fused result.
+        ``token`` is the chain's structural signature
+        (``coalesce_token``); ``batch_led=False`` declares that the stage
+        reduces a whole frame (a decoder's reduce), so ``invoke_coalesced``
+        refuses before any device work."""
         self._fused_post = post
+        self._post_token = token
+        self._post_batch_led = batch_led
         self._build()
+
+    @property
+    def coalesce_token(self) -> Optional[Tuple]:
+        """Cross-filter coalesce anchor (sched.DeviceEngine): two filter
+        instances sharing one resolved bundle (the zoo memoizes equal specs)
+        and identical result-affecting config compute the same function, so
+        the engine may batch their work together. Fused stages extend it by
+        their structural tokens (a stage installed without one anchors on
+        its identity), so filters fused with different chains never
+        coalesce. None while the filter is closed."""
+        if self._bundle is None:
+            return None
+        token = ("torch-cuda", id(self._bundle), str(self._device),
+                 self._precision, self._donate, self._bucket,
+                 self._bucket_max, self._in_layout, self._out_layout,
+                 self._resize)
+        for kind, fn, tok in (("pre", self._fused_pre, self._pre_token),
+                              ("post", self._fused_post, self._post_token)):
+            if fn is not None:
+                token += ((kind, tok if tok is not None else id(fn)),)
+        return token
 
     def _build(self) -> None:
         """Compose the invoke: preprocess → layout → precision → model →
@@ -366,6 +416,7 @@ class TorchCudaFilter(FilterFramework):
             return tuple(post(ys)) if post is not None else ys
 
         self._infer_fn = base
+        self._full = full
         # a new composition drops the old one's graphs
         self._fn = graphs.CapturedFn(
             full, f"torch-cuda invoke of {self._bundle.name}")
@@ -391,6 +442,7 @@ class TorchCudaFilter(FilterFramework):
 
     def close(self) -> None:
         self._fn = None
+        self._full = None
         self._infer_fn = None
         self._bundle = None
         super().close()
@@ -476,3 +528,96 @@ class TorchCudaFilter(FilterFramework):
         batch = torch.cat([torch.stack(arrays), x.new_zeros(
             (bucket - n,) + tuple(x.shape))])
         return [TensorMemory(o[:n]) for o in self._run([batch])]
+
+    # -- multi-tenant dispatch (sched/engine.py) ------------------------------ #
+    #: sched/engine.py gates its ``donate=True`` on this attribute so a
+    #: filter without it never sees an unexpected kwarg (which would demote
+    #: it to serial fallback forever)
+    supports_donate_coalesce = True
+
+    def _coalesced_fn(self) -> graphs.CapturedFn:
+        """The coalesced invoke of this filter's function: one CUDA graph
+        per batch width, kept on the bundle under the coalesce token, so
+        every filter computing the same function shares one capture set
+        (the JAX filter's jit cache lives on its bundle the same way) and
+        the graphs die with the bundle."""
+        token = self.coalesce_token
+        with _coalesce_lock:
+            programs = self._bundle.metadata.setdefault("_coalesced_fns", {})
+            fn = programs.get(token)
+            if fn is None:
+                fn = programs[token] = graphs.CapturedFn(
+                    self._full,
+                    f"torch-cuda coalesced invoke of {self._bundle.name}")
+        return fn
+
+    def invoke_coalesced(self, groups: Sequence[Sequence[TensorMemory]],
+                         donate: bool = False
+                         ) -> List[Sequence[TensorMemory]]:
+        """Sched-engine coalesced dispatch: several tenants' work items with
+        identical input signatures execute as ONE device batch and scatter
+        back per item (sched/engine.py ``_dispatch``).
+
+        The engine coalesces only items whose (shape, dtype) signatures
+        match, so every group here is uniform. One group is a plain
+        ``invoke``. Bucketed filters flatten every group through
+        ``_invoke_bucketed``, landing on the bucket ladder's own graphs (no
+        capture for a group width). Otherwise each input position
+        concatenates along axis 0 and runs as one CUDA graph per batch
+        width (``_coalesced_fn``). Raises — and the engine falls back to
+        serial invokes — on an arity mismatch, on an output that is not
+        batch-led, and, before any device work, when the fused epilogue
+        reduces a whole frame (``set_fused_epilogue(batch_led=False)``, a
+        decoder's reduce: its (K, 6) rows belong to one frame).
+
+        ``donate=True``: the concatenated batch is engine-owned scratch;
+        once the graph's static input holds a copy of it, the filter drops
+        its reference, so the allocator may reuse the memory for the next
+        batch. The callers' own inputs are never touched and the outputs
+        are the same bits either way. Ignored on the bucketed and
+        single-group paths."""
+        if len(groups) == 1:
+            return [self.invoke(groups[0])]
+        if self._bucket > 0:
+            counts = [len(g) for g in groups]
+            stacked = self._invoke_bucketed([m for g in groups for m in g])
+            results: List[Sequence[TensorMemory]] = []
+            off = 0
+            for cnt in counts:
+                results.append([TensorMemory(o.device(self._device)[off:off + cnt])
+                                for o in stacked])
+                off += cnt
+            return results
+        if self._fused_post is not None and not self._post_batch_led:
+            raise ValueError(
+                f"coalesce: the fused epilogue ({self._post_token}) reduces "
+                "one frame; its output is not batch-led")
+        npos = len(groups[0])
+        if any(len(g) != npos for g in groups):
+            raise ValueError("coalesce: input arity mismatch across items")
+        per_group = [self._model_shaped(g, [m.device(self._device) for m in g])
+                     for g in groups]
+        rows = [int(a[0].shape[0]) for a in per_group]
+        total = sum(rows)
+        arrays = [torch.cat([a[j] for a in per_group]) for j in range(npos)]
+        del per_group
+        fn = self._coalesced_fn()
+        with torch.inference_mode():
+            outs = fn(*arrays)
+        if donate:
+            # the graph's static input holds the batch now: release the
+            # scratch so nothing downstream can observe it
+            del arrays
+        if self._sync and torch.device(self._device).type == "cuda":
+            torch.cuda.current_stream(self._device).synchronize()
+        scattered: List[List[TensorMemory]] = [[] for _ in groups]
+        for o in outs:
+            if o.dim() == 0 or o.shape[0] != total:
+                raise ValueError(
+                    "coalesce: output not batch-led; cannot scatter "
+                    f"(shape {tuple(o.shape)}, rows {total})")
+            off = 0
+            for i, cnt in enumerate(rows):
+                scattered[i].append(TensorMemory(o[off:off + cnt]))
+                off += cnt
+        return scattered

@@ -132,6 +132,10 @@ class Element:
         self.pipeline: Optional[Any] = None
         self.started = False
         self._quitting = False  # set by Pipeline.stop's pre-pass
+        #: scheduler executor (sched.DeviceEngine attach): None on the
+        #: un-scheduled path — consumers gate on it, so the default hot
+        #: path pays one attribute None check
+        self._sched_exec = None
         self._lock = threading.RLock()
         self._eos_pads: set = set()
         self._unknown_props = {}
@@ -236,6 +240,17 @@ class Element:
         """Offered to every element by a Pipeline constructed with
         ``device=``. Elements without device work ignore it;
         tensor_filter adopts it when its own ``device`` is unset."""
+
+    # -- scheduler opt-in (sched/engine.py DeviceEngine.attach_pipeline) ---- #
+    def sched_enroll(self, engine: Any, tenant: Any) -> None:
+        """Offered to every element when its pipeline attaches to a
+        DeviceEngine. Base elements have no device work to route —
+        tensor_filter overrides to install ``self._sched_exec`` so its
+        invokes coalesce across tenants. Must be idempotent."""
+
+    def sched_detach(self) -> None:
+        """Inverse of ``sched_enroll``: back to direct dispatch."""
+        self._sched_exec = None
 
     # -- entry points (locking + dispatch) ----------------------------------- #
     def _chain_entry(self, pad: Pad, buf: Buffer) -> Optional[FlowReturn]:

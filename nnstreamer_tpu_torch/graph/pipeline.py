@@ -32,6 +32,13 @@ from .events import Bus, Event, EventType, Message, MessageType
 
 log = logger("pipeline")
 
+#: process-default scheduler hook (nnstreamer_tpu_torch.sched.install sets /
+#: clears this): called as ``hook(pipeline) -> Optional[DeviceEngine]``
+#: when a pipeline WITHOUT an explicit ``scheduler=`` starts, so
+#: ``nns-launch --sched`` reaches pipelines constructed anywhere. Disabled
+#: cost: one global load + None check per Pipeline.start.
+SCHED_PIPELINE_HOOK = None
+
 
 class SourceElement(Element):
     """Base for sources: owns a thread calling ``create()`` until EOS/stop.
@@ -259,7 +266,10 @@ class Join(Element):
 class Pipeline:
     """Container + lifecycle manager for an element graph."""
 
-    def __init__(self, name: str = "pipeline", device: Any = None):
+    def __init__(self, name: str = "pipeline", scheduler: Any = None,
+                 *, sched_weight: float = 1.0, sched_priority: int = 0,
+                 sched_deadline_ms: Optional[float] = None,
+                 device: Any = None):
         self.name = name
         self.elements: Dict[str, Element] = {}
         self.bus = Bus()
@@ -274,6 +284,17 @@ class Pipeline:
         self.auto_fuse = True
         self._fused_count = 0
         self._epilogue_count = 0
+        #: opt-in multi-tenant dispatch (sched.DeviceEngine): when set,
+        #: start() enrolls this pipeline as a tenant — its filters'
+        #: invokes coalesce with other tenants' on one dispatch loop.
+        #: None (default) keeps the direct per-filter dispatch path. The
+        #: sched_* knobs are this tenant's fairness parameters
+        #: (DeviceEngine.attach_pipeline reads them).
+        self.scheduler = scheduler
+        self.sched_weight = sched_weight
+        self.sched_priority = sched_priority
+        self.sched_deadline_ms = sched_deadline_ms
+        self._sched_engine: Any = None
 
     # -- construction -------------------------------------------------------- #
     def add(self, *elements: Element) -> Union[Element, Sequence[Element]]:
@@ -336,12 +357,24 @@ class Pipeline:
                     el.start()
                     el.started = True
             # epilogue fusion runs AFTER non-sources started (decoder
-            # instances exist, filter backends are open) and BEFORE any
-            # source thread pushes
+            # instances exist, filter backends are open) and BEFORE sched
+            # enrollment (coalesce tokens must be final when the engine
+            # starts keying batches)
             if self.auto_fuse:
                 from ..ops.epilogue import fuse_epilogues
 
                 self._epilogue_count = fuse_epilogues(self)
+            # multi-tenant dispatch opt-in: enroll AFTER non-sources
+            # started (filter backends are open) and BEFORE any source
+            # thread pushes, so the first buffer already coalesces.
+            # Explicit scheduler= wins; otherwise the process-default hook
+            # (sched.install / nns-launch --sched) decides.
+            sched = self.scheduler
+            if sched is None and SCHED_PIPELINE_HOOK is not None:
+                sched = SCHED_PIPELINE_HOOK(self)
+            if sched is not None:
+                sched.attach_pipeline(self)
+                self._sched_engine = sched
             for el in self.elements.values():
                 if el.is_source:
                     el.start()
@@ -358,6 +391,9 @@ class Pipeline:
                     except Exception:  # noqa: BLE001
                         log.exception("rollback stop failed for %s", el.name)
                     el.started = False
+            if self._sched_engine is not None:
+                self._sched_engine.detach_pipeline(self)
+                self._sched_engine = None
             raise
         self.running = True
 
@@ -379,6 +415,12 @@ class Pipeline:
             if el.started:
                 el.stop()
                 el.started = False
+        if self._sched_engine is not None:
+            # after the element joins: chain threads are gone, so the
+            # tenant's queue is quiescent — deregistration sheds any
+            # stragglers rather than stranding their futures
+            self._sched_engine.detach_pipeline(self)
+            self._sched_engine = None
         self.running = False
 
     def _sink_eos(self, el: Element) -> None:

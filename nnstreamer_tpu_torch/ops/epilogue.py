@@ -21,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Callable, List
 
 from ..core.log import logger
+from .fusion import _transform_signature
 
 log = logger("epilogue")
 
@@ -28,7 +29,9 @@ log = logger("epilogue")
 def fuse_epilogues(pipeline: Any) -> int:
     """Fuse eligible downstream chains; returns stages fused away.
 
-    Runs after ``Element.start()``: decoder instances must exist.
+    Runs after ``Element.start()`` (decoder instances must exist) and
+    before scheduler attach (the filters' ``coalesce_token`` must be final
+    when the engine starts keying batches).
     """
     from ..elements.converter import TensorConverter
     from ..elements.decoder import TensorDecoder
@@ -51,6 +54,7 @@ def fuse_epilogues(pipeline: Any) -> int:
 
         fns: List[Callable] = []
         sig_parts: List[str] = []
+        reduces_frame = False
         pad = el.src_pads[0]
         while pad.peer is not None:
             down = pad.peer.element
@@ -60,7 +64,7 @@ def fuse_epilogues(pipeline: Any) -> int:
                 f = down.as_torch_fn()
                 fns.append(lambda outs, _f=f: tuple(_f(y) for y in outs))
                 down._fused_post = True
-                sig_parts.append(f"transform[{down.name}]")
+                sig_parts.append(f"transform[{_transform_signature(down)}]")
                 pad = down.src_pads[0]
                 continue
             if isinstance(down, TensorConverter) and len(down.sink_pads) == 1 \
@@ -81,6 +85,7 @@ def fuse_epilogues(pipeline: Any) -> int:
                     fns.append(lambda outs, _r=red: (_r(outs),))
                     dec._fused_epilogue = True
                     sig_parts.append(f"decode[{dec.fusion_signature()}]")
+                    reduces_frame = True
             break
         if fns:
             def post(outs, _fns=tuple(fns)):
@@ -88,7 +93,11 @@ def fuse_epilogues(pipeline: Any) -> int:
                     outs = f(outs)
                 return outs
 
-            fw.set_fused_epilogue(post)
+            # structural token (filters sharing a bundle coalesce only when
+            # their fused chains match); a decoder's reduce consumes one
+            # frame, so the fused output is not batch-led
+            fw.set_fused_epilogue(post, token="|".join(sig_parts),
+                                  batch_led=not reduces_frame)
         if sig_parts:
             log.info("fused %d epilogue stage(s) into %s (%s)", len(sig_parts),
                      el.name, "|".join(sig_parts))

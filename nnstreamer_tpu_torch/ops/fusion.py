@@ -23,6 +23,14 @@ from ..core.log import logger
 log = logger("fusion")
 
 
+def _transform_signature(t: Any) -> str:
+    """Structural identity of a transform stage (a coalesce-token part:
+    same mode and options, same function)."""
+    if t.transform_chain:
+        return ";".join(f"{m}:{o}" for m, o in t.transform_chain)
+    return f"{t.mode}:{t.option}"
+
+
 def fuse_chains(pipeline: Any) -> int:
     """Fuse eligible chains; returns number of transforms fused away."""
     from ..elements.filter import TensorFilter
@@ -63,7 +71,10 @@ def fuse_chains(pipeline: Any) -> int:
                 x = f(x)
             return x
 
-        el.fw.set_fused_preprocess(pre)
+        # structural token: filters sharing a bundle coalesce only when
+        # their fused chains compute the same function (sched engine)
+        el.fw.set_fused_preprocess(
+            pre, token="|".join(_transform_signature(t) for t in chain))
         fused += len(chain)
         log.info("fused %d transform(s) into %s's invoke", len(chain), el.name)
     return fused

@@ -40,10 +40,14 @@ controls) is allocated once and every program writes it in place, so the
 graphs replay over it. On the CPU, and inside ``graphs.disabled()``, the
 same programs run eagerly.
 
+``enroll(scheduler)`` makes the engine a tenant of a ``sched.DeviceEngine``:
+each iteration then runs on the engine's dispatch thread under its fair
+share, beside the pipelines' batches, and the three programs capture and
+replay there.
+
 Not ported yet (ROADMAP): the paged KV cache (``kv_page_size`` > 0 raises),
 disaggregation roles and sessions (freeze/export/checkpoint), deadlines,
-the sched/engine tenancy, the autotuner, and the obs, diag, health,
-quality, slo and tracing hooks.
+the autotuner, and the obs, diag, health, quality, slo and tracing hooks.
 """
 
 from __future__ import annotations
@@ -182,6 +186,13 @@ class LMEngine:
                       "tokens_out": 0, "wall_s": 0.0,
                       "spec_iterations": 0, "spec_drafted": 0,
                       "spec_accepted": 0}
+        # sched.DeviceEngine tenancy (enroll()/unenroll()); None means
+        # step_iteration runs direct
+        self._sched_tenant = None
+        self._sched_engine = None
+
+    #: the engine's tenant name on a DeviceEngine (``--sched-tenants lm:W``)
+    _engine_label = "lm"
 
     # -- public API ------------------------------------------------------- #
 
@@ -213,12 +224,48 @@ class LMEngine:
 
     def step_iteration(self) -> bool:
         """One scheduler iteration: admit into free slots, then one decode
-        chunk (or verify window). Returns True while work remains."""
+        chunk (or verify window). Returns True while work remains. When
+        enrolled as a sched.DeviceEngine tenant, the iteration runs under
+        the engine's deficit-round-robin fair share, on its dispatch
+        thread, so serving steps and pipeline batches interleave on one
+        card."""
+        tenant = self._sched_tenant
+        if tenant is not None:
+            ret = tenant.call(self._step_direct,
+                              label=f"{self._engine_label}.step")
+            # SHED only fires when the tenant carries a default deadline;
+            # the iteration didn't run, so work remains
+            return True if not isinstance(ret, bool) else ret
+        return self._step_direct()
+
+    def _step_direct(self) -> bool:
         t0 = time.monotonic()
         self._admit()
         self._decode()
         self.stats["wall_s"] += time.monotonic() - t0
         return self.pending() > 0
+
+    # -- sched.DeviceEngine tenancy ---------------------------------------- #
+    def enroll(self, scheduler: Any, *, name: Optional[str] = None,
+               weight: float = 1.0, priority: int = 0) -> None:
+        """Share the card with streaming pipelines: register this engine as
+        a tenant of a ``sched.DeviceEngine``. Subsequent ``step_iteration``
+        calls queue as opaque tenant work, so serving iterations and
+        pipeline batches take turns under one deficit-round-robin fairness.
+        Re-enrolling moves the engine to the new scheduler."""
+        self.unenroll()
+        self._sched_tenant = scheduler.register(
+            name or self._engine_label, weight=weight, priority=priority)
+        self._sched_engine = scheduler
+
+    def unenroll(self) -> None:
+        """Detach from the scheduler (no-op when not enrolled);
+        step_iteration goes back to direct execution."""
+        tenant, eng = self._sched_tenant, self._sched_engine
+        self._sched_tenant = None
+        self._sched_engine = None
+        if tenant is not None and eng is not None:
+            eng.deregister(tenant)
 
     def run(self) -> Dict[int, List[int]]:
         """Drive until every request finishes; returns {request id:

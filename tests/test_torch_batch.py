@@ -200,7 +200,7 @@ def test_fixed_budget_matches_jax(max_batch, budget_ms):
     port = TensorBatch(max_batch=max_batch, budget_ms=budget_ms)
     ref = JaxBatch(max_batch=max_batch, budget_ms=budget_ms)
     assert port._budget_s() == ref._budget_s() == budget_ms / 1000.0
-    assert port._sched_engine is None  # sched/ is not ported
+    assert port._sched_engine is None  # enrolled on no engine
 
 
 @pytest.mark.parametrize("gaps", [
@@ -224,6 +224,114 @@ def test_auto_budget_matches_jax_under_fake_clock(gaps):
     assert els["port"]._ema_interval == els["jax"]._ema_interval
     assert els["port"]._budget_s() == els["jax"]._budget_s()
     assert 0.002 <= els["port"]._budget_s() <= 0.5
+
+
+# --------------------------------------------------------------------------- #
+# the budget under a multi-tenant engine (JAX tests/test_batch.py
+# TestTenantAwareBudget): a backed-up DeviceEngine shrinks the window
+# --------------------------------------------------------------------------- #
+
+class _FakeEngine:
+    def __init__(self, depth=0):
+        self.depth = depth
+
+    def pending(self):
+        return self.depth
+
+
+class _BrokenEngine:
+    def pending(self):
+        raise RuntimeError("engine mid-teardown")
+
+
+def _both_batches(**props):
+    return {"port": TensorBatch(**props), "jax": JaxBatch(**props)}
+
+
+def test_sched_fixed_budget_unchanged_without_engine():
+    for el in _both_batches(max_batch=8, budget_ms=100.0).values():
+        assert el._budget_s() == 0.1
+
+
+def test_sched_engine_depth_shrinks_budget():
+    for el in _both_batches(max_batch=8, budget_ms=100.0).values():
+        eng = _FakeEngine(depth=8)
+        el.sched_enroll(eng, tenant=None)
+        # depth == max_batch -> budget halves
+        assert abs(el._budget_s() - 0.05) < 1e-9
+        eng.depth = 24  # 3x max_batch -> quarter
+        assert abs(el._budget_s() - 0.025) < 1e-9
+        eng.depth = 0  # idle engine -> full window again
+        assert el._budget_s() == 0.1
+
+
+def test_sched_detach_restores_full_budget():
+    for el in _both_batches(max_batch=8, budget_ms=100.0).values():
+        el.sched_enroll(_FakeEngine(depth=16), tenant=None)
+        assert el._budget_s() < 0.1
+        el.sched_detach()
+        assert el._budget_s() == 0.1
+        assert el._sched_engine is None
+
+
+def test_sched_engine_error_falls_back_to_full_budget():
+    for el in _both_batches(max_batch=8, budget_ms=100.0).values():
+        el.sched_enroll(_BrokenEngine(), tenant=None)
+        assert el._budget_s() == 0.1
+
+
+def test_sched_auto_budget_with_fake_clock_and_load():
+    """The arrival EMA through the injectable clock: exactly 4 ms gaps give
+    a deterministic auto window, then the engine's depth shrinks it, equal
+    in both packages."""
+    budgets = {}
+    bufs = {"port": Buffer, "jax": JaxBuffer}
+    for name, el in _both_batches(max_batch=8, budget_ms=0).items():
+        clock = _FakeClock()
+        el._clock = clock
+        for _ in range(6):
+            el._enqueue(bufs[name].from_arrays([np.ones((1, 4), np.float32)]))
+            clock.advance(0.004)
+        assert abs(el._ema_interval - 0.004) < 1e-12
+        base = el._budget_s()
+        assert abs(base - min(max(1.3 * 8 * 0.004, 0.002), 0.5)) < 1e-9
+        el.sched_enroll(_FakeEngine(depth=16), tenant=None)
+        budgets[name] = (base, el._budget_s())
+        assert abs(budgets[name][1] - base / 3.0) < 1e-9
+    assert budgets["port"] == budgets["jax"]
+
+
+def test_sched_deadline_math_uses_injected_clock():
+    for el in _both_batches(max_batch=8, budget_ms=50.0).values():
+        clock = _FakeClock()
+        el._clock = clock
+        deadline = el._clock() + el._budget_s()
+        assert deadline == 100.05
+        clock.advance(0.049)
+        assert deadline - el._clock() > 0
+        clock.advance(0.002)
+        assert deadline - el._clock() <= 0
+
+
+def test_sched_enrolled_pipeline_budget_reads_the_engine():
+    """A tensor_batch in a pipeline attached to a DeviceEngine is offered
+    the engine at start and dropped at stop."""
+    from nnstreamer_tpu_torch.sched import DeviceEngine
+
+    eng = DeviceEngine("batch", autostart=False)
+    p = Pipeline("batched", scheduler=eng, device="cpu")
+    src = p.add_new("appsrc", caps=_tensor_caps(tt, "3:4:4:1"),
+                    data=_frames(2), framerate=Fraction(30, 1))
+    bat = p.add_new("tensor_batch", max_batch=2, budget_ms=1000.0)
+    Pipeline.link(src, bat, p.add_new("tensor_unbatch"),
+                  p.add_new("tensor_sink"))
+    p.start()
+    try:
+        assert bat._sched_engine is eng
+        assert p.wait_eos(60)
+    finally:
+        p.stop()
+    assert bat._sched_engine is None and eng.tenants() == []
 
 
 def test_budget_deadline_flushes_a_partial_group_on_the_fake_clock():
