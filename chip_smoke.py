@@ -77,6 +77,28 @@ Phases (any failure exits non-zero before the result lines are printed):
      (nvidia-smi's utilization.gpu every 100 ms); then ``python -m
      nnstreamer_tpu_torch.cli --sched 8 --sched-tenants cam:2`` on the
      README's headline string exits 0 and prints its ``sched:`` line;
+  9c. the paged KV cache on bench.py's paged serving lane at full width
+     (``_serving_paged_lane``: 32 paged slots on a pool of 128 pages of 64
+     tokens against the 8-slot contiguous engine, the same KV bytes; 64
+     greedy requests sharing a 128-token prefix, prompts 160-256 tokens,
+     32-128 generated), over float32 params and their w8a8 form: first the
+     two admission routes (the window prefill of a whole prompt and the
+     prefix hit's suffix window over the shared pages) must give the
+     suffix's K/V rows and first-token logits bit for bit, their distance
+     from the dense ``lm_prefill_masked`` printed; one paged decode step
+     over 32 slots must give each slot's logits and page writes the bits of
+     the slot stepped alone, and replayed as a graph the eager step's (pages
+     1..n: the null page's writes are unordered); a copy-on-write and
+     host-offload case (one slot, 5 pages) must equal the contiguous
+     engine and count COW copies, offloads and re-uploads; then the mix on
+     both engines with graphs, a second mix (seed 8) on the same engines
+     (replays only), and the first again eagerly: every request's tokens
+     equal across engines and modes, three requests equal to their 1-slot
+     paged runs, ``hit_requests`` >= 31, ``pages_peak`` <= 128,
+     ``dequant_gelu_requant`` 8 x (prefills + decode steps) on w8a8;
+     tokens/s of both engines and their ratio, waste, peak memory, prefix
+     hit rate, evictions, COW copies, a chunk's gather and scatter device
+     ms and the captures by signature are printed;
  10. the flash prefill pipeline ``appsrc ! tensor_filter ! tensor_sink``
      over a prefill bundle of the same model, B 8 × T 1024, with flash
      attention (one ``flash_attention`` launch per layer) and dense, in two
@@ -260,6 +282,18 @@ LM_MAX_LEN, LM_SLOTS, LM_CHUNK = 1024, 8, 16
 #: bench.py's serving mix: prompt lengths and generation budgets cycle
 LM_REQUESTS, LM_PROMPTS, LM_GENS = 24, (64, 192, 384, 512), (32, 64, 96, 128)
 LM_ISOLATED = (0, 9, 22)  # requests re-run alone in a 1-slot engine
+#: bench.py's paged serving lane (_serving_paged_lane) at its full width:
+#: 32 paged slots on a pool of 128 pages of 64 tokens against the 8-slot
+#: contiguous engine, the same KV bytes; 64 greedy requests sharing a
+#: 128-token prefix, prompts 160-256 tokens, 32-128 generated
+PAGED_SLOTS, PAGE_SIZE = 32, 64
+PAGED_POOL = LM_SLOTS * LM_MAX_LEN // PAGE_SIZE
+PAGED_REQUESTS, PAGED_PREFIX = 64, 128
+PAGED_PROMPTS, PAGED_GENS = (160, 192, 224, 256), (32, 64, 96, 128)
+PAGED_ISOLATED = (0, 33, 62)  # requests re-run alone in a 1-slot paged engine
+#: the copy-on-write and offload case: a pool of 5 pages, one slot, host
+#: offload, a 96-token shared prefix (a page and a half)
+COW_POOL, COW_PREFIX = 5, 96
 FLASH_B, FLASH_T, FLASH_FRAMES = 8, 1024, 8
 #: README.md's headline nns-launch pipeline, as the README prints it
 HEADLINE = ("videotestsrc ! tensor_converter ! tensor_transform mode=arithmetic "
@@ -2045,6 +2079,364 @@ def run_lm_serving(params, quant: str, counters) -> dict:
     return launches
 
 
+def _paged_requests(seed: int) -> list:
+    """bench.py's paged lane mix (its seed 7): a shared prefix, then two
+    admission waves, the second sorted longest budget first."""
+    v = LM_DIMS[0]
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, v, PAGED_PREFIX).astype(np.int32)
+    wave = [PAGED_GENS[i % len(PAGED_GENS)] for i in range(PAGED_REQUESTS // 2)]
+    requests = []
+    for i, g in enumerate(wave + sorted(wave, reverse=True)):
+        p = PAGED_PROMPTS[i % len(PAGED_PROMPTS)]
+        suffix = rng.integers(0, v, p - PAGED_PREFIX).astype(np.int32)
+        requests.append((np.concatenate([prefix, suffix]), g))
+    return requests
+
+
+def _paged_engine(params, n_slots: int, pages: int = PAGED_POOL, **kw):
+    from nnstreamer_tpu_torch.serving import LMEngine
+
+    return LMEngine(params, LM_DIMS[2], LM_MAX_LEN, n_slots=n_slots, chunk=LM_CHUNK,
+                    kv_page_size=PAGE_SIZE, kv_pages=pages, **kw)
+
+
+def _install_prefill(params, kpool, vpool, prompt, pages) -> None:
+    """The admit prefill (``lm_prefill_window``) of ``prompt`` at the slot
+    view's capacity, its first ``len(pages)`` pages scattered into the pools
+    (what the engine's no-hit admission writes)."""
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.serving import next_pow2_bucket
+
+    h, t = LM_DIMS[2], len(prompt)
+    padded = torch.zeros((1, min(next_pow2_bucket(t), LM_MAX_LEN)), dtype=torch.int32,
+                         device="cuda")
+    padded[0, :t] = torch.from_numpy(prompt).cuda()
+    _, kc, vc, _ = causal_lm.lm_prefill_window(params, padded, t, h, LM_MAX_LEN)
+    lh, m, hd = kc.shape
+    for pool, c in ((kpool, kc), (vpool, vc)):
+        pool.index_copy_(0, pages, c.view(lh, m // PAGE_SIZE, PAGE_SIZE, hd)
+                         .transpose(0, 1)[:len(pages)])
+
+
+def check_prefix_routes(params, quant: str, requests) -> dict:
+    """The two routes a prompt sharing the 128-token prefix can take: the
+    contiguous engine's admit prefill (``lm_prefill_window``: the whole
+    prompt as a window of its bucket at position 0) and the paged engine's
+    prefix hit (``lm_prefill_paged``: the suffix alone as a window of its
+    own bucket) over pages holding the prefix as the first request's no-hit
+    prefill writes them. For one prompt of each length the suffix's K and V
+    rows, layer by layer, and the first-token logits must be bit-equal;
+    the largest difference of each from the dense ``lm_prefill_masked``
+    (the JAX engine's admit form) is printed beside. Returns those."""
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.serving import next_pow2_bucket
+    from nnstreamer_tpu_torch.serving.kv_cache import empty_page_pool
+
+    v, d, h, n_layers = LM_DIMS
+    hd, n_pages = d // h, LM_MAX_LEN // PAGE_SIZE
+    table = torch.arange(1, n_pages + 1, device="cuda")
+    dense = {"k": 0.0, "v": 0.0, "logits": 0.0, "argmax_differs": 0}
+
+    def rows_by_layer(c, rows):
+        return c.view(n_layers, h, LM_MAX_LEN, hd)[:, :, rows]
+
+    for p, _ in requests[:len(PAGED_PROMPTS)]:
+        t, ts = len(p), len(p) - PAGED_PREFIX
+        padded = torch.zeros((1, min(next_pow2_bucket(t), LM_MAX_LEN)),
+                             dtype=torch.int32, device="cuda")
+        padded[0, :t] = torch.from_numpy(p).cuda()
+        lg_a, kc, vc, _ = causal_lm.lm_prefill_window(params, padded, t, h, LM_MAX_LEN)
+        lg_d, kd, vd, _ = causal_lm.lm_prefill_masked(params, padded, t, h, LM_MAX_LEN)
+        kpool, vpool = empty_page_pool(n_pages, n_layers, h, PAGE_SIZE, hd, "cuda")
+        _install_prefill(params, kpool, vpool, requests[0][0],
+                         table[:PAGED_PREFIX // PAGE_SIZE])
+        window = torch.zeros((1, min(next_pow2_bucket(ts), LM_MAX_LEN)),
+                             dtype=torch.int32, device="cuda")
+        window[0, :ts] = torch.from_numpy(p[PAGED_PREFIX:]).cuda()
+        pos0, tl = torch.tensor(PAGED_PREFIX, device="cuda"), torch.tensor(ts, device="cuda")
+        # the whole view's 1024 columns, then the columns the window can see
+        # (the engine's), which must change no bit
+        full = [pool.clone() for pool in (kpool, vpool)]
+        lg_f, _, _, _ = causal_lm.lm_prefill_paged(params, window, *full, table, pos0, tl, h)
+        lg_b, _, _, _ = causal_lm.lm_prefill_paged(
+            params, window, kpool, vpool, table, pos0, tl, h,
+            causal_lm.attend_cols(PAGED_PREFIX + window.shape[1], LM_MAX_LEN))
+        rows = slice(PAGED_PREFIX, t)
+        same = _identical(lg_a, lg_b) and _identical(lg_f, lg_b) \
+            and _identical(full[0][1:], kpool[1:]) and _identical(full[1][1:], vpool[1:])
+        dk, dv = [], []
+        for pool, c, cd, out in ((kpool, kc, kd, dk), (vpool, vc, vd, dv)):
+            b = rows_by_layer(causal_lm.paged_view_slots(pool, table[None])[0], rows)
+            a = rows_by_layer(c, rows)
+            same = same and _identical(a, b)
+            dd = rows_by_layer(cd, rows)
+            out.extend(_max_abs_err(dd[i], b[i]) for i in range(n_layers))
+        dl = _max_abs_err(lg_d[0], lg_b[0])
+        flips = int(lg_d[0].argmax()) != int(lg_b[0].argmax())
+        dense["k"], dense["v"] = max(dense["k"], *dk), max(dense["v"], *dv)
+        dense["logits"] = max(dense["logits"], dl)
+        dense["argmax_differs"] += int(flips)
+        if not same:
+            raise AssertionError(
+                f"{quant}: prompt {t}'s suffix K/V rows or first-token logits differ "
+                f"between the window prefill and the prefix-hit route (or the hit "
+                f"over its columns and over the whole view), logits by "
+                f"{_max_abs_err(lg_a[0], lg_b[0])}")
+        print(f"lm paged {quant} routes, prompt {t} (suffix {ts}, window "
+              f"{window.shape[1]} against bucket {padded.shape[1]}): the prefix-hit "
+              f"route's suffix K/V rows and first-token logits == the window "
+              f"prefill's, bit for bit, and over its columns == over the whole view; "
+              f"against the dense lm_prefill_masked: K rows by "
+              f"layer {[f'{x:.3e}' for x in dk]}, V {[f'{x:.3e}' for x in dv]}, logits "
+              f"{dl:.3e}, argmax {'differs' if flips else 'equal'}", flush=True)
+    return dense
+
+
+def check_paged_step_invariance(params, quant: str, requests) -> None:
+    """One paged decode step over 32 slots (ops/int8.MIN_ROWS rows) holding
+    the lane's prompts: each slot's logits and page writes equal the slot
+    stepped alone, bit for bit, and the step replayed as a CUDA graph equals
+    it eager. Pools are compared over pages 1..n: which write of the null
+    page 0 lands is unordered."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.serving.kv_cache import empty_page_pool
+
+    v, d, h, n_layers = LM_DIMS
+    own = max(PAGED_PROMPTS) // PAGE_SIZE + 1  # the prompt's pages and one to decode into
+    kpool, vpool = empty_page_pool(PAGED_SLOTS * own, n_layers, h, PAGE_SIZE, d // h,
+                                   "cuda")
+    tables = torch.zeros((PAGED_SLOTS, LM_MAX_LEN // PAGE_SIZE), dtype=torch.int64,
+                         device="cuda")
+    pos = torch.zeros((PAGED_SLOTS, 1), dtype=torch.int32, device="cuda")
+    for s in range(PAGED_SLOTS):
+        p = requests[s][0]
+        tables[s, :own] = torch.arange(1 + s * own, 1 + (s + 1) * own)
+        _install_prefill(params, kpool, vpool, p, tables[s, :own])
+        pos[s] = len(p)
+    rng = np.random.default_rng(2)
+    tokens = torch.from_numpy(rng.integers(0, v, (PAGED_SLOTS, 1, 1)).astype(np.int32)).cuda()
+    k32, v32 = kpool.clone(), vpool.clone()
+    lg32, _, _, _ = causal_lm.lm_decode_step_paged(params, tokens, k32, v32, tables,
+                                                   pos.clone(), h)
+    for s in range(PAGED_SLOTS):
+        k1, v1 = kpool.clone(), vpool.clone()
+        lg1, _, _, _ = causal_lm.lm_decode_step_paged(params, tokens[s:s + 1], k1, v1,
+                                                      tables[s:s + 1], pos[s:s + 1].clone(), h)
+        mine = tables[s, :own]
+        if not (torch.equal(lg1[0], lg32[s]) and torch.equal(k1[mine], k32[mine])
+                and torch.equal(v1[mine], v32[mine])):
+            raise AssertionError(f"{quant}: slot {s}'s paged decode step differs batched "
+                                 f"and alone, logits by {_max_abs_err(lg1[0], lg32[s])}")
+    step = graphs.CapturedFn(
+        lambda tok, kk, vv, tb, pp: causal_lm.lm_decode_step_paged(params, tok, kk, vv, tb,
+                                                                   pp, h),
+        f"lm {quant} paged decode step")
+    for _ in range(2):
+        lgr, kr, vr, _ = step(tokens, kpool.clone(), vpool.clone(), tables, pos.clone())
+    if len(step) != 1 or not (_identical(lgr, lg32) and _identical(kr[1:], k32[1:])
+                              and _identical(vr[1:], v32[1:])):
+        raise AssertionError(f"{quant}: a replayed paged decode step's pages or logits "
+                             f"differ from the eager step's, logits by "
+                             f"{_max_abs_err(lgr, lg32)}")
+    print(f"lm paged {quant} decode step: all {PAGED_SLOTS} slots' logits and page writes "
+          f"== the slot stepped alone, bit for bit; the step replayed as a CUDA graph == "
+          f"the eager step (pages 1..{kpool.shape[0] - 1}), bit for bit", flush=True)
+
+
+def _signatures(eng) -> dict:
+    """The engine's captured signatures by program: the admit prefill's
+    (bucket, static values), the chunk's steps, the verify window's width."""
+    out = {}
+    for name, prog in (("prefill", eng._prefill_prog),
+                       ("paged prefill", eng._paged_prefill_prog),
+                       ("chunk", eng._chunk_prog), ("verify", eng._verify_prog)):
+        keys = []
+        for shapes, static in prog._graphs:
+            first = [list(a[0]) for a in shapes[:1]]
+            keys.append(f"{first}{dict(static)}" if first else str(dict(static)))
+        if keys:
+            out[name] = sorted(keys)
+    return out
+
+
+def _gather_scatter_ms(eng) -> tuple:
+    """Device ms of one chunk's gather (both pools' views of every slot) and
+    of its scatter (the touched pages of every slot back), timed with CUDA
+    events over 10 calls each on the engine's pools, every slot's table
+    full of pages (the pool's pages in turn)."""
+    from nnstreamer_tpu_torch.models import causal_lm
+
+    kv = eng._kv
+    s_, b = eng._table.shape
+    tables = (torch.arange(s_ * b, device="cuda") % kv.n_pages + 1).view(s_, b)
+    nt = causal_lm.paged_touch_span(LM_CHUNK, PAGE_SIZE, tables.shape[1])
+    p0s = torch.full((tables.shape[0],), 200, dtype=torch.int32, device="cuda")
+    views = [causal_lm.paged_view_slots(pool, tables) for pool in (kv.kpool, kv.vpool)]
+
+    def gather():
+        for pool in (kv.kpool, kv.vpool):
+            causal_lm.paged_view_slots(pool, tables)
+
+    def scatter():
+        for pool, view in zip((kv.kpool, kv.vpool), views):
+            causal_lm.paged_update_slots(pool, view, tables, p0s, nt)
+
+    out = []
+    for fn in (gather, scatter):
+        fn()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(10):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        out.append(start.elapsed_time(end) / 10)
+    return tuple(out)
+
+
+def check_paged_cow_offload(params, quant: str) -> dict:
+    """Copy-on-write and host offload at full width: one slot on a pool of
+    COW_POOL pages with ``kv_host_offload``; two prompts of two and a half
+    pages sharing a prefix that ends mid-page (the second is served by a COW
+    copy), two unrelated ones that evict the first two's pages to the host,
+    and the first prompt again (its pages re-uploaded), each generating half
+    a page. Tokens equal the contiguous engine's."""
+    v, gen = LM_DIMS[0], PAGE_SIZE // 2
+    rng = np.random.default_rng(11)
+
+    def tokens(n):
+        return rng.integers(0, v, n).astype(np.int32)
+
+    prefix = tokens(COW_PREFIX)
+    first = np.concatenate([prefix, tokens(PAGE_SIZE)])
+    requests = [(first, gen), (np.concatenate([prefix, tokens(PAGE_SIZE)]), gen),
+                (tokens(len(first)), gen), (tokens(len(first)), gen), (first, gen)]
+    want, _, _, _ = _serve(params, requests, 2)
+    got, _, _, eng = _serve(params, requests, 1,
+                            _paged_engine(params, 1, COW_POOL, kv_host_offload=True))
+    kv = eng.kv_stats
+    if got != want or min(kv["cow_copies"], kv["offloads"], kv["reuploads"]) < 1:
+        first_bad = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b), -1)
+        raise AssertionError(f"{quant}: COW/offload case: request {first_bad} differs "
+                             f"from the contiguous engine, or stats {kv}")
+    print(f"lm paged {quant} copy-on-write and offload ({COW_POOL} pages, 1 slot, a "
+          f"{COW_PREFIX}-token prefix): 5 requests == the contiguous engine's; "
+          f"cow_copies={kv['cow_copies']}, offloads={kv['offloads']}, "
+          f"reuploads={kv['reuploads']}, evictions={kv['evictions']}, "
+          f"hit_tokens={kv['hit_tokens']}", flush=True)
+    return kv
+
+
+def run_lm_paged(params, quant: str, counters) -> dict:
+    """bench.py's paged serving lane at full width: the 32-slot paged engine
+    against the 8-slot contiguous engine on the same 64 requests, with
+    graphs and then eagerly; returns the launches of the paged graph run
+    (counts set to 0 just before it)."""
+    from nnstreamer_tpu_torch.core import graphs
+
+    v, _, _, n_layers = LM_DIMS
+    requests, again = _paged_requests(7), _paged_requests(8)
+    routes = check_prefix_routes(params, quant, requests)
+    check_paged_step_invariance(params, quant, requests)
+    cow = check_paged_cow_offload(params, quant)
+    _serve(params, requests[:2], PAGED_SLOTS, _paged_engine(params, PAGED_SLOTS))
+
+    def both_mixes(make, n_slots):
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        eng = make()
+        counters.reset()
+        outs, stats, wall, eng = _serve(params, requests, n_slots, eng)
+        launches, st = counters.read(), graphs.stats()
+        kv = eng.kv_stats
+        outs2, stats2, wall2, eng = _serve(params, again, n_slots, eng)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+        return dict(outs=outs, stats=stats, wall=wall, launches=launches, graphs=st,
+                    kv=kv, outs2=outs2, stats2=stats2, wall2=wall2, peak_mib=peak,
+                    signatures=_signatures(eng),
+                    gather_scatter=_gather_scatter_ms(eng) if eng._kv is not None else None)
+
+    make_paged = lambda: _paged_engine(params, PAGED_SLOTS)  # noqa: E731
+    make_cont = lambda: None  # noqa: E731 (_serve builds the contiguous engine)
+    with _mode(eager=False):
+        paged = both_mixes(make_paged, PAGED_SLOTS)
+    with _mode(eager=False):
+        cont = both_mixes(make_cont, LM_SLOTS)
+    with _mode(eager=True):
+        paged_e, _, paged_e_wall, _ = _serve(params, requests, PAGED_SLOTS, make_paged())
+        cont_e, _, cont_e_wall, _ = _serve(params, requests, LM_SLOTS)
+    for name, got, want in (("paged", paged["outs"], cont["outs"]),
+                            ("paged, second mix", paged["outs2"], cont["outs2"]),
+                            ("paged eager", paged_e, paged["outs"]),
+                            ("contiguous eager", cont_e, cont["outs"])):
+        if got != want:
+            bad = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            tok = next(j for j, (a, b) in enumerate(zip(got[bad[0]], want[bad[0]]))
+                       if a != b) if len(got[bad[0]]) == len(want[bad[0]]) else -1
+            raise AssertionError(f"{quant}: {name}: {len(bad)} of {len(want)} requests "
+                                 f"differ (the first, request {bad[0]}, at token {tok})")
+    for i in PAGED_ISOLATED:
+        alone, _, _, _ = _serve(params, [requests[i]], 1, _paged_engine(params, 1))
+        if alone[0] != paged["outs"][i]:
+            raise AssertionError(f"{quant}: request {i} in the {PAGED_SLOTS}-slot paged "
+                                 "engine differs from its 1-slot paged run")
+    kv, stats = paged["kv"], paged["stats"]
+    want_dgr = n_layers * (stats["prefills"] + stats["decode_steps"]) \
+        if quant == "w8a8" else 0
+    if kv["hit_requests"] < PAGED_REQUESTS // 2 - 1 or kv["hit_tokens"] < 1 \
+            or kv["pages_peak"] > PAGED_POOL \
+            or paged["launches"]["dequant_gelu_requant"] != want_dgr \
+            or stats["prefills"] != PAGED_REQUESTS:
+        raise AssertionError(f"{quant}: paged kv_stats {kv}, {stats['prefills']} "
+                             f"prefills, dequant_gelu_requant "
+                             f"{paged['launches']['dequant_gelu_requant']} (want {want_dgr})")
+    tokens = sum(len(o) for o in paged["outs"])
+    tokens2 = sum(len(o) for o in paged["outs2"])
+
+    def waste(st, slots):
+        return st["wasted_slot_steps"] / max(1, slots * st["decode_steps"])
+
+    rate = {k: tokens / r["wall"] for k, r in (("paged", paged), ("contiguous", cont))}
+    rate2 = {k: tokens2 / r["wall2"] for k, r in (("paged", paged), ("contiguous", cont))}
+    gms, sms = paged["gather_scatter"]
+    print(f"lm paged {quant} (V {v}, d {LM_DIMS[1]}, {LM_DIMS[2]} heads, {n_layers} layers; "
+          f"max_len {LM_MAX_LEN}, chunk {LM_CHUNK}; {PAGED_SLOTS} slots on {PAGED_POOL} "
+          f"pages of {PAGE_SIZE} against {LM_SLOTS} contiguous slots; {PAGED_REQUESTS} "
+          f"greedy requests, a {PAGED_PREFIX}-token shared prefix): every request's tokens "
+          f"== the contiguous engine's, graphs == eager, requests {list(PAGED_ISOLATED)} == "
+          f"their 1-slot paged runs; a new engine (its captures included) paged "
+          f"{rate['paged']:.2f} tokens/s, contiguous {rate['contiguous']:.2f} (ratio "
+          f"{rate['paged'] / rate['contiguous']:.4f}); the same engines on a second mix "
+          f"(seed 8, replays only) {rate2['paged']:.2f} and {rate2['contiguous']:.2f} "
+          f"(ratio {rate2['paged'] / rate2['contiguous']:.4f}); eager {tokens / paged_e_wall:.2f} "
+          f"and {tokens / cont_e_wall:.2f}; waste fraction paged {waste(stats, PAGED_SLOTS):.4f}, "
+          f"contiguous {waste(cont['stats'], LM_SLOTS):.4f}; decode steps "
+          f"{stats['decode_steps']} and {cont['stats']['decode_steps']}; peak memory above "
+          f"the params paged {paged['peak_mib']:.1f} MiB, contiguous {cont['peak_mib']:.1f} "
+          f"MiB; prefix hit rate {kv['hit_tokens'] / max(1, kv['prompt_tokens']):.4f} "
+          f"(hit_requests {kv['hit_requests']}, hit_tokens {kv['hit_tokens']}), pages_peak "
+          f"{kv['pages_peak']}, evictions {kv['evictions']}, cow_copies {kv['cow_copies']}; "
+          f"a chunk's gather {gms:.4f} ms and scatter {sms:.4f} ms on the device; "
+          f"launches {json.dumps(paged['launches'])}; captures by signature "
+          f"{json.dumps(paged['signatures'])}", flush=True)
+    LOOP_STATS[f"lm_paged_{quant}"] = {
+        "tokens_per_s": rate, "tokens_per_s_second_mix": rate2,
+        "eager_tokens_per_s": {"paged": tokens / paged_e_wall,
+                               "contiguous": tokens / cont_e_wall},
+        "waste": {"paged": waste(stats, PAGED_SLOTS),
+                  "contiguous": waste(cont["stats"], LM_SLOTS)},
+        "peak_mib": {"paged": paged["peak_mib"], "contiguous": cont["peak_mib"]},
+        "kv_stats": kv, "gather_ms": gms, "scatter_ms": sms, "routes": routes,
+        "cow_offload": cow}
+    sigs = sum(len(x) for x in paged["signatures"].values())
+    _record_graphs(f"lm paged {quant}", sigs, "tokens/s (new engine)", rate["paged"],
+                   tokens / paged_e_wall, paged["graphs"])
+    return paged["launches"]
+
+
 def run_flash_prefill(counters, dtype: torch.dtype) -> dict:
     """appsrc ! tensor_filter (prefill bundle over ``dtype`` params) !
     tensor_sink with flash and dense attention; returns the flash run's
@@ -3741,6 +4133,8 @@ def main() -> int:
     by_phase["lm serving float32"] = run_lm_serving(params, "float32", counters)
     by_phase["lm serving w8a8"] = run_lm_serving(quantize_lm_params(params), "w8a8",
                                                  counters)
+    by_phase["lm paged float32"] = run_lm_paged(params, "float32", counters)
+    by_phase["lm paged w8a8"] = run_lm_paged(quantize_lm_params(params), "w8a8", counters)
     with tempfile.TemporaryDirectory() as tmp:
         by_phase["multi-tenant"] = run_multitenant(params, counters, tmp)
     del params

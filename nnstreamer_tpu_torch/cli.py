@@ -14,9 +14,11 @@ pipeline runs on unless the string names its own, the counterpart of the
 JAX package's ``JAX_PLATFORMS``, and --sched[=WIDTH]/--sched-tenants
 (multi-tenant device scheduler: one ``sched.DeviceEngine`` coalescing
 every pipeline's filter invokes, WIDTH the coalesce cap, default 8 when
-bare; presets ``NAME:W[:PRIO][,...]``). The JAX CLI's observability,
-query, fleet, resilience and serving-role flags wait for their layers and
-are refused.
+bare; presets ``NAME:W[:PRIO][,...]``), and --kv-page-size/--kv-pages
+(the paged KV cache of every ``LMEngine`` built during the run, through the
+``NNS_LM_KV_PAGE_SIZE``/``NNS_LM_KV_PAGES`` environment). The JAX CLI's
+observability, query, fleet, resilience and serving-role flags wait for
+their layers and are refused.
 
 Exit codes: 0 at EOS, 1 on a parse, negotiation or runtime error, 2 when
 the timeout passes before EOS.
@@ -25,6 +27,7 @@ the timeout passes before EOS.
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 import time
 
@@ -80,6 +83,13 @@ def main(argv=None) -> int:
                          "priority class per tenant name; names match "
                          "the pipeline name and serving-engine labels "
                          "(e.g. cam:2,lm:1:1)")
+    ap.add_argument("--kv-page-size", type=int, default=None, metavar="TOK",
+                    help="enable the paged KV cache on every LMEngine built "
+                         "during the run: tokens per page (must divide the "
+                         "engine max_len; sets NNS_LM_KV_PAGE_SIZE)")
+    ap.add_argument("--kv-pages", type=int, default=None, metavar="N",
+                    help="KV page-pool size shared by all slots (sets "
+                         "NNS_LM_KV_PAGES; needs --kv-page-size)")
     args = ap.parse_args(_normalize_argv(
         sys.argv[1:] if argv is None else list(argv)))
 
@@ -119,6 +129,20 @@ def main(argv=None) -> int:
                 ap.error(f"--sched-tenants: bad spec {spec!r} "
                          "(want name:weight[:priority], weight > 0)")
             sched_presets.append((parts[0], w, prio))
+    if args.kv_pages is not None and args.kv_page_size is None:
+        ap.error("--kv-pages needs --kv-page-size (paging is off without "
+                 "a page size)")
+    if args.kv_page_size is not None:
+        if args.kv_page_size < 1:
+            ap.error("--kv-page-size must be >= 1")
+        if args.kv_pages is not None and args.kv_pages < 1:
+            ap.error("--kv-pages must be >= 1")
+        # the environment carries them: engines are built deep inside the
+        # pipeline's elements, and LMEngine reads NNS_LM_KV_* when it is
+        # given no explicit kv_page_size/kv_pages
+        os.environ["NNS_LM_KV_PAGE_SIZE"] = str(args.kv_page_size)
+        if args.kv_pages is not None:
+            os.environ["NNS_LM_KV_PAGES"] = str(args.kv_pages)
 
     from .core.hw import resolve_device
     from .graph import Pipeline

@@ -15,7 +15,8 @@ prefill (``lm_prefill``: dense, or the hand-written flash kernel per layer
 with ``flash=True`` / ``NNS_LM_FLASH=1``; ``lm_prefill_masked`` for a
 right-padded prompt), the decode step and the speculative verify window
 (``lm_decode_step``, ``lm_verify_window``) and their per-slot forms for
-continuous batching (``*_slots``). Exactness between forms is the
+continuous batching (``*_slots``), and the serving engines' admit prefill
+(``lm_prefill_window``). Exactness between forms is the
 family's contract: step decoding reproduces the forward's logits.
 
 Contracts carried over, each pinned by a CPU test:
@@ -31,15 +32,20 @@ Contracts carried over, each pinned by a CPU test:
 Unlike JAX's functional updates, the step forms write their K/V into the
 caches they are given, in place, and return those same tensors: a serving
 engine's stores (hundreds of MB at serving widths) are never copied per
-step. The paged forms wait for the port of serving/kv_cache.py.
+step. The paged forms (``lm_prefill_paged``, ``lm_verify_window_paged``,
+``lm_decode_step_paged``) gather a slot's pages from a serving/kv_cache.py
+pool into that layout, run the same body and scatter the touched pages back
+into the pool, in place.
 
 The step forms are batch-invariant, which the serving engine's exactness
-contract needs (a stream's tokens equal its isolated run's): a slot's row
-gets the same bits in a step of up to ``ops.int8.MIN_ROWS`` slots as alone.
-LayerNorm sums its statistics in float64, the GEMMs pad their rows
-(ops/int8.py) and the step's attention is products and sums
-(``_attend_cache``), because PyTorch's float32 reductions and cuBLAS pick
-their kernels by the batch.
+contract needs (a stream's tokens equal its isolated run's, and a paged
+engine's its contiguous run's): a row gets the same bits in a step of any
+slot count, in a verify window of any width and in a prompt's prefill
+window (``lm_prefill_window``, the engines' admit prefill) as alone.
+LayerNorm sums its statistics in float64, the GEMMs run in blocks of
+``ops.int8.MIN_ROWS`` rows (ops/int8.py) and the step's attention is
+products and pairwise-tree sums (``_attend_cache``), because PyTorch's
+float32 reductions and cuBLAS pick their kernels by the batch.
 
 Cache transport layout: rank-3 ``(layers·batch·heads, max_len, head_dim)``.
 """
@@ -159,18 +165,52 @@ def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.softmax(s, dim=-1) @ v
 
 
+def _tree_sum(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """Sum over ``dim`` as a fixed pairwise tree: zero-padded to a power of
+    two, then the upper half added to the lower, elementwise, until one is
+    left. Each sum's order, so its bits, depends on the length alone; a
+    reduction kernel splits a row by how many rows it reduces (PyTorch's
+    ``sum`` gives a slot's row other bits in a step of 32 slots than
+    alone)."""
+    dim %= x.dim()
+    n = x.shape[dim]
+    p2 = 1 << max(0, n - 1).bit_length()
+    if p2 != n:
+        x = torch.nn.functional.pad(x, [0, 0] * (x.dim() - 1 - dim) + [0, p2 - n])
+    while x.shape[dim] > 1:
+        h = x.shape[dim] // 2
+        x = x.narrow(dim, 0, h) + x.narrow(dim, h, h)
+    return x.squeeze(dim)
+
+
 def _attend_cache(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   live: torch.Tensor) -> torch.Tensor:
     """``_attend`` of a step's (..., W, hd) queries over (..., M, hd)
-    caches, as products and sums: cuBLAS's batched GEMM picks its kernel by
-    the batch count, so a slot's scores and output would get other bits
-    batched than alone; these reductions split each row alike at any slot
-    count."""
+    caches, as products and pairwise-tree sums (``_tree_sum``): cuBLAS's
+    batched GEMM picks its kernel by the batch count and PyTorch's
+    reductions split a row by the row count, so either would give a row
+    other bits with other rows beside it; here each row's bits depend only
+    on its own query, the cache and M (the softmax reduces each row on its
+    own).
+
+    The softmax's sum is a tree sum too, so columns masked for every row
+    contribute exact zeros to power-of-two-aligned halves: attending only
+    the first ``cols`` columns (a power of two covering every live column)
+    gives the bits of attending all of them."""
     q, k, v = _promote(q, k, v)
-    s = (q.unsqueeze(-2) * k.unsqueeze(-3)).sum(-1) / _sqrt_d(q)
+    s = _tree_sum(q.unsqueeze(-2) * k.unsqueeze(-3), -1) / _sqrt_d(q)
     s = torch.where(live, s, _MASK)
-    p = torch.softmax(s, dim=-1)
-    return (p.unsqueeze(-1) * v.unsqueeze(-3)).sum(-2)
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    p = e / _tree_sum(e, -1).unsqueeze(-1)
+    return _tree_sum(p.unsqueeze(-1) * v.unsqueeze(-3), -2)
+
+
+def attend_cols(reach: int, max_len: int) -> int:
+    """The columns a window whose rows attend no column at or past ``reach``
+    needs: the power of two covering ``reach`` (``max_len`` at most). With
+    ``_attend_cache``'s tree sums the result is bit-equal to attending all
+    ``max_len`` columns."""
+    return min(max_len, 1 << max(0, reach - 1).bit_length())
 
 
 def _split_heads(t: torch.Tensor, n_heads: int) -> torch.Tensor:
@@ -311,12 +351,16 @@ def lm_prefill_masked(params: Params, tokens: torch.Tensor,
 
 
 def _verify_window(params: Params, tokens: torch.Tensor, kc: torch.Tensor,
-                   vc: torch.Tensor, pos: torch.Tensor, n_heads: int
+                   vc: torch.Tensor, pos: torch.Tensor, n_heads: int,
+                   cols: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The one body of every step form. tokens (S, B, W); kc/vc views
     (S, L, B, H, max_len, hd), written in place; pos (S,) int, each
     stream's next write position. Returns (logits (S, B, W, vocab),
-    pos + W). Query row j of a window attends cache columns <= pos + j."""
+    pos + W). Query row j of a window attends cache columns <= pos + j.
+    ``cols`` (``attend_cols`` of the window's reach, pos + W) restricts the
+    attention to the columns any row can see; the bits are those of
+    attending all max_len."""
     s_, b, w = tokens.shape
     n_layers, max_len = kc.shape[1], kc.shape[4]
     d_model = params["embed"].shape[1]
@@ -327,13 +371,16 @@ def _verify_window(params: Params, tokens: torch.Tensor, kc: torch.Tensor,
     pe = params["pos_embed"]
     pe_rows = pe[(p.clamp(0, pe.shape[0] - w))[:, None] + ar_w]  # (S, W, D)
     x = params["embed"][tokens.long()] + pe_rows[:, None]
-    live = (torch.arange(max_len, device=dev)[None, None, :]
-            <= (p[:, None] + ar_w)[:, :, None])[:, None, None]  # (S,1,1,W,M)
+    cols = max_len if cols is None else cols
+    live = (torch.arange(cols, device=dev)[None, None, :]
+            <= (p[:, None] + ar_w)[:, :, None])[:, None, None]  # (S,1,1,W,C)
     rows = (p.clamp(0, max_len - w)[:, None] + ar_w)  # (S, W): clamped start
     slot = torch.arange(s_, device=dev)[:, None]
+    # every GEMM runs in MIN_ROWS-row blocks: a row's bits are then the same
+    # in a decode step, a wide verify window or a prompt's prefill window
     for li in range(n_layers):
         a = _ln(x, params["ln1"][li])
-        q, k, v = torch.split(matmul_any(a, _layer(params["wqkv"], li)),
+        q, k, v = torch.split(matmul_any(a, _layer(params["wqkv"], li), True),
                               d_model, dim=-1)  # (S, B, W, D)
         q = q.reshape(s_, b, w, n_heads, hd).permute(0, 1, 3, 2, 4)
         kl, vl = kc[:, li], vc[:, li]  # (S, B, H, M, hd)
@@ -342,18 +389,58 @@ def _verify_window(params: Params, tokens: torch.Tensor, kc: torch.Tensor,
             k.reshape(s_, b, w, n_heads, hd).permute(0, 2, 1, 3, 4).to(kc.dtype)
         vl.permute(0, 3, 1, 2, 4)[slot, rows] = \
             v.reshape(s_, b, w, n_heads, hd).permute(0, 2, 1, 3, 4).to(vc.dtype)
-        o = _attend_cache(q, kl, vl, live)  # (S, B, H, W, hd)
+        o = _attend_cache(q, kl[..., :cols, :], vl[..., :cols, :],
+                          live)  # (S, B, H, W, hd)
         o = o.permute(0, 1, 3, 2, 4).reshape(s_, b, w, d_model)
-        x = x + matmul_any(o, _layer(params["wo"], li))
+        x = x + matmul_any(o, _layer(params["wo"], li), True)
         m = _ln(x, params["ln2"][li])
         x = x + mlp_matmul(m, _layer(params["w1"], li),
-                           _layer(params["w2"], li))
-    logits = _unembed(x, params)
+                           _layer(params["w2"], li), True)
+    logits = matmul_any(_ln(x, params["lnf"]), params["embed"].T, True)
     # a window past capacity surfaces as NaN logits, not as a silent
     # clamped overwrite of the last slots
     over = (p + w > max_len).reshape(s_, 1, 1, 1)
     logits = torch.where(over, torch.nan, logits)
     return logits, p + w
+
+
+def lm_prefill_window(params: Params, tokens: torch.Tensor,
+                      true_len: Union[int, torch.Tensor], n_heads: int,
+                      max_len: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                 torch.Tensor]:
+    """Prefill a right-padded prompt as one verify window at position 0 over
+    an empty cache of capacity ``max_len``: the serving engines' admit
+    prefill. tokens (1, Tb) with the prompt in the first ``true_len``
+    positions (an int or a device scalar). Row j attends columns <= j, so
+    the logits of row true_len − 1 see the prompt alone, and the padded
+    rows' K/V are garbage a decode step overwrites before it can attend to
+    them, as with ``lm_prefill_masked``, which computes the same function.
+
+    Unlike ``lm_prefill_masked`` (dense attention, one GEMM of Tb rows),
+    every row here is computed as a decode step or a paged prefix-hit
+    window computes it (``_verify_window``: products and tree sums over the
+    ``max_len`` columns, GEMMs in MIN_ROWS-row blocks), so a prompt's K/V
+    and first token have the same bits whichever route admits it.
+
+    Returns (logits (1, vocab), kcache, vcache, pos = [true_len]) in the
+    flat transport layout."""
+    with _full_f32():
+        n_layers = stack_shape(params["wqkv"])[0]
+        d_model = params["embed"].shape[1]
+        dev = params["embed"].device
+        shape = (1, n_layers, 1, n_heads, max_len, d_model // n_heads)
+        kc = torch.zeros(shape, dtype=torch.float32, device=dev)
+        vc = torch.zeros(shape, dtype=torch.float32, device=dev)
+        logits, _ = _verify_window(params, tokens[None], kc, vc,
+                                   torch.zeros(1, dtype=torch.int64, device=dev),
+                                   n_heads, attend_cols(tokens.shape[1], max_len))
+        tl = true_len.to(dev, torch.int64).reshape(()) \
+            if isinstance(true_len, torch.Tensor) \
+            else torch.full((), int(true_len), dtype=torch.int64, device=dev)
+        flat = (n_layers * n_heads,) + shape[-2:]
+        return (logits[0, 0].index_select(0, (tl - 1).reshape(1)),
+                kc.view(flat), vc.view(flat), tl.reshape(1).to(torch.int32))
 
 
 def _stream_caches(kcache: torch.Tensor, vcache: torch.Tensor, s_: int,
@@ -425,6 +512,159 @@ def lm_decode_step_slots(params: Params, tokens: torch.Tensor,
     returns (logits (S, 1, vocab), kcaches, vcaches, poss + 1)."""
     return lm_verify_window_slots(params, tokens[:, :, 0], kcaches, vcaches,
                                   poss, n_heads)
+
+
+# --------------------------------------------------------------------------- #
+# Paged KV cache execution forms (serving/kv_cache.py page pools)
+#
+# The paged forms do not reimplement attention. Each gathers a slot's pages
+# into the flat per-slot cache layout the step forms consume, runs the same
+# verify-window body on it, and scatters back only the pages the window
+# could have touched. ``page_size`` and the table width B (a slot's view is
+# B·page_size tokens, its effective max_len) are static shapes. Every index
+# is a device tensor and nothing reads to the host, so the forms run inside
+# captured CUDA graphs; the pools are written in place.
+# --------------------------------------------------------------------------- #
+
+
+def paged_view_slots(pool: torch.Tensor, tables: torch.Tensor) -> torch.Tensor:
+    """Gather S slots' pages into contiguous cache views. pool (n_pages+1,
+    L·H, ps, hd); tables (S, B) int page ids. Returns (S, L·H, B·ps, hd): for
+    each slot the single-slot transport layout with max_len = B·ps. Table
+    rows past a request's allocation hold the null page 0, whose contents
+    the causal mask never attends."""
+    s_, b = tables.shape
+    _, lh, ps, hd = pool.shape
+    pages = pool.index_select(0, tables.reshape(-1).long())  # (S·B, LH, ps, hd)
+    return pages.view(s_, b, lh, ps, hd).permute(0, 2, 1, 3, 4) \
+        .reshape(s_, lh, b * ps, hd)
+
+
+def _paged_view(pool: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """One slot's view: table (B,) → (L·H, B·ps, hd)."""
+    return paged_view_slots(pool, table[None])[0]
+
+
+def paged_touch_span(w: int, page_size: int, n_tables: int) -> int:
+    """Pages a W-token window can touch at worst alignment (starting at a
+    page's last token): (w-1)//ps + 2, capped at the table width. Static:
+    the scatter width is part of the program, not data."""
+    return min(n_tables, (w - 1) // page_size + 2)
+
+
+def _writeback_window(views: torch.Tensor, tables: torch.Tensor,
+                      p0s: torch.Tensor, nt: int
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The ``nt`` pages around each slot's write position ``p0`` in its
+    modified view. views (S, L·H, M, hd); tables (S, B); p0s (S,). Returns
+    (ids (S, nt), pages (S, nt, L·H, ps, hd)). The start, clip(p0 // ps, 0,
+    B − nt), is computed on the device and left-clipped so the window stays
+    inside the table; a clipped window rewrites earlier pages with the bits
+    they were gathered with, which is harmless and keeps ``nt`` static."""
+    s_, lh, m, hd = views.shape
+    b = tables.shape[1]
+    ps = m // b
+    start = torch.clamp(p0s.reshape(s_).long() // ps, 0, b - nt)
+    idx = start[:, None] + torch.arange(nt, device=views.device)  # (S, nt)
+    ids = torch.gather(tables.long(), 1, idx)
+    pages = views.view(s_, lh, b, ps, hd)
+    slot = torch.arange(s_, device=views.device)[:, None]
+    return ids, pages[slot, :, idx]  # advanced dims lead: (S, nt, LH, ps, hd)
+
+
+def paged_update_slots(pool: torch.Tensor, views: torch.Tensor,
+                       tables: torch.Tensor, p0s: torch.Tensor,
+                       nt: int) -> torch.Tensor:
+    """Scatter S slots' touched pages back into the pool in one write, in
+    place; returns the pool.
+
+    Duplicate scatter indices are harmless by the allocator's invariants:
+    modified positions live in pages the slot owns outright (COW), shared
+    pages in a clipped window carry their unchanged gathered bits, and empty
+    slots' zeroed tables collide only on the null page, which nobody
+    attends. Which duplicate's write lands is unordered on the card, so the
+    null page's contents are not a result."""
+    ids, wins = _writeback_window(views, tables, p0s, nt)
+    return pool.index_copy_(0, ids.reshape(-1),
+                            wins.reshape((-1,) + wins.shape[2:]))
+
+
+def _paged_update(pool: torch.Tensor, view: torch.Tensor, table: torch.Tensor,
+                  p0: torch.Tensor, nt: int) -> torch.Tensor:
+    """Scatter one slot's touched pages back into the pool, in place."""
+    return paged_update_slots(pool, view[None], table[None], p0.reshape(1), nt)
+
+
+def lm_prefill_paged(params: Params, window: torch.Tensor,
+                     kpool: torch.Tensor, vpool: torch.Tensor,
+                     table: torch.Tensor, pos0: torch.Tensor,
+                     true_len: torch.Tensor, n_heads: int,
+                     cols: Optional[int] = None
+                     ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                torch.Tensor]:
+    """Prefill a right-padded suffix window directly into pages (the
+    prefix-hit admission path): positions 0..pos0-1 already hold valid K/V
+    in shared pages, so only the suffix is computed. window (1, Wb) padded
+    with ``true_len`` real tokens; table (B,) page ids; pos0 and true_len
+    device scalars. The verify-window body's causal rows give the padded-
+    prompt masking: logits row true_len − 1 attends columns <= pos0 +
+    true_len − 1, never the padded rows' garbage, which a later step
+    overwrites before it can be attended.
+
+    ``cols`` (``attend_cols`` of pos0 + Wb, which the caller knows on the
+    host) restricts the attention to the columns the window can see, with
+    the bits of attending the whole view.
+
+    Returns (logits (1, vocab), kpool, vpool, pos = [pos0 + true_len]),
+    the pools written in place."""
+    with _full_f32():
+        n_layers = stack_shape(params["wqkv"])[0]
+        p0 = pos0.reshape(()).long()
+        tl = true_len.reshape(()).long()
+        kv, vv = _paged_view(kpool, table), _paged_view(vpool, table)
+        kc, vc = _stream_caches(kv, vv, 1, n_layers, n_heads)
+        logits, _ = _verify_window(params, window[None], kc, vc,
+                                   p0.reshape(1), n_heads, cols)
+        last = logits[0, 0].index_select(0, (tl - 1).reshape(1))
+        nt = paged_touch_span(window.shape[1], kpool.shape[2], table.shape[0])
+        _paged_update(kpool, kv, table, p0, nt)
+        _paged_update(vpool, vv, table, p0, nt)
+        return last, kpool, vpool, (p0 + tl).reshape(1).to(torch.int32)
+
+
+def lm_verify_window_paged(params: Params, tokens: torch.Tensor,
+                           kpool: torch.Tensor, vpool: torch.Tensor,
+                           tables: torch.Tensor, poss: torch.Tensor,
+                           n_heads: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor, torch.Tensor]:
+    """Verify windows for S slots against paged caches: gather each slot's
+    view, run :func:`lm_verify_window_slots` on the views, scatter back the
+    touched pages. tokens (S, W); tables (S, B); poss (S, 1). Returns
+    (logits (S, W, vocab), kpool, vpool, poss + W), the pools written in
+    place. A slot past its view's capacity B·ps NaN-poisons its own rows."""
+    kviews = paged_view_slots(kpool, tables)
+    vviews = paged_view_slots(vpool, tables)
+    p0s = poss[:, 0].clone()
+    logits, _, _, poss2 = lm_verify_window_slots(params, tokens, kviews,
+                                                 vviews, poss, n_heads)
+    nt = paged_touch_span(tokens.shape[1], kpool.shape[2], tables.shape[1])
+    paged_update_slots(kpool, kviews, tables, p0s, nt)
+    paged_update_slots(vpool, vviews, tables, p0s, nt)
+    return logits, kpool, vpool, poss2
+
+
+def lm_decode_step_paged(params: Params, tokens: torch.Tensor,
+                         kpool: torch.Tensor, vpool: torch.Tensor,
+                         tables: torch.Tensor, poss: torch.Tensor,
+                         n_heads: int
+                         ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
+                                    torch.Tensor]:
+    """One decode step for S slots against paged caches, the W = 1 case of
+    :func:`lm_verify_window_paged`: tokens (S, 1, 1); returns (logits
+    (S, 1, vocab), kpool, vpool, poss + 1)."""
+    return lm_verify_window_paged(params, tokens[:, :, 0], kpool, vpool,
+                                  tables, poss, n_heads)
 
 
 def prefill_flops(batch: int, seq: int, d_model: int, n_layers: int,

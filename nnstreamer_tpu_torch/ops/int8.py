@@ -83,16 +83,28 @@ def quant_act(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
 MIN_ROWS = 32
 
 
-def _gemm(x: torch.Tensor, w: torch.Tensor, mm) -> torch.Tensor:
+def _gemm(x: torch.Tensor, w: torch.Tensor, mm,
+          row_blocks: bool = False) -> torch.Tensor:
     """(..., K) @ (K, N) → (..., N) through ``mm`` on 2-D operands, the
-    rows padded with zeros to a multiple of 8 and at least ``MIN_ROWS``."""
+    rows padded with zeros to a multiple of 8 and at least ``MIN_ROWS``.
+    ``row_blocks`` pads to a multiple of ``MIN_ROWS`` instead and runs one
+    ``MIN_ROWS``-row product per block, so every row gets the bits it gets
+    in a product of any other row count (cuBLAS picks its float kernels,
+    and their summation order, by the row count)."""
     lead, k = tuple(x.shape[:-1]), x.shape[-1]
     a = x.reshape(-1, k)
     m = a.shape[0]
-    pad = max(MIN_ROWS, -(-m // 8) * 8) - m
+    step = MIN_ROWS if row_blocks else 8
+    pad = max(MIN_ROWS, -(-m // step) * step) - m
     if pad:
         a = torch.cat([a, a.new_zeros((pad, k))])
-    return mm(a.contiguous(), w)[:m].reshape(lead + (w.shape[-1],))
+    a = a.contiguous()
+    if row_blocks and a.shape[0] > MIN_ROWS:
+        y = torch.cat([mm(a[i:i + MIN_ROWS], w)
+                       for i in range(0, a.shape[0], MIN_ROWS)])
+    else:
+        y = mm(a, w)
+    return y[:m].reshape(lead + (w.shape[-1],))
 
 
 def _int_mm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
@@ -108,14 +120,17 @@ def int8_matmul(x: torch.Tensor, w: Dict[str, torch.Tensor]) -> torch.Tensor:
     return ((y.to(torch.float32) * xs) * w["s"]).to(x.dtype)
 
 
-def mlp_matmul(x: torch.Tensor, w1: Any, w2: Any) -> torch.Tensor:
+def mlp_matmul(x: torch.Tensor, w1: Any, w2: Any,
+               row_blocks: bool = False) -> torch.Tensor:
     """The transformer MLP ``gelu(x @ w1) @ w2`` (tanh gelu, as
     ``jax.nn.gelu``). When both weights are w8a8, the two GEMMs run int8
     and the chain between them — dequant by xs·w1.s, gelu, per-row requant
     — is one ``dequant_gelu_requant`` launch; bit-identical to
-    ``matmul_any(gelu(matmul_any(x, w1)), w2)``."""
+    ``matmul_any(gelu(matmul_any(x, w1)), w2)``. ``row_blocks`` as for
+    ``matmul_any``."""
     if not (is_quantized(w1) and is_quantized(w2)):
-        return matmul_any(gelu_tanh(matmul_any(x, w1)), w2)
+        return matmul_any(gelu_tanh(matmul_any(x, w1, row_blocks)), w2,
+                          row_blocks)
     xq, xs = quant_act(x)
     y = _int_mm(xq, w1[W8A8_TAG])
     hq, hs = dequant_gelu_requant(y, xs, w1["s"], out_dtype=x.dtype)
@@ -123,13 +138,15 @@ def mlp_matmul(x: torch.Tensor, w1: Any, w2: Any) -> torch.Tensor:
     return ((y2.to(torch.float32) * hs) * w2["s"]).to(x.dtype)
 
 
-def matmul_any(x: torch.Tensor, w: Any) -> torch.Tensor:
+def matmul_any(x: torch.Tensor, w: Any, row_blocks: bool = False) -> torch.Tensor:
     """``x @ w`` that dispatches on the leaf: float weights take the
     ordinary matmul (mixed float dtypes promote as in JAX: bf16 with f32
-    gives f32), w8a8 dicts the int8 path."""
+    gives f32), w8a8 dicts the int8 path. ``row_blocks`` makes each row's
+    bits independent of the row count (``_gemm``); the int8 path's int32
+    accumulation is exact at any row count already."""
     if is_quantized(w):
         return int8_matmul(x, w)
     if x.dtype != w.dtype:
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
-    return _gemm(x, w, torch.matmul)
+    return _gemm(x, w, torch.matmul, row_blocks)

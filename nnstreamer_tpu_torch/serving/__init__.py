@@ -1,9 +1,11 @@
 """Serving-side engines built on the model families — port of
-nnstreamer_tpu/serving (the contiguous-KV ``LMEngine`` and its token
-sampling; the paged KV cache, disaggregation and the tensor-parallel engine
-come in later slices)."""
+nnstreamer_tpu/serving (``LMEngine`` with the contiguous or the paged KV
+cache, its token sampling and ``PagedKVCache``; disaggregation and the
+tensor-parallel engine come in later slices)."""
 
 from . import sampling
+from .kv_cache import PagedKVCache, prompt_path_hashes
 from .lm_engine import LMEngine, next_pow2_bucket
 
-__all__ = ["LMEngine", "next_pow2_bucket", "sampling"]
+__all__ = ["LMEngine", "PagedKVCache", "next_pow2_bucket", "prompt_path_hashes",
+           "sampling"]

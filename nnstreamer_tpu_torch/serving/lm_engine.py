@@ -8,9 +8,12 @@ finishes frees its slot at the next iteration and the next prompt
 prefills into it while the other slots keep decoding.
 
 - **Bucketed prefill.** Prompts are right-padded to a power-of-two bucket
-  (from 16, capped at max_len) and prefilled with ``lm_prefill_masked``:
-  exact by masking, since padded K/V slots are overwritten before any
-  step attends to them.
+  (from 16, capped at max_len) and prefilled with ``lm_prefill_window``
+  (the function of the JAX engine's ``lm_prefill_masked``, computed as one
+  verify window at position 0): exact by masking, since padded K/V slots
+  are overwritten before any step attends to them. Each row gets the bits
+  a decode step or a paged prefix-hit window would give it, so a prompt's
+  tokens do not depend on which route admitted it.
 - **Chunked decode.** Between scheduler interventions the engine runs
   ``chunk`` decode steps with the tokens fed back on the device and reads
   the chunk's tokens back once. Chunk tails are floored to a power of
@@ -20,6 +23,13 @@ prefills into it while the other slots keep decoding.
 - **Speculative decoding** (``spec_draft`` > 0): prompt-lookup drafts
   verified in one window per iteration, greedy streams only; greedy
   output is unchanged.
+- **Paged KV cache** (``kv_page_size`` > 0): the per-slot stores give way
+  to one shared page pool (serving/kv_cache.py). Admission is gated on the
+  pages a request needs, not on a slot-sized region, prompts sharing a
+  prefix share its pages (radix lookup and copy-on-write), and each program
+  gathers the slots' pages into the contiguous layout, runs the same step
+  forms and scatters back only the touched pages. ``kv_slot_pages`` bounds a
+  slot's view (its effective max_len).
 
 Greedy-exactness contract: every stream's output matches isolated
 single-stream generation token for token, whatever shares the batch.
@@ -29,29 +39,34 @@ slots greedy"), this one decides on the host from its slot table, so a
 chunk adds no device→host read beyond its tokens. The caches are float32
 whatever the params are, and the step forms write them in place.
 
-The JAX engine's three jitted programs are CUDA graphs here
-(core/graphs.py), one per static signature, sharing one memory pool: the
-admit prefill keyed by (bucket, greedy), with the prompt, its true length
-and the slot as device inputs and the slot's seed key and sampling
-controls read from the slot state; the decode chunk keyed by (steps,
-greedy), the chunk or one of its power-of-two tails; the verify window
-keyed by its width. The slot state (caches, tokens, positions, seed keys,
-controls) is allocated once and every program writes it in place, so the
-graphs replay over it. On the CPU, and inside ``graphs.disabled()``, the
-same programs run eagerly.
+The JAX engine's jitted programs are CUDA graphs here (core/graphs.py),
+one per static signature, sharing one memory pool: the admit prefill keyed
+by (bucket, greedy), with the prompt, its true length and the slot as device
+inputs and the slot's seed key and sampling controls read from the slot
+state (under paging keyed by ("kv", hit > 0, bucket), greedy and the
+columns the window can see, the hit length a device input too); the decode
+chunk keyed by (steps, greedy), the chunk or one of its power-of-two tails;
+the verify window keyed by its width. The slot state (caches or page pools, page table, tokens, positions,
+seed keys, controls) is allocated once and every program writes it in
+place, so the graphs replay over it. The page table is mirrored on the host
+(the scheduler is its only writer) and copied to its device tensor before
+each program call, outside any capture; page copies made by the allocator
+(copy-on-write, re-uploads) run on the same stream as the programs. On the
+CPU, and inside ``graphs.disabled()``, the same programs run eagerly.
 
 ``enroll(scheduler)`` makes the engine a tenant of a ``sched.DeviceEngine``:
 each iteration then runs on the engine's dispatch thread under its fair
-share, beside the pipelines' batches, and the three programs capture and
-replay there.
+share, beside the pipelines' batches, and the programs capture and replay
+there, on the same stream as the allocator's page copies.
 
-Not ported yet (ROADMAP): the paged KV cache (``kv_page_size`` > 0 raises),
-disaggregation roles and sessions (freeze/export/checkpoint), deadlines,
-the autotuner, and the obs, diag, health, quality, slo and tracing hooks.
+Not ported yet (ROADMAP): disaggregation roles, page imports and sessions
+(freeze/export/checkpoint), deadlines, the autotuner (its chunk and page
+size picks), and the obs, diag, health, quality, slo and tracing hooks.
 """
 
 from __future__ import annotations
 
+import os
 import time
 from collections import deque
 from dataclasses import dataclass, field
@@ -65,6 +80,19 @@ from ..core.hw import resolve_device
 from ..models import causal_lm
 from ..ops.int8 import stack_shape
 from . import sampling
+from .kv_cache import PagedKVCache
+
+
+def _env_int(name: str) -> Optional[int]:
+    """An optional integer environment knob: empty or unset gives None,
+    anything else that is not an integer raises naming the variable."""
+    v = os.environ.get(name, "")
+    if not v:
+        return None
+    try:
+        return int(v)
+    except ValueError:
+        raise ValueError(f"{name} must be an integer, got {v!r}")
 
 
 def next_pow2_bucket(n: int, lo: int = 16) -> int:
@@ -103,6 +131,9 @@ class _Request:
     seed: int = 0
     out: List[int] = field(default_factory=list)
     done: bool = False
+    #: kv_cache.PageLease while admitted under paging (None otherwise),
+    #: released at retirement
+    kv_lease: Any = None
 
 
 class LMEngine:
@@ -116,21 +147,28 @@ class LMEngine:
     ``spec_draft`` > 0 turns on speculative decoding. ``device`` is where
     the slot state lives (cuda unless the caller names the CPU); the
     params must be there already.
+
+    Paged KV cache: ``kv_page_size`` > 0 swaps the per-slot stores for a
+    shared pool of ``kv_pages`` pages with radix prefix sharing;
+    ``kv_slot_pages`` bounds one request's capacity (pages × page size,
+    default max_len's worth); ``kv_host_offload`` keeps evicted pages in
+    host memory for re-upload. Each defaults from NNS_LM_KV_PAGE_SIZE /
+    NNS_LM_KV_PAGES / NNS_LM_KV_SLOT_PAGES / NNS_LM_KV_OFFLOAD (the CLI's
+    ``--kv-page-size``/``--kv-pages`` set them); an explicit
+    ``kv_page_size=0`` pins the contiguous path whatever the environment.
     """
 
     def __init__(self, params: Dict[str, Any], n_heads: int, max_len: int,
                  n_slots: int = 4, chunk: Optional[int] = None,
                  bucket=None, gang: bool = False, spec_draft: int = 0,
                  kv_page_size: Optional[int] = None,
+                 kv_pages: Optional[int] = None,
+                 kv_slot_pages: Optional[int] = None,
+                 kv_host_offload: Optional[bool] = None,
                  device: Any = None) -> None:
         chunk = 8 if chunk is None else chunk
         if n_slots < 1 or chunk < 1:
             raise ValueError("n_slots and chunk must be >= 1")
-        if kv_page_size:
-            raise NotImplementedError(
-                "kv_page_size > 0: the paged KV cache (serving/kv_cache.py) "
-                "is not ported yet (a later slice of the port); use the "
-                "contiguous engine (kv_page_size=0)")
         if spec_draft < 0 or spec_draft + 1 > max_len:
             raise ValueError("spec_draft must be in [0, max_len-1]")
         self.device = resolve_device(device)
@@ -150,11 +188,50 @@ class LMEngine:
         n_layers = stack_shape(params["wqkv"])[0]
         hd = embed.shape[1] // n_heads
         dev = self.device
-        # device-resident slot state (leading axis = slot); the stores are
-        # float32 whatever the params' dtype
-        shape = (n_slots, n_layers * n_heads, max_len, hd)
-        self._kc = torch.zeros(shape, dtype=torch.float32, device=dev)
-        self._vc = torch.zeros(shape, dtype=torch.float32, device=dev)
+        # paged-KV configuration: explicit arguments win, unset ones fall
+        # back to the NNS_LM_KV_* environment
+        ps = kv_page_size if kv_page_size is not None \
+            else (_env_int("NNS_LM_KV_PAGE_SIZE") or 0)
+        if ps < 0:
+            raise ValueError("kv_page_size must be >= 0 (0 = contiguous)")
+        self._kv: Optional[PagedKVCache] = None
+        self._m_slot = max_len  # one request's token capacity
+        self._kc = self._vc = None
+        if ps:
+            if max_len % ps:
+                raise ValueError(
+                    f"kv_page_size={ps} must divide max_len={max_len}")
+            slot_pages = kv_slot_pages if kv_slot_pages is not None \
+                else (_env_int("NNS_LM_KV_SLOT_PAGES") or max_len // ps)
+            if not 1 <= slot_pages <= max_len // ps:
+                raise ValueError(
+                    f"kv_slot_pages={slot_pages} outside "
+                    f"[1, max_len/page_size={max_len // ps}]")
+            self._m_slot = slot_pages * ps
+            if spec_draft + 1 > self._m_slot:
+                raise ValueError(
+                    f"spec_draft={spec_draft} needs kv_slot_pages * "
+                    f"kv_page_size > spec_draft (got {self._m_slot})")
+            n_pages = kv_pages if kv_pages is not None \
+                else (_env_int("NNS_LM_KV_PAGES") or n_slots * slot_pages)
+            offload = kv_host_offload if kv_host_offload is not None \
+                else os.environ.get("NNS_LM_KV_OFFLOAD", "") == "1"
+            self._kv = PagedKVCache(n_layers, n_heads, ps, n_pages, hd,
+                                    host_offload=bool(offload), device=dev)
+            self._kv_slot_pages = slot_pages
+            #: per-slot page tables on the host (the scheduler is the only
+            #: writer; entries past a request's pages hold the null page 0)
+            #: and their device copy, which the programs read
+            self._table_host = np.zeros((n_slots, slot_pages), np.int32)
+            self._table = torch.zeros((n_slots, slot_pages),
+                                      dtype=torch.int64, device=dev)
+        else:
+            # device-resident per-slot stores (leading axis = slot), float32
+            # whatever the params' dtype; the paged engine has none, its
+            # K/V live in the page pool
+            shape = (n_slots, n_layers * n_heads, max_len, hd)
+            self._kc = torch.zeros(shape, dtype=torch.float32, device=dev)
+            self._vc = torch.zeros(shape, dtype=torch.float32, device=dev)
         self._tokens = torch.zeros((n_slots, 1, 1), dtype=torch.int32,
                                    device=dev)
         self._pos = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
@@ -162,10 +239,13 @@ class LMEngine:
         self._temp = torch.zeros((n_slots,), dtype=torch.float32, device=dev)
         self._topk = torch.zeros((n_slots,), dtype=torch.int32, device=dev)
         self._topp = torch.ones((n_slots,), dtype=torch.float32, device=dev)
-        # the three programs, one graph per signature each, one pool
+        # the programs, one graph per signature each, one pool
         pool = graphs.Pool()
         self._prefill_prog = graphs.CapturedFn(
             self._prefill_program, "LMEngine admit prefill", pool, dev)
+        self._paged_prefill_prog = graphs.CapturedFn(
+            self._paged_prefill_program, "LMEngine paged admit prefill",
+            pool, dev)
         self._chunk_prog = graphs.CapturedFn(
             self._chunk_program, "LMEngine decode chunk", pool, dev)
         self._verify_prog = graphs.CapturedFn(
@@ -212,6 +292,19 @@ class LMEngine:
             raise ValueError(
                 f"prompt ({p.size}) + max_new ({max_new}) exceeds cache "
                 f"capacity max_len={self.max_len}")
+        if self._kv is not None:
+            if p.size + max_new - 1 > self._m_slot:
+                raise ValueError(
+                    f"prompt ({p.size}) + max_new ({max_new}) exceeds "
+                    f"paged per-request capacity kv_slot_pages * "
+                    f"kv_page_size = {self._m_slot}")
+            need = -(-(p.size + max_new - 1) // self._kv.page_size)
+            if need > self._kv.n_pages:
+                # would deadlock admission: even an empty pool could never
+                # cover this request's reservation
+                raise ValueError(
+                    f"request needs {need} KV pages but the pool has "
+                    f"only kv_pages={self._kv.n_pages}")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append(_Request(
@@ -278,6 +371,23 @@ class LMEngine:
     def results(self) -> Dict[int, List[int]]:
         return dict(self._finished)
 
+    @property
+    def kv_stats(self) -> Optional[Dict[str, int]]:
+        """Paged-KV-cache counters (hit and prompt tokens, COW copies,
+        evictions, pages_peak, ...), or None when running contiguous."""
+        return None if self._kv is None else dict(self._kv.stats)
+
+    @property
+    def prefix_hit_rate(self) -> Optional[float]:
+        """Fraction of prompt tokens served from the radix prefix cache
+        (0.0 before any lookup); None when running contiguous."""
+        return None if self._kv is None else self._kv.prefix_hit_rate()
+
+    def kv_prefix_digest(self, max_entries: int = 64) -> List[str]:
+        """Bounded radix-prefix digest: chained path hashes a prefix-aware
+        router probes. Empty when running contiguous."""
+        return [] if self._kv is None else self._kv.prefix_digest(max_entries)
+
     # -- scheduler internals ---------------------------------------------- #
 
     def _admit(self) -> None:
@@ -288,9 +398,25 @@ class LMEngine:
                 continue
             req = self._queue.popleft()
             t = int(req.prompt.size)
-            padded = np.zeros((1, self._bucket(t)), np.int32)
-            padded[0, :t] = req.prompt
-            first = self._prefill_into(slot, padded, t, req)
+            if self._kv is None:
+                padded = np.zeros((1, self._bucket(t)), np.int32)
+                padded[0, :t] = req.prompt
+                first = self._prefill_into(slot, padded, t, req)
+            else:
+                plan = self._paged_plan(req)
+                if plan is None:
+                    # the pool cannot cover this request's reservation yet:
+                    # requeue at the front (FIFO, no starvation by smaller
+                    # latecomers) and stop admitting; pages free as active
+                    # streams retire
+                    self._queue.appendleft(req)
+                    break
+                hit = self._paged_admit(slot, req, plan)
+                ts = t - hit  # suffix tokens the prefill must still compute
+                padded = np.zeros((1, min(self._bucket(ts), self._m_slot)),
+                                  np.int32)
+                padded[0, :ts] = req.prompt[hit:]
+                first = self._prefill_paged(slot, padded, hit, ts, req)
             self.stats["prefills"] += 1
             req.out.append(int(first))
             self._pos_host[slot] = t
@@ -302,35 +428,48 @@ class LMEngine:
         """Prefill one padded prompt, install its cache and sampling state
         into ``slot``; returns the first generated token (a device scalar)."""
         dev = self.device
-        self._skeys[slot] = sampling.seed_key(req.seed, dev)
-        self._set_controls(slot, req.temperature, req.top_k, req.top_p)
+        self._start_slot(slot, req)
         return self._prefill_prog(
             torch.from_numpy(padded).to(dev),
             torch.full((), true_len, dtype=torch.int32, device=dev),
             torch.full((1,), slot, dtype=torch.int64, device=dev),
             greedy=req.temperature <= 0.0)
 
+    def _start_slot(self, slot: int, req: _Request) -> None:
+        """The slot's seed key and sampling controls for ``req``."""
+        self._skeys[slot] = sampling.seed_key(req.seed, self.device)
+        self._set_controls(slot, req.temperature, req.top_k, req.top_p)
+
+    def _first_token(self, logits: torch.Tensor, consumed: torch.Tensor,
+                     slot: torch.Tensor, greedy: bool) -> torch.Tensor:
+        """The first generated token from the prefill's last-row logits
+        (V,): argmax, or a draw keyed by the slot's seed folded with the
+        tokens consumed."""
+        if greedy:  # skips the sampler's sort/softmax/cumsum
+            return torch.argmax(logits, dim=-1).to(torch.int32)
+        key = sampling.fold_in(self._skeys.index_select(0, slot)[0], consumed)
+        return sampling.sample_row(
+            logits, key, self._temp.index_select(0, slot),
+            self._topk.index_select(0, slot),
+            self._topp.index_select(0, slot))
+
     def _prefill_program(self, tokens: torch.Tensor, true_len: torch.Tensor,
                          slot: torch.Tensor, *, greedy: bool) -> torch.Tensor:
         """The admit prefill: tokens (1, bucket), true_len (), slot (1,)
         int64; writes the slot's cache, position and first token."""
-        logits, kc, vc, pos = causal_lm.lm_prefill_masked(
+        logits, kc, vc, pos = causal_lm.lm_prefill_window(
             self.params, tokens, true_len, self.n_heads, self.max_len)
-        if greedy:  # skips the sampler's sort/softmax/cumsum
-            first = torch.argmax(logits[0], dim=-1).to(torch.int32)
-        else:
-            # the first token is emitted having consumed true_len tokens
-            key = sampling.fold_in(self._skeys.index_select(0, slot)[0],
-                                   true_len)
-            first = sampling.sample_row(
-                logits[0], key, self._temp.index_select(0, slot),
-                self._topk.index_select(0, slot),
-                self._topp.index_select(0, slot))
+        # the first token is emitted having consumed true_len tokens
+        first = self._first_token(logits[0], true_len, slot, greedy)
         self._kc.index_copy_(0, slot, kc[None])
         self._vc.index_copy_(0, slot, vc[None])
+        self._install_slot(slot, pos, first)
+        return first
+
+    def _install_slot(self, slot: torch.Tensor, pos: torch.Tensor,
+                      first: torch.Tensor) -> None:
         self._pos.index_copy_(0, slot, pos.reshape(1, 1))
         self._tokens.index_copy_(0, slot, first.reshape(1, 1, 1))
-        return first
 
     def _set_controls(self, slot: int, temperature: float, top_k: int,
                       top_p: float) -> None:
@@ -339,11 +478,114 @@ class LMEngine:
         self._topp[slot] = top_p
         self._temp_host[slot] = temperature
 
+    # -- paged-KV scheduling ---------------------------------------------- #
+
+    def _paged_plan(self, req: _Request):
+        """Radix lookup, hit trimming and admissibility for one queued
+        request: the plan to commit, or None while the pool cannot cover
+        the request's page reservation."""
+        kv = self._kv
+        t = int(req.prompt.size)
+        plan = kv.lookup(req.prompt)
+        # the suffix prefills as a padded window at pos0 = hit, so the hit
+        # plus the padded bucket width must fit the slot view; trim the hit
+        # (COW tail first, then the deepest node) until it does
+        while plan.hit_len and plan.hit_len + min(
+                self._bucket(t - plan.hit_len), self._m_slot) > self._m_slot:
+            plan.drop_tail()
+        b_needed = -(-(t + req.max_new - 1) // kv.page_size)
+        return plan if kv.admissible(plan, b_needed) else None
+
+    def _paged_admit(self, slot: int, req: _Request, plan) -> int:
+        """Commit the plan (pin shared pages, COW-copy the partial match,
+        allocate private prompt pages) and write the slot's page-table row.
+        Returns the prefix-hit length in tokens, where the suffix prefill
+        starts."""
+        kv = self._kv
+        t = int(req.prompt.size)
+        b_needed = -(-(t + req.max_new - 1) // kv.page_size)
+        lease = kv.admit(plan, b_needed)
+        req.kv_lease = lease
+        row = np.zeros(self._kv_slot_pages, np.int32)
+        row[:len(lease.pages)] = lease.pages
+        self._table_host[slot] = row
+        return lease.hit_len
+
+    def _sync_table(self) -> None:
+        """Copy the host page table to its device tensor: one host-to-device
+        copy on the engine's stream, before a program call and outside any
+        capture, so a replay reads this iteration's table."""
+        self._table.copy_(torch.from_numpy(self._table_host))
+
+    def _prefill_paged(self, slot: int, padded: np.ndarray, hit: int,
+                       true_len: int, req: _Request) -> torch.Tensor:
+        """Prefill into the slot's pages; returns the first token (a device
+        scalar). With no hit, the unchanged admit prefill at the slot view's
+        capacity, its cache scattered into the pages; with a hit, only the
+        padded suffix window at pos0 = hit against the gathered view."""
+        dev = self.device
+        self._start_slot(slot, req)
+        self._sync_table()
+        return self._paged_prefill_prog(
+            torch.from_numpy(padded).to(dev),
+            torch.full((), hit, dtype=torch.int32, device=dev),
+            torch.full((), true_len, dtype=torch.int32, device=dev),
+            torch.full((1,), slot, dtype=torch.int64, device=dev),
+            hit=hit > 0, greedy=req.temperature <= 0.0,
+            cols=causal_lm.attend_cols(hit + padded.shape[1], self._m_slot))
+
+    def _paged_prefill_program(self, tokens: torch.Tensor, pos0: torch.Tensor,
+                               true_len: torch.Tensor, slot: torch.Tensor, *,
+                               hit: bool, greedy: bool, cols: int) -> torch.Tensor:
+        """The paged admit prefill: tokens (1, bucket), pos0 and true_len (),
+        slot (1,) int64; writes the slot's pages, position and first token.
+        ``cols``: the columns the window can see (``attend_cols``)."""
+        kv = self._kv
+        table = self._table.index_select(0, slot)[0]  # (B,)
+        if hit:
+            logits, _, _, pos = causal_lm.lm_prefill_paged(
+                self.params, tokens, kv.kpool, kv.vpool, table, pos0,
+                true_len, self.n_heads, cols)
+        else:
+            logits, kc, vc, pos = causal_lm.lm_prefill_window(
+                self.params, tokens, true_len, self.n_heads, self._m_slot)
+            # rows past the prompt's pages hold the null page: the padded
+            # tail's garbage K/V lands there, never in live pages
+            lh, m, hd = kc.shape
+            b = table.shape[0]
+            for pool, c in ((kv.kpool, kc), (kv.vpool, vc)):
+                pool.index_copy_(0, table, c.view(lh, b, m // b, hd)
+                                 .transpose(0, 1))
+        # the sampling key folds in pos0 + true_len, the tokens consumed, so
+        # a prefix-hit admission draws what a full prefill would
+        first = self._first_token(logits[0], pos0 + true_len, slot, greedy)
+        self._install_slot(slot, pos, first)
+        return first
+
+    def _ensure_pages(self, active: List[int], w: int) -> None:
+        """Grow the active slots' page tables to cover the next ``w`` write
+        positions, capped at each request's reservation bound (writes past
+        it go to the null page by table construction). Cannot fail:
+        admission reserved the full budget."""
+        kv = self._kv
+        ps = kv.page_size
+        for s in active:
+            req = self._slot_req[s]
+            lease = req.kv_lease
+            bound = int(req.prompt.size) + req.max_new - 1
+            need = -(-min(self._pos_host[s] + w, bound) // ps)
+            while len(lease.pages) < need:
+                pid = kv.lease_alloc(lease)
+                self._table_host[s, len(lease.pages) - 1] = pid
+
     def _decode(self) -> None:
         active = [s for s, r in enumerate(self._slot_req) if r is not None]
         if not active:
             return
-        headroom = self.max_len - max(self._pos_host[s] for s in active)
+        # per-request capacity: max_len contiguous, the slot view's
+        # kv_slot_pages * page_size under paging (admission reserved every
+        # active request's pages, so pool headroom is no gate)
+        headroom = self._m_slot - max(self._pos_host[s] for s in active)
         if self.spec_draft > 0 and headroom >= self.spec_draft + 1 \
                 and all(self._slot_req[s].temperature <= 0.0
                         for s in active) \
@@ -352,6 +594,8 @@ class LMEngine:
             # a verify window writes spec_draft + 1 cache slots; near
             # capacity, with a sampled stream, or when every stream needs
             # at most one more token, plain chunks serve better
+            if self._kv is not None:
+                self._ensure_pages(active, self.spec_draft + 1)
             self._decode_speculative(active)
             return
         # cap the chunk so no active slot decodes past capacity
@@ -360,6 +604,8 @@ class LMEngine:
         n = max(1, min(self.chunk, headroom, remaining))
         if n < self.chunk:
             n = 1 << (n.bit_length() - 1)  # power-of-two tails
+        if self._kv is not None:
+            self._ensure_pages(active, n)
         outs = self._run_chunk(n).cpu().numpy()  # (S, n)
         for s in range(self.n_slots):
             self._pos_host[s] += n  # every slot's position advances
@@ -383,16 +629,26 @@ class LMEngine:
     def _run_chunk(self, n: int) -> torch.Tensor:
         """Run ``n`` decode steps over all slots with the tokens fed back on
         the device; returns the (S, n) generated tokens (on the device)."""
+        if self._kv is not None:
+            self._sync_table()
         return self._chunk_prog(
             n=n, greedy=all(t <= 0.0 for t in self._temp_host))
 
     def _chunk_program(self, *, n: int, greedy: bool) -> torch.Tensor:
         """The decode chunk: ``n`` steps from the slot state, which it
-        advances in place; returns the (S, n) tokens."""
+        advances in place; returns the (S, n) tokens. Under paging the
+        slots' views are gathered once, the n steps run on them, and only
+        the pages an n-step window can touch are scattered back."""
+        kv = self._kv
+        if kv is None:
+            kc, vc = self._kc, self._vc
+        else:
+            kc = causal_lm.paged_view_slots(kv.kpool, self._table)
+            vc = causal_lm.paged_view_slots(kv.vpool, self._table)
         tokens, pos, outs = self._tokens, self._pos, []
         for _ in range(n):
             logits, _, _, pos = causal_lm.lm_decode_step_slots(
-                self.params, tokens, self._kc, self._vc, pos, self.n_heads)
+                self.params, tokens, kc, vc, pos, self.n_heads)
             if greedy:  # skips the sampler's sort/softmax/cumsum
                 nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
             else:
@@ -403,6 +659,14 @@ class LMEngine:
                                              self._topk, self._topp)
             tokens = nxt[:, None, None]
             outs.append(nxt)
+        if kv is not None:
+            # the write positions the chunk started from: self._pos, still
+            # unchanged here
+            nt = causal_lm.paged_touch_span(n, kv.page_size,
+                                            self._kv_slot_pages)
+            p0s = self._pos[:, 0]
+            causal_lm.paged_update_slots(kv.kpool, kc, self._table, p0s, nt)
+            causal_lm.paged_update_slots(kv.vpool, vc, self._table, p0s, nt)
         self._tokens.copy_(tokens)
         self._pos.copy_(pos)
         return torch.stack(outs, dim=1)
@@ -413,9 +677,14 @@ class LMEngine:
         place past each slot's accepted drafts; returns (greedy (S, W),
         m (S,))."""
         tokens_in = torch.cat([self._tokens[:, 0], drafts], dim=1)
-        logits, _, _, pos_w = causal_lm.lm_verify_window_slots(
-            self.params, tokens_in, self._kc, self._vc, self._pos,
-            self.n_heads)
+        if self._kv is None:
+            logits, _, _, pos_w = causal_lm.lm_verify_window_slots(
+                self.params, tokens_in, self._kc, self._vc, self._pos,
+                self.n_heads)
+        else:
+            logits, _, _, pos_w = causal_lm.lm_verify_window_paged(
+                self.params, tokens_in, self._kv.kpool, self._kv.vpool,
+                self._table, self._pos, self.n_heads)
         carried, pos_m, greedy, m = _accept_from_window(tokens_in, logits,
                                                         pos_w)
         self._tokens.copy_(carried)
@@ -431,6 +700,8 @@ class LMEngine:
         drafts = np.zeros((self.n_slots, g), np.int32)
         for s in active:
             drafts[s] = self._draft_tokens(self._slot_req[s], g)
+        if self._kv is not None:
+            self._sync_table()
         outs, m = self._verify_prog(torch.from_numpy(drafts).to(self.device))
         outs = outs.cpu().numpy()
         m = m.cpu().numpy()
@@ -482,6 +753,15 @@ class LMEngine:
             self.stats["tokens_out"] += len(req.out)
             self._finished[req.rid] = req.out
             self._slot_req[slot] = None
+            if req.kv_lease is not None:
+                # positions 0..consumed-1 hold valid K/V (the last output
+                # token was never written back): their full pages register
+                # as shareable prefix nodes, the rest are freed
+                seq = req.prompt if len(req.out) <= 1 else np.concatenate(
+                    [req.prompt, np.asarray(req.out[:-1], np.int32)])
+                self._kv.release(req.kv_lease, seq)
+                req.kv_lease = None
+                self._table_host[slot] = 0
             if req.temperature > 0.0:
                 # restore greedy defaults so a finished sampled stream does
                 # not keep the greedy fast path off for the others

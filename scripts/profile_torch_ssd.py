@@ -26,7 +26,11 @@ decode chunk, replays one captured graph per signature) and eagerly
     (``--quant w8a8``) their w8a8 form: ``LMEngine._run_chunk`` of 16 steps,
     the engine's unit of work between scheduler interventions, including
     its one read-back of the chunk's tokens. ``--frames`` counts decode
-    steps (rounded to whole chunks).
+    steps (rounded to whole chunks). Then the device ms of one admit
+    prefill of a prompt filling its bucket (64, 256 and 512 tokens), in
+    each form the module has: ``lm_prefill_window`` (the engines' admit
+    prefill) and ``lm_prefill_masked`` (the dense form), each captured
+    into a CUDA graph and replayed.
 
 Prints for each mode, per frame (per decode step for ``lm``): host wall
 time of the invoke and of the host decode, device busy time and its share
@@ -175,6 +179,52 @@ def _lm_work(quant: str, n_steps: int):
     return chunks * LM_CHUNK, run, None
 
 
+def _graph_ms(fn, replays: int = 5) -> float:
+    """Device ms of ``fn()``: warmed up on a side stream, captured into a
+    CUDA graph, replayed ``replays`` times between CUDA events."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(replays):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / replays
+
+
+def _prefill_ms(quant: str) -> dict:
+    """Device ms of one admit prefill by form and bucket (a prompt filling
+    its bucket), at the bench LM's width."""
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.models.convert import causal_lm_params
+
+    v, d, h, n_layers = LM_DIMS
+    params = causal_lm_params(causal_lm.init_causal_lm(
+        0, v, d, h, n_layers, LM_MAX_LEN), "cuda")
+    if quant == "w8a8":
+        params = causal_lm.quantize_lm_params(params)
+    rng = np.random.default_rng(6)
+    out = {}
+    for bucket in (64, 256, 512):
+        tok = torch.from_numpy(rng.integers(0, v, (1, bucket)).astype(np.int32)).cuda()
+        for name in ("lm_prefill_window", "lm_prefill_masked"):
+            form = getattr(causal_lm, name, None)
+            if form is not None:
+                out[f"{name} {bucket}"] = _graph_ms(
+                    lambda: form(params, tok, bucket, h, LM_MAX_LEN))
+    return out
+
+
 #: the host's CUDA launch calls, as the profiler names them: kernels one by
 #: one, and a whole captured graph
 HOST_LAUNCH_CALLS = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
@@ -268,9 +318,14 @@ def main() -> int:
             print(f"[{mode}]   {cat:20s} {ms:.4f} ms/{unit}", flush=True)
         for name, ms, count in m["top"]:
             print(f"[{mode}]   {ms:.4f} ms/{unit} x{count:.1f}  {name[:100]}", flush=True)
+    prefill = None
+    if lm:
+        prefill = _prefill_ms(args.quant)
+        print("admit prefill, device ms a prompt filling its bucket: "
+              + ", ".join(f"{k} {ms:.4f}" for k, ms in prefill.items()), flush=True)
     print(json.dumps({
         "card": card, "model": args.model, "quant": args.quant if lm else None,
-        "units": n, "unit": unit, "host_decode_ms": decode_ms,
+        "units": n, "unit": unit, "host_decode_ms": decode_ms, "prefill_ms": prefill,
         "modes": {k: {key: v for key, v in m.items() if key != "top"}
                   for k, m in modes.items()}}), flush=True)
     return 0

@@ -200,7 +200,7 @@ def test_cli_lists_and_inspects():
 
 
 @pytest.mark.parametrize("flag", [["--metrics-port", "0"], ["--trace"],
-                                  ["--kv-page-size", "16"],
+                                  ["--role", "prefill"],
                                   ["--backends", "127.0.0.1:1"], ["--device", "tpu"]])
 def test_cli_refuses_unported_flags(flag):
     with pytest.raises(SystemExit) as e:

@@ -256,8 +256,11 @@ def test_batched_streams_match_isolated_runs(tparams):
 
 
 def test_engine_admission_rules(tparams):
-    with pytest.raises(NotImplementedError, match="paged KV"):
-        LMEngine(tparams, H, MAXLEN, kv_page_size=16, device=CPU)
+    # kv_page_size > 0 builds the paged engine (tests/test_torch_kv_paging.py)
+    paged = LMEngine(tparams, H, MAXLEN, kv_page_size=16, device=CPU)
+    assert paged._kv is not None and paged._kc is None
+    with pytest.raises(ValueError, match="must divide"):
+        LMEngine(tparams, H, MAXLEN, kv_page_size=24, device=CPU)
     with pytest.raises(ValueError, match="spec_draft"):
         LMEngine(tparams, H, MAXLEN, spec_draft=MAXLEN, device=CPU)
     eng = LMEngine(tparams, H, MAXLEN, device=CPU)
@@ -294,10 +297,13 @@ def test_admit_prefill_program_installs_the_jax_admit_state(jparams, tparams,
         n_heads=H, max_len=MAXLEN)
     assert int(first) == int(jfirst)
     assert int(eng._tokens[2, 0, 0]) == int(jfirst) and int(eng._pos[2, 0]) == 21
-    np.testing.assert_allclose(eng._kc[2].numpy(), np.asarray(jkc),
-                               rtol=1e-4, atol=1e-5)
-    np.testing.assert_allclose(eng._vc[2].numpy(), np.asarray(jvc),
-                               rtol=1e-4, atol=1e-5)
+    # the prompt's 21 positions; the padded rows' K/V are garbage in both
+    # engines (other garbage: the port's admit prefill is a verify window,
+    # whose padded rows attend each other), overwritten before attended
+    np.testing.assert_allclose(eng._kc[2, :, :21].numpy(),
+                               np.asarray(jkc)[:, :21], rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(eng._vc[2, :, :21].numpy(),
+                               np.asarray(jvc)[:, :21], rtol=1e-4, atol=1e-5)
     np.testing.assert_array_equal(eng._skeys[2].numpy(),
                                   np.asarray(jax.random.PRNGKey(seed)))
     # the other slots are untouched
