@@ -178,6 +178,27 @@ Phases (any failure exits non-zero before the result lines are printed):
      check), sgd's masters within TRAIN_SGD_ATOL; adam's run again step by
      step on both devices: each step's gradients and the masters beyond
      1e-5 apart after it;
+ 9d. obs on the card (after the multi-tenant phase): bench.py's
+     ssd_mobilenet_300_fps string (64 frames, async-depth 64) through the
+     CLI with ``--metrics-port 0 --trace --watchdog --profile
+     --events-dump`` and without, in turns (off, on, off, on), a second
+     thread scraping ``/metrics``, ``/healthz``, ``/readyz``,
+     ``/debug/traces``, ``/debug/events`` and ``/debug/profile`` while the
+     frames flow: boxes and reduce rows bit-equal to the obs-off run,
+     ``nnstpu_pipeline_buffers_total`` = 64 for every element, one
+     ``pipeline.element`` span per element per frame, every route 200 while
+     the pipeline plays, device lanes labelled ``class_reduce`` and
+     ``nms_sweep``, every sampled dispatch's CUDA-event device time in (0,
+     host interval + wait], the sampled invoke beside the filter's own graph
+     replayed; then the paged w8a8 lane (phase 9c's requests, a new 32-slot
+     engine, the mix and a second mix) with metrics, tracing, health,
+     events and the profiler on and off, in turns, ``/metrics`` scraped in
+     a loop through the engine's captures: tokens equal, the
+     ``nnstpu_serving_kv_*`` series equal ``kv_stats``, prefill and decode
+     engine records and a ``cuda.dequant_gelu_requant`` kernel record; then
+     ``gpu_smoke``, two flash bf16 prefill batches and one fused DeepLab-v3
+     frame under the profiler: all seven ``cuda.*`` kernel labels
+     recorded; frames/s and tokens/s with obs off and on, beside the card;
  20. print the card's name and power limit again, the launches of each path
      (every count set to 0 just before the path and read just after), the
      graphs of each path, the stream paths' rates, the ``kernels`` JSON line,
@@ -254,6 +275,7 @@ Exits non-zero without a card or without the package beside it.
 from __future__ import annotations
 
 import contextlib
+import gc
 import json
 import os
 import subprocess
@@ -346,6 +368,17 @@ PY3_FRAMES = 32
 MT_SPEC = "zoo://mobilenet_v2?width=1.0&size=224"
 MT_SIZE, MT_SSD_SIZE = 224, 300
 MT_PIPES, MT_FRAMES, MT_SSD, MT_SSD_FRAMES, MT_COALESCE = 8, 64, 2, 64, 8
+#: the obs phase: SSD-300 frames a CLI run (bench.py's ssd_mobilenet_300_fps
+#: string), the paged w8a8 lane's requests, and each measurement's turns
+#: (obs off, on, off, on)
+OBS_SSD_FRAMES = 64
+OBS_TURNS = (False, True, False, True)
+OBS_STALL_S = 30.0
+#: a scrape round's pause: a scraper a hundred times busier than a 1 s
+#: Prometheus interval, still a small share of the pipeline's GIL
+OBS_SCRAPE_PAUSE_S = 0.01
+OBS_ROUTES = ("/metrics", "/healthz", "/readyz", "/debug/traces",
+              "/debug/events", "/debug/profile")
 #: the python3 script: the reference contract (nnstreamer_python shapes,
 #: one list of flat arrays in and out), a float32 softmax in numpy
 PY3_SCRIPT = """
@@ -4054,6 +4087,528 @@ def run_multitenant(params, counters, tmp: str) -> dict:
     return multi["launches"]
 
 
+# --------------------------------------------------------------------------- #
+# obs: metrics, tracing, health, events and the profiler on the card
+# --------------------------------------------------------------------------- #
+
+def _release() -> None:
+    """Collect what the last run left in reference cycles (an engine and
+    its programs hold each other) and hand the cached blocks back, so the
+    graph pools of finished runs do not crowd the phases after them."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _obs_all_off() -> None:
+    """Every obs switch off and every ring, store and registry of
+    components emptied: where an obs-off run starts (the CLI leaves the
+    switches its flags turned on)."""
+    from nnstreamer_tpu_torch import obs
+    from nnstreamer_tpu_torch.obs import events, health, profile, tracing
+
+    # the profiler's records stay (the kernel labels accumulate over the
+    # phase); each run reads its own by time
+    profile.disable()
+    events.disable()
+    events.ring().reset()
+    tracing.disable()
+    tracing.store().reset()
+    health.disable()
+    health.registry().reset()
+    obs.disable()
+
+
+def _hooks_off() -> None:
+    """Fail unless every obs hook is None (obs off costs a None check)."""
+    from nnstreamer_tpu_torch.graph import element as gel
+    from nnstreamer_tpu_torch.obs import profile
+    from nnstreamer_tpu_torch.ops import epilogue as epi
+
+    hooks = {"DISPATCH_HOOK": profile.DISPATCH_HOOK,
+             "ENGINE_HOOK": profile.ENGINE_HOOK,
+             "KERNEL_HOOK": profile.KERNEL_HOOK, "SCHED_HOOK": profile.SCHED_HOOK,
+             "PROFILE_CHAIN_HOOK": gel.PROFILE_CHAIN_HOOK,
+             "EPILOGUE_SELECT_HOOK": epi.EPILOGUE_SELECT_HOOK}
+    on = sorted(k for k, v in hooks.items() if v is not None)
+    if on:
+        raise AssertionError(f"obs off but hooks installed: {on}")
+
+
+class _Scraper:
+    """A thread GETting ``routes`` from an exporter in a loop until the
+    ``with`` block ends: every answer's route, status and whether
+    ``playing()`` held before and after it, and each route's last 200 body.
+    ``port()`` is None until the exporter is up."""
+
+    def __init__(self, port, routes, playing) -> None:
+        self.port, self.routes, self.playing = port, routes, playing
+        self.answers, self.last = [], {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._loop, daemon=True,
+                                        name="obs-scraper")
+
+    def _loop(self) -> None:
+        import urllib.error
+        import urllib.request
+
+        while not self._stop.is_set():
+            port = self.port()
+            if port is None:
+                time.sleep(0.002)
+                continue
+            for route in self.routes:
+                before = self.playing()
+                try:
+                    with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                                timeout=30) as r:
+                        code, body = r.status, r.read()
+                except urllib.error.HTTPError as e:
+                    code, body = e.code, e.read()
+                except OSError:  # the exporter closed under the request
+                    code, body = None, b""
+                self.answers.append((route, code, before and self.playing()))
+                if code == 200:
+                    self.last[route] = body
+            time.sleep(OBS_SCRAPE_PAUSE_S)
+
+    def __enter__(self) -> "_Scraper":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join(60)
+        if self._thread.is_alive():
+            raise AssertionError("obs scraper thread did not stop")
+
+    def while_playing(self, route) -> list:
+        return [code for r, code, playing in self.answers
+                if r == route and playing]
+
+
+@contextlib.contextmanager
+def _cli_objects():
+    """The pipeline and exporter a CLI run builds, recorded as it builds
+    them (the CLI hands neither back)."""
+    from nnstreamer_tpu_torch.graph import parse as parse_mod
+    from nnstreamer_tpu_torch.obs import exporter as exp_mod
+
+    box = {}
+    parse, start = parse_mod.parse_pipeline, exp_mod.start_exporter
+
+    def parsing(*a, **kw):
+        box["pipeline"] = parse(*a, **kw)
+        return box["pipeline"]
+
+    def starting(*a, **kw):
+        box["exporter"] = start(*a, **kw)
+        return box["exporter"]
+
+    parse_mod.parse_pipeline, exp_mod.start_exporter = parsing, starting
+    try:
+        yield box
+    finally:
+        parse_mod.parse_pipeline, exp_mod.start_exporter = parse, start
+
+
+@contextlib.contextmanager
+def _kept_programs():
+    """The composed invoke (a ``CapturedFn`` and its graphs) of every
+    filter closed while inside, kept past the close that drops it."""
+    from nnstreamer_tpu_torch.filters.torch_cuda import TorchCudaFilter
+
+    kept = []
+    close = TorchCudaFilter.close
+
+    def keeping(self):
+        kept.append(self._fn)
+        close(self)
+
+    TorchCudaFilter.close = keeping
+    try:
+        yield kept
+    finally:
+        TorchCudaFilter.close = close
+
+
+@contextlib.contextmanager
+def _arrivals(cls):
+    """The time each buffer reaches an element of class ``cls``."""
+    times = []
+    chain = cls.chain
+
+    def timed(self, pad, buf):
+        times.append(time.perf_counter())
+        return chain(self, pad, buf)
+
+    cls.chain = timed
+    try:
+        yield times
+    finally:
+        cls.chain = chain
+
+
+def _replay_ms(graph, n: int = 50) -> float:
+    """Device ms of one replay of a captured graph, ``n`` back to back
+    between two CUDA events."""
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def _obs_ssd_turn(tmp: str, labels: str, priors: str, on: bool, scrape: bool,
+                  tag: str, counters) -> dict:
+    """bench.py's ssd_mobilenet_300_fps string through the CLI, obs on
+    (``--metrics-port 0 --trace --watchdog --profile --events-dump``) or
+    off; with ``scrape``, a second thread scrapes the exporter while frames
+    flow. Returns what the run showed."""
+    from nnstreamer_tpu_torch.cli import main as cli
+    from nnstreamer_tpu_torch.elements.sinks import TensorSink
+
+    _obs_all_off()
+    _hooks_off()
+    launch = (f"videotestsrc width=300 height=300 pattern=random "
+              f"num-buffers={OBS_SSD_FRAMES} ! tensor_converter name=conv_{tag} ! "
+              f'tensor_filter name=filt_{tag} framework=xla-tpu model="{SSD_SPEC}" ! '
+              f"tensor_decoder name=dec_{tag} mode=bounding_box option1=mobilenet-ssd "
+              f"option2={labels} option3={priors} option4=300:300 option5=300:300 "
+              f"async-depth=64 ! tensor_sink name=sink_{tag} store=true")
+    events_path = os.path.join(tmp, f"events_{tag}.jsonl")
+    # the stall threshold sits above a first frame's warm-up and capture
+    # (seconds: the profiler counts that warm-up's FLOPs op by op), which
+    # the watchdog would rightly call a stall at its 5 s default
+    flags = ["--metrics-port", "0", "--trace", "--watchdog", str(OBS_STALL_S),
+             "--profile", "--events-dump", events_path] if on else []
+    with _cli_objects() as box, _decoder_inputs() as rows, \
+            _arrivals(TensorSink) as arrivals, _kept_programs() as programs:
+        exporter = lambda: box["exporter"].port if "exporter" in box else None  # noqa
+        playing = lambda: "pipeline" in box and box["pipeline"].running  # noqa
+        scraper = _Scraper(exporter, OBS_ROUTES, playing)
+        counters.reset()
+        t_start, t_cli = time.monotonic_ns(), time.perf_counter()
+        with scraper if scrape else contextlib.nullcontext():
+            rc = cli(flags + [launch])
+        torch.cuda.synchronize()
+        launches = counters.read()
+    if rc != 0:
+        raise AssertionError(f"obs {tag}: nns-launch exited {rc}")
+    p = box["pipeline"]
+    sink = p.get_by_name(f"sink_{tag}")
+    if sink.num_buffers != OBS_SSD_FRAMES or p._epilogue_count != 1 \
+            or launches["class_reduce"] != OBS_SSD_FRAMES \
+            or launches["nms_sweep"] != OBS_SSD_FRAMES:
+        raise AssertionError(f"obs {tag}: {sink.num_buffers} frames out, "
+                             f"{p._epilogue_count} epilogues fused, launches {launches}")
+    return dict(p=p, tag=tag, t_start=t_start, programs=programs,
+                dets=[b.meta["detections"] for b in sink.buffers],
+                rows=_memories(rows), fps=_steady_fps(arrivals), launches=launches,
+                first_s=arrivals[0] - t_cli,
+                scraper=scraper if scrape else None, events_path=events_path)
+
+
+def _check_obs_ssd(run: dict) -> dict:
+    """The obs-on SSD run's telemetry: the filter's buffer counter, one
+    pipeline.element span per element per frame, every route 200 while the
+    pipeline played (a scraped run), the Perfetto JSON's device lanes (as
+    scraped, and as the profiler renders it after the run), every sampled
+    dispatch's event-timed device time; and the sampled invoke against the
+    filter's own graph replayed. Returns the numbers."""
+    from nnstreamer_tpu_torch import obs
+    from nnstreamer_tpu_torch.obs import profile, tracing
+
+    tag, frames = run["tag"], OBS_SSD_FRAMES
+    els = [f"{k}_{tag}" for k in ("conv", "filt", "dec", "sink")]
+    series = obs.registry().snapshot()["nnstpu_pipeline_buffers_total"]["series"]
+    bufs = {s["labels"]["element"]: s["value"] for s in series
+            if s["labels"]["element"] in els}
+    if bufs != {el: frames for el in els}:
+        raise AssertionError(f"obs {tag}: nnstpu_pipeline_buffers_total {bufs}")
+    spans = {}
+    for summ in tracing.store().summaries():
+        for sp in tracing.store().spans_of(summ["trace_id"]):
+            if sp.name == "pipeline.element":
+                el = sp.attrs.get("element")
+                spans[el] = spans.get(el, 0) + 1
+    if {el: spans.get(el, 0) for el in els} != {el: frames for el in els}:
+        raise AssertionError(f"obs {tag}: pipeline.element spans by element {spans}")
+    sc = run["scraper"]
+    traces = [json.loads(json.dumps(profile.perfetto_trace()))]
+    if sc is not None:
+        for route in OBS_ROUTES:
+            codes = sc.while_playing(route)
+            if not codes or any(c != 200 for c in codes):
+                raise AssertionError(f"obs {tag}: {route} while playing answered "
+                                     f"{codes}")
+        traces.append(json.loads(sc.last["/debug/profile"]))
+    for trace in traces:
+        lanes = {e["args"]["name"] for e in trace["traceEvents"]
+                 if e["ph"] == "M" and e["name"] == "thread_name" and e["pid"] == 2}
+        for k in ("class_reduce", "nms_sweep"):
+            if not any(k in lane for lane in lanes):
+                raise AssertionError(f"obs {tag}: no {k} device lane in "
+                                     f"{sorted(lanes)}")
+    recs = [r for r in profile.profiler().records("dispatch")
+            if r["t0_ns"] >= run["t_start"]]
+    sampled = [r for r in recs[1:] if r["device_ns"] is not None]  # [0]: capture
+    if len(recs) != frames or not sampled:
+        raise AssertionError(f"obs {tag}: {len(recs)} dispatch records, "
+                             f"{len(sampled)} sampled")
+    for r in sampled:
+        if not 0 < r["device_ns"] <= r["dur_ns"] + r["args"]["wait_ns"]:
+            raise AssertionError(f"obs {tag}: sampled device_ns {r['device_ns']} "
+                                 f"outside (0, {r['dur_ns']} + {r['args']['wait_ns']}]")
+    graphs_ = [g for fn in run["programs"] for g in fn._graphs.values()]
+    if len(graphs_) != 1:
+        raise AssertionError(f"obs {tag}: {len(graphs_)} invoke graphs")
+    invoke_ms = float(np.median([r["device_ns"] for r in sampled])) / 1e6
+    replay_ms = _replay_ms(graphs_[0].graph)
+    return dict(invoke_ms=invoke_ms, replay_ms=replay_ms, sampled=len(sampled),
+                scrapes=len(sc.answers) if sc is not None else 0,
+                host_ms=float(np.median([r["dur_ns"] for r in sampled])) / 1e6,
+                wait_ms=float(np.median([r["args"]["wait_ns"] for r in sampled])) / 1e6)
+
+
+def _series_of(snap, prefix: str, label: str = "lm") -> dict:
+    return {name: s["value"] for name, fam in snap.items()
+            if name.startswith(prefix) and fam["type"] != "histogram"
+            for s in fam["series"] if s["labels"].get("engine") == label}
+
+
+def _obs_lm_turn(qparams, requests, again, on: bool, scrape: bool,
+                 counters) -> dict:
+    """bench.py's paged serving lane, w8a8, on a new 32-slot paged engine:
+    the mix (its captures included) then a second mix (replays only). With
+    obs on (metrics, tracing, health, events, the profiler at its default
+    cadence and an exporter on port 0) a second thread scrapes /metrics in
+    a loop through the engine's captures when ``scrape``."""
+    from nnstreamer_tpu_torch import obs
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.obs import events, health, profile, tracing
+
+    _obs_all_off()
+    _hooks_off()
+    exporter = None
+    if on:
+        obs.enable()
+        tracing.enable()
+        health.enable()
+        events.enable()
+        profile.enable()
+        exporter = obs.start_exporter(port=0)
+    state = {"serving": False}
+    scraper = _Scraper(lambda: exporter.port, ("/metrics", "/healthz"),
+                       lambda: state["serving"])
+    before = _series_of(obs.registry().snapshot(), "nnstpu_serving_kv_")
+    graphs.reset_stats()
+    try:
+        with scraper if scrape else contextlib.nullcontext():
+            time.sleep(0.05 if scrape else 0.0)
+            state["serving"] = True
+            eng = _paged_engine(qparams, PAGED_SLOTS)
+            counters.reset()
+            outs, stats, wall, eng = _serve(qparams, requests, PAGED_SLOTS, eng)
+            launches = counters.read()
+            outs2, _, wall2, eng = _serve(qparams, again, PAGED_SLOTS, eng)
+            state["serving"] = False
+            captures = graphs.stats()["captures"]
+    finally:
+        if exporter is not None:
+            exporter.close()
+    tokens, tokens2 = sum(len(o) for o in outs), sum(len(o) for o in outs2)
+    return dict(outs=outs, outs2=outs2, eng=eng, launches=launches, stats=stats,
+                rate=tokens / wall, rate2=tokens2 / wall2, captures=captures,
+                before=before, scraper=scraper if scrape else None)
+
+
+def _check_obs_lm(run: dict) -> dict:
+    """The obs-on paged run's telemetry: the nnstpu_serving_kv_* gauges and
+    counters equal the engine's kv_stats, ENGINE_HOOK records for prefill
+    and decode, a cuda.dequant_gelu_requant kernel record, /metrics
+    answered 200 through the run's captures with the slot gauge read
+    mid-run."""
+    from nnstreamer_tpu_torch import obs
+    from nnstreamer_tpu_torch.obs import profile
+
+    eng, kv = run["eng"], run["eng"].kv_stats
+    after = _series_of(obs.registry().snapshot(), "nnstpu_serving_kv_")
+    d = {k: v - run["before"].get(k, 0) for k, v in after.items()}
+    want = {"nnstpu_serving_kv_prefix_hit_total": kv["hit_tokens"],
+            "nnstpu_serving_kv_evict_total": kv["evictions"],
+            "nnstpu_serving_kv_offload_total": kv["offloads"],
+            "nnstpu_serving_kv_reupload_total": kv["reuploads"]}
+    gauges = {"nnstpu_serving_kv_total_pages": PAGED_POOL,
+              "nnstpu_serving_kv_used_pages": eng._kv.used_pages(),
+              "nnstpu_serving_kv_shared_pages": eng._kv.shared_pages()}
+    got = {k: d.get(k) for k in want} | {k: after.get(k) for k in gauges}
+    if got != want | gauges:
+        raise AssertionError(f"obs lm: kv series {got} != kv_stats {want | gauges}")
+    labels = {r["label"] for r in profile.profiler().records("engine")}
+    kernels = {r["label"] for r in profile.profiler().records("kernel")}
+    if not {"lm.prefill", "lm.decode"} <= labels \
+            or "cuda.dequant_gelu_requant" not in kernels:
+        raise AssertionError(f"obs lm: engine records {sorted(labels)}, kernel "
+                             f"records {sorted(kernels)}")
+    sc = run["scraper"]
+    codes = sc.while_playing("/metrics") if sc is not None else [200]
+    if not codes or any(c != 200 for c in codes) or run["captures"] < 1:
+        raise AssertionError(f"obs lm: /metrics during the run {codes[:8]}..., "
+                             f"captures {run['captures']}")
+    return dict(scrapes=len(codes) if sc is not None else 0, kv=got,
+                captures=run["captures"])
+
+
+def run_obs(qparams, counters) -> dict:
+    """The obs base and the profiler on the card, at full width: SSD-300
+    through the CLI with every obs flag and bench.py's paged w8a8 serving
+    lane with metrics, tracing and the profiler on, each against the same
+    run with obs off, in turns (off, on, off, on; outputs bit-equal); the
+    last kernel labels (gpu_smoke, two flash bf16 prefill batches, one
+    fused DeepLab-v3 frame); what obs costs. Returns the launches of the
+    obs-on runs."""
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
+    from nnstreamer_tpu_torch.obs import profile
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        priors = os.path.join(tmp, "box_priors.txt")
+        write_box_priors(priors, size=300)
+        labels = os.path.join(tmp, "coco.txt")
+        with open(labels, "w") as f:
+            f.write("\n".join(f"c{i}" for i in range(91)))
+        ssd = {True: [], False: []}
+        for i, on in enumerate(OBS_TURNS):
+            run = _obs_ssd_turn(tmp, labels, priors, on, i == 1, f"t{i}", counters)
+            if on:
+                run["obs"] = _check_obs_ssd(run)
+                launches[f"obs ssd {i}"] = run["launches"]
+                with open(run["events_path"]) as fh:
+                    types = [json.loads(ln)["type"] for ln in fh]
+                if types.count("pipeline.state") != 2:
+                    raise AssertionError(f"obs ssd: events {types[:20]}")
+            del run["programs"], run["p"]
+            _release()
+            ssd[on].append(run)
+        ref = ssd[False][0]
+        for run in ssd[True] + ssd[False][1:]:
+            if run["dets"] != ref["dets"] or not _all_identical(run["rows"], ref["rows"]):
+                raise AssertionError(f"obs ssd {run['tag']}: boxes differ from the "
+                                     "obs-off run")
+        for run in ssd[True]:
+            o = run["obs"]
+            scraped = (f"{o['scrapes']} scrapes of {len(OBS_ROUTES)} routes while "
+                       "frames flowed, every one 200 while playing" if o["scrapes"]
+                       else "not scraped (a cost turn)")
+            print(f"obs ssd {run['tag']} (bench.py's ssd_mobilenet_300_fps string, "
+                  f"{OBS_SSD_FRAMES} frames, CLI --metrics-port 0 --trace --watchdog "
+                  f"{OBS_STALL_S} --profile --events-dump): boxes and reduce rows == the obs-off run; "
+                  f"nnstpu_pipeline_buffers_total == {OBS_SSD_FRAMES} for each element, "
+                  f"one pipeline.element span per element per frame; {scraped}; device "
+                  f"lanes class_reduce and nms_sweep in the Perfetto JSON; "
+                  f"{o['sampled']} sampled invokes, "
+                  f"event-timed device {o['invoke_ms']:.4f} ms (median; host "
+                  f"{o['host_ms']:.4f}, wait {o['wait_ms']:.4f}) against the same "
+                  f"CUDA graph replayed {o['replay_ms']:.4f} ms, ratio "
+                  f"{o['invoke_ms'] / o['replay_ms']:.4f}", flush=True)
+    profile.disable()
+
+    requests, again = _paged_requests(7), _paged_requests(8)
+    lm = {True: [], False: []}
+    for i, on in enumerate(OBS_TURNS):
+        run = _obs_lm_turn(qparams, requests, again, on, i == 1, counters)
+        if on:
+            run["obs"] = _check_obs_lm(run)
+            launches[f"obs lm w8a8 {i}"] = run["launches"]
+        lm[on].append(run)
+        del run["eng"]
+        _release()
+    ref = lm[False][0]
+    for run in lm[True] + lm[False][1:]:
+        if run["outs"] != ref["outs"] or run["outs2"] != ref["outs2"]:
+            raise AssertionError("obs lm: tokens differ from the obs-off run")
+    for run in lm[True]:
+        o = run["obs"]
+        print(f"obs lm paged w8a8 ({PAGED_SLOTS} slots, {PAGED_POOL} pages of "
+              f"{PAGE_SIZE}, {PAGED_REQUESTS} requests; metrics, tracing, health, "
+              f"events, profile): tokens == the obs-off run on both mixes; "
+              f"nnstpu_serving_kv_* == kv_stats {json.dumps(o['kv'])}; "
+              + (f"{o['scrapes']} /metrics scrapes answered 200 while serving, "
+                 f"through {o['captures']} graph captures" if o["scrapes"]
+                 else f"not scraped (a cost turn), {o['captures']} captures")
+              + "; prefill and decode engine records, a "
+              f"cuda.dequant_gelu_requant kernel record", flush=True)
+    _obs_all_off()
+
+    # the last kernel labels: gpu_smoke, two flash bf16 prefill batches, one
+    # fused DeepLab-v3 frame, under the profiler (its records kept from above)
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.models.causal_lm import prefill_bundle
+    from nnstreamer_tpu_torch.utils.probes import gpu_smoke
+
+    profile.enable()
+    counters.reset()
+    gpu_smoke()
+    v, _, h, _ = LM_DIMS
+    bf16 = _lm_params(torch.bfloat16)
+    rng = np.random.default_rng(3)
+    p = Pipeline("obs-prefill")
+    src = p.add_new("appsrc", caps=Caps.tensors(TensorsConfig(TensorsInfo.from_strings(
+        f"{FLASH_T}:{FLASH_B}", "int32"))), data=[
+            rng.integers(0, v, (FLASH_B, FLASH_T)).astype(np.int32) for _ in range(2)])
+    filt = p.add_new("tensor_filter", framework="torch-cuda", model=prefill_bundle(
+        bf16, h, FLASH_T, FLASH_B, flash=True))
+    Pipeline.link(src, filt, p.add_new("tensor_sink"))
+    p.run(timeout=600)
+    del bf16, p, filt
+    _release()
+    seg, _, seg_sink, _ = _seg_pipeline(SEG_SPEC, 1)
+    seg.run(timeout=600)
+    torch.cuda.synchronize()
+    launches["obs labels"] = counters.read()
+    kernels = {r["label"] for r in profile.profiler().records("kernel")}
+    want = {f"cuda.{k}" for k in ("class_reduce", "nms_sweep", "segment_colorize",
+                                  "flash_attention", "dequant_gelu_requant",
+                                  "normalize_u8", "quantize_affine")}
+    if not want <= kernels or seg_sink.num_buffers != 1:
+        raise AssertionError(f"obs: kernel records {sorted(kernels)} lack "
+                             f"{sorted(want - kernels)}")
+    print(f"obs kernel labels: all seven recorded ({sorted(want)})", flush=True)
+    _obs_all_off()
+    _hooks_off()
+
+    card = _card()
+    cost = {"ssd_fps": {"off": [r["fps"] for r in ssd[False]],
+                        "on": [r["fps"] for r in ssd[True]]},
+            "lm_tokens_per_s": {"off": [r["rate"] for r in lm[False]],
+                                "on": [r["rate"] for r in lm[True]]},
+            "lm_tokens_per_s_second_mix": {"off": [r["rate2"] for r in lm[False]],
+                                           "on": [r["rate2"] for r in lm[True]]},
+            "ssd_first_frame_s": {"off": [r["first_s"] for r in ssd[False]],
+                                  "on": [r["first_s"] for r in ssd[True]]},
+            "invoke_vs_replay": [(r["obs"]["invoke_ms"], r["obs"]["replay_ms"])
+                                 for r in ssd[True]],
+            "card": card}
+    print(f"obs cost ({card}), turns off/on (scraped)/off/on: SSD-300 steady "
+          f"frames/s off "
+          f"{cost['ssd_fps']['off']}, on {cost['ssd_fps']['on']} (seconds from the "
+          f"CLI call to the first frame off {cost['ssd_first_frame_s']['off']}, on "
+          f"{cost['ssd_first_frame_s']['on']}); w8a8 paged lane "
+          f"tokens/s on new engines off {cost['lm_tokens_per_s']['off']}, on "
+          f"{cost['lm_tokens_per_s']['on']}, second mix off "
+          f"{cost['lm_tokens_per_s_second_mix']['off']}, on "
+          f"{cost['lm_tokens_per_s_second_mix']['on']}; every output bit-equal",
+          flush=True)
+    LOOP_STATS["obs"] = cost
+    return launches
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -4137,6 +4692,8 @@ def main() -> int:
     by_phase["lm paged w8a8"] = run_lm_paged(quantize_lm_params(params), "w8a8", counters)
     with tempfile.TemporaryDirectory() as tmp:
         by_phase["multi-tenant"] = run_multitenant(params, counters, tmp)
+    by_phase.update(run_obs(quantize_lm_params(params), counters))
+    _release()
     del params
     by_phase["lm flash prefill"] = run_flash_prefill(counters, torch.bfloat16)
     by_phase["lm flash prefill float32"] = run_flash_prefill(counters, torch.float32)

@@ -16,9 +16,19 @@ JAX package's ``JAX_PLATFORMS``, and --sched[=WIDTH]/--sched-tenants
 every pipeline's filter invokes, WIDTH the coalesce cap, default 8 when
 bare; presets ``NAME:W[:PRIO][,...]``), and --kv-page-size/--kv-pages
 (the paged KV cache of every ``LMEngine`` built during the run, through the
-``NNS_LM_KV_PAGE_SIZE``/``NNS_LM_KV_PAGES`` environment). The JAX CLI's
-observability, query, fleet, resilience and serving-role flags wait for
-their layers and are refused.
+``NNS_LM_KV_PAGE_SIZE``/``NNS_LM_KV_PAGES`` environment; a per-engine KV
+summary at exit). Observability as in the JAX CLI: --metrics-port PORT
+(``/metrics``, ``/healthz``, ``/readyz`` and the ``/debug`` pages while the
+pipeline runs; 0 = ephemeral), --trace (spans; the per-element span report
+at exit), --watchdog[=SECS] (the health model and stall watchdog, with the
+flight recorder), --events-dump PATH ('-' = stderr), --profile[=N] (the
+device-time profiler with an N-record ring; implies --trace; its report at
+exit) and --profile-dump PATH. The JAX CLI's flags whose layers the port
+has not reached are refused, naming the ROADMAP item that brings each:
+--diag, --quality, --quality-record, --slo, --tune (§A7), --deadline-ms,
+--fallback, --backends, --hedge-ms (§A8), --obs-push, --obs-aggregate,
+--autoscale, --checkpoint-dir, --checkpoint-interval, --role, --disagg
+(§A9).
 
 Exit codes: 0 at EOS, 1 on a parse, negotiation or runtime error, 2 when
 the timeout passes before EOS.
@@ -34,15 +44,38 @@ import time
 #: flags taking an optional numeric value (nargs="?"): a bare form must not
 #: swallow a following pipeline positional, which argparse would otherwise
 #: consume before type conversion rejects it
-_BARE_OK_FLAGS = ("--sched",)
+_BARE_OK_FLAGS = ("--profile", "--watchdog", "--sched")
+
+#: the JAX CLI's flags whose layers the port has not reached yet, and the
+#: ROADMAP item that brings each back; each is refused
+_REFUSED_FLAGS = {
+    "--diag": "obs/diag (ROADMAP §A7)",
+    "--quality": "obs/quality (ROADMAP §A7)",
+    "--quality-record": "obs/quality (ROADMAP §A7)",
+    "--slo": "obs/slo.py (ROADMAP §A7)",
+    "--tune": "tune/ (ROADMAP §A7)",
+    "--deadline-ms": "resilience/ and query/ (ROADMAP §A8)",
+    "--fallback": "resilience/ and query/ (ROADMAP §A8)",
+    "--backends": "query/router.py (ROADMAP §A8)",
+    "--hedge-ms": "query/router.py (ROADMAP §A8)",
+    "--obs-push": "obs/fleet.py (ROADMAP §A9)",
+    "--obs-aggregate": "obs/fleet.py (ROADMAP §A9)",
+    "--autoscale": "fleet/ (ROADMAP §A9)",
+    "--checkpoint-dir": "fleet/checkpoint.py (ROADMAP §A9)",
+    "--checkpoint-interval": "fleet/checkpoint.py (ROADMAP §A9)",
+    "--role": "serving/disagg.py (ROADMAP §A9)",
+    "--disagg": "serving/disagg.py (ROADMAP §A9)",
+}
 
 
 def _normalize_argv(argv):
-    """Move a bare ``--sched`` to the end of argv when the token that would
-    follow it at parse time is not its numeric value, so ``--sched
-    '<pipeline>'`` parses the pipeline as the positional (argparse
-    otherwise consumes it for the flag and dies on ``invalid int value``).
-    A trailing flag with nothing after it takes its ``const`` default."""
+    """Move a bare ``--profile``/``--watchdog``/``--sched`` to the end of
+    argv when the token that would follow it at parse time is not its
+    numeric value, so ``--sched '<pipeline>'`` parses the pipeline as the
+    positional (argparse otherwise consumes it for the flag and dies on
+    ``invalid int value``). Scans right-to-left so chained bare flags
+    compose. A trailing flag with nothing after it takes its ``const``
+    default."""
     out, deferred = [], []
     for tok in reversed(argv):
         if tok in _BARE_OK_FLAGS and out and not out[0].startswith("-"):
@@ -63,6 +96,38 @@ def main(argv=None) -> int:
                     help="max seconds to run (default: until EOS)")
     ap.add_argument("-v", "--verbose", action="store_true",
                     help="print bus messages")
+    ap.add_argument("--metrics-port", type=int, default=None, metavar="PORT",
+                    help="enable metrics and serve /metrics + /healthz on "
+                         "this port while the pipeline runs (0 = ephemeral)")
+    ap.add_argument("--trace", action="store_true",
+                    help="enable span tracing (obs.tracing) for the run and "
+                         "print the per-element span report at exit; combine "
+                         "with --metrics-port to browse /debug/traces live")
+    ap.add_argument("--watchdog", type=float, nargs="?", const=5.0,
+                    default=None, metavar="SECS",
+                    help="enable the health model + stall watchdog "
+                         "(obs.health) with this stall threshold in seconds "
+                         "(default 5.0 when given bare); drives real "
+                         "/healthz + /readyz verdicts on --metrics-port and "
+                         "implies the flight recorder")
+    ap.add_argument("--events-dump", metavar="PATH", default=None,
+                    help="enable the flight recorder (obs.events) and dump "
+                         "the event journal to PATH as JSON lines at exit "
+                         "('-' dumps human-readable to stderr)")
+    ap.add_argument("--profile", type=int, nargs="?", const=4096,
+                    default=None, metavar="N",
+                    help="enable the device-time profiler (obs.profile) "
+                         "with an N-record ring (default 4096 when given "
+                         "bare); implies --trace, serves the Perfetto "
+                         "timeline at /debug/profile with --metrics-port, "
+                         "and prints the profile report at exit")
+    ap.add_argument("--profile-dump", metavar="PATH", default=None,
+                    help="write the profiler's (shape, dtype, fusion, "
+                         "device) -> cost samples to PATH as JSON at exit "
+                         "(needs --profile)")
+    for flag in _REFUSED_FLAGS:
+        ap.add_argument(flag, nargs="?", const=True, default=None,
+                        help=argparse.SUPPRESS)
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device the pipeline runs on (default cuda)")
     ap.add_argument("--list-elements", action="store_true")
@@ -107,8 +172,16 @@ def main(argv=None) -> int:
         return 0
     if args.inspect:
         return inspect_element(args.inspect)
+    for flag, layer in _REFUSED_FLAGS.items():
+        if getattr(args, flag[2:].replace("-", "_")) is not None:
+            ap.error(f"{flag} waits for the port of {layer}")
     if not args.pipeline:
         ap.error("pipeline description required")
+    if args.profile is not None and args.profile < 1:
+        ap.error("--profile must be >= 1 (ring capacity in records)")
+    if args.profile_dump is not None and args.profile is None:
+        ap.error("--profile-dump needs --profile (no samples are "
+                 "recorded without the profiler)")
     if args.sched is not None and args.sched < 1:
         ap.error("--sched must be >= 1 (max coalesce width)")
     sched_presets = []
@@ -154,6 +227,29 @@ def main(argv=None) -> int:
     except Exception as e:  # noqa: BLE001 — CLI reports, never tracebacks
         print(f"ERROR: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    exporter = None
+    if args.metrics_port is not None:
+        # started (and collection enabled) BEFORE p.start(): the element
+        # chains only get instrumented if metrics are on at start time
+        from .obs.exporter import start_exporter
+
+        try:
+            exporter = start_exporter(port=args.metrics_port)
+        except (OSError, RuntimeError) as e:
+            print(f"ERROR: metrics exporter: {e}", file=sys.stderr)
+            return 1
+        print(f"metrics: {exporter.url}", file=sys.stderr)
+    if args.trace or args.profile is not None:
+        # like metrics: on BEFORE p.start() so the element chains get the
+        # span-opening wrap (--profile implies tracing: the Perfetto host
+        # lanes come from pipeline.element spans)
+        from .obs import tracing
+
+        tracing.enable()
+    if args.profile is not None:
+        from .obs import profile
+
+        profile.enable(max_records=args.profile)
     sched_engine = None
     if args.sched is not None:
         # before p.start(): the install sets the pipeline scheduler hook,
@@ -165,6 +261,16 @@ def main(argv=None) -> int:
             sched_engine.preset(name, weight=w, priority=prio)
         print(f"sched: {sched_engine.name} multiplexing "
               f"(coalesce<={args.sched})", file=sys.stderr)
+    if args.watchdog is not None or args.events_dump is not None:
+        # same start-time rule: health components and the event bridge
+        # only attach to what is built/started AFTER enable()
+        from .obs import events
+
+        events.enable()
+        if args.watchdog is not None:
+            from .obs import health
+
+            health.enable(stall_after_s=float(args.watchdog))
     t0 = time.monotonic()
     try:
         p.start()
@@ -174,6 +280,8 @@ def main(argv=None) -> int:
             from . import sched
 
             sched.uninstall()
+        if exporter is not None:
+            exporter.close()
         return 1
     try:
         ok = p.wait_eos(args.timeout)
@@ -206,6 +314,47 @@ def main(argv=None) -> int:
                   f"{cs['median']:.1f}, occupancy "
                   f"{sched_engine.occupancy():.3f}", file=sys.stderr)
             sched.uninstall()
+        if args.kv_page_size is not None:
+            # per-engine KV exit summary (prefix_hit_rate is the economic
+            # number paging exists for); live_engines() is the weak
+            # registry — engines are built deep inside filters and never
+            # handed back to the CLI
+            from .serving.lm_engine import live_engines
+
+            for eng in live_engines():
+                hr = eng.prefix_hit_rate
+                kv = eng.kv_stats
+                if hr is None or kv is None:
+                    continue
+                print(f"kv[{eng._engine_label}]: "
+                      f"prefix_hit_rate {hr:.3f} "
+                      f"({kv['hit_tokens']}/{kv['prompt_tokens']} tokens), "
+                      f"pages_peak {kv['pages_peak']}, "
+                      f"imported {kv['imported_pages']}, "
+                      f"exported {kv['exported_pages']}, "
+                      f"spilled {kv['spilled_pages']}", file=sys.stderr)
+        if exporter is not None:
+            exporter.close()
+        if args.trace:
+            from .obs import tracing
+
+            print(tracing.element_stats_report(), file=sys.stderr)
+        if args.profile is not None:
+            from .obs import profile
+
+            print(profile.report(), file=sys.stderr)
+            if args.profile_dump is not None:
+                n = profile.dump_samples(args.profile_dump)
+                print(f"profile: {n} cost samples -> "
+                      f"{args.profile_dump}", file=sys.stderr)
+        if args.events_dump is not None:
+            from .obs import events
+
+            if args.events_dump == "-":
+                events.dump(sys.stderr)
+            else:
+                events.dump_jsonl(args.events_dump)
+                print(f"events: {args.events_dump}", file=sys.stderr)
     if args.verbose:
         print(f"ran {time.monotonic() - t0:.2f}s", file=sys.stderr)
     return 0

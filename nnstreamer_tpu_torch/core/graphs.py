@@ -112,6 +112,38 @@ def count(owner: Any, name: str = "launches", key: Optional[str] = None) -> None
         _bump(owner, name, key)
 
 
+def capturing() -> bool:
+    """True while this thread captures a graph: nothing may sync, time or
+    read the card then (obs/profile.py checks it)."""
+    return getattr(_local, "recording", None) is not None
+
+
+@contextlib.contextmanager
+def costing(mode: Any) -> Iterator[None]:
+    """While inside, the next eager run of a ``CapturedFn`` on this thread
+    (the warm-up before a capture, or the plain call on a CPU) runs under
+    ``mode`` (a ``FlopCounterMode``: obs/profile.py's cost of a signature);
+    a capture never does."""
+    _local.cost = mode
+    try:
+        yield
+    finally:
+        _local.cost = None
+
+
+def _eager(fn: Callable[..., Any], args: Tuple[Any, ...],
+           static: Dict[str, Hashable]) -> Any:
+    """``fn(*args, **static)``, under this thread's cost mode when one is
+    set (``costing``) and the thread is not capturing; the call uses the
+    mode up."""
+    mode = getattr(_local, "cost", None)
+    if mode is None or capturing():
+        return fn(*args, **static)
+    _local.cost = None
+    with mode:
+        return fn(*args, **static)
+
+
 @contextlib.contextmanager
 def recording(launches: List[Launch]) -> Iterator[None]:
     """While inside, this thread's ``count`` calls append to ``launches``
@@ -227,7 +259,7 @@ class CapturedFn:
                 or getattr(_local, "recording", None) is not None:
             # eager: a CPU, disabled(), or inside another capture (which
             # takes this call's launches into its own graph)
-            return self.fn(*args, **static)
+            return _eager(self.fn, args, static)
         key = signature(args, static)
         with self._lock:
             g = self._graphs.get(key)
@@ -245,7 +277,7 @@ class CapturedFn:
         cur = torch.cuda.current_stream(dev)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self.fn(*args, **static)
+            out = _eager(self.fn, args, static)
             with _lock:
                 _STATS["warmups"] += 1
             # normal tensors (not inference tensors): replays copy into them

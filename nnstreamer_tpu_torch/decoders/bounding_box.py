@@ -34,6 +34,7 @@ import torch
 
 from ..core.buffer import Buffer, TensorMemory
 from ..core.types import Caps, TensorsConfig
+from ..obs import profile as _profile
 from ..ops.kernels import epilogue as _ep
 from .base import Decoder, register_decoder
 from .util import draw_rect, draw_text, load_labels, new_canvas, nms
@@ -295,8 +296,12 @@ class BoundingBox(Decoder):
             # box decode + class max + threshold + top-K + greedy NMS, all
             # on device — complete() only filters kept rows
             fn, mems = red
+            arrays = [m.device() for m in mems]
+            prof = _profile.DISPATCH_HOOK
             with torch.inference_mode():
-                rows = TensorMemory(fn(*(m.device() for m in mems)))
+                out = prof.dispatch_fn(f"decode:{self.box_mode}", fn, *arrays) \
+                    if prof is not None else fn(*arrays)
+            rows = TensorMemory(out)
             rows.prefetch()
             return (buf, rows)
         return super().submit(buf, config)

@@ -24,6 +24,7 @@ import torch
 
 from ..core.buffer import Buffer, TensorMemory
 from ..core.types import Caps, TensorsConfig
+from ..obs import profile as _profile
 from ..ops.kernels import epilogue as _ep
 from .base import Decoder, register_decoder
 
@@ -105,8 +106,12 @@ class ImageSegment(Decoder):
             # host NumPy gather disappears from the frame loop
             fn = self._colorize_fn()
             if fn is not None:
+                prof = _profile.DISPATCH_HOOK
                 with torch.inference_mode():
-                    canvas_mem = TensorMemory(fn(m.device()))
+                    out = prof.dispatch_fn(f"decode:{self.scheme}", fn,
+                                           m.device()) \
+                        if prof is not None else fn(m.device())
+                canvas_mem = TensorMemory(out)
                 canvas_mem.prefetch()
                 return (buf, canvas_mem)
         return super().submit(buf, config)

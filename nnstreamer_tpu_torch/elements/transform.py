@@ -25,6 +25,7 @@ from ..core.buffer import Buffer, TensorMemory
 from ..core.hw import resolve_device
 from ..core.types import Caps, TensorsConfig, TensorsInfo
 from ..graph.element import Element, FlowReturn, Pad, register_element
+from ..obs import profile as _profile
 from ..ops import transform_ops
 
 
@@ -82,8 +83,15 @@ class TensorTransform(Element):
             return self.push(buf.with_memories(buf.memories,
                                                config=self._out_config))
         fn = self._transform.fn
+        prof = _profile.DISPATCH_HOOK
         with torch.inference_mode():
-            outs = [TensorMemory(fn(m.device(self._dev))) for m in buf.memories]
+            if prof is not None:
+                outs = [TensorMemory(prof.dispatch_fn(
+                    f"transform:{self.name}", fn, m.device(self._dev)))
+                    for m in buf.memories]
+            else:
+                outs = [TensorMemory(fn(m.device(self._dev)))
+                        for m in buf.memories]
         return self.push(buf.with_memories(outs, config=self._out_config))
 
     def as_torch_fn(self):

@@ -62,10 +62,14 @@ Design notes:
     bilinear region resize, in float32;
   * ``arch``/``arch_*`` are kept out of the model options, as in the JAX
     filter (checkpoint restore, their only reader, is not ported).
-  The JAX filter's hooks into layers the port has not ported yet are
-  dropped: the scheduler's bucket telemetry (``record_bucket_hit``/
-  ``record_bucket_miss``), the tuner's bucket-rung pick (``TUNE_HOOK``)
-  and the profiler's dispatch hook (``DISPATCH_HOOK``).
+  * obs: with the profiler on, every program call goes through
+    ``obs.profile.DISPATCH_HOOK`` (host time, a sampled CUDA-event device
+    time, the cost once per shape), and ``_build`` counts a composition of
+    a bundle and configuration already composed as a ``bundle`` hit; the
+    bucket ladder records its hits, pad rows and misses through
+    sched/telemetry.py, as the JAX filter does.
+  The JAX filter's bucket-rung pick by the tuner (``TUNE_HOOK``) waits for
+  the port of ``tune/`` (ROADMAP §A7).
 """
 
 from __future__ import annotations
@@ -83,6 +87,8 @@ from ..core.buffer import TensorMemory
 from ..core.log import logger
 from ..core.types import TensorInfo, TensorsInfo
 from ..models.zoo import ModelBundle, get_model
+from ..obs import profile as _profile
+from ..sched import telemetry as _sched_tel
 from .base import FilterFramework, FilterProps, register_filter
 
 log = logger("torch_cuda")
@@ -269,6 +275,8 @@ class TorchCudaFilter(FilterFramework):
         self._pre_token: Optional[str] = None
         self._post_token: Optional[str] = None
         self._post_batch_led = True
+        #: the profiler's label of a fused invoke (the JAX filter's)
+        self._epilogue_label: Optional[str] = None
         self._full: Optional[Callable] = None
         self._device: Optional[torch.device] = None
         self._in_info: Optional[TensorsInfo] = None
@@ -365,6 +373,9 @@ class TorchCudaFilter(FilterFramework):
         self._fused_post = post
         self._post_token = token
         self._post_batch_led = batch_led
+        self._epilogue_label = (f"{self._bundle.name}+post[{token}]"
+                                if self._bundle is not None and token
+                                else None)
         self._build()
 
     @property
@@ -420,6 +431,14 @@ class TorchCudaFilter(FilterFramework):
         # a new composition drops the old one's graphs
         self._fn = graphs.CapturedFn(
             full, f"torch-cuda invoke of {self._bundle.name}")
+        prof = _profile.DISPATCH_HOOK
+        if prof is not None and pre is None and post is None:
+            # the JAX filter's bundle-level jit cache, as telemetry: the
+            # same bundle and configuration composed before is a hit
+            seen = self._bundle.metadata.setdefault("_composed", set())
+            key = (precision, self._donate, in_layout, out_layout)
+            prof.on_jit_cache("bundle", key in seen)
+            seen.add(key)
 
     def reload_model(self, model: Any) -> None:
         """Hot swap: same I/O contract required (reference RELOAD
@@ -492,7 +511,12 @@ class TorchCudaFilter(FilterFramework):
 
     def _run(self, arrays: Sequence[torch.Tensor]) -> Tuple[torch.Tensor, ...]:
         with self._lock, torch.inference_mode():
-            outs = self._fn(*arrays)
+            # profiled dispatch: one module load + None check when off
+            prof = _profile.DISPATCH_HOOK
+            if prof is not None:
+                outs = prof.dispatch(self, list(arrays), fn=self._fn)
+            else:
+                outs = self._fn(*arrays)
         if self._sync and torch.device(self._device).type == "cuda":
             torch.cuda.current_stream(self._device).synchronize()
         return outs
@@ -508,6 +532,8 @@ class TorchCudaFilter(FilterFramework):
             return []
         cap = self._bucket_max
         if n > cap:
+            _sched_tel.record_bucket_miss(
+                n, cap, label=self._bundle.name if self._bundle else "")
             chunks = [self._invoke_bucketed(inputs[i:i + cap])
                       for i in range(0, n, cap)]
             return [TensorMemory(torch.cat(
@@ -524,6 +550,7 @@ class TorchCudaFilter(FilterFramework):
                 f"bucketed invoke needs same-shape tensors, got {shapes} "
                 "(add custom=\"resize=H:W\" for image regions)")
         bucket = -(-n // self._bucket) * self._bucket
+        _sched_tel.record_bucket_hit(bucket - n)
         x = arrays[0]
         batch = torch.cat([torch.stack(arrays), x.new_zeros(
             (bucket - n,) + tuple(x.shape))])
@@ -602,8 +629,12 @@ class TorchCudaFilter(FilterFramework):
         arrays = [torch.cat([a[j] for a in per_group]) for j in range(npos)]
         del per_group
         fn = self._coalesced_fn()
-        with torch.inference_mode():
-            outs = fn(*arrays)
+        with self._lock, torch.inference_mode():
+            prof = _profile.DISPATCH_HOOK
+            if prof is not None:
+                outs = prof.dispatch(self, arrays, fn=fn)
+            else:
+                outs = fn(*arrays)
         if donate:
             # the graph's static input holds the batch now: release the
             # scratch so nothing downstream can observe it

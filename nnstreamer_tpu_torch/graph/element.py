@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence
 from ..core.buffer import Buffer
 from ..core.types import Caps
 from ..core.log import logger
+from ..obs import events as _events
 from .events import Bus, Event, EventType, Message, MessageType
 
 log = logger("element")
@@ -33,7 +34,8 @@ log = logger("element")
 def join_or_warn(t: threading.Thread, owner: str,
                  timeout: float = 5.0) -> bool:
     """Join a worker thread with a bounded wait; a timeout logs a
-    WARNING instead of abandoning the thread invisibly (a leaked daemon worker keeps its
+    WARNING and records a ``pipeline.thread_leak`` event instead of
+    abandoning the thread invisibly (a leaked daemon worker keeps its
     element state alive and can wake on a reused port/queue later).
     Returns True when the thread actually exited."""
     t.join(timeout=timeout)
@@ -41,7 +43,18 @@ def join_or_warn(t: threading.Thread, owner: str,
         return True
     log.warning("%s: thread %r did not exit within %.1fs — leaked",
                 owner, t.name, timeout)
+    _events.record("pipeline.thread_leak",
+                   f"{owner}: thread {t.name!r} did not exit within "
+                   f"{timeout:.1f}s", severity="warning",
+                   element=owner, thread=t.name)
     return False
+
+
+#: profiler timing point (obs/profile.py installs/clears this): called
+#: as ``hook(peer_pad, buf)`` IN PLACE of ``peer.element._chain_entry``
+#: — it runs the chain itself, timed, and returns the chain's
+#: FlowReturn. Disabled cost: one global load + None check.
+PROFILE_CHAIN_HOOK = None
 
 
 class FlowReturn(enum.Enum):
@@ -94,7 +107,10 @@ class Pad:
         if peer.eos:
             return FlowReturn.EOS
         try:
-            ret = peer.element._chain_entry(peer, buf)
+            if PROFILE_CHAIN_HOOK is not None:
+                ret = PROFILE_CHAIN_HOOK(peer, buf)
+            else:
+                ret = peer.element._chain_entry(peer, buf)
             return ret if ret is not None else FlowReturn.OK
         except Exception as e:  # noqa: BLE001 — element errors become bus messages
             peer.element.post_error(f"chain error: {type(e).__name__}: {e}", exc=e)
@@ -333,6 +349,11 @@ class Element:
 
     def post_error(self, text: str, exc: Optional[BaseException] = None) -> None:
         log.error("[%s] %s", self.name, text, exc_info=exc)
+        # flight recorder (obs/events.py, one flag check while off):
+        # recorded from an instrumented chain this carries the failing
+        # buffer's trace id via the current-context stamp
+        _events.record("pipeline.error", f"{self.name}: {text}",
+                       severity="error", element=self.name)
         if self.bus is not None:
             self.bus.post(Message(MessageType.ERROR, self.name,
                                   {"text": text, "exception": exc}))

@@ -26,6 +26,7 @@ from typing import Any, Callable, Dict, Iterable, List, Optional, Sequence, Unio
 from ..core.buffer import Buffer, now_ns
 from ..core.types import Caps
 from ..core.log import logger
+from ..obs import events as _events
 from .element import (Element, FlowReturn, Pad, join_or_warn,
                       register_element, make_element)
 from .events import Bus, Event, EventType, Message, MessageType
@@ -184,6 +185,12 @@ class Queue(Element):
     def chain(self, pad: Pad, buf: Buffer) -> Optional[FlowReturn]:
         self._enqueue(buf)
         return FlowReturn.OK
+
+    def health_probe(self) -> Dict[str, int]:
+        """Occupancy/bound for the health watchdog's queue-dwell rule
+        (obs/health.py) — a monitoring sample, unlocked like the qdepth
+        gauge."""
+        return {"depth": len(self._dq), "bound": int(self.max_size_buffers)}
 
     def on_caps(self, pad: Pad, caps: Caps) -> None:
         pad.caps = caps
@@ -350,6 +357,13 @@ class Pipeline:
             from ..ops.fusion import fuse_chains
 
             self._fused_count = fuse_chains(self)
+        # live telemetry (obs subsystem): wraps element chains into the
+        # process-global registry ONLY when metrics, tracing or health are
+        # enabled — when none is, chains stay the plain class methods and
+        # the hot path pays exactly nothing (the no-op fast path tests pin)
+        from ..obs.instrument import maybe_instrument_pipeline
+
+        maybe_instrument_pipeline(self)
         # start non-sources first so threads/queues are ready, then sources
         try:
             for el in self.elements.values():
@@ -396,6 +410,10 @@ class Pipeline:
                 self._sched_engine = None
             raise
         self.running = True
+        # flight recorder (one flag check while off): state transitions
+        # bracket the journal a post-mortem dump reads
+        _events.record("pipeline.state", f"{self.name} PLAYING",
+                       pipeline=self.name)
 
     def _validate_links(self, el: Element) -> None:
         for p in el.sink_pads + el.src_pads:
@@ -422,6 +440,8 @@ class Pipeline:
             self._sched_engine.detach_pipeline(self)
             self._sched_engine = None
         self.running = False
+        _events.record("pipeline.state", f"{self.name} stopped",
+                       pipeline=self.name)
 
     def _sink_eos(self, el: Element) -> None:
         with self._lock:

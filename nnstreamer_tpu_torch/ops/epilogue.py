@@ -13,17 +13,26 @@ buffers untouched (transforms, converters) or consume the pre-reduced
 tensor (decoders). Fused output is bit-identical to the unfused chain: the
 epilogue applies exactly the functions the elements would have applied.
 Applied automatically in ``Pipeline.start()`` after elements are started
-(disable with ``pipeline.auto_fuse = False``).
+(disable with ``pipeline.auto_fuse = False``). Selection is profiler-driven
+when profiling is on: ``EPILOGUE_SELECT_HOOK`` is consulted with the filter
+and chain labels and can veto a fusion whose measured chain cost is
+negligible; when the hook is None (the default) eligible chains fuse
+unconditionally.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, List
+from typing import Any, Callable, List, Optional, Tuple
 
 from ..core.log import logger
 from .fusion import _transform_signature
 
 log = logger("epilogue")
+
+#: Selection hook: ``fn(filter_label, chain_labels) -> bool`` (True = fuse).
+#: None (default) = fuse every eligible chain. obs.profile's ``enable()``
+#: installs ``Profiler.epilogue_select``; ``disable()`` clears it.
+EPILOGUE_SELECT_HOOK: Optional[Callable[[str, List[str]], bool]] = None
 
 
 def fuse_epilogues(pipeline: Any) -> int:
@@ -52,19 +61,14 @@ def fuse_epilogues(pipeline: Any) -> int:
         if el._out_spec is not None:
             continue  # output combination reorders memories downstream
 
-        fns: List[Callable] = []
-        sig_parts: List[str] = []
-        reduces_frame = False
+        stages: List[Tuple[str, Any, Any]] = []
         pad = el.src_pads[0]
         while pad.peer is not None:
             down = pad.peer.element
             if isinstance(down, TensorTransform) and len(down.sink_pads) == 1 \
                     and len(down.src_pads) == 1 and not down._fused \
                     and not down._fused_post:
-                f = down.as_torch_fn()
-                fns.append(lambda outs, _f=f: tuple(_f(y) for y in outs))
-                down._fused_post = True
-                sig_parts.append(f"transform[{_transform_signature(down)}]")
+                stages.append(("transform", down, None))
                 pad = down.src_pads[0]
                 continue
             if isinstance(down, TensorConverter) and len(down.sink_pads) == 1 \
@@ -74,19 +78,42 @@ def fuse_epilogues(pipeline: Any) -> int:
                     and not down._fused_passthrough:
                 # static tensors→tensors passthrough: identity math, but
                 # enrolling skips the per-frame host round trip
-                down._fused_passthrough = True
-                sig_parts.append("converter[passthrough]")
+                stages.append(("converter", down, None))
                 pad = down.src_pads[0]
                 continue
             if isinstance(down, TensorDecoder) and len(down.sink_pads) == 1:
                 dec = down._decoder
                 red = dec.epilogue_reduce() if dec is not None else None
                 if red is not None and not dec._fused_epilogue:
-                    fns.append(lambda outs, _r=red: (_r(outs),))
-                    dec._fused_epilogue = True
-                    sig_parts.append(f"decode[{dec.fusion_signature()}]")
-                    reduces_frame = True
+                    stages.append(("decode", down, red))
             break
+        if not stages:
+            continue
+        labels = [d.name for _, d, _ in stages]
+        if EPILOGUE_SELECT_HOOK is not None \
+                and not EPILOGUE_SELECT_HOOK(el.name, labels):
+            log.info("epilogue fusion skipped for %s: profiler reports "
+                     "chain %s cost negligible", el.name, labels)
+            continue
+
+        fns: List[Callable] = []
+        sig_parts: List[str] = []
+        reduces_frame = False
+        for kind, down, red in stages:
+            if kind == "transform":
+                f = down.as_torch_fn()
+                fns.append(lambda outs, _f=f: tuple(_f(y) for y in outs))
+                down._fused_post = True
+                sig_parts.append(f"transform[{_transform_signature(down)}]")
+            elif kind == "converter":
+                down._fused_passthrough = True
+                sig_parts.append("converter[passthrough]")
+            else:
+                dec = down._decoder
+                fns.append(lambda outs, _r=red: (_r(outs),))
+                dec._fused_epilogue = True
+                sig_parts.append(f"decode[{dec.fusion_signature()}]")
+                reduces_frame = True
         if fns:
             def post(outs, _fns=tuple(fns)):
                 for f in _fns:

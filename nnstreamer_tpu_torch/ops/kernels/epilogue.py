@@ -37,6 +37,7 @@ from typing import Tuple
 import torch
 
 from ...core import graphs
+from ...obs import profile as _profile
 from . import build as _build
 
 _P = ctypes.c_void_p
@@ -94,6 +95,8 @@ def class_reduce(cls: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     int32). Rows may be strided (a column slice of a wider tensor); the
     last axis must be contiguous. The score is the winning element itself
     (its sign of zero, its NaN payload)."""
+    if _profile.KERNEL_HOOK is not None:  # kernel label (obs/profile.py)
+        _profile.KERNEL_HOOK("cuda.class_reduce", cls.shape, cls.dtype)
     if cls.device.type == "cpu":
         return class_reduce_plain(cls)
     _require(cls.device.type == "cuda",
@@ -159,6 +162,8 @@ def nms_sweep(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
     """Greedy-NMS sweep over K ≥ 1 score-descending candidates (five
     contiguous (K,) float32 columns on one device)."""
     cols = (x0, y0, x1, y1, scores)
+    if _profile.KERNEL_HOOK is not None:  # kernel label (obs/profile.py)
+        _profile.KERNEL_HOOK("cuda.nms_sweep", scores.shape, scores.dtype)
     if scores.device.type == "cpu":
         return nms_sweep_plain(*cols, iou_threshold=iou_threshold,
                                threshold=threshold)
@@ -248,6 +253,8 @@ def segment_colorize(x: torch.Tensor, palette: torch.Tensor,
     (any integer or float dtype, truncated to int32), → (..., 4) RGBA uint8
     through an (n, 4) uint8 palette on the same device. The logits' rows
     may be strided; the class axis must be contiguous."""
+    if _profile.KERNEL_HOOK is not None:  # kernel label (obs/profile.py)
+        _profile.KERNEL_HOOK("cuda.segment_colorize", x.shape, x.dtype)
     if x.device.type == "cpu":
         return segment_colorize_plain(x, palette, pre_argmaxed)
     _require(x.device.type == "cuda",
@@ -383,6 +390,8 @@ def dequant_gelu_requant(y: torch.Tensor, xs: torch.Tensor, ws: torch.Tensor,
     float32 or bfloat16. Returns the (..., F) int8 codes and their (..., 1)
     float32 scales for the second GEMM. The kernel runs each row on a
     thread-block cluster of ``dgr_cluster_size(R, F)`` blocks."""
+    if _profile.KERNEL_HOOK is not None:  # kernel label (obs/profile.py)
+        _profile.KERNEL_HOOK("cuda.dequant_gelu_requant", y.shape, y.dtype)
     if y.device.type == "cpu":
         return dequant_gelu_requant_plain(y, xs, ws, out_dtype)
     _require(y.device.type == "cuda",

@@ -42,6 +42,7 @@ from typing import Tuple, Union
 import torch
 
 from ...core import graphs
+from ...obs import profile as _profile
 from .epilogue import _P, _check_launch, _entry, _on, _require, _stream_ptr
 
 #: keys per block of the plain version's recurrence (the kernel's tile)
@@ -148,6 +149,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     free. Returns (B, H, L, D) in q's dtype, or with ``return_residuals``
     the unnormalised float32 accumulator and the per-row m and l
     (B, H, L), which merge partial attentions over disjoint key sets."""
+    if _profile.KERNEL_HOOK is not None:  # kernel label (obs/profile.py)
+        _profile.KERNEL_HOOK("cuda.flash_attention", q.shape, q.dtype)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, return_residuals)
     _check(q, k, v)

@@ -28,6 +28,7 @@ import ctypes
 import torch
 
 from ...core import graphs
+from ...obs import profile as _profile
 from .epilogue import _P, _check_launch, _entry, _on, _require, _stream_ptr
 
 #: type codes of csrc/preprocess.cu
@@ -53,6 +54,8 @@ def normalize_u8(x: torch.Tensor, scale: float = 1.0 / 127.5, bias: float = -1.0
                  out_dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
     """Normalize a uint8 (or float32/bfloat16) tensor of any shape to
     ``out_dtype`` (bfloat16 or float32): float32(x) * scale + bias."""
+    if _profile.KERNEL_HOOK is not None:  # kernel label (obs/profile.py)
+        _profile.KERNEL_HOOK("cuda.normalize_u8", x.shape, x.dtype)
     if x.device.type == "cpu":
         return normalize_u8_plain(x, scale, bias, out_dtype)
     _require(x.device.type == "cuda", f"normalize_u8: unsupported device {x.device}")
@@ -96,6 +99,8 @@ def quantize_affine_plain(x: torch.Tensor, scale: float,
 
 def quantize_affine(x: torch.Tensor, scale: float, zero_point: int = 0) -> torch.Tensor:
     """Affine-quantize a float32 or bfloat16 tensor of any shape to uint8."""
+    if _profile.KERNEL_HOOK is not None:  # kernel label (obs/profile.py)
+        _profile.KERNEL_HOOK("cuda.quantize_affine", x.shape, x.dtype)
     if x.device.type == "cpu":
         return quantize_affine_plain(x, scale, zero_point)
     _require(x.device.type == "cuda", f"quantize_affine: unsupported device {x.device}")

@@ -6,10 +6,9 @@ nnstreamer_tpu/resilience/policy.py.
   *remaining milliseconds*, so peers never compare foreign clock domains.
   Expired work is shed (:func:`record_shed`) instead of queued.
 
-``record_shed`` keeps the JAX signature. The JAX package also counts each
-shed in ``nnstpu_resilience_shed_total`` and records a ``resilience.shed``
-event; both wait for the port of obs (ROADMAP §A7). The rest of the JAX
-module (RetryPolicy, RetryBudget, CircuitBreaker, fallback and hedge
+``record_shed`` counts each shed in ``nnstpu_resilience_shed_total`` (by
+``site``) and records a ``resilience.shed`` event, as the JAX package
+does. The rest of the JAX module (RetryPolicy, RetryBudget, CircuitBreaker, fallback and hedge
 accounting) waits for the query layer (§A8).
 """
 
@@ -18,12 +17,18 @@ from __future__ import annotations
 import time
 from typing import Any, Optional
 
-from ..core.log import logger
-
-log = logger("resilience")
+from ..obs import events as _events
+from ..obs import metrics as _obs
 
 #: ``Buffer.meta`` key carrying a :class:`Deadline` through the graph
 DEADLINE_META_KEY = "deadline"
+
+#: every shed is both a counter bump and a flight-recorder event; the
+#: ``site`` label separates client-side drops from engine admission
+_SHED_TOTAL = _obs.registry().counter(
+    "nnstpu_resilience_shed_total",
+    "Work units dropped because their deadline had already expired",
+    ("site",))
 
 
 class Deadline:
@@ -81,6 +86,8 @@ def set_deadline(buf: Any, deadline: Deadline) -> None:
 
 
 def record_shed(site: str, message: str, **attrs: Any) -> None:
-    """Account one shed work unit. The JAX package's counter and event
-    wait for obs (ROADMAP §A7); the shed is logged at debug level."""
-    log.debug("shed at %s: %s %s", site, message, attrs or "")
+    """Account one shed work unit: counter + ``resilience.shed`` event
+    (one flag check each while obs is off)."""
+    _SHED_TOTAL.labels(site).inc()
+    _events.record("resilience.shed", message, severity="warning",
+                   site=site, **attrs)

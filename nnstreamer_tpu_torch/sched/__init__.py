@@ -20,8 +20,8 @@ Opt-in surfaces:
   * ``LMEngine.enroll(engine)`` — a serving engine's iteration steps share
     the card under the same fairness (serving/lm_engine.py).
 
-The JAX package's ``sched/telemetry.py`` (the ``nnstpu_sched_*`` metric
-families and ``sched.*`` events) waits for the port of obs (ROADMAP §A7).
+Telemetry: ``sched/telemetry.py``, the ``nnstpu_sched_*`` metric families
+and ``sched.*`` events, as in the JAX package.
 """
 
 from __future__ import annotations

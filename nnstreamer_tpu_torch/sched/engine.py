@@ -33,13 +33,13 @@ Clocks are injectable (``clock=`` seconds) so the fairness/starvation logic
 unit-tests against a fake clock without sleeping. ``autostart=False`` plus
 ``step()`` runs the loop body synchronously for the same reason.
 
-The JAX engine's hooks into layers the port has not ported yet are dropped:
-its health component (``obs.health``), the profiler's ``SCHED_HOOK``, the
-SLO layer's ``SCHED_SLO_HOOK``, the fleet's ``AUTOSCALE_HOOK``, diag's
-``DIAG_HOOK`` and the ``nnstpu_sched_*`` metric families and ``sched.*``
-events of ``sched/telemetry.py`` (ROADMAP §A7, §A9). The engine's and
-tenants' ``stats``, ``waits`` and ``widths`` are kept: they are what the
-JAX bench lane reads.
+Telemetry as in the JAX engine: the ``nnstpu_sched_*`` families and
+``sched.*`` events (sched/telemetry.py), a ``kind="sched"`` health
+component per engine (the watchdog's starvation-storm rule) and the
+profiler's ``SCHED_HOOK`` per batch. The JAX engine's hooks into layers the
+port has not reached yet stay dropped: the SLO layer's ``SCHED_SLO_HOOK``,
+diag's ``DIAG_HOOK`` (ROADMAP §A7) and the fleet's ``AUTOSCALE_HOOK``
+(§A9).
 """
 
 from __future__ import annotations
@@ -54,7 +54,10 @@ import torch
 
 from ..core.log import logger
 from ..graph.element import join_or_warn
+from ..obs import health as _health
+from ..obs import profile as _profile
 from ..resilience import policy as _rp
+from . import telemetry as _tel
 
 log = logger("sched")
 
@@ -261,6 +264,18 @@ class DeviceEngine:
         self._busy_s = 0.0
         self._wait_s = 0.0
         self._t_started: Optional[float] = None  # wall anchor for occupancy()
+        eref = weakref.ref(self)
+
+        def _probe() -> Optional[Dict[str, Any]]:
+            eng = eref()
+            if eng is None:
+                return None  # engine collected — retire the component
+            return {"starvation_reliefs": eng.stats["starvation_reliefs"],
+                    "batches": eng.stats["batches"],
+                    "shed": eng.stats["shed"]}
+
+        _health.component(f"sched:{name}", kind="sched", probe=_probe,
+                          attrs={"engine": name})
         #: operator-set per-name admission overrides (nns-launch
         #: --sched-tenants): applied IN PLACE OF register() arguments, so
         #: deployment config beats programmatic defaults
@@ -290,6 +305,11 @@ class DeviceEngine:
             if any(t.name == name for t in self._tenants):
                 raise ValueError(f"duplicate tenant name {name!r}")
             self._tenants.append(tenant)
+        ref = weakref.ref(tenant)
+        _tel.watch_queue_depth(
+            name, lambda: float(len(t.queue)) if (t := ref()) is not None
+            else 0.0)
+        _tel.event_tenant_register(name, weight=weight, priority=priority)
         return tenant
 
     def deregister(self, tenant: Tenant) -> None:
@@ -302,6 +322,7 @@ class DeviceEngine:
             tenant.queue.clear()
         for w in leftovers:
             self._shed(w, "tenant deregistered")
+        _tel.event_tenant_deregister(tenant.name)
 
     def tenants(self) -> List[Tenant]:
         with self._cv:
@@ -415,6 +436,8 @@ class DeviceEngine:
                        % max(len(self._tenants), 1))
             self._relief_rr = self._tenants.index(lead) + 1
             self.stats["starvation_reliefs"] += 1
+            _tel.event_starvation_relief(
+                lead.name, now - lead.queue[0].t_enq, self.starve_s)
             return lead
         top = max(t.priority for t in ready)
         klass = [t for t in ready if t.priority == top]
@@ -494,6 +517,7 @@ class DeviceEngine:
         now = self.clock()
         for w in batch:
             wait = max(now - w.t_enq, 0.0)
+            _tel.record_wait(w.tenant.name, wait)
             w.tenant.waits.append(wait)
             self._wait_s += wait
         t0 = time.monotonic_ns()
@@ -525,7 +549,19 @@ class DeviceEngine:
             ev = self._inflight_q.popleft()
             if ev is not None:
                 ev.synchronize()
-        self._busy_s += (time.monotonic_ns() - t0) / 1e9
+        t1 = time.monotonic_ns()
+        busy = (t1 - t0) / 1e9
+        self._busy_s += busy
+        _tel.record_batch(self.name, len(batch), busy)
+        _tel.INFLIGHT_DEPTH.labels(self.name).set(len(self._inflight_q))
+        hook = _profile.SCHED_HOOK
+        if hook is not None:
+            hook.record_sched(
+                self.name, batch[0].label or "batch", t0, t1,
+                width=len(batch),
+                tenants=sorted({w.tenant.name for w in batch}),
+                queued=sum(len(t.queue) for t in self.tenants()),
+                inflight=len(self._inflight_q))
 
     def _dispatch(self, batch: List[_Work]) -> List[Any]:
         """One device dispatch for the whole batch; returns per-item
@@ -547,9 +583,8 @@ class DeviceEngine:
             return filt.invoke_coalesced([w.inputs for w in batch])
         except Exception as e:  # noqa: BLE001 — fall back to serial
             self.stats["coalesce_fallbacks"] += 1
-            log.debug("sched %s: %s x%d coalesce fallback: %s: %s",
-                      self.name, head.label, len(batch),
-                      type(e).__name__, e)
+            _tel.event_coalesce_fallback(
+                head.label, len(batch), f"{type(e).__name__}: {e}")
             return [filt.invoke(w.inputs) for w in batch]
 
     # -- loop lifecycle ------------------------------------------------------ #
@@ -562,6 +597,7 @@ class DeviceEngine:
             self._thread = threading.Thread(
                 target=self._loop, name=f"sched:{self.name}", daemon=True)
             self._thread.start()
+        _tel.event_engine_start(self.name)
 
     def stop(self) -> None:
         with self._cv:
@@ -578,6 +614,7 @@ class DeviceEngine:
             ev = self._inflight_q.popleft()
             if ev is not None:
                 ev.synchronize()
+        _tel.event_engine_stop(self.name, batches=self.stats["batches"])
 
     def _loop(self) -> None:
         while True:

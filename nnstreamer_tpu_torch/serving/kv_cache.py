@@ -37,9 +37,10 @@ the pools' addresses, so nothing may rebind them. Every write and read of a
 pool is issued on the caller's current stream, which orders a page's writes
 before the next program that reads it. The free list, LRU order and
 ``stats`` are the JAX module's, so the same workload gets the same page ids
-in both packages. The JAX module's metrics (pool gauges, hit/evict/offload/
-re-upload counters) and its ``serving.kv_offload``/``kv_reupload`` events
-wait for the port of obs/ (ROADMAP §A7).
+in both packages. The pool gauges, the hit/evict/offload/re-upload counters
+(``nnstpu_serving_kv_*``) and the ``serving.kv_offload``/``kv_reupload``
+events are the JAX module's too; the gauges read the host-side allocator
+(free list, shared count), never a pool on the card.
 """
 
 from __future__ import annotations
@@ -53,6 +54,8 @@ import numpy as np
 import torch
 
 from ..core.hw import resolve_device
+from ..obs import events as _events
+from ..obs import metrics as _obs
 
 __all__ = ["PagedKVCache", "PageNode", "AdmitPlan", "PageLease",
            "PAGE_DOC_VERSION", "empty_page_pool", "prompt_path_hashes"]
@@ -174,7 +177,8 @@ class PagedKVCache:
 
     def __init__(self, n_layers: int, n_heads: int, page_size: int,
                  n_pages: int, head_dim: int, *,
-                 host_offload: bool = False, device: Any = None) -> None:
+                 host_offload: bool = False, device: Any = None,
+                 label: str = "lm") -> None:
         if page_size < 1 or n_pages < 1:
             raise ValueError("page_size and n_pages must be >= 1")
         self.page_size = page_size
@@ -194,6 +198,49 @@ class PagedKVCache:
                       "offloads": 0, "reuploads": 0, "pages_peak": 0,
                       "exported_pages": 0, "imported_pages": 0,
                       "spilled_pages": 0}
+        self._label = label
+        self._init_metrics(label)
+
+    def _init_metrics(self, label: str) -> None:
+        """serving.kv_* families (the JAX module's names, and the naming
+        lint's kv placement rule). Gauges read through a weakref so holding
+        the registry never pins a retired engine's pools, and read host
+        state only, so a scrape never touches the card."""
+        import weakref
+
+        reg = _obs.registry()
+        ref = weakref.ref(self)
+        reg.gauge(
+            "nnstpu_serving_kv_total_pages",
+            "KV page-pool capacity (excludes the null page)",
+            ("engine",)).labels(label).set_function(
+                lambda: ref().n_pages if ref() is not None else 0)
+        reg.gauge(
+            "nnstpu_serving_kv_used_pages",
+            "KV pages currently allocated (shared + private)",
+            ("engine",)).labels(label).set_function(
+                lambda: ref().used_pages() if ref() is not None else 0)
+        reg.gauge(
+            "nnstpu_serving_kv_shared_pages",
+            "Prefix pages pinned by two or more live requests",
+            ("engine",)).labels(label).set_function(
+                lambda: ref().shared_pages() if ref() is not None else 0)
+        self._m_hit = reg.counter(
+            "nnstpu_serving_kv_prefix_hit_total",
+            "Prompt tokens served from shared prefix pages (skipped "
+            "prefill work)", ("engine",)).labels(label)
+        self._m_evict = reg.counter(
+            "nnstpu_serving_kv_evict_total",
+            "KV pages evicted from the pool (deterministic LRU)",
+            ("engine",)).labels(label)
+        self._m_offload = reg.counter(
+            "nnstpu_serving_kv_offload_total",
+            "Cold KV pages copied to host RAM at eviction",
+            ("engine",)).labels(label)
+        self._m_reupload = reg.counter(
+            "nnstpu_serving_kv_reupload_total",
+            "Offloaded KV pages uploaded back on a later prefix hit",
+            ("engine",)).labels(label)
 
     # -- accounting -------------------------------------------------------- #
 
@@ -306,6 +353,7 @@ class PagedKVCache:
         if plan.hit_len:
             self.stats["hit_requests"] += 1
             self.stats["hit_tokens"] += plan.hit_len
+            self._m_hit.inc(plan.hit_len)
         return lease
 
     def lease_alloc(self, lease: PageLease) -> int:
@@ -621,11 +669,19 @@ class PagedKVCache:
                 nd.host_kv = tuple(pool[nd.page].to("cpu", copy=True).numpy()
                                    for pool in (self.kpool, self.vpool))
                 self.stats["offloads"] += 1
+                self._m_offload.inc()
+                _events.record(
+                    "serving.kv_offload",
+                    f"{self._label}: page {nd.page} offloaded to host RAM",
+                    severity="debug", engine=self._label, page=nd.page)
             self.free.append(nd.page)
             nd.page = None
             self.stats["evictions"] += 1
+            self._m_evict.inc()
         else:
-            self.stats["evictions"] += self._drop_subtree(nd)
+            freed = self._drop_subtree(nd)
+            self.stats["evictions"] += freed
+            self._m_evict.inc(freed)
 
     def _drop_subtree(self, nd: PageNode) -> int:
         """Remove ``nd`` and its subtree from the tree, freeing every device
@@ -656,6 +712,11 @@ class PagedKVCache:
         self._pool_set(pid, *nd.host_kv)
         nd.page = pid  # host_kv kept: later evictions skip the copy down
         self.stats["reuploads"] += 1
+        self._m_reupload.inc()
+        _events.record(
+            "serving.kv_reupload",
+            f"{self._label}: offloaded chunk re-uploaded into page {pid}",
+            severity="debug", engine=self._label, page=pid)
 
     def _copy_page(self, dst: int, src: int) -> None:
         # the COW primitive: one on-device page copy, no host round trip

@@ -59,15 +59,25 @@ each iteration then runs on the engine's dispatch thread under its fair
 share, beside the pipelines' batches, and the programs capture and replay
 there, on the same stream as the allocator's page copies.
 
+Telemetry as in the JAX engine: the ``nnstpu_serving_*`` families
+(streams, tokens, TTFT, per-token latency, prefills and first-use buckets,
+active slots and queue depth read from host state), a ``kind="serving"``
+health component with the "engine warmed" readiness condition, the
+``serving.admission_reject`` event, the ``serving.request`` span with its
+admission-wait, compile, prefill and decode children, the profiler's
+``ENGINE_HOOK`` per prefill, decode chunk and verify window, and
+``live_engines()`` (the CLI's per-engine KV exit summary).
+
 Not ported yet (ROADMAP): disaggregation roles, page imports and sessions
 (freeze/export/checkpoint), deadlines, the autotuner (its chunk and page
-size picks), and the obs, diag, health, quality, slo and tracing hooks.
+size picks), and the diag, quality and slo hooks (§A7).
 """
 
 from __future__ import annotations
 
 import os
 import time
+import weakref
 from collections import deque
 from dataclasses import dataclass, field
 from typing import Any, Dict, List, Optional, Sequence
@@ -78,6 +88,11 @@ import torch
 from ..core import graphs
 from ..core.hw import resolve_device
 from ..models import causal_lm
+from ..obs import events as _events
+from ..obs import health as _health
+from ..obs import metrics as _obs
+from ..obs import profile as _profile
+from ..obs import tracing as _tracing
 from ..ops.int8 import stack_shape
 from . import sampling
 from .kv_cache import PagedKVCache
@@ -93,6 +108,18 @@ def _env_int(name: str) -> Optional[int]:
         return int(v)
     except ValueError:
         raise ValueError(f"{name} must be an integer, got {v!r}")
+
+
+#: weak registry of every constructed engine — the CLI walks it at exit to
+#: print per-engine KV summaries without threading a handle through the
+#: pipeline graph
+_LIVE_ENGINES: "weakref.WeakSet[LMEngine]" = weakref.WeakSet()
+
+
+def live_engines() -> List["LMEngine"]:
+    """Engines constructed in this process and still alive (weak set —
+    collected engines drop out). Order is unspecified."""
+    return list(_LIVE_ENGINES)
 
 
 def next_pow2_bucket(n: int, lo: int = 16) -> int:
@@ -134,6 +161,11 @@ class _Request:
     #: kv_cache.PageLease while admitted under paging (None otherwise),
     #: released at retirement
     kv_lease: Any = None
+    t_submit: float = 0.0       # monotonic stamp for the TTFT histogram
+    # span parents admission-wait / prefill / compile / decode children
+    span: Any = None            # serving.request — submit → retire
+    wait_span: Any = None       # serving.admission_wait — submit → admit
+    decode_span: Any = None     # serving.decode — admit → retire
 
 
 class LMEngine:
@@ -217,7 +249,8 @@ class LMEngine:
             offload = kv_host_offload if kv_host_offload is not None \
                 else os.environ.get("NNS_LM_KV_OFFLOAD", "") == "1"
             self._kv = PagedKVCache(n_layers, n_heads, ps, n_pages, hd,
-                                    host_offload=bool(offload), device=dev)
+                                    host_offload=bool(offload), device=dev,
+                                    label=self._engine_label)
             self._kv_slot_pages = slot_pages
             #: per-slot page tables on the host (the scheduler is the only
             #: writer; entries past a request's pages hold the null page 0)
@@ -270,9 +303,89 @@ class LMEngine:
         # step_iteration runs direct
         self._sched_tenant = None
         self._sched_engine = None
+        self._init_metrics()
+        self._init_health()
+        _LIVE_ENGINES.add(self)
 
     #: the engine's tenant name on a DeviceEngine (``--sched-tenants lm:W``)
+    #: and its label in the metric series
     _engine_label = "lm"
+
+    def _init_metrics(self) -> None:
+        """Register the serving metric families. Handles are real whether
+        or not collection is enabled — recording is the registry's cheap
+        no-op when it is off. Depth-style gauges read the host-side slot
+        table and queue through weakrefs at collection time (never a card
+        tensor: a scrape runs on the exporter's thread, mid-capture)."""
+        reg = _obs.registry()
+        lbl = self._engine_label
+        self._m_streams = reg.counter(
+            "nnstpu_serving_streams_total",
+            "Streams admitted into slots / completed",
+            ("engine", "event"))
+        self._m_tokens = reg.counter(
+            "nnstpu_serving_tokens_total",
+            "Generated tokens across completed streams",
+            ("engine",)).labels(lbl)
+        self._m_ttft = reg.histogram(
+            "nnstpu_serving_ttft_seconds",
+            "Submit-to-first-token latency", ("engine",)).labels(lbl)
+        self._m_tok_lat = reg.histogram(
+            "nnstpu_serving_token_latency_seconds",
+            "Per-token decode latency (chunk wall / steps, sampled "
+            "once per chunk)", ("engine",)).labels(lbl)
+        self._m_prefills = reg.counter(
+            "nnstpu_serving_prefills_total",
+            "Prompt prefills by padded bucket length",
+            ("engine", "bucket"))
+        self._m_compiles = reg.counter(
+            "nnstpu_serving_prefill_compiles_total",
+            "First-use prefill buckets (each is one program capture)",
+            ("engine", "bucket"))
+        self._seen_buckets: set = set()
+        # gauges sample the MOST RECENTLY constructed engine per label
+        ref = weakref.ref(self)
+        reg.gauge(
+            "nnstpu_serving_active_slots",
+            "Slots currently occupied by a live stream",
+            ("engine",)).labels(lbl).set_function(
+                lambda: sum(r is not None for r in ref()._slot_req)
+                if ref() is not None else 0)
+        reg.gauge(
+            "nnstpu_serving_queue_depth",
+            "Requests queued awaiting a free slot",
+            ("engine",)).labels(lbl).set_function(
+                lambda: len(ref()._queue) if ref() is not None else 0)
+
+    def _init_health(self) -> None:
+        """Register the engine's health component + warmed-readiness
+        condition (obs/health.py): the watchdog's admission-stall rule
+        reads ``oldest_wait_s`` from the probe; /readyz reads "first
+        bucket captured" from the condition. Both go through weakrefs and
+        host state; both are the shared no-op while health is off."""
+        lbl = self._engine_label
+        ref = weakref.ref(self)
+
+        def probe():
+            eng = ref()
+            if eng is None:
+                return None
+            oldest = min((r.t_submit for r in eng._queue), default=None)
+            return {
+                "queued": len(eng._queue),
+                "active": sum(r is not None for r in eng._slot_req),
+                "warmed": bool(eng._seen_buckets),
+                "oldest_wait_s": (time.monotonic() - oldest)
+                if oldest is not None else 0.0,
+            }
+
+        self._hc = _health.component(
+            f"serving.engine:{lbl}", kind="serving", probe=probe,
+            attrs={"engine": lbl})
+        _health.add_readiness(
+            f"engine:{lbl}",
+            lambda: (lambda e: None if e is None
+                     else bool(e._seen_buckets))(ref()))
 
     # -- public API ------------------------------------------------------- #
 
@@ -284,16 +397,20 @@ class LMEngine:
         (reproducible, independent of what shares the batch)."""
         p = np.asarray(prompt, np.int32).reshape(-1)
         if p.size < 1:
+            self._reject("empty prompt")
             raise ValueError("empty prompt")
         if max_new < 1:
+            self._reject("max_new must be >= 1")
             raise ValueError("max_new must be >= 1")
         if p.size + max_new - 1 > self.max_len:
             # the last generated token needs no cache slot, hence -1
+            self._reject("prompt + max_new exceeds cache capacity")
             raise ValueError(
                 f"prompt ({p.size}) + max_new ({max_new}) exceeds cache "
                 f"capacity max_len={self.max_len}")
         if self._kv is not None:
             if p.size + max_new - 1 > self._m_slot:
+                self._reject("prompt + max_new exceeds paged slot view")
                 raise ValueError(
                     f"prompt ({p.size}) + max_new ({max_new}) exceeds "
                     f"paged per-request capacity kv_slot_pages * "
@@ -302,15 +419,38 @@ class LMEngine:
             if need > self._kv.n_pages:
                 # would deadlock admission: even an empty pool could never
                 # cover this request's reservation
+                self._reject("request page budget exceeds pool")
                 raise ValueError(
                     f"request needs {need} KV pages but the pool has "
                     f"only kv_pages={self._kv.n_pages}")
         rid = self._next_rid
         self._next_rid += 1
-        self._queue.append(_Request(
+        req = _Request(
             rid, p, max_new, eos, temperature=float(temperature),
-            top_k=int(top_k), top_p=float(top_p), seed=int(seed)))
+            top_k=int(top_k), top_p=float(top_p), seed=int(seed),
+            t_submit=time.monotonic())
+        if _tracing.enabled():
+            # parent on the caller's current context (an instrumented
+            # element chain sets it) so an offloaded request joins the
+            # pipeline's trace; without one this roots a fresh trace
+            req.span = _tracing.start_span(
+                "serving.request", parent=_tracing.current_context(),
+                attrs={"engine": self._engine_label, "rid": rid,
+                       "prompt_len": int(p.size), "max_new": int(max_new)})
+            req.wait_span = _tracing.start_span(
+                "serving.admission_wait", parent=req.span.context,
+                attrs={"queued_behind": len(self._queue)})
+        self._queue.append(req)
         return rid
+
+    def _reject(self, reason: str) -> None:
+        """Flight-recorder entry for an admission rejection — one flag
+        check while events are off."""
+        self._hc.count("rejected")
+        _events.record("serving.admission_reject",
+                       f"{self._engine_label}: {reason}",
+                       severity="warning", engine=self._engine_label,
+                       reason=reason)
 
     def pending(self) -> int:
         return len(self._queue) + sum(r is not None for r in self._slot_req)
@@ -398,11 +538,8 @@ class LMEngine:
                 continue
             req = self._queue.popleft()
             t = int(req.prompt.size)
-            if self._kv is None:
-                padded = np.zeros((1, self._bucket(t)), np.int32)
-                padded[0, :t] = req.prompt
-                first = self._prefill_into(slot, padded, t, req)
-            else:
+            plan = None
+            if self._kv is not None:
                 plan = self._paged_plan(req)
                 if plan is None:
                     # the pool cannot cover this request's reservation yet:
@@ -411,14 +548,63 @@ class LMEngine:
                     # streams retire
                     self._queue.appendleft(req)
                     break
-                hit = self._paged_admit(slot, req, plan)
-                ts = t - hit  # suffix tokens the prefill must still compute
-                padded = np.zeros((1, min(self._bucket(ts), self._m_slot)),
-                                  np.int32)
-                padded[0, :ts] = req.prompt[hit:]
+            if req.wait_span is not None:
+                req.wait_span.end()
+            hit = self._paged_admit(slot, req, plan) \
+                if self._kv is not None else 0
+            ts = t - hit  # suffix tokens the prefill must still compute
+            tb = self._bucket(t) if self._kv is None \
+                else min(self._bucket(ts), self._m_slot)
+            padded = np.zeros((1, tb), np.int32)
+            padded[0, :ts] = req.prompt[hit:]
+            # the paged programs are distinct from the contiguous one (and
+            # the prefix-hit suffix prefill from the no-hit install), so
+            # they warm separate bucket entries / compile counters
+            bkey: Any = tb if self._kv is None else ("kv", hit > 0, tb)
+            blabel = str(tb) if self._kv is None or not hit else f"kv{tb}"
+            first_use = bkey not in self._seen_buckets
+            pspan = cspan = _tracing.NOOP_SPAN
+            if req.span is not None:
+                if first_use:
+                    # the first call of a signature captures its graph;
+                    # ending after the prefill call bounds the capture
+                    cspan = _tracing.start_span(
+                        "serving.compile", parent=req.span.context,
+                        attrs={"bucket": tb, "kernel": "prefill"})
+                pspan = _tracing.start_span(
+                    "serving.prefill", parent=req.span.context,
+                    attrs={"bucket": tb, "slot": slot})
+            tp0 = time.monotonic_ns() \
+                if _profile.ENGINE_HOOK is not None else 0
+            if self._kv is None:
+                first = self._prefill_into(slot, padded, t, req)
+            else:
                 first = self._prefill_paged(slot, padded, hit, ts, req)
+            cspan.end()
             self.stats["prefills"] += 1
+            lbl = self._engine_label
+            self._m_prefills.labels(lbl, blabel).inc()
+            if first_use:
+                self._seen_buckets.add(bkey)
+                self._m_compiles.labels(lbl, blabel).inc()
+            self._m_streams.labels(lbl, "admitted").inc()
             req.out.append(int(first))
+            # TTFT after the int() read-back: the first token exists for
+            # the caller once it is on the host
+            self._m_ttft.observe(time.monotonic() - req.t_submit)
+            pspan.end()  # the prefill span covers the first token's read
+            if _profile.ENGINE_HOOK is not None:
+                # the int(first) read above waited for the prefill, so the
+                # interval is device-bound; first-use intervals are
+                # capture-dominated and recorded as such
+                _profile.ENGINE_HOOK.record_engine(
+                    self, "prefill", tp0, time.monotonic_ns(),
+                    tokens=t, steps=1, compiled=first_use,
+                    bucket=blabel, slot=slot)
+            if req.span is not None:
+                req.decode_span = _tracing.start_span(
+                    "serving.decode", parent=req.span.context,
+                    attrs={"slot": slot})
             self._pos_host[slot] = t
             self._slot_req[slot] = req
             self._retire_if_done(slot, req)
@@ -606,7 +792,16 @@ class LMEngine:
             n = 1 << (n.bit_length() - 1)  # power-of-two tails
         if self._kv is not None:
             self._ensure_pages(active, n)
+        t0 = time.monotonic()
         outs = self._run_chunk(n).cpu().numpy()  # (S, n)
+        self._m_tok_lat.observe((time.monotonic() - t0) / n)
+        if _profile.ENGINE_HOOK is not None:
+            # the read-back waited for the chunk: wall ≈ device time; the
+            # occupancy sample drives the Perfetto serving counter lane
+            _profile.ENGINE_HOOK.record_engine(
+                self, "decode", int(t0 * 1e9), time.monotonic_ns(),
+                tokens=n * len(active), steps=n, active=len(active),
+                queued=len(self._queue), slots=self.n_slots)
         for s in range(self.n_slots):
             self._pos_host[s] += n  # every slot's position advances
         self.stats["decode_steps"] += n
@@ -702,9 +897,21 @@ class LMEngine:
             drafts[s] = self._draft_tokens(self._slot_req[s], g)
         if self._kv is not None:
             self._sync_table()
+        t0 = time.monotonic()
         outs, m = self._verify_prog(torch.from_numpy(drafts).to(self.device))
         outs = outs.cpu().numpy()
         m = m.cpu().numpy()
+        # per-token latency of the verify window: wall over the mean
+        # accepted tokens across active slots
+        accepted = float(np.mean(m[active])) if active else 1.0
+        self._m_tok_lat.observe(
+            (time.monotonic() - t0) / max(accepted, 1.0))
+        if _profile.ENGINE_HOOK is not None:
+            _profile.ENGINE_HOOK.record_engine(
+                self, "verify", int(t0 * 1e9), time.monotonic_ns(),
+                tokens=int(np.sum(m[active])) if active else 0, steps=1,
+                active=len(active), queued=len(self._queue),
+                slots=self.n_slots, draft=g)
         for s in range(self.n_slots):
             self._pos_host[s] += int(m[s])
         self.stats["spec_iterations"] += 1
@@ -750,7 +957,17 @@ class LMEngine:
             and req.out[-1] == req.eos
         if hit_eos or len(req.out) >= req.max_new:
             req.done = True
+            if req.decode_span is not None:
+                # tokens-per-decode-span: with the span duration this yields
+                # the request's realized per-token decode latency
+                req.decode_span.set_attribute("tokens", len(req.out) - 1)
+                req.decode_span.end()
+            if req.span is not None:
+                req.span.set_attribute("tokens", len(req.out))
+                req.span.end()
             self.stats["tokens_out"] += len(req.out)
+            self._m_streams.labels(self._engine_label, "completed").inc()
+            self._m_tokens.inc(len(req.out))
             self._finished[req.rid] = req.out
             self._slot_req[slot] = None
             if req.kv_lease is not None:

@@ -199,7 +199,7 @@ def test_cli_lists_and_inspects():
     assert port_cli(["--inspect", "no_such_element"]) == 1
 
 
-@pytest.mark.parametrize("flag", [["--metrics-port", "0"], ["--trace"],
+@pytest.mark.parametrize("flag", [["--diag"], ["--slo", "lm:p99=50"],
                                   ["--role", "prefill"],
                                   ["--backends", "127.0.0.1:1"], ["--device", "tpu"]])
 def test_cli_refuses_unported_flags(flag):
