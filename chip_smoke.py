@@ -379,6 +379,17 @@ OBS_STALL_S = 30.0
 OBS_SCRAPE_PAUSE_S = 0.01
 OBS_ROUTES = ("/metrics", "/healthz", "/readyz", "/debug/traces",
               "/debug/events", "/debug/profile")
+#: run_obs_layers: the obs layers on the base (slo, diag, quality, tune);
+#: the routes scraped while SSD-300 plays; the CLI pipeline's name, which is
+#: its tenant on the DeviceEngine; an objective it meets, and one (1 ms)
+#: below the paged lane's latency; every 8th paged request (8 of 64) comes
+#: with a deadline already expired at submit; one session per prefix group
+LAYER_ROUTES = ("/metrics", "/healthz", "/debug/slo", "/debug/quality",
+                "/debug/tune", "/debug/diag/critpath", "/debug/bundles")
+LAYER_TENANT, LAYER_SSD_P99_MS, LAYER_LM_P99_MS = "pipeline", 10000.0, 1.0
+LAYER_SHED_EVERY, LAYER_SESSION = 8, "prefix0"
+#: the confidence triple against its plain float64 computation
+CONF_TOL = (1e-5, 1e-6)
 #: the python3 script: the reference contract (nnstreamer_python shapes,
 #: one list of flat arrays in and out), a float32 softmax in numpy
 PY3_SCRIPT = """
@@ -4106,8 +4117,15 @@ def _obs_all_off() -> None:
     from nnstreamer_tpu_torch import obs
     from nnstreamer_tpu_torch.obs import events, health, profile, tracing
 
+    from nnstreamer_tpu_torch import tune
+    from nnstreamer_tpu_torch.obs import diag, quality, slo
+
     # the profiler's records stay (the kernel labels accumulate over the
     # phase); each run reads its own by time
+    slo.disable()
+    diag.disable()
+    quality.disable()
+    tune.disable(save=False)
     profile.disable()
     events.disable()
     events.ring().reset()
@@ -4120,15 +4138,19 @@ def _obs_all_off() -> None:
 
 def _hooks_off() -> None:
     """Fail unless every obs hook is None (obs off costs a None check)."""
+    from nnstreamer_tpu_torch import tune
     from nnstreamer_tpu_torch.graph import element as gel
-    from nnstreamer_tpu_torch.obs import profile
+    from nnstreamer_tpu_torch.obs import diag, profile, quality, slo
     from nnstreamer_tpu_torch.ops import epilogue as epi
 
     hooks = {"DISPATCH_HOOK": profile.DISPATCH_HOOK,
              "ENGINE_HOOK": profile.ENGINE_HOOK,
              "KERNEL_HOOK": profile.KERNEL_HOOK, "SCHED_HOOK": profile.SCHED_HOOK,
              "PROFILE_CHAIN_HOOK": gel.PROFILE_CHAIN_HOOK,
-             "EPILOGUE_SELECT_HOOK": epi.EPILOGUE_SELECT_HOOK}
+             "EPILOGUE_SELECT_HOOK": epi.EPILOGUE_SELECT_HOOK,
+             "SCHED_SLO_HOOK": slo.SCHED_SLO_HOOK, "ENGINE_SLO_HOOK": slo.ENGINE_SLO_HOOK,
+             "ROUTER_SLO_HOOK": slo.ROUTER_SLO_HOOK, "DIAG_HOOK": diag.DIAG_HOOK,
+             "QUALITY_HOOK": quality.QUALITY_HOOK, "TUNE_HOOK": tune.TUNE_HOOK}
     on = sorted(k for k, v in hooks.items() if v is not None)
     if on:
         raise AssertionError(f"obs off but hooks installed: {on}")
@@ -4264,11 +4286,12 @@ def _replay_ms(graph, n: int = 50) -> float:
 
 
 def _obs_ssd_turn(tmp: str, labels: str, priors: str, on: bool, scrape: bool,
-                  tag: str, counters) -> dict:
+                  tag: str, counters, flags=None, routes=OBS_ROUTES) -> dict:
     """bench.py's ssd_mobilenet_300_fps string through the CLI, obs on
-    (``--metrics-port 0 --trace --watchdog --profile --events-dump``) or
-    off; with ``scrape``, a second thread scrapes the exporter while frames
-    flow. Returns what the run showed."""
+    (``flags``, by default ``--metrics-port 0 --trace --watchdog --profile
+    --events-dump``) or off; with ``scrape``, a second thread scrapes
+    ``routes`` of the exporter while frames flow. Returns what the run
+    showed."""
     from nnstreamer_tpu_torch.cli import main as cli
     from nnstreamer_tpu_torch.elements.sinks import TensorSink
 
@@ -4284,13 +4307,15 @@ def _obs_ssd_turn(tmp: str, labels: str, priors: str, on: bool, scrape: bool,
     # the stall threshold sits above a first frame's warm-up and capture
     # (seconds: the profiler counts that warm-up's FLOPs op by op), which
     # the watchdog would rightly call a stall at its 5 s default
-    flags = ["--metrics-port", "0", "--trace", "--watchdog", str(OBS_STALL_S),
-             "--profile", "--events-dump", events_path] if on else []
+    if flags is None:
+        flags = ["--metrics-port", "0", "--trace", "--watchdog", str(OBS_STALL_S),
+                 "--profile", "--events-dump", events_path]
+    flags = flags if on else []
     with _cli_objects() as box, _decoder_inputs() as rows, \
             _arrivals(TensorSink) as arrivals, _kept_programs() as programs:
         exporter = lambda: box["exporter"].port if "exporter" in box else None  # noqa
         playing = lambda: "pipeline" in box and box["pipeline"].running  # noqa
-        scraper = _Scraper(exporter, OBS_ROUTES, playing)
+        scraper = _Scraper(exporter, routes, playing)
         counters.reset()
         t_start, t_cli = time.monotonic_ns(), time.perf_counter()
         with scraper if scrape else contextlib.nullcontext():
@@ -4609,6 +4634,659 @@ def run_obs(qparams, counters) -> dict:
     return launches
 
 
+# --------------------------------------------------------------------------- #
+# the obs layers on the base: slo, diag, quality, tune
+# --------------------------------------------------------------------------- #
+
+@contextlib.contextmanager
+def _layer_objects():
+    """What each layer's ``enable()`` built while inside (the CLI hands
+    none back, and disables them at exit), by layer name."""
+    from nnstreamer_tpu_torch import tune
+    from nnstreamer_tpu_torch.obs import diag, quality, slo
+
+    box, saved = {}, {}
+    for name, mod in (("slo", slo), ("diag", diag), ("quality", quality),
+                      ("tune", tune)):
+        saved[name] = mod.enable
+
+        def enabling(*a, _f=mod.enable, _n=name, **kw):
+            box[_n] = _f(*a, **kw)
+            return box[_n]
+
+        mod.enable = enabling
+    try:
+        yield box
+    finally:
+        for name, mod in (("slo", slo), ("diag", diag), ("quality", quality),
+                          ("tune", tune)):
+            mod.enable = saved[name]
+
+
+def _check_layers_ssd(run: dict, box: dict) -> dict:
+    """The obs-on SSD run's layers: the tenant's SLO outcomes equal the
+    frames, every quality tap saw observed + skipped frames (the filter's
+    card-resident output skipped), every retained trace's critical-path
+    segments sum to its duration exactly, and every layer route answered
+    200 while the pipeline played. Returns the numbers."""
+    from nnstreamer_tpu_torch.obs import tracing
+    from nnstreamer_tpu_torch.obs.diag import critpath
+
+    tag, frames = run["tag"], OBS_SSD_FRAMES
+    row = box["slo"].snapshot()["tenants"][LAYER_TENANT]
+    if sum(row["outcomes"].values()) != frames or row["outcomes"]["shed"]:
+        raise AssertionError(f"layers ssd {tag}: SLO outcomes {row['outcomes']} for "
+                             f"{frames} frames")
+    taps = box["quality"].snapshot()["taps"]
+    for name, t in taps.items():
+        if t["seen"] != t["frames"] + t["skipped_device"]:
+            raise AssertionError(f"layers ssd {tag}: tap {name} seen {t['seen']} != "
+                                 f"{t['frames']} + {t['skipped_device']}")
+    filt = taps.get(f"filter:filt_{tag}")
+    if filt is None or filt["skipped_device"] != frames or filt["frames"]:
+        raise AssertionError(f"layers ssd {tag}: the filter tap {filt} must skip "
+                             f"all {frames} card-resident outputs")
+    analysed = 0
+    for summ in tracing.store().summaries():
+        res = critpath.analyze(tracing.store().spans_of(summ["trace_id"]) or [])
+        if res is None:
+            continue
+        analysed += 1
+        if sum(res["segments"].values()) != res["total_ns"]:
+            raise AssertionError(f"layers ssd {tag}: trace {res['trace_id']} segments "
+                                 f"{res['segments']} do not sum to {res['total_ns']}")
+    if not analysed:
+        raise AssertionError(f"layers ssd {tag}: no trace to analyse")
+    sc = run["scraper"]
+    if sc is not None:  # the scraped turn (the other is the cost turn)
+        for route in LAYER_ROUTES:
+            codes = sc.while_playing(route)
+            if not codes or any(c != 200 for c in codes):
+                raise AssertionError(f"layers ssd {tag}: {route} while playing: {codes}")
+        cp = json.loads(sc.last["/debug/diag/critpath"])
+        tune_doc = json.loads(sc.last["/debug/tune"])
+        if not cp["diag_enabled"] or not cp["traces_analyzed"] or not tune_doc["enabled"]:
+            raise AssertionError(f"layers ssd {tag}: /debug/diag/critpath {cp}, "
+                                 f"/debug/tune {tune_doc}")
+    return dict(outcomes=row["outcomes"], analysed=analysed,
+                taps={n: (t["seen"], t["frames"], t["skipped_device"])
+                      for n, t in sorted(taps.items())},
+                scrapes=len(sc.answers) if sc is not None else 0,
+                bundles=len(box["diag"].bundles.list()))
+
+
+def _tuned_rungs() -> dict:
+    """The filter's bucket rung under the tuner: run_filter_options'
+    ``bucket=4`` pipeline with the tuner on and an exporter, first with an
+    empty store (each frame's rung is the default, and counted), then with
+    a rung one up stored for padded size 4; /debug/tune lists the picks and
+    the stored rung, and the outputs equal the tuner-off run's."""
+    import urllib.request
+
+    from nnstreamer_tpu_torch import obs, tune
+    from nnstreamer_tpu_torch.core.types import Caps, TensorFormat, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    rng = np.random.default_rng(3)
+    frames = [tuple(rng.standard_normal((7, 5, 3)).astype(np.float32) for _ in range(n))
+              for n in (3, 1, 6, 9)]
+    caps = Caps.tensors(TensorsConfig(TensorsInfo((), TensorFormat.FLEXIBLE), 30))
+
+    def rung_model(x):  # the bundle's name is the tuner's label
+        return x.amax(dim=(1, 2))
+
+    def run():
+        p = Pipeline("rungs")
+        src = p.add_new("appsrc", caps=caps, data=list(frames))
+        filt = p.add_new("tensor_filter", framework="torch-cuda", model=rung_model,
+                         custom="bucket=4")
+        sink = p.add_new("tensor_sink", store=True)
+        Pipeline.link(src, filt, sink)
+        p.run(timeout=120)
+        return [b.memories[0].device() for b in sink.buffers]
+
+    want = run()
+    docs = []
+    with tempfile.TemporaryDirectory() as tmp:
+        tn = tune.enable(os.path.join(tmp, "rungs.json"), fit_from_profiler=False)
+        exp = obs.start_exporter(port=0)
+        try:
+            got = run()
+            if not _all_identical(got, want):
+                raise AssertionError("tuned rungs: outputs differ from the tuner-off run")
+            tn.store.put(tune.device_kind(), "rung_model", tune.shape_sig(("rung", 4)),
+                         "xla_bucket_rung", 8, "sweep")
+            got = run()
+            if not all(torch.equal(a, b) for a, b in zip(got, want)):
+                raise AssertionError("tuned rungs: rung 8 outputs differ from rung 4's")
+            with urllib.request.urlopen(f"http://127.0.0.1:{exp.port}/debug/tune",
+                                        timeout=30) as r:
+                docs.append(json.loads(r.read()))
+        finally:
+            exp.close()
+            tune.disable(save=False)
+            obs.disable()
+    st = docs[0]["local"]["stats"]
+    # bucket 4 for 3 and 1 regions, 8 for 6, 12 for 9: four picks a run
+    if st["picks"] != 8 or st["defaults"] != 6 or st["store_hits"] != 2 \
+            or not any(k.endswith("|xla_bucket_rung") for k in docs[0]["local"]["entries"]):
+        raise AssertionError(f"/debug/tune after the rung runs: {docs[0]}")
+    return st
+
+
+def _layers_lm_turn(qparams, mixes, mode: str, counters, keep: bool = False,
+                    timed_gc: bool = False) -> dict:
+    """bench.py's paged serving lane, w8a8, on a new 32-slot paged engine:
+    each mix (requests with their deadlines) in turn, one session per prefix
+    group. ``mode``: "off"; "layers" (slo, diag and quality, with tracing,
+    health and events, which they read, and the tuner); "metrics",
+    "tracing", "tracing full" (the span store left full by the run before)
+    or "profile" alone. With ``timed_gc`` the collections a capture starts
+    (core/graphs.py) are timed. Returns what the run showed."""
+    from nnstreamer_tpu_torch import obs, sched, tune
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.obs import diag, events, health, profile, quality, slo, tracing
+    from nnstreamer_tpu_torch.serving.lm_engine import LMEngine
+
+    if mode != "tracing full":
+        _obs_all_off()
+    _hooks_off()
+    box, confs, tmp = {}, {}, None
+    if mode == "layers":
+        tmp = tempfile.mkdtemp(prefix="layers-lm-")
+        tracing.enable()
+        health.enable(interval_s=3600.0)
+        events.enable()
+        box["slo"] = slo.enable()
+        slo.set_objective("lm", p99_ms=LAYER_LM_P99_MS)
+        box["diag"] = diag.enable(os.path.join(tmp, "bundles"))
+        box["quality"] = quality.enable()
+        box["tune"] = tune.enable(os.path.join(tmp, "tune.json"), fit_from_profiler=False)
+        box["sched"] = sched.install()
+        retire = LMEngine._retire_if_done
+
+        def recording(self, slot, req):
+            if req.conf is not None:
+                confs[req.rid] = req.conf
+            return retire(self, slot, req)
+
+        LMEngine._retire_if_done = recording
+    elif mode == "metrics":
+        obs.enable()
+    elif mode.startswith("tracing"):
+        tracing.enable()
+    elif mode == "profile":
+        profile.enable()
+    gc_s, real_gc = [], graphs.gc
+
+    class _TimedGC:
+        def __getattr__(self, name):
+            return getattr(real_gc, name)
+
+        def collect(self, *a):
+            t0 = time.perf_counter()
+            n = real_gc.collect(*a)
+            gc_s.append(time.perf_counter() - t0)
+            return n
+
+    spans_before = sum(len(tracing.store().spans_of(x["trace_id"]) or [])
+                       for x in tracing.store().summaries())
+    graphs.reset_stats()
+    if timed_gc:
+        graphs.gc = _TimedGC()
+    runs = []
+    try:
+        eng = _paged_engine(qparams, PAGED_SLOTS)
+        counters.reset()
+        for requests, deadlines in mixes:
+            before = dict(eng.stats)
+            rids = [eng.submit(p, max_new=g, deadline=dl, session=LAYER_SESSION)
+                    for (p, g), dl in zip(requests, deadlines)]
+            t0 = time.perf_counter()
+            res = eng.run()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs.append(dict(outs=[res[r] for r in rids], rids=rids, wall=wall,
+                             stats={k: v - before[k] for k, v in eng.stats.items()}))
+        launches = counters.read()
+        captures = graphs.stats()["captures"]
+        if mode == "layers":
+            health.check_now()  # the p99 objective below the lane's latency
+            box["snapshot"] = box["slo"].snapshot()
+            box["bundles"] = box["diag"].bundles.list()
+            box["requests"] = box["diag"].recent_requests()
+            box["tn_stats"] = dict(box["tune"].stats)
+            box["status"] = health.registry().component("slo:lm").status
+    finally:
+        graphs.gc = real_gc
+        if mode == "layers":
+            LMEngine._retire_if_done = retire
+            sched.uninstall()
+    spans = sum(len(tracing.store().spans_of(x["trace_id"]) or [])
+                for x in tracing.store().summaries())
+    tokens = [sum(len(o) for o in r["outs"]) for r in runs]
+    out = dict(mode=mode, runs=runs, launches=launches, captures=captures,
+               rate=tokens[0] / runs[0]["wall"], rate2=tokens[1] / runs[1]["wall"],
+               gc_ms_per_capture=(sum(gc_s) * 1e3 / captures) if gc_s and captures else None,
+               gc_calls=len(gc_s), spans_before=spans_before, spans=spans,
+               box=box, confs=confs, tmp=tmp)
+    if keep:
+        out["eng"] = eng
+    return out
+
+
+def _plain_conf(logits: torch.Tensor) -> np.ndarray:
+    """The confidence triple of one logits row in float64 torch ops."""
+    p = torch.softmax(logits.to(torch.float64), dim=-1)
+    ent = -torch.sum(torch.where(p > 0, p * torch.log(p), torch.zeros_like(p)))
+    top2 = torch.topk(p, 2).values
+    return np.array([ent.item(), top2[0].item(), (top2[0] - top2[1]).item()])
+
+
+def _check_layers_lm(run: dict, off: dict, qparams, mixes) -> dict:
+    """The obs-on paged run's layers: unshed tokens equal the obs-off run's
+    (so the confidence admission's first tokens equal the plain one's), the
+    expired requests shed without a slot, the SLO outcomes equal the
+    engine's, each confidence triple within CONF_TOL of its plain float64
+    computation from the same first-token logits (an eager full-prompt
+    window prefill), the p99 breach writing exactly one bundle that
+    nns-diag-torch reads back with its stanzas. Returns the numbers."""
+    import io
+
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.obs.diag import bundle as diag_bundle
+    from nnstreamer_tpu_torch.obs.diag import cli as diag_cli
+    from nnstreamer_tpu_torch.obs.health import Status
+    from nnstreamer_tpu_torch.serving.lm_engine import next_pow2_bucket
+
+    box = run["box"]
+    want = {"met": 0, "missed": 0, "shed": 0}
+    unshed = 0
+    for mix, ref, (requests, deadlines) in zip(run["runs"], off["runs"], mixes):
+        for out, ref_out, dl in zip(mix["outs"], ref["outs"], deadlines):
+            if dl.expired() and not out:
+                want["shed"] += 1
+                continue
+            unshed += 1
+            want["missed" if dl.expired() else "met"] += 1
+            if out != ref_out or not out:
+                raise AssertionError("layers lm: an unshed request's tokens differ from "
+                                     "the obs-off run's")
+        n_exp = sum(1 for _, dl in zip(requests, deadlines) if dl.expired())
+        if mix["stats"]["prefills"] != len(requests) - n_exp:
+            raise AssertionError(f"layers lm: {mix['stats']['prefills']} prefills for "
+                                 f"{len(requests)} requests, {n_exp} expired at submit")
+    got = box["snapshot"]["tenants"]["lm"]["outcomes"]
+    if got != want or not want["shed"]:
+        raise AssertionError(f"layers lm: SLO outcomes {got} != the engine's {want}")
+    if len(box["requests"]) != min(unshed, 512):
+        raise AssertionError(f"layers lm: diag saw {len(box['requests'])} requests")
+    # the confidence triples, against the same first-token logits
+    worst, checked = 0.0, 0
+    for mix, (requests, deadlines) in zip(run["runs"], mixes):
+        for rid, (prompt, _), out in zip(mix["rids"], requests, mix["outs"]):
+            if not out:
+                continue
+            t = len(prompt)
+            tb = min(next_pow2_bucket(t), LM_MAX_LEN)
+            padded = np.zeros((1, tb), np.int32)
+            padded[0, :t] = prompt
+            logits, _, _, _ = causal_lm.lm_prefill_window(
+                qparams, torch.from_numpy(padded).cuda(),
+                torch.tensor(t, dtype=torch.int32, device="cuda"), LM_DIMS[2], LM_MAX_LEN)
+            if int(torch.argmax(logits[0])) != out[0]:
+                raise AssertionError(f"layers lm: rid {rid}'s first token {out[0]} is not "
+                                     "the argmax of its prefill logits")
+            conf = run["confs"][rid].cpu().to(torch.float64).numpy()
+            plain = _plain_conf(logits[0])
+            if not np.allclose(conf, plain, rtol=CONF_TOL[0], atol=CONF_TOL[1]):
+                raise AssertionError(f"layers lm: rid {rid} confidence {conf} != plain {plain}")
+            worst = max(worst, float(np.max(np.abs(conf - plain) / (np.abs(plain) + 1e-12))))
+            checked += 1
+    # the breach: slo:lm DEGRADED, exactly one bundle (the rate limit)
+    if box["status"] is not Status.DEGRADED or len(box["bundles"]) != 1:
+        raise AssertionError(f"layers lm: slo:lm {box['status']}, bundles {box['bundles']}")
+    path = os.path.join(run["tmp"], "bundles", box["bundles"][0]["id"] + ".json")
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = diag_cli.main([path, "--json"])
+    doc = diag_bundle.load_bundle(path)
+    stanzas = {k: doc.get(k) for k in ("slo", "sched", "profile", "events", "health")}
+    if rc != 0 or json.loads(buf.getvalue())["id"] != doc["id"] \
+            or any(v is None or "error" in v for v in stanzas.values()) \
+            or "lm" not in doc["slo"]["tenants"] or not doc["events"]["events"] \
+            or "§A8" not in doc["routing"].get("error", "") \
+            or "§A9" not in doc["fleet_actions"].get("error", ""):
+        raise AssertionError(f"layers lm: nns-diag-torch read rc {rc}, bundle stanzas "
+                             f"{ {k: type(v).__name__ for k, v in doc.items()} }")
+    if run["box"]["tn_stats"]["trials"] or run["box"]["tn_stats"]["sweeps"]:
+        raise AssertionError(f"layers lm: the tuner swept {run['box']['tn_stats']}")
+    return dict(outcomes=got, conf_checked=checked, conf_worst_rel=worst,
+                bundle=box["bundles"][0]["id"], cause=box["bundles"][0]["cause"]["kind"],
+                captures=run["captures"], tuner=run["box"]["tn_stats"])
+
+
+def _conf_admission_ms(on_eng, off_eng) -> list:
+    """Device ms of one replay of each confidence admission graph beside the
+    plain admission graph of the same signature (the other engine's), in
+    turns: [(conf, plain), ...]."""
+    pairs = []
+    for prog in ("_paged_prefill_prog",):
+        on_g, off_g = getattr(on_eng, prog)._graphs, getattr(off_eng, prog)._graphs
+        for (args, static), g in sorted(on_g.items(), key=lambda kv: str(kv[0])):
+            plain = off_g.get((args, tuple(kv for kv in static if kv[0] != "conf")))
+            if ("conf", True) in static and plain is not None:
+                a = _replay_ms(g.graph)
+                b = _replay_ms(plain.graph)
+                pairs.append((a, b, _replay_ms(g.graph), _replay_ms(plain.graph)))
+    if not pairs:
+        raise AssertionError("layers lm: no confidence admission graph beside a plain one")
+    return pairs
+
+
+def _tuned_flash(dev) -> dict:
+    """The tuner on the card: an empty store sweeps flash's launch
+    configurations at (8, 16, 1024, 64) causal, bf16 (wgmma) and float32
+    (tf32x3), timing each with CUDA events; each configuration is held
+    against the plain version; the saved store makes a new tuner pick the
+    same with no trial. Returns the picks, the store path's directory and
+    each configuration's device ms (CUDA-graph replay) and bound."""
+    from nnstreamer_tpu_torch import tune
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+    from nnstreamer_tpu_torch.tune import TuneStore, Tuner
+
+    rng = np.random.default_rng(11)
+    tmp = tempfile.mkdtemp(prefix="tune-")
+    path = os.path.join(tmp, "tune.json")
+    tn = tune.enable(path, fit_from_profiler=False)
+    trials, trial = [], fa._trial_s
+
+    def timed(q, causal, route, cfg):
+        s_ = trial(q, causal, route, cfg)
+        trials.append((str(q.dtype)[6:], cfg, s_))
+        return s_
+
+    fa._trial_s = timed
+    picks, rows, sweep_s = {}, [], {}
+    try:
+        for dt in (torch.bfloat16, torch.float32):
+            shape = (FLASH_B, 16, FLASH_T, 64)
+            q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32))
+                       .to(dev, dt) for _ in range(3))
+            route = fa._route(q, k, v)
+            configs = fa.launch_configs(route, 64)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            picks[dt] = fa._tuned_config(q, True, route, configs)
+            sweep_s[str(dt)[6:]] = time.perf_counter() - t0
+            want = fa.flash_attention_plain(q, k, v, True)
+            b, h, length, d = shape
+            pairs = b * h * length * (length + 1) // 2
+            nbytes, ops = 4 * q.numel() * q.element_size(), 4 * d * pairs
+            bound, by = _bound_ms(nbytes, 3 * ops, "tf32") if dt == torch.float32 \
+                else _bound_ms(nbytes, ops, dt)
+            for cfg in configs:
+                got = fa.flash_attention(q, k, v, True, config=cfg)
+                torch.cuda.synchronize()
+                if not _within(got, want, *FLASH_TOL[dt]):
+                    raise AssertionError(f"flash {route} config {cfg} differs from plain: "
+                                         f"max abs err {_max_abs_err(got, want)}")
+                ms = _device_ms(lambda: fa.flash_attention(q, k, v, True, config=cfg), 5, 10)
+                swept = min(t for n, c, t in trials if n == str(dt)[6:] and c == cfg) * 1e3
+                rows.append(dict(dtype=str(dt)[6:], route=route, config=cfg,
+                                 default=cfg == configs[0], ms=ms, sweep_ms=swept,
+                                 max_abs_err=_max_abs_err(got, want), bound_ms=bound,
+                                 bound_by=by, picked=cfg == picks[dt]))
+        tn.store.save()
+        if fa.flash_attention.tune_sweeps_in_capture:
+            raise AssertionError("flash: a sweep ran inside a capture")
+    finally:
+        fa._trial_s = trial
+        tune.disable(save=False)
+
+    def never(cfg):
+        raise AssertionError("a warm store swept")
+
+    again = Tuner(store=TuneStore(path))
+    for dt, pick in picks.items():
+        shape_sig = tune.shape_sig(("b", FLASH_B), ("h", 16), ("l", FLASH_T), ("d", 64),
+                                   ("c", 1), ("t", str(dt)[6:]))
+        route = "wgmma" if dt == torch.bfloat16 else "tf32x3"
+        got = again.pick("flash_launch", tune.device_kind(), f"cuda.flash_attention.{route}",
+                         shape_sig, candidates=fa.launch_configs(route, 64),
+                         default=None, measure=never)
+        if got != pick:
+            raise AssertionError(f"flash {route}: the saved store picks {got}, not {pick}")
+    if again.stats["trials"] or again.stats["store_hits"] != 2:
+        raise AssertionError(f"the warm tuner: {again.stats}")
+    return dict(picks={str(k)[6:]: v for k, v in picks.items()}, rows=rows, path=path,
+                trials=len(trials), sweep_s=sweep_s)
+
+
+def _tuned_prefill(counters, path: str, picks: dict) -> dict:
+    """The flash prefill lanes (bf16, float32) under CUDA graphs with the
+    tuner on over the saved store, against the same lane with the picked
+    configuration given explicitly and the tuner off: logits equal, no
+    capture failed, no sweep inside a capture, no default taken in one, no
+    trial; then an LM engine built with the tuner on makes no trial."""
+    import functools
+
+    from nnstreamer_tpu_torch import tune
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+    from nnstreamer_tpu_torch.serving import LMEngine
+
+    v, d, h, n_layers = LM_DIMS
+    rng = np.random.default_rng(0)
+    frames = [rng.integers(0, v, (FLASH_B, FLASH_T)).astype(np.int32) for _ in range(2)]
+    caps = Caps.tensors(TensorsConfig(TensorsInfo.from_strings(f"{FLASH_T}:{FLASH_B}",
+                                                               "int32")))
+
+    def run(params):
+        p = Pipeline("tuned-prefill")
+        src = p.add_new("appsrc", caps=caps, data=list(frames))
+        filt = p.add_new("tensor_filter", framework="torch-cuda", model=causal_lm.prefill_bundle(
+            params, h, FLASH_T, FLASH_B, flash=True))
+        sink = p.add_new("tensor_sink", store=True)
+        Pipeline.link(src, filt, sink)
+        p.run(timeout=600)
+        torch.cuda.synchronize()
+        return [b.memories[0].device() for b in sink.buffers]
+
+    launches, out = {}, {}
+    for dt in (torch.bfloat16, torch.float32):
+        name = str(dt)[6:]
+        params = _lm_params(None if dt == torch.float32 else dt)
+        tn = tune.enable(path, fit_from_profiler=False)
+        before = (fa.flash_attention.tune_sweeps_in_capture,
+                  fa.flash_attention.tune_capture_defaults, fa.flash_attention.tune_trials)
+        graphs.reset_stats()
+        counters.reset()
+        try:
+            tuned = run(params)
+            launches[f"tuned prefill {name}"] = counters.read()
+            st = graphs.stats()
+            engine_trials = tn.stats["trials"]
+            # chunk and page size left to the tuner: picked, never swept
+            LMEngine(params, h, LM_MAX_LEN, n_slots=2, kv_pages=32)
+        finally:
+            tune.disable(save=False)
+        after = (fa.flash_attention.tune_sweeps_in_capture,
+                 fa.flash_attention.tune_capture_defaults, fa.flash_attention.tune_trials)
+        plain_fa = causal_lm.flash_attention
+        causal_lm.flash_attention = functools.partial(plain_fa, config=picks[name])
+        try:
+            named = run(params)
+        finally:
+            causal_lm.flash_attention = plain_fa
+        if after != before or engine_trials or tn.stats["trials"] or st["captures"] < 1 \
+                or tn.stats["store_hits"] < 2 * n_layers or tn.stats["defaults"] != 2:
+            raise AssertionError(f"tuned prefill {name}: in-capture sweeps/defaults/trials "
+                                 f"{before} -> {after}, tuner {tn.stats}, graphs {st}")
+        if not _all_identical(tuned, named):
+            raise AssertionError(f"tuned prefill {name}: logits differ from the lane with "
+                                 f"config {picks[name]} given explicitly")
+        out[name] = dict(captures=st["captures"], hits=tn.stats["store_hits"],
+                         launches=launches[f"tuned prefill {name}"]["flash_attention"])
+        del params
+        _release()
+    return dict(launches=launches, lanes=out)
+
+
+def run_obs_layers(qparams, counters) -> dict:
+    """The obs layers on the base (slo, diag, quality, tune) on the card:
+    SSD-300 through the CLI on the DeviceEngine with all four on, against
+    the same string with them off, in turns (off, on, off, on); the
+    tuner's bucket rungs; bench.py's paged w8a8 lane with deadlines and
+    sessions, slo, diag and quality on, against it off, in turns; the
+    tuner's flash sweep and the flash prefill lanes under it; what the
+    layers cost, split by obs layer, with the garbage collections a capture
+    starts timed. Returns the launches of the runs."""
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+    from nnstreamer_tpu_torch.resilience.policy import Deadline
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        priors = os.path.join(tmp, "box_priors.txt")
+        write_box_priors(priors, size=300)
+        labels = os.path.join(tmp, "coco.txt")
+        with open(labels, "w") as f:
+            f.write("\n".join(f"c{i}" for i in range(91)))
+        ssd = {True: [], False: []}
+        for i, on in enumerate(OBS_TURNS):
+            flags = ["--sched", "--slo",
+                     f"{LAYER_TENANT}:p99={LAYER_SSD_P99_MS}:goodput=0.99",
+                     "--diag", os.path.join(tmp, f"diag{i}"), "--quality", "--tune",
+                     os.path.join(tmp, f"tune{i}.json"), "--metrics-port", "0", "--trace",
+                     "--profile", "--watchdog", str(OBS_STALL_S)]
+            with _layer_objects() as box:
+                run = _obs_ssd_turn(tmp, labels, priors, on, i == 1, f"l{i}", counters,
+                                    flags=flags, routes=LAYER_ROUTES)
+            if on:
+                run["layers"] = _check_layers_ssd(run, box)
+                launches[f"layers ssd {i}"] = run["launches"]
+            del run["programs"], run["p"]
+            _obs_all_off()
+            _release()
+            ssd[on].append(run)
+        ref = ssd[False][0]
+        for run in ssd[True] + ssd[False][1:]:
+            if run["dets"] != ref["dets"] or not _all_identical(run["rows"], ref["rows"]):
+                raise AssertionError(f"layers ssd {run['tag']}: boxes differ from the "
+                                     "layers-off run")
+    for run in ssd[True]:
+        o = run["layers"]
+        print(f"layers ssd {run['tag']} (bench.py's ssd_mobilenet_300_fps string, "
+              f"{OBS_SSD_FRAMES} frames, CLI --sched --slo --diag --quality --tune "
+              f"--metrics-port 0 --trace --profile --watchdog {OBS_STALL_S}): boxes == the "
+              f"layers-off run; /debug/slo tenant {LAYER_TENANT} outcomes {o['outcomes']}; "
+              f"quality taps (seen, observed, skipped on the card) {o['taps']}; "
+              f"{o['analysed']} traces' critical paths sum exactly; "
+              + (f"{o['scrapes']} scrapes of {len(LAYER_ROUTES)} routes, all 200 while "
+                 "playing" if o["scrapes"] else "not scraped (a cost turn)")
+              + f"; {o['bundles']} bundles", flush=True)
+    rungs = _tuned_rungs()
+    print(f"tuned rungs (bucket=4 filter, tuner on): /debug/tune stats {rungs}", flush=True)
+
+    mixes = []
+    for seed in (7, 8):
+        requests = _paged_requests(seed)
+        mixes.append((requests, [
+            Deadline(time.monotonic() - 1.0) if i % LAYER_SHED_EVERY == 3
+            else Deadline.after_s(3600.0) for i in range(len(requests))]))
+    lm = {"off": [], "layers": []}
+    for i, on in enumerate(OBS_TURNS):
+        mode = "layers" if on else "off"
+        lm[mode].append(_layers_lm_turn(qparams, mixes, mode, counters, keep=i < 2))
+    first_on, first_off = lm["layers"][0], lm["off"][0]
+    for run in lm["layers"] + lm["off"][1:]:
+        for mix, ref in zip(run["runs"], first_off["runs"]):
+            if mix["outs"] != ref["outs"]:
+                raise AssertionError(f"layers lm {run['mode']}: tokens differ from the "
+                                     "layers-off run")
+    checked = _check_layers_lm(first_on, first_off, qparams, mixes)
+    launches["layers lm w8a8"] = first_on["launches"]
+    conf_pairs = _conf_admission_ms(first_on.pop("eng"), first_off.pop("eng"))
+    _obs_all_off()
+    _release()
+    print(f"layers lm paged w8a8 ({PAGED_SLOTS} slots, {PAGED_POOL} pages of {PAGE_SIZE}, "
+          f"2 mixes of {PAGED_REQUESTS} requests, every {LAYER_SHED_EVERY}th expired at "
+          f"submit, session {LAYER_SESSION}; slo, diag, quality, tune on): unshed tokens == "
+          f"the layers-off run (the confidence admission's first tokens == the plain "
+          f"one's); SLO outcomes {checked['outcomes']} == the engine's; "
+          f"{checked['conf_checked']} confidence triples within rtol {CONF_TOL[0]} atol "
+          f"{CONF_TOL[1]} of float64 from the same logits (worst rel "
+          f"{checked['conf_worst_rel']:.3e}); p99 {LAYER_LM_P99_MS} ms breach -> slo:lm "
+          f"DEGRADED, one bundle ({checked['cause']}) read back by nns-diag-torch with its "
+          f"stanzas; {checked['captures']} captures, none failed; tuner {checked['tuner']}",
+          flush=True)
+    print("confidence admission device ms per replay (conf, plain, conf, plain) by "
+          f"signature: {conf_pairs}", flush=True)
+
+    split = {}
+    for mode, timed in (("off", True), ("metrics", False), ("tracing", True),
+                        ("tracing full", True), ("profile", False)):
+        split[mode] = _layers_lm_turn(qparams, mixes, mode, counters, timed_gc=timed)
+        for mix, ref in zip(split[mode]["runs"], first_off["runs"]):
+            if mix["outs"] != ref["outs"]:
+                raise AssertionError(f"layers lm {mode}: tokens differ from the off run")
+        _release()
+    _obs_all_off()
+    _hooks_off()
+
+    dev = torch.device("cuda", 0)
+    flash = _tuned_flash(dev)
+    for r in flash["rows"]:
+        print(f"tuned flash_attention (8, 16, 1024, 64) {r['dtype']} causal [{r['route']}] "
+              f"config {r['config']}{' (default)' if r['default'] else ''}"
+              f"{' PICKED' if r['picked'] else ''}: device ms/call (CUDA graph) "
+              f"{r['ms']:.6f}, the sweep's best trial {r['sweep_ms']:.6f} ms, bound_ms "
+              f"{r['bound_ms']:.8f} ({r['bound_by']}), max abs err vs plain "
+              f"{r['max_abs_err']:.3e}", flush=True)
+    prefill = _tuned_prefill(counters, flash["path"], flash["picks"])
+    launches.update(prefill["launches"])
+    print(f"tuned flash: picks {flash['picks']} after {flash['trials']} timed trials of "
+          f"{fa.TRIAL_LAUNCHES} launches (sweep wall s {flash['sweep_s']}); a "
+          f"new tuner on the saved store picks the same with 0 trials; prefill lanes under "
+          f"the tuner {prefill['lanes']}: logits == the lanes with the pick given "
+          f"explicitly, 0 sweeps and 0 defaults inside captures, an LM engine built with "
+          f"the tuner on made 0 trials", flush=True)
+
+    card = _card()
+    cost = {"ssd_fps": {"off": [r["fps"] for r in ssd[False]],
+                        "on": [r["fps"] for r in ssd[True]]},
+            "lm_tokens_per_s": {"off": [r["rate"] for r in lm["off"]],
+                                "on": [r["rate"] for r in lm["layers"]]},
+            "lm_tokens_per_s_second_mix": {"off": [r["rate2"] for r in lm["off"]],
+                                           "on": [r["rate2"] for r in lm["layers"]]},
+            "split_tokens_per_s": {m: r["rate"] for m, r in split.items()},
+            "split_second_mix": {m: r["rate2"] for m, r in split.items()},
+            "gc_ms_per_capture": {m: r["gc_ms_per_capture"] for m, r in split.items()
+                                  if r["gc_ms_per_capture"] is not None},
+            "gc_calls": {m: r["gc_calls"] for m, r in split.items()},
+            "spans_in_store": {m: (r["spans_before"], r["spans"]) for m, r in split.items()},
+            "captures": {m: r["captures"] for m, r in split.items()},
+            "conf_admission_ms": conf_pairs,
+            "flash_configs": flash["rows"], "card": card}
+    print(f"obs layers cost ({card}), turns off/on/off/on: SSD-300 steady frames/s off "
+          f"{cost['ssd_fps']['off']}, on {cost['ssd_fps']['on']}; w8a8 paged lane "
+          f"tokens/s on new engines off {cost['lm_tokens_per_s']['off']}, on "
+          f"{cost['lm_tokens_per_s']['on']}, second mix off "
+          f"{cost['lm_tokens_per_s_second_mix']['off']}, on "
+          f"{cost['lm_tokens_per_s_second_mix']['on']}", flush=True)
+    print(f"obs split on the new-engine mix ({card}): tokens/s {cost['split_tokens_per_s']}, "
+          f"second mix {cost['split_second_mix']}; gc.collect ms per capture "
+          f"{cost['gc_ms_per_capture']} over {cost['captures']} captures "
+          f"({cost['gc_calls']} collections; spans in the store before/after "
+          f"{cost['spans_in_store']})", flush=True)
+    LOOP_STATS["obs layers"] = cost
+    return launches
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -4692,7 +5370,10 @@ def main() -> int:
     by_phase["lm paged w8a8"] = run_lm_paged(quantize_lm_params(params), "w8a8", counters)
     with tempfile.TemporaryDirectory() as tmp:
         by_phase["multi-tenant"] = run_multitenant(params, counters, tmp)
-    by_phase.update(run_obs(quantize_lm_params(params), counters))
+    qparams = quantize_lm_params(params)
+    by_phase.update(run_obs(qparams, counters))
+    by_phase.update(run_obs_layers(qparams, counters))
+    del qparams
     _release()
     del params
     by_phase["lm flash prefill"] = run_flash_prefill(counters, torch.bfloat16)

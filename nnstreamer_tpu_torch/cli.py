@@ -23,12 +23,17 @@ pipeline runs; 0 = ephemeral), --trace (spans; the per-element span report
 at exit), --watchdog[=SECS] (the health model and stall watchdog, with the
 flight recorder), --events-dump PATH ('-' = stderr), --profile[=N] (the
 device-time profiler with an N-record ring; implies --trace; its report at
-exit) and --profile-dump PATH. The JAX CLI's flags whose layers the port
-has not reached are refused, naming the ROADMAP item that brings each:
---diag, --quality, --quality-record, --slo, --tune (§A7), --deadline-ms,
---fallback, --backends, --hedge-ms (§A8), --obs-push, --obs-aggregate,
---autoscale, --checkpoint-dir, --checkpoint-interval, --role, --disagg
-(§A9).
+exit) and --profile-dump PATH, and the layers on them: --slo
+TENANT:p99=MS:goodput=R[,...] (per-tenant accounting and burn-rate
+objectives; report at exit), --diag[=DIR] (critical-path attribution and
+incident debug bundles; implies --trace; read bundles with nns-diag-torch),
+--quality[=SPEC] (data-plane tensor stats, drift and LM confidence; report
+at exit) with --quality-record PATH (a drift baseline at exit) and
+--tune[=STORE] (the autotuner; its report at exit, the store saved). The
+JAX CLI's flags whose layers the port has not reached are refused, naming
+the ROADMAP item that brings each: --deadline-ms, --fallback, --backends,
+--hedge-ms (§A8), --obs-push, --obs-aggregate, --autoscale,
+--checkpoint-dir, --checkpoint-interval, --role, --disagg (§A9).
 
 Exit codes: 0 at EOS, 1 on a parse, negotiation or runtime error, 2 when
 the timeout passes before EOS.
@@ -49,11 +54,6 @@ _BARE_OK_FLAGS = ("--profile", "--watchdog", "--sched")
 #: the JAX CLI's flags whose layers the port has not reached yet, and the
 #: ROADMAP item that brings each back; each is refused
 _REFUSED_FLAGS = {
-    "--diag": "obs/diag (ROADMAP §A7)",
-    "--quality": "obs/quality (ROADMAP §A7)",
-    "--quality-record": "obs/quality (ROADMAP §A7)",
-    "--slo": "obs/slo.py (ROADMAP §A7)",
-    "--tune": "tune/ (ROADMAP §A7)",
     "--deadline-ms": "resilience/ and query/ (ROADMAP §A8)",
     "--fallback": "resilience/ and query/ (ROADMAP §A8)",
     "--backends": "query/router.py (ROADMAP §A8)",
@@ -75,7 +75,9 @@ def _normalize_argv(argv):
     positional (argparse otherwise consumes it for the flag and dies on
     ``invalid int value``). Scans right-to-left so chained bare flags
     compose. A trailing flag with nothing after it takes its ``const``
-    default."""
+    default. ``--tune``/``--diag``/``--quality`` take a PATH or SPEC: they
+    defer only when the next token is unmistakably the pipeline (it holds
+    a ``!``), as in the JAX CLI."""
     out, deferred = [], []
     for tok in reversed(argv):
         if tok in _BARE_OK_FLAGS and out and not out[0].startswith("-"):
@@ -84,6 +86,10 @@ def _normalize_argv(argv):
             except ValueError:
                 deferred.append(tok)
                 continue
+        if tok in ("--tune", "--diag", "--quality") and out \
+                and not out[0].startswith("-") and "!" in out[0]:
+            deferred.append(tok)
+            continue
         out.insert(0, tok)
     return out + deferred
 
@@ -124,7 +130,49 @@ def main(argv=None) -> int:
     ap.add_argument("--profile-dump", metavar="PATH", default=None,
                     help="write the profiler's (shape, dtype, fusion, "
                          "device) -> cost samples to PATH as JSON at exit "
-                         "(needs --profile)")
+                         "(the autotuner's training substrate; needs "
+                         "--profile)")
+    ap.add_argument("--diag", metavar="DIR", nargs="?", const="",
+                    default=None,
+                    help="enable incident diagnostics (obs.diag): "
+                         "critical-path latency attribution at "
+                         "/debug/diag/critpath and automatic debug "
+                         "bundles (SLO burn, watchdog DEGRADED, quality "
+                         "anomaly, cost anomaly) at /debug/bundles, "
+                         "written under DIR (default ./.nnstpu-diag); "
+                         "implies --trace; inspect bundles offline with "
+                         "nns-diag-torch")
+    ap.add_argument("--quality", metavar="SPEC", nargs="?", const="",
+                    default=None,
+                    help="enable data-plane quality telemetry "
+                         "(obs.quality): per-tap tensor stats of host-"
+                         "resident buffers (a card-resident one counts as "
+                         "skipped), PSI drift against a --quality-record "
+                         "baseline, NaN-storm / dead-output rules, and LM "
+                         "confidence; SPEC is comma-separated key=value "
+                         "(taps=chain+filter+decoder+lm, every=N, psi=F, "
+                         "fast=SEC, slow=SEC, nan_storm=N, dead_frames=N, "
+                         "sample_cap=N, baseline=PATH)")
+    ap.add_argument("--quality-record", metavar="PATH", default=None,
+                    help="freeze the run's cumulative per-tap sketches to "
+                         "PATH as a JSON drift baseline at exit (feed back "
+                         "via --quality baseline=PATH; needs --quality)")
+    ap.add_argument("--tune", metavar="STORE", nargs="?", const="",
+                    default=None,
+                    help="enable the autotuner (tune/): flash launch "
+                         "configurations, LM chunk/page size and bucket "
+                         "rungs resolve from tuned configs instead of "
+                         "hand-set defaults; STORE is the JSON store path "
+                         "(default $NNSTPU_TUNE_STORE or .nnstpu_tune.json)")
+    ap.add_argument("--slo", metavar="TENANT:p99=MS:goodput=R[,...]",
+                    default=None,
+                    help="enable per-tenant SLO accounting (obs.slo) and "
+                         "declare objectives: p99 latency in ms and/or "
+                         "goodput ratio in (0,1) per tenant (e.g. "
+                         "cam:p99=50:goodput=0.99,lm:goodput=0.9); burn-rate "
+                         "breaches flip the tenant's slo:<name> component "
+                         "DEGRADED in /healthz, show at /debug/slo, and the "
+                         "per-tenant report prints at exit")
     for flag in _REFUSED_FLAGS:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -202,6 +250,24 @@ def main(argv=None) -> int:
                 ap.error(f"--sched-tenants: bad spec {spec!r} "
                          "(want name:weight[:priority], weight > 0)")
             sched_presets.append((parts[0], w, prio))
+    slo_objectives = None
+    if args.slo is not None:
+        from .obs import slo as _slo_mod
+
+        try:
+            slo_objectives = _slo_mod.parse_slo_spec(args.slo)
+        except ValueError as e:
+            ap.error(f"--slo: {e}")
+    if args.quality_record is not None and args.quality is None:
+        ap.error("--quality-record needs --quality (no stats are "
+                 "recorded without the quality layer)")
+    if args.quality:
+        from .obs import quality as _quality_mod
+
+        try:
+            _quality_mod.parse_quality_spec(args.quality)
+        except ValueError as e:
+            ap.error(f"--quality: {e}")
     if args.kv_pages is not None and args.kv_page_size is None:
         ap.error("--kv-pages needs --kv-page-size (paging is off without "
                  "a page size)")
@@ -239,13 +305,32 @@ def main(argv=None) -> int:
             print(f"ERROR: metrics exporter: {e}", file=sys.stderr)
             return 1
         print(f"metrics: {exporter.url}", file=sys.stderr)
-    if args.trace or args.profile is not None:
+    if args.tune is not None:
+        from . import tune as _tune_mod
+
+        tn = _tune_mod.enable(store_path=args.tune or None)
+        print(f"tune: autotuner on ({len(tn.store)} stored config(s), "
+              f"store {tn.store.path})", file=sys.stderr)
+    if args.trace or args.profile is not None or args.diag is not None:
         # like metrics: on BEFORE p.start() so the element chains get the
         # span-opening wrap (--profile implies tracing: the Perfetto host
-        # lanes come from pipeline.element spans)
+        # lanes come from pipeline.element spans; --diag implies tracing:
+        # the critical path is computed from spans)
         from .obs import tracing
 
         tracing.enable()
+    if args.diag is not None:
+        # AFTER --tune's enable (the trigger engine adopts the tuner's
+        # cost model for dispatch-anomaly detection when present) and
+        # BEFORE p.start() so the sched/serving taps cover warm-up; events
+        # feed the bundle's flight-recorder stanza
+        from .obs import diag as _diag_mod
+        from .obs import events as _events_mod
+
+        _events_mod.enable()
+        deng = _diag_mod.enable(args.diag or None)
+        print(f"diag: bundles -> {deng.bundles.directory} "
+              "(critpath at /debug/diag/critpath)", file=sys.stderr)
     if args.profile is not None:
         from .obs import profile
 
@@ -271,6 +356,35 @@ def main(argv=None) -> int:
             from .obs import health
 
             health.enable(stall_after_s=float(args.watchdog))
+    if slo_objectives is not None:
+        # after health.enable(): set_objective registers one slo:<tenant>
+        # component per objective; hooks install process-wide before
+        # p.start() so attribution covers warm-up
+        from .obs import slo as _slo_mod
+
+        _slo_mod.enable()
+        for tenant, obj in slo_objectives.items():
+            _slo_mod.set_objective(tenant, **obj)
+        print(f"slo: tracking {len(slo_objectives)} objective "
+              f"tenant(s): {', '.join(sorted(slo_objectives))}",
+              file=sys.stderr)
+    if args.quality is not None:
+        # BEFORE p.start() so the first frames (and warm-up prefills) are
+        # observed; events give the anomaly audit trail. Anomaly →
+        # DEGRADED needs --watchdog, anomaly → debug bundle needs --diag
+        from .obs import events as _events_mod
+        from .obs import quality as _quality_mod
+
+        _events_mod.enable()
+        try:
+            qeng = _quality_mod.enable(args.quality or None)
+        except (OSError, ValueError) as e:
+            print(f"ERROR: --quality: {e}", file=sys.stderr)
+            return 1
+        print(f"quality: data-plane telemetry on (taps: "
+              f"{', '.join(sorted(qeng.taps_enabled))})"
+              f"{' with drift baseline' if qeng.baseline is not None else ''}",
+              file=sys.stderr)
     t0 = time.monotonic()
     try:
         p.start()
@@ -347,6 +461,49 @@ def main(argv=None) -> int:
                 n = profile.dump_samples(args.profile_dump)
                 print(f"profile: {n} cost samples -> "
                       f"{args.profile_dump}", file=sys.stderr)
+        if slo_objectives is not None:
+            from .obs import slo as _slo_mod
+
+            print(_slo_mod.report(), file=sys.stderr)
+            _slo_mod.disable()
+        if args.tune is not None:
+            from . import tune as _tune_mod
+
+            print(_tune_mod.report(), file=sys.stderr)
+            _tune_mod.disable()  # persists the store for the next run
+        if args.quality is not None:
+            from .obs import quality as _quality_mod
+
+            print(_quality_mod.report(), file=sys.stderr)
+            if args.quality_record is not None:
+                try:
+                    _quality_mod.save_baseline(args.quality_record)
+                    print(f"quality: baseline -> {args.quality_record}",
+                          file=sys.stderr)
+                except OSError as e:
+                    print(f"ERROR: --quality-record: {e}",
+                          file=sys.stderr)
+            _quality_mod.disable()
+        if args.diag is not None:
+            from .obs import diag as _diag_mod
+
+            deng = _diag_mod.engine()
+            if deng is not None:
+                ts = deng.triggers.stats
+                bundles = deng.bundles.list()
+                print(f"diag: {ts['fired']} bundle(s) captured "
+                      f"({ts['offered']} trigger(s) offered, "
+                      f"{ts['rate_limited']} rate-limited, "
+                      f"{ts['deduped']} deduped)", file=sys.stderr)
+                for b in bundles[:4]:
+                    cause = b.get("cause") or {}
+                    print(f"diag:   {b['id']}  cause="
+                          f"{cause.get('kind')}:{cause.get('key')}",
+                          file=sys.stderr)
+                if bundles:
+                    print(f"diag: inspect with: nns-diag-torch "
+                          f"{deng.bundles.directory}", file=sys.stderr)
+            _diag_mod.disable()
         if args.events_dump is not None:
             from .obs import events
 

@@ -13,6 +13,7 @@ from ..core.buffer import Buffer
 from ..core.types import Caps, TensorsConfig
 from ..decoders.base import Decoder, find_decoder
 from ..graph.element import Element, FlowReturn, Pad, register_element
+from ..obs import quality as _quality
 
 
 @register_element
@@ -94,8 +95,12 @@ class TensorDecoder(Element):
         return ret
 
     def _emit(self, out: Buffer) -> Optional[FlowReturn]:
-        """Single exit point for decoded output (synchronous and
-        async-drain paths)."""
+        """Single exit point for decoded output — both the synchronous
+        and the async-drain paths land here, so the quality tap below
+        is the one and only decoder tap."""
+        qhook = _quality.QUALITY_HOOK
+        if qhook is not None:
+            qhook.observe_decoder(self.name, out)
         return self.push(out)
 
     def on_eos(self) -> None:

@@ -40,6 +40,7 @@ from ..filters.base import (
 )
 from ..graph.element import Element, FlowReturn, Pad, register_element
 from ..graph.events import Event, EventType
+from ..obs import quality as _quality
 from ..resilience.policy import deadline_of
 
 log = logger("tensor_filter")
@@ -315,6 +316,12 @@ class TensorFilter(Element):
         else:
             mems = list(outputs)
         out = buf.with_memories(mems, config=self._out_config)
+        # data-plane quality tap (obs/quality): the model's raw output
+        # buffer; host-only observation, so a card-resident output is
+        # counted as skipped rather than copied back
+        qhook = _quality.QUALITY_HOOK
+        if qhook is not None:
+            qhook.observe_filter(self.name, out)
         self._last_pushed_pts = buf.pts
         return self.push(out)
 

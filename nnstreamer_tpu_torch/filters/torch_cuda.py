@@ -68,8 +68,9 @@ Design notes:
     a bundle and configuration already composed as a ``bundle`` hit; the
     bucket ladder records its hits, pad rows and misses through
     sched/telemetry.py, as the JAX filter does.
-  The JAX filter's bucket-rung pick by the tuner (``TUNE_HOOK``) waits for
-  the port of ``tune/`` (ROADMAP §A7).
+  * tune: with the autotuner on (``tune.TUNE_HOOK``), the bucket ladder
+    asks it for the rung (the minimal one or one up), from its store or
+    cost model only — a per-frame path never sweeps.
 """
 
 from __future__ import annotations
@@ -82,6 +83,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import tune as _tune
 from ..core import graphs
 from ..core.buffer import TensorMemory
 from ..core.log import logger
@@ -550,6 +552,22 @@ class TorchCudaFilter(FilterFramework):
                 f"bucketed invoke needs same-shape tensors, got {shapes} "
                 "(add custom=\"resize=H:W\" for image regions)")
         bucket = -(-n // self._bucket) * self._bucket
+        tn = _tune.TUNE_HOOK
+        if tn is not None and bucket * 2 <= cap:
+            # rung choice: the minimal rung pads least but one rung up
+            # halves the distinct captured sizes under jittery arrival
+            # counts — store/model resolution only (never a sweep: this
+            # is a per-frame path)
+            rowbytes = float(arrays[0].nbytes)
+            rung = tn.pick(
+                "xla_bucket_rung", _tune.device_kind(),
+                self._bundle.name if self._bundle else "xla",
+                _tune.shape_sig(("rung", bucket)),
+                candidates=(bucket, bucket * 2), default=bucket,
+                features=lambda r: (0.0, r * rowbytes * 2.0))
+            if isinstance(rung, (int, float)) \
+                    and bucket <= int(rung) <= cap:
+                bucket = int(rung)
         _sched_tel.record_bucket_hit(bucket - n)
         x = arrays[0]
         batch = torch.cat([torch.stack(arrays), x.new_zeros(

@@ -27,6 +27,7 @@ from ..core.buffer import Buffer
 from ..core.types import Caps
 from ..core.log import logger
 from ..obs import events as _events
+from ..obs import quality as _quality
 from .events import Bus, Event, EventType, Message, MessageType
 
 log = logger("element")
@@ -107,6 +108,11 @@ class Pad:
         if peer.eos:
             return FlowReturn.EOS
         try:
+            # data-plane quality tap (obs/quality): observes the buffer
+            # the peer actually receives, from its host copy only
+            qhook = _quality.QUALITY_HOOK
+            if qhook is not None:
+                qhook.observe_chain(peer.element.name, buf)
             if PROFILE_CHAIN_HOOK is not None:
                 ret = PROFILE_CHAIN_HOOK(peer, buf)
             else:

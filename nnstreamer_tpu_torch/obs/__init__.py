@@ -1,5 +1,5 @@
-"""nnstreamer_tpu_torch.obs — metrics, tracing, health, events, profiling
-and their exposition.
+"""nnstreamer_tpu_torch.obs — metrics, tracing, health, events, profiling,
+SLO accounting, diagnostics, data-plane quality and their exposition.
 
 Port of nnstreamer_tpu/obs (stdlib only but the profiler's CUDA events):
 always-on counters/gauges/histograms fed by the pipeline graph, the
@@ -12,11 +12,17 @@ device-time profiler (per-dispatch host and CUDA-event device timing, kernel
 labels, MFU/roofline gauges, a Perfetto timeline at ``/debug/profile``).
 Metric families, span names and event types are the JAX package's.
 
-Metrics, tracing, health, events and profiling are independently switchable
-(``enable()`` / ``tracing.enable()`` / ``health.enable()`` /
-``events.enable()`` / ``profile.enable()``); each is a flag-check no-op when
-off. The JAX package's ``fleet``, ``slo``, ``diag`` and ``quality`` layers
-wait for their ports (ROADMAP §A7, §A9).
+On the base sit the per-tenant SLO accounting (``slo``: goodput and
+burn-rate objectives, ``/debug/slo``), incident diagnostics (``diag``:
+critical-path attribution and debug bundles, ``/debug/diag/critpath``,
+``/debug/bundles``) and data-plane quality (``quality``: tensor stats,
+drift and LM confidence, ``/debug/quality``).
+
+Every layer is independently switchable (``enable()`` /
+``tracing.enable()`` / ``health.enable()`` / ``events.enable()`` /
+``profile.enable()`` / ``slo.enable()`` / ``diag.enable()`` /
+``quality.enable()``); each is a flag-check or None-check no-op when off.
+The JAX package's ``fleet`` layer waits for its port (ROADMAP §A9).
 """
 
 from .metrics import (DEFAULT_LATENCY_BUCKETS, MetricsRegistry, disable,
@@ -26,6 +32,7 @@ from .instrument import instrument_pipeline
 from . import events
 from . import health
 from . import profile
+from . import slo
 from . import tracing
 from .events import EventRing
 from .health import Component, HealthRegistry, Status
@@ -37,6 +44,6 @@ __all__ = [
     "MetricsRegistry", "MetricsExporter", "Profiler", "Span",
     "SpanContext", "SpanStore", "Status", "disable", "enable",
     "enabled", "events", "health", "instrument_pipeline",
-    "perfetto_trace", "profile", "registry", "start_exporter",
+    "perfetto_trace", "profile", "registry", "slo", "start_exporter",
     "start_span", "tracing",
 ]

@@ -29,15 +29,26 @@ the health and debug surfaces:
     torch version, the CUDA card's name, python (also exported as the
     ``nnstpu_build_info`` gauge)
 
-The routes of the layers the port has not reached yet answer as the JAX
-exporter answers with those layers off: ``/debug/slo``, ``/debug/quality``,
-``/debug/tune``, ``/debug/fleet/actions``, ``/debug/fleet/checkpoints`` and
-``/debug/bundles`` with their "off" bodies, ``/debug/fleet``,
-``/debug/bundles/<id>`` and ``POST /fleet/push`` with 503 (this process is
-never a fleet aggregator, and diag is off). ``/debug/diag/critpath``
-analyses spans even with diag off in the JAX package, which needs diag's
-code: here it answers 404 naming ROADMAP §A7. ``/metrics``, ``/healthz``
-and ``/readyz`` serve this process alone (no fleet rollup).
+  * ``GET /debug/slo``               — per-tenant cost attribution,
+    goodput, objectives and burn rates (obs/slo.py)
+  * ``GET /debug/quality``           — data-plane quality telemetry
+    (obs/quality): per-tap tensor stats, drift scores, confidence
+    aggregates and anomaly verdicts
+  * ``GET /debug/tune``              — the autotuner's store and stats
+  * ``GET /debug/diag/critpath``     — per-tenant critical-path latency
+    attribution (obs/diag); works from tracing alone, richer when the
+    diag engine is enabled; ``?min_ms=<float>`` filters traces
+  * ``GET /debug/bundles``           — incident debug bundles captured by
+    the diag trigger engine (newest first) plus trigger stats
+  * ``GET /debug/bundles/<id>``      — one full bundle document; 503
+    while diag is off
+
+The fleet layer's routes answer as the JAX exporter answers with it off
+(ROADMAP §A9): ``/debug/fleet/actions`` and ``/debug/fleet/checkpoints``
+with their "off" bodies, ``/debug/fleet`` and ``POST /fleet/push`` with
+503 (this process is never a fleet aggregator), and the ``fleet`` keys of
+the tune and bundle routes are None. ``/metrics``, ``/healthz`` and
+``/readyz`` serve this process alone (no fleet rollup).
 
 All routes — GET and POST — live in ONE ``(method, path)`` dispatch table;
 the 404 hint is derived from it.
@@ -66,6 +77,7 @@ from . import events as _events
 from . import health as _health
 from . import metrics as _metrics
 from . import profile as _profile
+from . import slo as _slo
 from . import tracing as _tracing
 
 __all__ = ["MetricsExporter", "start_exporter", "build_info"]
@@ -257,9 +269,73 @@ class MetricsExporter:
             def _get_version(self, query):
                 self._json(200, build_info())
 
-            # -- the unported layers, answering as the JAX exporter does
-            #    with them off (ROADMAP §A7 slo/diag/quality/tune, §A9
-            #    fleet) ------------------------------------------------- #
+            def _get_slo(self, query):
+                self._json(200, _slo.snapshot())
+
+            def _get_quality(self, query):
+                from . import quality as _quality
+
+                self._json(200, _quality.snapshot())
+
+            def _get_tune(self, query):
+                from .. import tune as _tune
+
+                self._json(200, {"enabled": _tune.enabled(),
+                                 "local": _tune.snapshot(), "fleet": None})
+
+            def _get_diag_critpath(self, query):
+                # critpath is pure span-store analysis: it answers with
+                # tracing alone even when the full diag engine (bundle
+                # capture) is off
+                from . import diag as _diag
+
+                try:
+                    min_ms = float(
+                        parse_qs(query).get("min_ms", ["0"])[0])
+                except ValueError:
+                    self._reply(400, "text/plain",
+                                b"min_ms must be a number")
+                    return
+                eng = _diag.DIAG_HOOK
+                if eng is not None:
+                    self._json(200, {"diag_enabled": True,
+                                     **eng.critpath(min_ms)})
+                else:
+                    self._json(200, {
+                        "diag_enabled": False,
+                        "tracing_enabled": _tracing.enabled(),
+                        **_diag.rollup(_tracing.store(), min_ms=min_ms),
+                    })
+
+            def _get_bundles(self, query):
+                from . import diag as _diag
+
+                eng = _diag.DIAG_HOOK
+                self._json(200, {
+                    "diag_enabled": eng is not None,
+                    "bundles": eng.bundles.list() if eng is not None
+                    else [],
+                    "triggers": dict(eng.triggers.stats)
+                    if eng is not None else None,
+                    "fleet": None,
+                })
+
+            def _get_bundle(self, bid, query):
+                from . import diag as _diag
+
+                eng = _diag.DIAG_HOOK
+                if eng is None:
+                    self._json(503, {"error": "diag is off (enable "
+                                     "with --diag or NNSTPU_DIAG=1)"})
+                    return
+                doc = eng.bundles.get(bid)
+                if doc is None:
+                    self._json(404, {"error": f"unknown bundle {bid!r}"})
+                else:
+                    self._json(200, doc)
+
+            # -- the fleet layer's routes, answering as the JAX exporter
+            #    does with it off (ROADMAP §A9) --------------------------- #
             def _get_fleet(self, query):
                 self._json(503, {"error": "fleet aggregation is off "
                                  "(enable with --obs-aggregate)"})
@@ -270,29 +346,6 @@ class MetricsExporter:
 
             def _get_fleet_checkpoints(self, query):
                 self._json(200, {"local": None, "fleet": None})
-
-            def _get_slo(self, query):
-                self._json(200, {"enabled": False, "tenants": {}})
-
-            def _get_quality(self, query):
-                self._json(200, {"enabled": False, "taps": {}})
-
-            def _get_tune(self, query):
-                self._json(200, {"enabled": False, "local": None,
-                                 "fleet": None})
-
-            def _get_bundles(self, query):
-                self._json(200, {"diag_enabled": False, "bundles": [],
-                                 "triggers": None, "fleet": None})
-
-            def _get_bundle(self, bid, query):
-                self._json(503, {"error": "diag is off (enable "
-                                 "with --diag or NNSTPU_DIAG=1)"})
-
-            def _get_diag_critpath(self, query):
-                self._reply(404, "text/plain", (
-                    "/debug/diag/critpath waits for the port of obs/diag "
-                    "(ROADMAP §A7)").encode("utf-8"))
 
             def _post_fleet_push(self, query):
                 try:

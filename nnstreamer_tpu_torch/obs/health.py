@@ -1,13 +1,10 @@
 """Health model: component liveness registry + stall watchdog.
 
 Port of nnstreamer_tpu/obs/health.py (stdlib only). The JAX module's
-rules for the SLO layer (``kind="slo"``, burn-rate breaches), the
-data-plane quality layer (``kind="quality"``) and the fleet's push
-heartbeat (``kind="fleet"``, with ``status_from_string`` for its rollup),
-and the diag layer's capture on escalation (``DIAG_HOOK.on_degraded``),
-wait for the port of ``obs/slo.py``, ``obs/quality``, ``obs/diag``
-(ROADMAP §A7) and ``obs/fleet.py`` (§A9): a component of those kinds is
-tracked and never judged.
+rule for the fleet's push heartbeat (``kind="fleet"``, with
+``status_from_string`` for its rollup) waits for the port of
+``obs/fleet.py`` (ROADMAP §A9): a component of that kind is tracked and
+never judged.
 
 The dangerous failure mode of a long-running streaming graph is not a
 crash but a silent stall — an element stops pulling, a query peer
@@ -46,7 +43,11 @@ tick and recording its verdicts as flight-recorder events
     (``serving.admission_stall``);
   * *starvation storm*: a sched engine whose starvation-relief count
     rises by ``starvation_storm`` within ``starvation_window_s`` →
-    DEGRADED (``sched.starvation_storm``).
+    DEGRADED (``sched.starvation_storm``);
+  * *SLO burn*: an obs/slo.py tenant whose burn rate breaches its
+    error budget on both windows → DEGRADED (``slo.burn_alert``);
+  * *quality anomaly*: an obs/quality tap in a NaN storm, a dead output
+    or a drift breach → DEGRADED (``quality.anomaly``).
 
 Recovery flips the verdict back to OK and records the matching
 ``<layer>.recover`` event, so flapping is visible.
@@ -139,6 +140,14 @@ class Component:
     def set_status(self, status: Status, detail: str = "") -> None:
         if status != self.status:
             self.since = time.time()
+            if status >= Status.DEGRADED:
+                # escalation is the diag capture moment: freeze the
+                # evidence rings before they age past the incident
+                # (lazy import: diag's collectors read this module)
+                from . import diag as _diag
+                dhook = _diag.DIAG_HOOK
+                if dhook is not None:
+                    dhook.on_degraded(self.name, detail)
         self.status = status
         self.detail = detail
 
@@ -385,6 +394,10 @@ class HealthRegistry:
                 self._check_serving(c, st, data or {})
             elif c.kind == "sched":
                 self._check_sched(c, st, data or {}, now_ns)
+            elif c.kind == "slo":
+                self._check_slo(c, st, data or {})
+            elif c.kind == "quality":
+                self._check_quality(c, st, data or {})
 
     # rule: per-element last-buffer heartbeat → STALLED
     def _check_element(self, c: Component, st: Dict[str, Any],
@@ -501,6 +514,60 @@ class HealthRegistry:
                 c.set_status(Status.OK, "starvation reliefs settled")
             _sched_tel.event_starvation_recover(c.name, **c.attrs)
         st["win_start"], st["win_reliefs"] = now_ns, reliefs
+
+    # rule: SLO burn-rate breach → DEGRADED
+    # (obs/slo.py registers one kind="slo" component per objective
+    # tenant; the probe is the registry's evaluate(), so the verdict
+    # here is pure threshold bookkeeping)
+    def _check_slo(self, c: Component, st: Dict[str, Any],
+                   data: Dict[str, Any]) -> None:
+        breached = bool(data.get("breached"))
+        # slo.* event literals live in obs/slo.py; import lazily (slo
+        # imports this module at load time, so top-level would cycle)
+        from . import slo as _slo
+        if breached:
+            if not st.get("burn"):
+                st["burn"] = True
+                if c.status < Status.DEGRADED:
+                    worst = data.get("worst_burn")
+                    c.set_status(
+                        Status.DEGRADED,
+                        "SLO burn %.2fx budget (%s)"
+                        % (worst if worst is not None else 0.0,
+                           data.get("worst_objective")))
+                _slo.event_burn_alert(c.name, data)
+        elif st.pop("burn", None):
+            if c.status == Status.DEGRADED:
+                c.set_status(Status.OK, "burn back under budget")
+            _slo.event_burn_recover(c.name, data)
+
+    # rule: data-plane quality anomaly → DEGRADED
+    # (obs/quality registers one kind="quality" component per tap; the
+    # probe is the engine's evaluate(), so — like the slo rule — the
+    # verdict here is pure transition bookkeeping)
+    def _check_quality(self, c: Component, st: Dict[str, Any],
+                       data: Dict[str, Any]) -> None:
+        anomaly = data.get("anomaly")
+        # quality.* event literals live in obs/quality; import lazily
+        # (quality imports this module at load time, so top-level
+        # would cycle)
+        from . import quality as _quality
+        if anomaly:
+            if st.get("anomaly") != anomaly:
+                st["anomaly"] = anomaly
+                # alert first: the quality_anomaly diag cause should
+                # win the trigger rate limit over the generic
+                # watchdog_degraded cause set_status() fires next
+                _quality.event_anomaly_alert(c.name, data)
+                if c.status < Status.DEGRADED:
+                    c.set_status(
+                        Status.DEGRADED,
+                        "quality anomaly: %s (%s)"
+                        % (anomaly, data.get("detail") or "no detail"))
+        elif st.pop("anomaly", None):
+            if c.status == Status.DEGRADED:
+                c.set_status(Status.OK, "quality anomaly cleared")
+            _quality.event_anomaly_recover(c.name, data)
 
     # rule: serving request stuck in admission → STALLED
     def _check_serving(self, c: Component, st: Dict[str, Any],

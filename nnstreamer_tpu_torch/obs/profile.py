@@ -73,6 +73,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 from . import events as _events
 from . import metrics as _metrics
+from . import quality as _quality
+from . import slo as _slo
 from . import tracing as _tracing
 
 __all__ = [
@@ -349,6 +351,20 @@ class Profiler:
             recs = list(self._records)
         return recs if kind is None else [r for r in recs
                                           if r["kind"] == kind]
+
+    def diag_snapshot(self, max_records: int = 256) -> Dict[str, Any]:
+        """Bounded freeze for obs.diag debug bundles: full stats and
+        aggregated samples, but only the newest ``max_records`` raw
+        records — a bundle must stay shippable, and the raw ring can
+        hold tens of thousands of dispatch rows."""
+        recs = self.records()
+        return {
+            "enabled": self._enabled,
+            "stats": self.stats(),
+            "records_total": len(recs),
+            "records": recs[-max_records:],
+            "samples": self.samples(),
+        }
 
     # -- compile observability (filters/torch_cuda.py) ------------------ #
     def on_jit_cache(self, site: str, hit: bool) -> None:
@@ -755,7 +771,8 @@ class Profiler:
 # Perfetto / Chrome trace_event export
 # --------------------------------------------------------------------------- #
 
-_PID_HOST, _PID_DEVICE, _PID_SERVING, _PID_SCHED = 1, 2, 3, 4
+_PID_HOST, _PID_DEVICE, _PID_SERVING, _PID_SCHED, _PID_SLO = 1, 2, 3, 4, 5
+_PID_QUALITY = 7
 
 
 def perfetto_trace(span_store: Optional[_tracing.SpanStore] = None,
@@ -774,10 +791,15 @@ def perfetto_trace(span_store: Optional[_tracing.SpanStore] = None,
         track from engine records
       * pid 4 **sched** — DeviceEngine coalesced-batch slices, one lane per
         work label, plus a coalesce-width / queue-depth counter track
+      * pid 5 **slo** — one cumulative goodput counter track per tenant
+        (met/missed/shed) from obs/slo.py, present when the SLO layer is
+        recording
+      * pid 7 **quality** — one counter track per data-plane tap (mean /
+        PSI drift score / cumulative NaN count) from obs/quality, present
+        when quality telemetry is recording
 
-    The JAX package's slo, fleet and quality groups (pids 5–7) wait for
-    their layers (ROADMAP §A7, §A9). All timestamps share the process
-    monotonic clock (µs)."""
+    The JAX package's fleet group (pid 6) waits for its layer (ROADMAP
+    §A9). All timestamps share the process monotonic clock (µs)."""
     store = span_store if span_store is not None else _tracing.store()
     p = prof if prof is not None else _PROFILER
     ev: List[Dict[str, Any]] = []
@@ -878,15 +900,36 @@ def perfetto_trace(span_store: Optional[_tracing.SpanStore] = None,
                 "args": r["args"],
             })
 
+    slo_points = _slo.trace_points()
+    if slo_points:
+        meta(_PID_SLO, 0, "process_name", "slo")
+        for pt in slo_points:
+            ev.append({
+                "name": f"{pt['tenant']}.goodput", "ph": "C",
+                "ts": pt["t_ns"] / 1e3, "pid": _PID_SLO, "tid": 0,
+                "args": {"met": pt["met"], "missed": pt["missed"],
+                         "shed": pt["shed"]},
+            })
+
+    q_points = _quality.trace_points()
+    if q_points:
+        meta(_PID_QUALITY, 0, "process_name", "quality")
+        for pt in q_points:
+            ev.append({
+                "name": f"{pt['tap']}.quality", "ph": "C",
+                "ts": pt["t_ns"] / 1e3, "pid": _PID_QUALITY, "tid": 0,
+                "args": {"mean": pt["mean"], "psi": pt["psi"],
+                         "nan": pt["nan"]},
+            })
+
     return {
         "traceEvents": ev,
         "displayTimeUnit": "ms",
         "otherData": {
             "profile_enabled": p.is_enabled,
             "tracing_enabled": store.is_enabled,
-            # the JAX package's slo and quality layers, not ported yet
-            "slo_enabled": False,
-            "quality_enabled": False,
+            "slo_enabled": _slo.enabled(),
+            "quality_enabled": _quality.enabled(),
             **p.stats(),
         },
     }

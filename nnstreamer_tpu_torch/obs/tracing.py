@@ -2,10 +2,9 @@
 
 Port of nnstreamer_tpu/obs/tracing.py (stdlib only). The wire helpers
 and the export queue a fleet pusher drains are kept for the query and fleet
-layers (ROADMAP §A8-A9); the JAX store's ``add_span`` (diag's synthetic
-spans) and ``requeue_export``/``ingest_remote`` (the pusher's retry and the
-aggregator's side) come back with diag (§A7) and the fleet (§A9). The
-metrics answer "how slow is this element on average"; they
+layers (ROADMAP §A8-A9); the JAX store's ``requeue_export``/``ingest_remote``
+(the pusher's retry and the aggregator's side) come back with the fleet
+(§A9). The metrics answer "how slow is this element on average"; they
 cannot answer "where did *this* slow request spend its time" across
 client → query wire → server pipeline → serving engine. This module is
 the per-request complement: explicit span contexts (``trace_id`` /
@@ -452,6 +451,34 @@ class SpanStore:
                         if len(out) >= max_spans:
                             return out
         return out
+
+    def add_span(self, name: str, trace_id: str, parent_id: Optional[str],
+                 start_ns: int, end_ns: int,
+                 attrs: Optional[Dict[str, Any]] = None,
+                 wall: Optional[float] = None) -> Optional[SpanContext]:
+        """Insert one already-timed span into an existing trace — the
+        diag layer's entry for synthetic attribution spans (sched queue
+        wait / batch run) whose endpoints were measured outside a
+        ``with start_span(...)`` body. Timestamps are local monotonic
+        ns; the span records immediately (bypassing ``end()``, which
+        would re-stamp ``end_ns``). Returns the new span's context, or
+        None when the store is disabled."""
+        if not self._enabled:
+            return None
+        ctx = SpanContext(str(trace_id), _new_id(), parent_id or None)
+        span = Span.__new__(Span)
+        span._store = self
+        span.name = str(name)
+        span.context = ctx
+        span.attrs = dict(attrs) if attrs else {}
+        span.start_ns = int(start_ns)
+        span.end_ns = max(int(end_ns), int(start_ns))
+        span.wall = float(wall) if wall is not None else (
+            time.time() - (time.monotonic_ns() - span.start_ns) / 1e9)
+        span.tid = threading.get_ident()
+        span._token = None
+        self._record(span)
+        return ctx
 
     # -- fleet span export (obs/fleet.py) -------------------------------- #
     def set_export(self, on: bool) -> None:

@@ -103,6 +103,20 @@
 // diagonal or the ragged tail, and each warpgroup skips the tiles past its
 // own diagonal (it still releases their stage).
 //
+// Launch configurations (the autotuner's grid, tune/): each route takes an
+// int `config` at its entry point, 0 for the default, else one of the
+// values below; the kernel bodies are the same templates either way.
+//   tf32x3: m-tiles per warp MT in {1, 2}, 64 or 128 query rows a block.
+//     The default is 2 at DC <= 64, 1 at DC 128. MT 2 at DC 128 is left
+//     out: its accumulators (O 2 x 64 and S 2 x 32 floats a thread) would
+//     not fit the 255 registers of a thread without spilling.
+//   wgmma: keys per K/V tile BK in {64, 128}. The default is 128 at D 64,
+//     64 at D 128. BK 128 at D 128 is left out: Q (32 KB) and three stages
+//     of K and V (192 KB) take 224 KB of the 227 KB of shared memory a
+//     block may have, and the S, O and P fragments (64 + 64 + 32 registers
+//     a thread) would spill at 288 threads a block.
+// A config outside its route's grid at that D returns cudaErrorInvalidValue.
+//
 // Debugging note: a wgmma descriptor that does not match the TMA swizzle,
 // or a fragment index off by one, gives wrong numbers, not a fault; the
 // card tests hold every shape against the plain version.
@@ -372,18 +386,22 @@ __device__ __forceinline__ void tc_pv(float (&o)[MT][DC / 8][4], const float (&p
   }
 }
 
-// m-tiles of 16 query rows per warp: two while the accumulators fit the
-// registers (DC <= 64), one at DC 128; query rows per block
+// m-tiles of 16 query rows per warp by default: two while the accumulators
+// fit the registers (DC <= 64), one at DC 128
 template <int DC>
 struct TcRows {
   static constexpr int kMT = DC <= 64 ? 2 : 1;
-  static constexpr int kBQ = 16 * kMT * kTcWarps;
 };
 
-template <typename T, int DC, bool kResidual>
+// query rows per block at MT m-tiles a warp
+template <int MT>
+struct TcBlock {
+  static constexpr int kBQ = 16 * MT * kTcWarps;
+};
+
+template <typename T, int DC, int MT, bool kResidual>
 __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(TcArgs a) {
-  constexpr int MT = TcRows<DC>::kMT;
-  constexpr int BQ = TcRows<DC>::kBQ;
+  constexpr int BQ = TcBlock<MT>::kBQ;
   constexpr int kTile = kTcBK * (DC + 4);  // floats in one staged K or V tile
   constexpr bool kSplit = std::is_same<T, float>::value;
   extern __shared__ float4 tc_smem4[];
@@ -508,11 +526,11 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(TcArgs a) {
   }
 }
 
-template <typename T, int DC, bool kResidual>
+template <typename T, int DC, int MT, bool kResidual>
 int launch_tc(const TcArgs& a, int batch_heads, cudaStream_t stream) {
-  constexpr int BQ = TcRows<DC>::kBQ;
+  constexpr int BQ = TcBlock<MT>::kBQ;
   constexpr int kSmem = (BQ + 4 * kTcBK) * (DC + 4) * 4;  // Q and two stages of K and V
-  auto kernel = flash_tc_kernel<T, DC, kResidual>;
+  auto kernel = flash_tc_kernel<T, DC, MT, kResidual>;
   static bool smem_set = false;  // once per instantiation (above 48 KB needs it)
   if (!smem_set) {
     const cudaError_t err =
@@ -526,12 +544,23 @@ int launch_tc(const TcArgs& a, int batch_heads, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// one column chunk width DC at `mt` m-tiles a warp (0: the default)
+template <typename T, int DC, bool kResidual>
+int launch_tc_mt(const TcArgs& a, int batch_heads, int mt, cudaStream_t stream) {
+  if (mt == 0) mt = TcRows<DC>::kMT;
+  if (mt == 1) return launch_tc<T, DC, 1, kResidual>(a, batch_heads, stream);
+  if constexpr (DC <= 64) {
+    if (mt == 2) return launch_tc<T, DC, 2, kResidual>(a, batch_heads, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 template <typename T, bool kResidual>
-int dispatch_tc(const TcArgs& a, int batch_heads, cudaStream_t stream) {
-  if (a.d <= 16) return launch_tc<T, 16, kResidual>(a, batch_heads, stream);
-  if (a.d <= 32) return launch_tc<T, 32, kResidual>(a, batch_heads, stream);
-  if (a.d <= 64) return launch_tc<T, 64, kResidual>(a, batch_heads, stream);
-  return launch_tc<T, 128, kResidual>(a, batch_heads, stream);
+int dispatch_tc(const TcArgs& a, int batch_heads, int mt, cudaStream_t stream) {
+  if (a.d <= 16) return launch_tc_mt<T, 16, kResidual>(a, batch_heads, mt, stream);
+  if (a.d <= 32) return launch_tc_mt<T, 32, kResidual>(a, batch_heads, mt, stream);
+  if (a.d <= 64) return launch_tc_mt<T, 64, kResidual>(a, batch_heads, mt, stream);
+  return launch_tc_mt<T, 128, kResidual>(a, batch_heads, mt, stream);
 }
 
 }  // namespace
@@ -539,12 +568,14 @@ int dispatch_tc(const TcArgs& a, int batch_heads, cudaStream_t stream) {
 // The tf32x3 route: q, k, v (B, H, L, D) float32 (is_bf16 = 0) or bfloat16,
 // any D >= 1; strides: 9 element strides, (B, H, L) of q, then of k, then
 // of v. Writes o (B, H, L, D) in q's dtype when m_out is null, else the f32
-// accumulator to o and m, l (B, H, L). Launches on `stream`; returns the
-// cudaError_t of the launch (cudaErrorInvalidValue for an empty shape).
+// accumulator to o and m, l (B, H, L). `config`: m-tiles per warp, 0 for
+// the default (launch configurations above). Launches on `stream`; returns
+// the cudaError_t of the launch (cudaErrorInvalidValue for an empty shape
+// or a config outside the grid).
 extern "C" int nns_flash_attention_tf32x3(const void* q, const void* k, const void* v, void* o,
                                           float* m_out, float* l_out, int batch, int heads,
                                           int len, int d, const long long* strides, int causal,
-                                          float scale, int is_bf16, void* stream) {
+                                          float scale, int is_bf16, int config, void* stream) {
   if (d < 1 || len < 1 || batch < 1 || heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -559,10 +590,11 @@ extern "C" int nns_flash_attention_tf32x3(const void* q, const void* k, const vo
   const int bh = batch * heads;
   const bool residual = m_out != nullptr;
   if (is_bf16) {
-    return residual ? dispatch_tc<__nv_bfloat16, true>(a, bh, st)
-                    : dispatch_tc<__nv_bfloat16, false>(a, bh, st);
+    return residual ? dispatch_tc<__nv_bfloat16, true>(a, bh, config, st)
+                    : dispatch_tc<__nv_bfloat16, false>(a, bh, config, st);
   }
-  return residual ? dispatch_tc<float, true>(a, bh, st) : dispatch_tc<float, false>(a, bh, st);
+  return residual ? dispatch_tc<float, true>(a, bh, config, st)
+                  : dispatch_tc<float, false>(a, bh, config, st);
 }
 
 // ---------------------------------------------------------------------------
@@ -577,11 +609,16 @@ constexpr int kWgThreads = kWgConsumers + 32;  // and one producer warp
 constexpr int kWgStages = 3;                 // K/V ring depth
 constexpr int kSwizzleRow = 128;             // bytes in a 128-byte-swizzled row (64 bf16)
 
-// keys per K/V tile: 128 at D 64, 64 at D 128 (the S and O fragments then
-// fit the registers: 64 + 32 or 32 + 64 floats a thread)
+// keys per K/V tile by default: 128 at D 64, 64 at D 128 (the S and O
+// fragments then fit the registers: 64 + 32 or 32 + 64 floats a thread)
 template <int D>
-struct WgTile {
+struct WgDefault {
   static constexpr int kBK = D == 64 ? 128 : 64;
+};
+
+template <int D, int BK>
+struct WgTile {
+  static constexpr int kBK = BK;
   static constexpr int kChunks = D / 64;                       // 64-column chunks
   static constexpr int kQBytes = kWgRows * D * 2;              // Q tile
   static constexpr int kKVBytes = kBK * D * 2;                 // one K (or V) tile
@@ -850,12 +887,11 @@ __device__ __forceinline__ void pack_p(const float* sc, uint32_t* pa) {
   for (int e = 0; e < BK / 4; ++e) pa[e] = pack_bf16(sc[2 * e], sc[2 * e + 1]);
 }
 
-template <int D, bool kResidual>
+template <int D, int BK, bool kResidual>
 __global__ void __launch_bounds__(kWgThreads, 1)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constant__ CUtensorMap tk,
                    const __grid_constant__ CUtensorMap tv, WgArgs a) {
-  using T = WgTile<D>;
-  constexpr int BK = T::kBK;
+  using T = WgTile<D, BK>;
   extern __shared__ __align__(16) uint8_t smem_raw[];
   const uint32_t sq = (smem_u32(smem_raw) + 1023u) & ~1023u;  // swizzled tiles: 1024-aligned
   const uint32_t q_full = sq + T::kBarOffset;
@@ -1044,17 +1080,17 @@ bool make_map(CUtensorMap* map, const void* ptr, int batch, int heads, int len, 
              CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, bool kResidual>
+template <int D, int BK, bool kResidual>
 int launch_wgmma(const void* q, const void* k, const void* v, const WgArgs& a, int batch,
                  const long long* strides, cudaStream_t stream) {
-  using T = WgTile<D>;
+  using T = WgTile<D, BK>;
   CUtensorMap tq, tk, tv;
   if (!make_map(&tq, q, batch, a.h, a.len, D, strides, kWgRows) ||
       !make_map(&tk, k, batch, a.h, a.len, D, strides + 3, T::kBK) ||
       !make_map(&tv, v, batch, a.h, a.len, D, strides + 6, T::kBK)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  auto kernel = flash_wgmma_kernel<D, kResidual>;
+  auto kernel = flash_wgmma_kernel<D, BK, kResidual>;
   static bool smem_set = false;  // once per instantiation, before any graph capture
   if (!smem_set) {
     const cudaError_t err =
@@ -1073,13 +1109,14 @@ int launch_wgmma(const void* q, const void* k, const void* v, const WgArgs& a, i
 // The wgmma route: q, k, v bf16 (B, H, L, D), D 64 or 128; strides as for
 // nns_flash_attention (9 element strides, each a multiple of 8, and 16-byte
 // aligned bases). Writes o (B, H, L, D) bf16 when m_out is null, else the
-// f32 accumulator to o and m, l (B, H, L). Launches on `stream`; returns
-// the cudaError_t of the launch (cudaErrorInvalidValue for a shape or
-// layout the route does not take).
+// f32 accumulator to o and m, l (B, H, L). `config`: keys per K/V tile, 0
+// for the default (launch configurations above). Launches on `stream`;
+// returns the cudaError_t of the launch (cudaErrorInvalidValue for a shape,
+// layout or config the route does not take).
 extern "C" int nns_flash_attention_wgmma(const void* q, const void* k, const void* v, void* o,
                                          float* m_out, float* l_out, int batch, int heads,
                                          int len, int d, const long long* strides, int causal,
-                                         float scale, void* stream) {
+                                         float scale, int config, void* stream) {
   if ((d != 64 && d != 128) || len < 1 || batch < 1 || heads < 1) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1094,9 +1131,18 @@ extern "C" int nns_flash_attention_wgmma(const void* q, const void* k, const voi
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const bool residual = m_out != nullptr;
   if (d == 64) {
-    return residual ? launch_wgmma<64, true>(q, k, v, a, batch, strides, st)
-                    : launch_wgmma<64, false>(q, k, v, a, batch, strides, st);
+    const int bk = config == 0 ? WgDefault<64>::kBK : config;
+    if (bk == 128) {
+      return residual ? launch_wgmma<64, 128, true>(q, k, v, a, batch, strides, st)
+                      : launch_wgmma<64, 128, false>(q, k, v, a, batch, strides, st);
+    }
+    if (bk == 64) {
+      return residual ? launch_wgmma<64, 64, true>(q, k, v, a, batch, strides, st)
+                      : launch_wgmma<64, 64, false>(q, k, v, a, batch, strides, st);
+    }
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  return residual ? launch_wgmma<128, true>(q, k, v, a, batch, strides, st)
-                  : launch_wgmma<128, false>(q, k, v, a, batch, strides, st);
+  if (config != 0 && config != WgDefault<128>::kBK) return static_cast<int>(cudaErrorInvalidValue);
+  return residual ? launch_wgmma<128, 64, true>(q, k, v, a, batch, strides, st)
+                  : launch_wgmma<128, 64, false>(q, k, v, a, batch, strides, st);
 }

@@ -36,10 +36,11 @@ unit-tests against a fake clock without sleeping. ``autostart=False`` plus
 Telemetry as in the JAX engine: the ``nnstpu_sched_*`` families and
 ``sched.*`` events (sched/telemetry.py), a ``kind="sched"`` health
 component per engine (the watchdog's starvation-storm rule) and the
-profiler's ``SCHED_HOOK`` per batch. The JAX engine's hooks into layers the
-port has not reached yet stay dropped: the SLO layer's ``SCHED_SLO_HOOK``,
-diag's ``DIAG_HOOK`` (ROADMAP §A7) and the fleet's ``AUTOSCALE_HOOK``
-(§A9).
+profiler's ``SCHED_HOOK`` per batch, the SLO layer's ``SCHED_SLO_HOOK``
+(each shed, and each batch's per-tenant attribution) and diag's
+``DIAG_HOOK`` (the submitter's trace context at submit, the batch's
+attribution spans and cost sample at its end). The JAX engine's hook into
+the fleet (``AUTOSCALE_HOOK``) waits for that layer (ROADMAP §A9).
 """
 
 from __future__ import annotations
@@ -54,8 +55,10 @@ import torch
 
 from ..core.log import logger
 from ..graph.element import join_or_warn
+from ..obs import diag as _diag
 from ..obs import health as _health
 from ..obs import profile as _profile
+from ..obs import slo as _slo
 from ..resilience import policy as _rp
 from . import telemetry as _tel
 
@@ -105,7 +108,7 @@ class WorkFuture:
 
 class _Work:
     __slots__ = ("tenant", "key", "filt", "inputs", "fn", "future",
-                 "t_enq", "deadline", "label")
+                 "t_enq", "deadline", "label", "diag")
 
     def __init__(self, tenant: "Tenant", key: Any, filt: Any,
                  inputs: Any, fn: Optional[Callable[[], Any]],
@@ -120,6 +123,9 @@ class _Work:
         self.t_enq = t_enq
         self.deadline = deadline
         self.label = label
+        # (trace context, enqueue ns) captured at submit when the diag
+        # layer is on — feeds the critical-path sched_wait span
+        self.diag: Any = None
 
 
 def _work_rows(w: "_Work") -> int:
@@ -388,6 +394,9 @@ class DeviceEngine:
             deadline = _rp.Deadline.after_ms(tenant.deadline_ms)
         work = _Work(tenant, key, filt, inputs, fn, fut,
                      self.clock(), deadline, label)
+        dhook = _diag.DIAG_HOOK
+        if dhook is not None:
+            work.diag = dhook.tap_submit()
         if deadline is not None and deadline.expired():
             self._shed(work, "deadline expired at submit")
             return fut
@@ -405,6 +414,11 @@ class DeviceEngine:
         _rp.record_shed(
             "sched", f"{work.tenant.name}: {work.label} shed ({why})",
             tenant=work.tenant.name, label=work.label)
+        shook = _slo.SCHED_SLO_HOOK
+        if shook is not None:
+            shook.record_shed(
+                work.tenant.name, "sched",
+                wait_s=max(self.clock() - work.t_enq, 0.0))
         work.future.set_result(SHED)
 
     # -- fair draining ------------------------------------------------------ #
@@ -562,6 +576,16 @@ class DeviceEngine:
                 tenants=sorted({w.tenant.name for w in batch}),
                 queued=sum(len(t.queue) for t in self.tenants()),
                 inflight=len(self._inflight_q))
+        shook = _slo.SCHED_SLO_HOOK
+        if shook is not None:
+            shook.record_sched_batch(
+                self.name, busy,
+                [(w.tenant.name, max(now - w.t_enq, 0.0), _work_rows(w),
+                  w.deadline) for w in batch])
+        dhook = _diag.DIAG_HOOK
+        if dhook is not None:
+            # critical-path spans + cost-anomaly sample for the batch
+            dhook.observe_sched_batch(self.name, batch, t0, t1)
 
     def _dispatch(self, batch: List[_Work]) -> List[Any]:
         """One device dispatch for the whole batch; returns per-item

@@ -68,9 +68,27 @@ admission-wait, compile, prefill and decode children, the profiler's
 ``ENGINE_HOOK`` per prefill, decode chunk and verify window, and
 ``live_engines()`` (the CLI's per-engine KV exit summary).
 
-Not ported yet (ROADMAP): disaggregation roles, page imports and sessions
-(freeze/export/checkpoint), deadlines, the autotuner (its chunk and page
-size picks), and the diag, quality and slo hooks (§A7).
+Deadlines and sessions: ``submit(..., deadline=, session=)`` as in the JAX
+engine. A request whose deadline has passed at submit, or while it waits
+in the queue, finishes empty without a slot (``resilience.shed``, site
+``serving``); ``session`` is recorded on the request and its span. The
+obs layers hook in as the JAX engine's do, each a None check while off:
+``slo.ENGINE_SLO_HOOK`` (prefill, decode and verify time, and each
+request's met/missed/shed outcome), ``diag.DIAG_HOOK`` (each retired
+request), ``quality.QUALITY_HOOK`` (the confidence admission below) and
+``tune.TUNE_HOOK`` (the chunk and page-size picks at construction, from
+the store or cost model only, so constructing an engine never runs on the
+card; the draft length re-derived from the accept rate).
+
+With quality on, admission runs a second captured program per signature,
+keyed apart by ``conf=True``: the same prefill, which also returns the
+entropy, top-1 probability and top-1/top-2 margin of the first-token
+logits (``_conf_from_row``). The triple stays on the card until the request
+retires, where it is read back outside any capture.
+
+Not ported yet (ROADMAP): disaggregation roles, page imports and the session
+API (freeze/export/checkpoint, and the frozen-session refusal at submit,
+§A9).
 """
 
 from __future__ import annotations
@@ -88,12 +106,17 @@ import torch
 from ..core import graphs
 from ..core.hw import resolve_device
 from ..models import causal_lm
+from .. import tune as _tune
+from ..obs import diag as _diag
 from ..obs import events as _events
 from ..obs import health as _health
 from ..obs import metrics as _obs
 from ..obs import profile as _profile
+from ..obs import quality as _quality
+from ..obs import slo as _slo
 from ..obs import tracing as _tracing
 from ..ops.int8 import stack_shape
+from ..resilience import policy as _rp
 from . import sampling
 from .kv_cache import PagedKVCache
 
@@ -122,6 +145,13 @@ def live_engines() -> List["LMEngine"]:
     return list(_LIVE_ENGINES)
 
 
+def _conf_key(want_conf: bool) -> Dict[str, bool]:
+    """The static keyword that keys the confidence admission apart from
+    the plain one in the graph cache; none at all while quality is off, so
+    the plain admission's key is the same as without the quality layer."""
+    return {"conf": True} if want_conf else {}
+
+
 def next_pow2_bucket(n: int, lo: int = 16) -> int:
     """Smallest power of two >= n (floored at ``lo``)."""
     b = lo
@@ -146,6 +176,18 @@ def _accept_from_window(tokens_in: torch.Tensor, logits: torch.Tensor,
     return carried[:, :, None], pos_m, greedy, m
 
 
+def _conf_from_row(row: torch.Tensor) -> torch.Tensor:
+    """Model-confidence signals from one logits row: Shannon entropy (nats)
+    of the softmax, top-1 probability, and the top-1/top-2 probability
+    margin — the per-request signal obs/quality records at retirement.
+    Returns a (3,) float32 tensor."""
+    p = torch.softmax(row.to(torch.float32), dim=-1)
+    ent = -torch.sum(torch.where(p > 0, p * torch.log(p),
+                                 torch.zeros_like(p)))
+    top2 = torch.topk(p, 2).values
+    return torch.stack([ent, top2[0], top2[0] - top2[1]])
+
+
 @dataclass
 class _Request:
     rid: int
@@ -162,6 +204,13 @@ class _Request:
     #: released at retirement
     kv_lease: Any = None
     t_submit: float = 0.0       # monotonic stamp for the TTFT histogram
+    #: resilience.policy.Deadline (or None): shed instead of admitted once
+    #: expired
+    deadline: Any = None
+    #: routing affinity key (recorded on the request span)
+    session: Optional[str] = None
+    #: the confidence admission's (3,) card tensor while quality is on
+    conf: Any = None
     # span parents admission-wait / prefill / compile / decode children
     span: Any = None            # serving.request — submit → retire
     wait_span: Any = None       # serving.admission_wait — submit → admit
@@ -198,7 +247,19 @@ class LMEngine:
                  kv_slot_pages: Optional[int] = None,
                  kv_host_offload: Optional[bool] = None,
                  device: Any = None) -> None:
-        chunk = 8 if chunk is None else chunk
+        # prefill/decode chunk: explicit wins; unset consults the autotuner
+        # (store/model only — no sweep closure: constructing an engine
+        # must never run on the card), else the hand-set 8
+        if chunk is None:
+            chunk = 8
+            tn = _tune.TUNE_HOOK
+            if tn is not None:
+                chunk = int(tn.pick(
+                    "lm_chunk", _tune.device_kind(), "serving.lm",
+                    _tune.shape_sig(("slots", n_slots),
+                                    ("len", max_len),
+                                    ("heads", n_heads)),
+                    candidates=(4, 8, 16, 32), default=8))
         if n_slots < 1 or chunk < 1:
             raise ValueError("n_slots and chunk must be >= 1")
         if spec_draft < 0 or spec_draft + 1 > max_len:
@@ -224,6 +285,21 @@ class LMEngine:
         # back to the NNS_LM_KV_* environment
         ps = kv_page_size if kv_page_size is not None \
             else (_env_int("NNS_LM_KV_PAGE_SIZE") or 0)
+        if ps == 0 and kv_page_size is None and _tune.TUNE_HOOK is not None \
+                and (kv_pages is not None or _env_int("NNS_LM_KV_PAGES")):
+            # a page budget was given without a page granularity: the
+            # tuner owns it (store/model only — the same no-dispatch rule
+            # as the chunk knob); kv_page_size=0 explicit still pins the
+            # contiguous path
+            cands = tuple(c for c in (16, 32, 64, 128, 256)
+                          if c <= max_len and max_len % c == 0)
+            if cands:
+                dflt = 64 if 64 in cands else cands[0]
+                ps = int(_tune.TUNE_HOOK.pick(
+                    "lm_kv_page_size", _tune.device_kind(), "serving.lm",
+                    _tune.shape_sig(("len", max_len),
+                                    ("heads", n_heads)),
+                    candidates=cands, default=dflt))
         if ps < 0:
             raise ValueError("kv_page_size must be >= 0 (0 = contiguous)")
         self._kv: Optional[PagedKVCache] = None
@@ -391,10 +467,18 @@ class LMEngine:
 
     def submit(self, prompt: Sequence[int], max_new: int,
                eos: Optional[int] = None, *, temperature: float = 0.0,
-               top_k: int = 0, top_p: float = 1.0, seed: int = 0) -> int:
+               top_k: int = 0, top_p: float = 1.0, seed: int = 0,
+               deadline: Any = None,
+               session: Optional[str] = None) -> int:
         """Queue a generation request; returns its request id. The defaults
         decode greedily; ``seed`` fixes a sampled request's random stream
-        (reproducible, independent of what shares the batch)."""
+        (reproducible, independent of what shares the batch).
+        ``deadline`` (a resilience.policy.Deadline) enables load shedding:
+        a request whose deadline has already expired — at submit, or later
+        while still queued at admission — finishes empty at once
+        (``resilience.shed``) instead of occupying a slot. ``session`` is
+        the routing affinity key: recorded on the request and its span, not
+        a scheduling input."""
         p = np.asarray(prompt, np.int32).reshape(-1)
         if p.size < 1:
             self._reject("empty prompt")
@@ -428,7 +512,13 @@ class LMEngine:
         req = _Request(
             rid, p, max_new, eos, temperature=float(temperature),
             top_k=int(top_k), top_p=float(top_p), seed=int(seed),
-            t_submit=time.monotonic())
+            t_submit=time.monotonic(), deadline=deadline,
+            session=str(session) if session is not None else None)
+        if deadline is not None and deadline.expired():
+            # shed at the door: the caller's budget is already spent, so
+            # queueing would only delay everyone behind it
+            self._shed_request(req, "deadline expired at submit")
+            return rid
         if _tracing.enabled():
             # parent on the caller's current context (an instrumented
             # element chain sets it) so an offloaded request joins the
@@ -437,11 +527,41 @@ class LMEngine:
                 "serving.request", parent=_tracing.current_context(),
                 attrs={"engine": self._engine_label, "rid": rid,
                        "prompt_len": int(p.size), "max_new": int(max_new)})
+            if req.session is not None:
+                req.span.set_attribute("session", req.session)
             req.wait_span = _tracing.start_span(
                 "serving.admission_wait", parent=req.span.context,
                 attrs={"queued_behind": len(self._queue)})
         self._queue.append(req)
         return rid
+
+    def _slo_tenant(self) -> str:
+        """Tenant name for per-tenant SLO attribution: the sched tenant when
+        enrolled on a DeviceEngine, else the engine label."""
+        t = self._sched_tenant
+        return t.name if t is not None else self._engine_label
+
+    def _shed_request(self, req: _Request, why: str) -> None:
+        """Deadline load shedding: finish the request empty right now —
+        spending prefill and decode on a result whose deadline has passed
+        starves requests that can still meet theirs."""
+        self._hc.count("shed")
+        self._m_streams.labels(self._engine_label, "shed").inc()
+        _rp.record_shed(
+            "serving", f"{self._engine_label}: rid {req.rid} shed ({why})",
+            engine=self._engine_label, rid=req.rid)
+        shook = _slo.ENGINE_SLO_HOOK
+        if shook is not None:
+            shook.record_shed(
+                self._slo_tenant(), "serving",
+                wait_s=max(time.monotonic() - req.t_submit, 0.0))
+        if req.wait_span is not None:
+            req.wait_span.end()
+        if req.span is not None:
+            req.span.set_attribute("shed", True)
+            req.span.end()
+        req.done = True
+        self._finished[req.rid] = req.out  # empty: the budget was spent
 
     def _reject(self, reason: str) -> None:
         """Flight-recorder entry for an admission rejection — one flag
@@ -537,6 +657,14 @@ class LMEngine:
             if self._slot_req[slot] is not None or not self._queue:
                 continue
             req = self._queue.popleft()
+            while req is not None and req.deadline is not None \
+                    and req.deadline.expired():
+                # expired while queued: shed and give the slot to the next
+                # request that can still meet its deadline
+                self._shed_request(req, "deadline expired in queue")
+                req = self._queue.popleft() if self._queue else None
+            if req is None:
+                continue
             t = int(req.prompt.size)
             plan = None
             if self._kv is not None:
@@ -575,11 +703,19 @@ class LMEngine:
                     "serving.prefill", parent=req.span.context,
                     attrs={"bucket": tb, "slot": slot})
             tp0 = time.monotonic_ns() \
-                if _profile.ENGINE_HOOK is not None else 0
+                if (_profile.ENGINE_HOOK is not None
+                    or _slo.ENGINE_SLO_HOOK is not None) else 0
+            # obs/quality confidence tap: one None check selects the
+            # confidence admission, which also returns the first-token
+            # logits' (entropy, top1, margin) for the retire path
+            want_conf = _quality.QUALITY_HOOK is not None
             if self._kv is None:
-                first = self._prefill_into(slot, padded, t, req)
+                first = self._prefill_into(slot, padded, t, req, want_conf)
             else:
-                first = self._prefill_paged(slot, padded, hit, ts, req)
+                first = self._prefill_paged(slot, padded, hit, ts, req,
+                                            want_conf)
+            if want_conf:
+                first, req.conf = first
             cspan.end()
             self.stats["prefills"] += 1
             lbl = self._engine_label
@@ -601,6 +737,11 @@ class LMEngine:
                     self, "prefill", tp0, time.monotonic_ns(),
                     tokens=t, steps=1, compiled=first_use,
                     bucket=blabel, slot=slot)
+            shook = _slo.ENGINE_SLO_HOOK
+            if shook is not None:
+                shook.record_engine_phase(
+                    self._slo_tenant(), "prefill",
+                    (time.monotonic_ns() - tp0) / 1e9)
             if req.span is not None:
                 req.decode_span = _tracing.start_span(
                     "serving.decode", parent=req.span.context,
@@ -610,16 +751,18 @@ class LMEngine:
             self._retire_if_done(slot, req)
 
     def _prefill_into(self, slot: int, padded: np.ndarray, true_len: int,
-                      req: _Request) -> torch.Tensor:
+                      req: _Request, want_conf: bool = False):
         """Prefill one padded prompt, install its cache and sampling state
-        into ``slot``; returns the first generated token (a device scalar)."""
+        into ``slot``; returns the first generated token (a device scalar),
+        with the confidence triple when ``want_conf`` (the obs/quality
+        admission, a program of its own)."""
         dev = self.device
         self._start_slot(slot, req)
         return self._prefill_prog(
             torch.from_numpy(padded).to(dev),
             torch.full((), true_len, dtype=torch.int32, device=dev),
             torch.full((1,), slot, dtype=torch.int64, device=dev),
-            greedy=req.temperature <= 0.0)
+            greedy=req.temperature <= 0.0, **_conf_key(want_conf))
 
     def _start_slot(self, slot: int, req: _Request) -> None:
         """The slot's seed key and sampling controls for ``req``."""
@@ -640,9 +783,12 @@ class LMEngine:
             self._topp.index_select(0, slot))
 
     def _prefill_program(self, tokens: torch.Tensor, true_len: torch.Tensor,
-                         slot: torch.Tensor, *, greedy: bool) -> torch.Tensor:
+                         slot: torch.Tensor, *, greedy: bool,
+                         conf: bool = False):
         """The admit prefill: tokens (1, bucket), true_len (), slot (1,)
-        int64; writes the slot's cache, position and first token."""
+        int64; writes the slot's cache, position and first token. With
+        ``conf`` returns (first, the first-token logits' confidence
+        triple)."""
         logits, kc, vc, pos = causal_lm.lm_prefill_window(
             self.params, tokens, true_len, self.n_heads, self.max_len)
         # the first token is emitted having consumed true_len tokens
@@ -650,7 +796,7 @@ class LMEngine:
         self._kc.index_copy_(0, slot, kc[None])
         self._vc.index_copy_(0, slot, vc[None])
         self._install_slot(slot, pos, first)
-        return first
+        return (first, _conf_from_row(logits[0])) if conf else first
 
     def _install_slot(self, slot: torch.Tensor, pos: torch.Tensor,
                       first: torch.Tensor) -> None:
@@ -704,7 +850,7 @@ class LMEngine:
         self._table.copy_(torch.from_numpy(self._table_host))
 
     def _prefill_paged(self, slot: int, padded: np.ndarray, hit: int,
-                       true_len: int, req: _Request) -> torch.Tensor:
+                       true_len: int, req: _Request, want_conf: bool = False):
         """Prefill into the slot's pages; returns the first token (a device
         scalar). With no hit, the unchanged admit prefill at the slot view's
         capacity, its cache scattered into the pages; with a hit, only the
@@ -718,14 +864,17 @@ class LMEngine:
             torch.full((), true_len, dtype=torch.int32, device=dev),
             torch.full((1,), slot, dtype=torch.int64, device=dev),
             hit=hit > 0, greedy=req.temperature <= 0.0,
-            cols=causal_lm.attend_cols(hit + padded.shape[1], self._m_slot))
+            cols=causal_lm.attend_cols(hit + padded.shape[1], self._m_slot),
+            **_conf_key(want_conf))
 
     def _paged_prefill_program(self, tokens: torch.Tensor, pos0: torch.Tensor,
                                true_len: torch.Tensor, slot: torch.Tensor, *,
-                               hit: bool, greedy: bool, cols: int) -> torch.Tensor:
+                               hit: bool, greedy: bool, cols: int,
+                               conf: bool = False):
         """The paged admit prefill: tokens (1, bucket), pos0 and true_len (),
         slot (1,) int64; writes the slot's pages, position and first token.
-        ``cols``: the columns the window can see (``attend_cols``)."""
+        ``cols``: the columns the window can see (``attend_cols``); with
+        ``conf`` returns (first, the confidence triple)."""
         kv = self._kv
         table = self._table.index_select(0, slot)[0]  # (B,)
         if hit:
@@ -746,7 +895,7 @@ class LMEngine:
         # a prefix-hit admission draws what a full prefill would
         first = self._first_token(logits[0], pos0 + true_len, slot, greedy)
         self._install_slot(slot, pos, first)
-        return first
+        return (first, _conf_from_row(logits[0])) if conf else first
 
     def _ensure_pages(self, active: List[int], w: int) -> None:
         """Grow the active slots' page tables to cover the next ``w`` write
@@ -802,6 +951,10 @@ class LMEngine:
                 self, "decode", int(t0 * 1e9), time.monotonic_ns(),
                 tokens=n * len(active), steps=n, active=len(active),
                 queued=len(self._queue), slots=self.n_slots)
+        shook = _slo.ENGINE_SLO_HOOK
+        if shook is not None:
+            shook.record_engine_phase(
+                self._slo_tenant(), "decode", time.monotonic() - t0)
         for s in range(self.n_slots):
             self._pos_host[s] += n  # every slot's position advances
         self.stats["decode_steps"] += n
@@ -912,6 +1065,10 @@ class LMEngine:
                 tokens=int(np.sum(m[active])) if active else 0, steps=1,
                 active=len(active), queued=len(self._queue),
                 slots=self.n_slots, draft=g)
+        shook = _slo.ENGINE_SLO_HOOK
+        if shook is not None:
+            shook.record_engine_phase(
+                self._slo_tenant(), "verify", time.monotonic() - t0)
         for s in range(self.n_slots):
             self._pos_host[s] += int(m[s])
         self.stats["spec_iterations"] += 1
@@ -930,6 +1087,44 @@ class LMEngine:
             # tokens beyond the first are the speculation's win
             self.stats["spec_accepted"] += max(0, took - 1)
             self._retire_if_done(slot, req)
+        if _tune.TUNE_HOOK is not None:
+            self._retune_spec_draft()
+
+    #: re-derive the draft length every this many verify iterations
+    _SPEC_RETUNE_EVERY = 32
+    #: per-dispatch overhead in verify-row equivalents: the fixed cost a
+    #: verify window amortizes; it shapes where the accept-rate curve
+    #: peaks, not whether speculation runs
+    _SPEC_OVERHEAD_ROWS = 4.0
+
+    def _retune_spec_draft(self) -> None:
+        """Pick the draft length whose expected tokens per verify cost is
+        highest under the observed per-token accept rate a: expected tokens
+        for draft k are 1 + a + ... + a^k, the cost is the (k + 1)-row
+        window plus the fixed overhead. Closed form, no sweep; reached only
+        when speculation is on."""
+        it = self.stats["spec_iterations"]
+        if self.spec_draft <= 0 or it == 0 \
+                or it % self._SPEC_RETUNE_EVERY:
+            return
+        drafted = self.stats["spec_drafted"]
+        if drafted < self._SPEC_RETUNE_EVERY:
+            return
+        a = min(max(self.stats["spec_accepted"] / drafted, 0.0), 0.99)
+        cap = min(16, max(self._m_slot - 1, 1))
+        best_k, best_rate = 1, 0.0
+        for k in range(1, cap + 1):
+            toks = (1.0 - a ** (k + 1)) / (1.0 - a)
+            rate = toks / (self._SPEC_OVERHEAD_ROWS + k + 1)
+            if rate > best_rate + 1e-9:
+                best_k, best_rate = k, rate
+        if best_k != self.spec_draft:
+            tn = _tune.TUNE_HOOK
+            if tn is not None:
+                tn.observe(
+                    "lm_spec_draft", _tune.device_kind(), "serving.lm",
+                    _tune.shape_sig(("len", self.max_len)), best_k)
+            self.spec_draft = best_k
 
     @staticmethod
     def _draft_tokens(req: _Request, g: int) -> np.ndarray:
@@ -968,6 +1163,29 @@ class LMEngine:
             self.stats["tokens_out"] += len(req.out)
             self._m_streams.labels(self._engine_label, "completed").inc()
             self._m_tokens.inc(len(req.out))
+            shook = _slo.ENGINE_SLO_HOOK
+            if shook is not None:
+                missed = (req.deadline is not None
+                          and req.deadline.expired())
+                shook.record_outcome(
+                    self._slo_tenant(), "missed" if missed else "met",
+                    max(time.monotonic() - req.t_submit, 0.0))
+            dhook = _diag.DIAG_HOOK
+            if dhook is not None:
+                dhook.observe_request(
+                    self._engine_label, req.rid, req.session,
+                    req.span.context.trace_id
+                    if req.span is not None else None,
+                    max(time.monotonic() - req.t_submit, 0.0))
+            qhook = _quality.QUALITY_HOOK
+            if qhook is not None and req.conf is not None:
+                # read back the (3,) confidence triple the admission
+                # computed on the card: the one added sync of quality, at
+                # retirement, outside any capture
+                ent, top1, margin = req.conf.cpu().to(torch.float64).tolist()
+                qhook.record_confidence(
+                    self._engine_label, self._slo_tenant(), req.session,
+                    float(ent), float(top1), float(margin))
             self._finished[req.rid] = req.out
             self._slot_req[slot] = None
             if req.kv_lease is not None:

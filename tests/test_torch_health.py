@@ -295,12 +295,14 @@ def test_watchdog_thread_starts_lazily(health):
 
 
 def test_unported_kinds_are_tracked_not_judged(health, events):
-    """slo and quality components (their layers wait for ROADMAP §A7) keep
-    the status their owner sets; the watchdog adds no verdict."""
+    """A fleet component (its layer waits for ROADMAP §A9) keeps the status
+    its owner sets; the watchdog adds no verdict. (The slo and quality
+    kinds are judged since their layers were ported:
+    tests/test_torch_slo.py, tests/test_torch_quality.py.)"""
     events.enable()
     health.enable(interval_s=60.0)
-    c = health.component("slo:cam", kind="slo",
-                         probe=lambda: {"breached": True, "worst_burn": 9.0})
+    c = health.component("fleet:w1", kind="fleet",
+                         probe=lambda: {"push_age_s": 90.0, "ttl_s": 6.0})
     health.check_now()
     assert c.status is Status.OK and not events.ring().snapshot()
 

@@ -105,3 +105,41 @@ def test_port_names_are_the_jax_packages(lint):
     mine, ref = _names(lint, PORT), _names(lint, JAX)
     for got, want in zip(mine, ref):
         assert got and got <= want, sorted(got - want)
+
+
+def test_layer_rules_see_the_ported_obs_layers(lint):
+    """The slo, quality, diag and tune ownership rules find the port's
+    modules: each layer's metric families, event types and (diag) spans
+    are registered, and only, inside the module the rule reserves."""
+    regs = {}
+    for path, _, _, name in lint.iter_registrations(PORT):
+        regs.setdefault(name.split("_")[1], set()).add(
+            path.relative_to(PORT).as_posix())
+    assert regs["slo"] == {"obs/slo.py"}
+    assert regs["quality"] == {"obs/quality/__init__.py"}
+    assert regs["tune"] == {"tune/tuner.py"}
+    events = {}
+    for path, _, name in lint.iter_event_sites(PORT):
+        events.setdefault(name.split(".")[0], set()).add(
+            path.relative_to(PORT).as_posix())
+    assert events["slo"] == {"obs/slo.py"}
+    assert events["quality"] == {"obs/quality/__init__.py"}
+    assert events["tune"] == {"tune/tuner.py"}
+    spans = {path.relative_to(PORT).as_posix()
+             for path, _, name in lint.iter_span_sites(PORT)
+             if name.startswith("diag.")}
+    assert spans == {"obs/diag/__init__.py"}
+
+
+def test_lint_catches_an_slo_name_minted_outside_obs_slo(lint, tmp_path):
+    """A violation in the port's layout: the serving engine registering an
+    nnstpu_slo_* family and recording an slo.* event itself, instead of
+    going through ENGINE_SLO_HOOK."""
+    (tmp_path / "serving").mkdir()
+    (tmp_path / "serving" / "lm_engine.py").write_text(
+        'reg.counter("nnstpu_slo_shed_total", "h", ("engine",))\n'
+        '_events.record("slo.burn_alert", "m")\n')
+    problems = lint.check_slo(tmp_path)
+    assert len(problems) == 2
+    assert all("lm_engine.py" in p for p in problems)
+    assert lint.check_tune(tmp_path) == []

@@ -473,13 +473,15 @@ def test_unported_layer_routes_answer_as_jax_off(global_metrics, method,
 
 
 def test_diag_critpath_names_its_roadmap_item(global_metrics):
+    """The route no longer waits for its ROADMAP item (§A7, obs/diag is
+    ported): with diag off it answers from the span store alone, as the
+    JAX exporter does."""
     with start_exporter(port=0, registry=MetricsRegistry()) as exp:
-        with pytest.raises(urllib.error.HTTPError) as ei:
-            urllib.request.urlopen(
-                f"http://127.0.0.1:{exp.port}/debug/diag/critpath",
-                timeout=5)
-    assert ei.value.code == 404
-    assert "ROADMAP §A7" in ei.value.read().decode()
+        body = json.loads(urllib.request.urlopen(
+            f"http://127.0.0.1:{exp.port}/debug/diag/critpath",
+            timeout=5).read())
+    assert body["diag_enabled"] is False
+    assert body["segments"] and "tenants" in body
 
 
 # --------------------------------------------------------------------------- #
@@ -879,8 +881,7 @@ def test_obs_flags_normalize_as_jax(argv):
     assert _normalize_argv(list(argv)) == jax_normalize(list(argv))
 
 
-@pytest.mark.parametrize("flag", ["--diag", "--quality", "--quality-record",
-                                  "--slo", "--tune", "--deadline-ms",
+@pytest.mark.parametrize("flag", ["--deadline-ms",
                                   "--fallback", "--backends", "--hedge-ms",
                                   "--obs-push", "--obs-aggregate",
                                   "--autoscale", "--checkpoint-dir",
