@@ -118,6 +118,37 @@ Phases (any failure exits non-zero before the result lines are printed):
      replayed output byte-equal to the eager one, the card within LSTM_TOL
      of the CPU after 208 recurrent steps, and exactly one host-to-card and
      one card-to-host copy a frame (the state stays on the card);
+ 12b. the query and resilience layers, every server in-process on
+     127.0.0.1 port 0: (a) SSD-300 behind ``tensor_query_serversrc !
+     tensor_filter ! tensor_decoder mode=bounding_box !
+     tensor_query_serversink`` with 300x300 RGB frames from an appsrc
+     client, 8 warm-up frames then 64 sync and 64 pipelined (async_depth
+     32), with graphs and eagerly: every RGBA byte-equal to the same frames
+     without the hop, the reduce fused on the server and ``class_reduce``
+     and ``nms_sweep`` once a frame, the host copies a frame those of the
+     path without the hop; frames/s, round trip p50, wire bytes and host ms
+     to encode and decode; (b) two such servers behind ``backends=A,B``
+     with ``hedge_ms``: a seeded partition of A mid-stream (failover, A's
+     breaker open, ``router.failover``), the healed net (A serves again
+     after its half-open probe), a seeded delay on A (hedges onto B win;
+     A's connection answers in protocol sync after), no frame lost and
+     every RGBA equal; (c) a server running the filter alone and a client
+     decoding on its side with ``fallback=`` a callable over the same zoo
+     bundle: a partition of every backend sends a stretch of frames to the
+     local filter on the card (each one reduce on the card, RGBA equal to
+     the direct path's), the remote ones decode on the host (no launch;
+     RGBA equal or, where the host's float math moves a pixel, boxes within
+     run_detection's tolerance), health DEGRADED then OK with "remote path
+     restored"; (d) BASELINE.json config 5, the repo-LSTM loop behind the
+     hop (24 sync frames, 16 + 192 pipelined): every output byte-equal to
+     the loop without the hop on the same frames, one host-to-card and one
+     card-to-host copy a frame; (e) 8 frames each over MQTT (the built-in
+     broker), discovery (``operation=`` into (a)'s server) and gRPC
+     ``idl=flex`` and ``protobuf`` when grpcio is present (printed either
+     way); (f) ``python -m nnstreamer_tpu_torch.cli --backends A,B
+     --hedge-ms 5 --deadline-ms 2000 --fallback passthrough`` with a
+     one-fault ``NNS_TPU_CHAOS`` plan against (b)'s servers: exit 0, the
+     chaos line, its RGBA frames equal to the direct path's;
  13. crop → bucketed classifier: 64 1920x1080 frames with 1-9 seeded boxes
      through ``tensor_crop → tensor_filter model=zoo://mobilenet_v2
      custom="bucket=4,resize=224:224"``: one graph a padded size, frames/s
@@ -2777,6 +2808,812 @@ def run_repo_lstm(counters) -> dict:
     return launches
 
 
+#: the query hop (phase 12b): SSD-300 served behind tensor_query on the card
+QUERY_DEVICE = "cuda"
+QUERY_SRV_DIMS = "3:300:300:1"
+#: (a): warm-up frames, then the timed frames, sync and pipelined
+#: (bench.py's client and serversink async_depth 32)
+QUERY_WARM, QUERY_FRAMES, QUERY_DEPTH = 8, 64, 32
+#: (b): healthy frames, then a partition of backend A for as many, then the
+#: healed net for as many; then up to QUERY_HEDGE_MAX frames under a
+#: delay fault on A; the hedge floor is above a healthy round trip so only
+#: the delay fault hedges
+QUERY_ROUTED_STEP, QUERY_HEDGE_MAX = 12, 16
+QUERY_HEDGE_MS, QUERY_DELAY_S, QUERY_RESET_S = 50.0, 0.4, 0.5
+#: (c): remote frames, then a partition of every backend (the fallback's
+#: stretch), then remote again
+QUERY_FB_REMOTE, QUERY_FB_STRETCH = 4, 8
+#: (d): the composite (bench.py:264-330): sync frames for the round trip,
+#: then pipelined warm-up and timed frames
+QUERY_LSTM_SYNC = 24
+#: (e) and (f): frames a transport hop, and the CLI run's source seed
+QUERY_HOP_FRAMES, QUERY_CLI_SEED = 8, 29
+
+
+def _qcaps():
+    from nnstreamer_tpu_torch.core.types import Caps
+
+    return Caps("video/x-raw", {"format": "RGB", "width": 300, "height": 300,
+                                "framerate": Fraction(30)})
+
+
+def _query_frames(n: int, seed: int = 31) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (300, 300, 3), dtype=np.uint8) for _ in range(n)]
+
+
+def _ssd_opts(tmp: str) -> dict:
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
+
+    priors = os.path.join(tmp, "query_priors.txt")
+    write_box_priors(priors, size=300)
+    labels = os.path.join(tmp, "query_coco.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"c{i}" for i in range(91)))
+    return dict(option1="mobilenet-ssd", option2=labels, option3=priors,
+                option4="300:300", option5="300:300")
+
+
+def _ssd_server(sid: int, opts: dict, decode: bool = True, depth: int = 1):
+    """``tensor_query_serversrc ! tensor_filter model=SSD-300 [!
+    tensor_decoder mode=bounding_box] ! tensor_query_serversink`` on the
+    card, listening on 127.0.0.1 port 0. Returns (pipeline, port)."""
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.query.server import wait_bound_port
+
+    p = Pipeline(f"qsrv{sid}", device=QUERY_DEVICE)
+    src = p.add_new("tensor_query_serversrc", host="127.0.0.1", port=0, id=sid,
+                    dims=QUERY_SRV_DIMS, types="uint8")
+    chain = [src, p.add_new("tensor_filter", framework="xla-tpu", model=SSD_SPEC)]
+    if decode:
+        chain.append(p.add_new("tensor_decoder", mode="bounding_box", **opts))
+    chain.append(p.add_new("tensor_query_serversink", id=sid, async_depth=depth))
+    Pipeline.link(*chain)
+    p.start()
+    return p, wait_bound_port(src, timeout_s=60)
+
+
+def _ssd_client(frames, decode_opts=None, on_send=None, **client_props) -> tuple:
+    """``appsrc (300x300 RGB) ! tensor_converter ! tensor_query_client
+    [! tensor_decoder mode=bounding_box] ! tensor_sink`` over ``frames``.
+    ``on_send(i, client)`` runs just before frame i is pushed (a sync client
+    has finished frame i-1 by then), and with ``len(frames)`` after the run.
+    Returns (pipeline, sink, send times, arrival times)."""
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    sent, arrived = [], []
+
+    def gen():
+        for i, f in enumerate(frames):
+            if on_send is not None:
+                on_send(i, qc)
+            sent.append(time.perf_counter())
+            yield f
+
+    p = Pipeline("qcli", device=QUERY_DEVICE)
+    qc = p.add_new("tensor_query_client", "qc", **client_props)
+    chain = [p.add_new("appsrc", caps=_qcaps(), data=gen()),
+             p.add_new("tensor_converter"), qc]
+    if decode_opts is not None:
+        chain.append(p.add_new("tensor_decoder", mode="bounding_box", **decode_opts))
+    sink = p.add_new("tensor_sink", store=True,
+                     new_data=lambda b: arrived.append(time.perf_counter()))
+    Pipeline.link(*chain, sink)
+    p.run(timeout=600)
+    if on_send is not None:
+        on_send(len(frames), qc)
+    return p, sink, sent, arrived
+
+
+def _direct_ssd(frames, opts) -> tuple:
+    """The same frames without a hop (run_detection's pipeline on an
+    appsrc): each frame's RGBA bytes and detections, steady fps, the
+    reduce's launches and host copies."""
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.ops.kernels import epilogue as ep
+
+    arrived = []
+    p = Pipeline("qdirect", device=QUERY_DEVICE)
+    src = p.add_new("appsrc", caps=_qcaps(), data=list(frames))
+    conv = p.add_new("tensor_converter")
+    filt = p.add_new("tensor_filter", framework="xla-tpu", model=SSD_SPEC)
+    dec = p.add_new("tensor_decoder", mode="bounding_box", **opts)
+    sink = p.add_new("tensor_sink", store=True,
+                     new_data=lambda b: arrived.append(time.perf_counter()))
+    Pipeline.link(src, conv, filt, dec, sink)
+    ep.class_reduce.launches = ep.nms_sweep.launches = 0
+    with _host_copies() as copies:
+        p.run(timeout=600)
+    if sink.num_buffers != len(frames) or p._epilogue_count != 1:
+        raise AssertionError(f"query direct: {sink.num_buffers} of {len(frames)} frames, "
+                             f"{p._epilogue_count} fused reduces")
+    outs = [(b.memories[0].host().tobytes(), b.meta["detections"]) for b in sink.buffers]
+    return outs, _steady_fps(arrived), (ep.class_reduce.launches,
+                                        ep.nms_sweep.launches), dict(copies)
+
+
+def _timed_attr(obj, name: str, rec: list):
+    """Wrap ``obj.name`` to append each call's host seconds to ``rec``;
+    returns the unwrapped callable."""
+    fn = getattr(obj, name)
+
+    def wrap(*a, **kw):
+        t0 = time.perf_counter()
+        out = fn(*a, **kw)
+        rec.append(time.perf_counter() - t0)
+        return out
+
+    setattr(obj, name, wrap)
+    return fn
+
+
+@contextlib.contextmanager
+def _wire_clock():
+    """Host seconds of each ``buffer_to_payload`` (encode) and
+    ``payload_to_buffer`` (decode) the client and the server make, and the
+    payload bytes of each DATA and RESULT frame sent, while inside."""
+    from nnstreamer_tpu_torch.query import client as qclient
+    from nnstreamer_tpu_torch.query import router as qrouter
+    from nnstreamer_tpu_torch.query import server as qserver
+
+    rec = {k: [] for k in ("client_encode", "client_decode", "server_encode",
+                           "server_decode", "DATA", "RESULT")}
+    saved = []
+
+    def timed(mod, name, key):
+        saved.append((mod, name, _timed_attr(mod, name, rec[key])))
+
+    def sized(mod):
+        fn = mod.send_message
+        saved.append((mod, "send_message", fn))
+
+        def wrap(sock, cmd, meta, payload=b""):
+            if cmd.name in rec:
+                rec[cmd.name].append(len(payload))
+            return fn(sock, cmd, meta, payload)
+
+        mod.send_message = wrap
+
+    timed(qclient, "buffer_to_payload", "client_encode")
+    timed(qclient, "payload_to_buffer", "client_decode")
+    timed(qserver, "buffer_to_payload", "server_encode")
+    timed(qserver, "payload_to_buffer", "server_decode")
+    for mod in (qclient, qserver, qrouter):
+        sized(mod)
+    try:
+        yield rec
+    finally:
+        for mod, name, fn in reversed(saved):
+            setattr(mod, name, fn)
+
+
+def _rgba_check(name: str, sink, want: list) -> None:
+    got = [b.memories[0].host().tobytes() for b in sink.buffers]
+    if len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} of {len(want)} frames out")
+    bad = [i for i, (g, (w, _)) in enumerate(zip(got, want)) if g != w]
+    if bad:
+        raise AssertionError(f"{name}: RGBA of frames {bad} differ from the direct path")
+
+
+def _det_rows(dets) -> np.ndarray:
+    """A frame's detections as (x0, y0, x1, y1, score, class) rows."""
+    return np.asarray([[*d["box"], d["score"], d["class"]] for d in dets],
+                      np.float64).reshape(-1, 6)
+
+
+def _events_of(etype: str) -> list:
+    from nnstreamer_tpu_torch.obs import events
+
+    return [e for e in events.ring().snapshot() if e["type"] == etype]
+
+
+def run_query_ssd(opts, frames, direct, counters, card) -> tuple:
+    """(a): SSD-300 behind the hop, reduce on the server. Returns the server
+    (kept for the transports and the CLI), its port and the launches."""
+    from nnstreamer_tpu_torch.core import graphs
+
+    direct_outs, direct_fps, _, direct_copies = direct
+    srv, port = _ssd_server(201, opts, depth=QUERY_DEPTH)
+    if srv._epilogue_count != 1:
+        raise AssertionError(f"query server: reduce not fused ({srv._epilogue_count})")
+    warm, timed = frames[:QUERY_WARM], frames[QUERY_WARM:]
+    want = direct_outs[QUERY_WARM:]
+    runs, launches = {}, {}
+    for eager in (False, True):
+        mode = "eager" if eager else "graphs"
+        with _mode(eager):
+            if not eager:
+                # the server's capture on the first frame: its round trip
+                # is recorded, then the warm-up frames
+                t0 = time.perf_counter()
+                _, sink, sent, arrived = _ssd_client(warm, host="127.0.0.1", port=port)
+                first_ms = (arrived[0] - sent[0]) * 1e3
+                _rgba_check("query warm-up", sink, direct_outs[:QUERY_WARM])
+                print(f"query ssd warm-up: {QUERY_WARM} frames in "
+                      f"{time.perf_counter() - t0:.3f} s, the first (the server's "
+                      f"capture) round trip {first_ms:.3f} ms [{card}]", flush=True)
+            counters.reset()
+            with _host_copies() as copies, _wire_clock() as wire:
+                _, sink, sent, arrived = _ssd_client(timed, host="127.0.0.1", port=port)
+            launches[mode] = counters.read()
+            _rgba_check(f"query ssd sync ({mode})", sink, want)
+            counters.reset()
+            _, psink, _, parrived = _ssd_client(timed, host="127.0.0.1", port=port,
+                                                async_depth=QUERY_DEPTH)
+            plaunches = counters.read()
+            _rgba_check(f"query ssd pipelined ({mode})", psink, want)
+            st = graphs.stats()
+        for name, got in (("sync", launches[mode]), ("pipelined", plaunches)):
+            if got["class_reduce"] != len(timed) or got["nms_sweep"] != len(timed):
+                raise AssertionError(f"query ssd {name} ({mode}): launches {got} for "
+                                     f"{len(timed)} frames")
+        rtt = float(np.median([a - s for a, s in zip(arrived, sent)])) * 1e3
+        runs[mode] = dict(rtt_p50_ms=rtt, sync_fps=_steady_fps(arrived),
+                          fps=_steady_fps(parrived), copies=dict(copies), graphs=st,
+                          wire={k: list(v) for k, v in wire.items()})
+    g = runs["graphs"]
+    n = len(timed)
+    per = {k: v / n for k, v in g["copies"].items()}
+    dper = {k: v / len(frames) for k, v in direct_copies.items()}
+    if per != dper:
+        raise AssertionError(f"query ssd: host copies a frame {per} behind the hop, "
+                             f"{dper} without it")
+    wire = g["wire"]
+    stats = {"fps": g["fps"], "eager_fps": runs["eager"]["fps"],
+             "sync_fps": g["sync_fps"], "direct_fps": direct_fps,
+             "rtt_p50_ms": g["rtt_p50_ms"], "eager_rtt_p50_ms": runs["eager"]["rtt_p50_ms"],
+             "first_frame_ms": first_ms,
+             "request_bytes": int(np.median(wire["DATA"])),
+             "result_bytes": int(np.median(wire["RESULT"])),
+             "client_encode_ms": _median_ms(wire["client_encode"]),
+             "server_decode_ms": _median_ms(wire["server_decode"]),
+             "server_encode_ms": _median_ms(wire["server_encode"]),
+             "client_decode_ms": _median_ms(wire["client_decode"]),
+             "h2d_per_frame": per.get("h2d", 0), "d2h_per_frame": per.get("d2h", 0)}
+    LOOP_STATS["query_ssd"] = stats
+    print(f"query ssd (a) SSD-300 behind tensor_query, reduce on the server: {n} frames "
+          f"after {QUERY_WARM}; pipelined (async_depth {QUERY_DEPTH}) fps graphs "
+          f"{stats['fps']:.2f}, eager {stats['eager_fps']:.2f}; direct (no hop) "
+          f"{direct_fps:.2f} fps; sync fps {stats['sync_fps']:.2f}, round trip p50 "
+          f"{stats['rtt_p50_ms']:.4f} ms (eager {stats['eager_rtt_p50_ms']:.4f}); wire "
+          f"bytes a frame: request {stats['request_bytes']}, result "
+          f"{stats['result_bytes']}; host ms a frame: client encode "
+          f"{stats['client_encode_ms']:.4f}, server decode {stats['server_decode_ms']:.4f}, "
+          f"server encode {stats['server_encode_ms']:.4f}, client decode "
+          f"{stats['client_decode_ms']:.4f}; host copies a frame {per} == the direct "
+          f"path's; launches sync {launches['graphs']} (eager {launches['eager']}), "
+          f"one fused reduce; every RGBA == the direct path's [{card}]", flush=True)
+    _record_graphs("query_ssd", 1, "fps", g["fps"], runs["eager"]["fps"], g["graphs"])
+    return srv, port, launches["graphs"]
+
+
+def run_query_routed(opts, frames, direct_outs, counters, card) -> tuple:
+    """(b): two servers behind one routed client (backends=A,B, hedge_ms):
+    a seeded partition of A mid-stream, then the healed net, then a seeded
+    delay fault on A. Returns the servers and their ports (kept for the CLI)
+    and the launches."""
+    import random as _random
+
+    from nnstreamer_tpu_torch.obs import events, metrics
+    from nnstreamer_tpu_torch.query import router as qrouter
+    from nnstreamer_tpu_torch.resilience import chaos, policy
+
+    servers = [_ssd_server(211 + i, opts) for i in range(2)]
+    ports = [port for _, port in servers]
+    for port in ports:  # each server's capture before the routed run
+        _ssd_client(frames[:2], host="127.0.0.1", port=port)
+    a_ep, b_ep = (f"127.0.0.1:{port}" for port in ports)
+    events.enable()
+    metrics.registry().enable()
+    step = QUERY_ROUTED_STEP
+    n = 3 * step
+    seen = {}
+    plan = chaos.FaultPlan([chaos.Fault(kind="partition", target="send", cmd="DATA",
+                                        endpoint=a_ep, nth=1)], seed=11)
+
+    def on_send(i, qc):
+        if i == 0:
+            qc.router.backends._rng = _random.Random(7)
+            seen["failovers0"] = qrouter._FAILOVER_TOTAL.labels("qc").value
+            seen["a"] = qc.router.backends.get(a_ep)
+        elif i == step:
+            chaos.install(plan)  # A black-holes from its next DATA on
+        elif i == 2 * step:
+            seen.update(fired=list(plan.fired), breaker=seen["a"].breaker.state,
+                        a_before=seen["a"].dispatched)
+            plan.heal()
+            chaos.uninstall()
+            time.sleep(QUERY_RESET_S + 0.05)  # past the cooldown: a probe is due
+
+    counters.reset()
+    try:
+        _, sink, sent, arrived = _ssd_client(
+            frames[:n], on_send=on_send, backends=f"{a_ep},{b_ep}",
+            max_request_retry=4, timeout_s=10.0, retry_base_s=0.01, retry_max_s=0.05,
+            breaker_threshold=1, breaker_reset_s=QUERY_RESET_S, hedge_ms=QUERY_HEDGE_MS)
+    finally:
+        chaos.uninstall()
+    _rgba_check("query routed", sink, direct_outs[:n])
+    a_after = seen["a"].dispatched
+    failovers = qrouter._FAILOVER_TOTAL.labels("qc").value - seen["failovers0"]
+    fov_events = _events_of("router.failover")
+    if not seen["fired"] or seen["breaker"] != policy.OPEN:
+        raise AssertionError(f"query routed: partition fired {seen['fired']}, A's breaker "
+                             f"{seen['breaker']} (want open)")
+    if failovers < 1 or not fov_events \
+            or any(e["attrs"]["backend"] == a_ep for e in fov_events):
+        raise AssertionError(f"query routed: failovers {failovers}, events {fov_events}")
+    if a_after <= seen["a_before"]:
+        raise AssertionError(f"query routed: A took no traffic after the heal "
+                             f"({seen['a_before']} -> {a_after})")
+    healthy_fps = _steady_fps(arrived[:step])
+    # the hedge: a seeded delay on A's DATA sends; A as primary is hedged
+    # onto B. Before the last frame, once the delayed losers are done, A's
+    # connection must answer a plain request correctly (protocol sync)
+    from nnstreamer_tpu_torch.core.buffer import Buffer
+    from nnstreamer_tpu_torch.query.protocol import buffer_to_payload, payload_to_buffer
+
+    dplan = chaos.FaultPlan([chaos.Fault(kind="delay", target="send", cmd="DATA",
+                                         endpoint=a_ep, p=1.0,
+                                         delay_s=QUERY_DELAY_S)], seed=5)
+    hedges0 = len(_events_of("resilience.hedge"))
+    sync = {}
+
+    def hedge_send(i, qc):
+        if i == 0:
+            qc.router.backends._rng = _random.Random(3)
+            chaos.install(dplan)
+        elif i == QUERY_HEDGE_MAX - 1:
+            a = qc.router.backends.get(a_ep)
+            deadline = time.monotonic() + 10
+            while a.inflight and time.monotonic() < deadline:
+                time.sleep(0.01)
+            chaos.uninstall()
+            meta, payload = buffer_to_payload(Buffer.of(frames[0][None]))
+            rmeta, rpayload = a.request(meta, payload, qc.router._caps())
+            sync["rgba"] = payload_to_buffer(rmeta, rpayload).memories[0].host().tobytes()
+            sync["inflight"] = a.inflight
+
+    try:
+        _, hsink, hsent, harrived = _ssd_client(
+            frames[:QUERY_HEDGE_MAX], on_send=hedge_send, backends=f"{a_ep},{b_ep}",
+            timeout_s=10.0, hedge_ms=QUERY_HEDGE_MS)
+    finally:
+        chaos.uninstall()
+    launches = counters.read()
+    _rgba_check("query hedged", hsink, direct_outs[:QUERY_HEDGE_MAX])
+    hedges = _events_of("resilience.hedge")[hedges0:]
+    delayed = [f for f in dplan.fired if f["kind"] == "delay"]
+    hedge_rtts = [a - s for a, s in zip(harrived, hsent)]
+    if not hedges or any(e["attrs"]["backend"] != b_ep for e in hedges) or not delayed:
+        raise AssertionError(f"query hedged: {len(hedges)} hedges ({hedges}), "
+                             f"{len(delayed)} delayed sends")
+    if max(hedge_rtts) >= QUERY_DELAY_S:
+        raise AssertionError(f"query hedged: a frame waited for the delayed primary "
+                             f"({max(hedge_rtts):.3f} s)")
+    if sync.get("rgba") != direct_outs[0][0]:
+        raise AssertionError("query hedged: A's connection answered wrongly after the "
+                             "hedged round trips")
+    stats = {"healthy_fps": healthy_fps, "failovers": failovers,
+             "failover_events": len(fov_events), "hedges": len(hedges),
+             "delayed_sends": len(delayed),
+             "hedged_run_rtt_ms": [round(t * 1e3, 4) for t in hedge_rtts],
+             "a_dispatched_before_heal": seen["a_before"],
+             "a_dispatched_after_heal": a_after}
+    LOOP_STATS["query_routed"] = stats
+    print(f"query routed (b) backends A,B, hedge_ms {QUERY_HEDGE_MS}: {n} frames, a "
+          f"seeded partition of A from frame {step} to {2 * step - 1} (fired "
+          f"{seen['fired']}), A's breaker {seen['breaker']}, {failovers:.0f} failovers "
+          f"({len(fov_events)} router.failover events, none onto A), A served "
+          f"{seen['a_before']} -> {a_after} after the heal and its probe; healthy routed "
+          f"sync fps {healthy_fps:.2f} (one card under both backends; no speed "
+          f"claimed); then {len(hedges)} hedges onto B over {QUERY_HEDGE_MAX} frames "
+          f"under a {QUERY_DELAY_S} s delay on A ({len(delayed)} delayed sends), round "
+          f"trips ms min {min(hedge_rtts) * 1e3:.3f} max {max(hedge_rtts) * 1e3:.3f} "
+          f"(the first response won); A's connection in protocol sync after; every "
+          f"RGBA == the direct path's; launches {launches} [{card}]", flush=True)
+    metrics.registry().disable()
+    events.disable()
+    events.ring().reset()
+    return servers, launches
+
+
+def run_query_fallback(opts, frames, direct_outs, counters, card) -> dict:
+    """(c): the server runs the filter alone, raw boxes and scores go back
+    and the client decodes them on the host; a partition of every backend
+    sends a stretch of frames to the client's ``fallback=`` (a callable
+    over the same zoo bundle, a local tensor_filter on the card), whose
+    output the client's decoder reduces on the card (``async_depth=1``: the
+    decoder's device reduce; at 0 every frame decodes on the host)."""
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.obs import events, health
+    from nnstreamer_tpu_torch.resilience import chaos
+
+    srv, port = _ssd_server(221, opts, decode=False)
+    _ssd_client(frames[:2], host="127.0.0.1", port=port)  # the server's capture
+    events.enable()
+    health.enable()
+    fn = get_model(SSD_SPEC, device=QUERY_DEVICE).fn()
+    lo, hi = QUERY_FB_REMOTE, QUERY_FB_REMOTE + QUERY_FB_STRETCH
+    n = hi + QUERY_FB_REMOTE
+    per_frame, state = [], {}
+    plan = chaos.FaultPlan([chaos.Fault(kind="partition", target="send", cmd="DATA",
+                                        nth=1)], seed=17)
+
+    def component():
+        snap = health.snapshot()
+        return next(c for c in snap["components"] if c["name"] == "query.client:qc")
+
+    def on_send(i, qc):
+        if i:
+            per_frame.append(counters.read())
+        counters.reset()
+        if i == lo:
+            chaos.install(plan)
+        elif i == hi:
+            state["during"] = component()
+            plan.heal()
+            chaos.uninstall()
+            time.sleep(0.35)  # past breaker_reset_s: the next frame probes
+
+    try:
+        with _host_copies() as copies:
+            _, sink, _, _ = _ssd_client(
+                frames[:n], decode_opts=dict(opts, async_depth=1), on_send=on_send,
+                host="127.0.0.1",
+                port=port, fallback=fn, max_request_retry=1, timeout_s=10.0,
+                retry_base_s=0.001, retry_max_s=0.002, breaker_threshold=1,
+                breaker_reset_s=0.3)
+        state["after"] = component()
+    finally:
+        chaos.uninstall()
+        srv.stop()
+    fallback_frames = set(range(lo, hi))
+    for i, got in enumerate(per_frame):
+        want = 1 if i in fallback_frames else 0
+        if got["class_reduce"] != want or got["nms_sweep"] != want:
+            raise AssertionError(f"query fallback: frame {i} launches {got}, want {want} "
+                                 "(fallback frames reduce on the card, remote ones on "
+                                 "the host)")
+    outs = [(b.memories[0].host().tobytes(), b.meta["detections"]) for b in sink.buffers]
+    if len(outs) != n:
+        raise AssertionError(f"query fallback: {len(outs)} of {n} frames out")
+    remote_equal, remote_close = 0, 0
+    for i, ((got, det), (want, wdet)) in enumerate(zip(outs, direct_outs)):
+        if got == want:
+            remote_equal += i not in fallback_frames
+            continue
+        if i in fallback_frames:
+            raise AssertionError(f"query fallback: fallback frame {i} RGBA differs from "
+                                 "the direct path's")
+        # a remote frame decoded on the host: its boxes within the host
+        # decode's tolerance of the device reduce (run_detection's)
+        rows, wrows = _det_rows(det), _det_rows(wdet)
+        if rows.shape != wrows.shape or not np.allclose(rows, wrows, rtol=1e-4,
+                                                        atol=1e-5):
+            raise AssertionError(f"query fallback: remote frame {i} boxes differ from "
+                                 "the direct path's")
+        remote_close += 1
+    during, after = state["during"], state["after"]
+    if during["status"] != "degraded" or after["status"] != "ok" \
+            or "remote path restored" not in after["detail"]:
+        raise AssertionError(f"query fallback: health {during} then {after}")
+    fallback_events = len(_events_of("resilience.fallback"))
+    launches = {k: sum(f[k] for f in per_frame) for k in per_frame[0]}
+    LOOP_STATS["query_fallback"] = {
+        "frames": n, "fallback_frames": len(fallback_frames),
+        "remote_rgba_equal": remote_equal, "remote_within_tolerance": remote_close,
+        "fallback_events": fallback_events, "copies": dict(copies)}
+    print(f"query fallback (c): {n} frames, frames {lo}-{hi - 1} under a partition of "
+          f"every backend took fallback= (a local tensor_filter on the card over the "
+          f"same bundle, {fallback_events} resilience.fallback events): each launched "
+          f"class_reduce and nms_sweep once and its RGBA == the direct path's; "
+          f"{n - len(fallback_frames)} remote frames decoded on the host launched none, "
+          f"{remote_equal} RGBA-equal, {remote_close} within the host decode's "
+          f"tolerance; health {during['status']} ({during['detail']}) then "
+          f"{after['status']} ({after['detail']}); host copies {dict(copies)} [{card}]",
+          flush=True)
+    health.disable()
+    health.registry().reset()
+    events.disable()
+    events.ring().reset()
+    return launches
+
+
+def run_query_composite(counters, card) -> dict:
+    """(d): BASELINE.json config 5 (bench.py:264-330) on the card:
+    ``tensor_query_serversrc`` + ``tensor_reposrc`` -> ``tensor_mux`` -> the
+    LSTM cell -> ``tensor_demux`` -> ``tensor_query_serversink`` /
+    ``tensor_reposink``; a sync client for the round trip, then a pipelined
+    one. Every output byte-equal to the loop without the hop
+    (``_repo_loop``) on the same frames."""
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.elements.repo import reset_repo
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.query.server import wait_bound_port
+
+    rng = np.random.default_rng(41)
+    n = QUERY_LSTM_SYNC + LSTM_WARM + LSTM_FRAMES
+    frames = [rng.standard_normal((1, LSTM_DIN)).astype(np.float32) for _ in range(n)]
+    caps = Caps.tensors(TensorsConfig(TensorsInfo.from_strings(f"{LSTM_DIN}:1",
+                                                               "float32"), 30))
+    reset_repo()
+    sp = Pipeline("qlstm", device=QUERY_DEVICE)
+    ssrc = sp.add_new("tensor_query_serversrc", host="127.0.0.1", port=0, id=231,
+                      dims=f"{LSTM_DIN}:1", types="float32")
+    state = sp.add_new("tensor_reposrc", slot_index=LSTM_SLOT,
+                       dims=f"{LSTM_F}:1,{LSTM_F}:1", types="float32,float32")
+    mux = sp.add_new("tensor_mux", sync_mode="nosync")
+    filt = sp.add_new("tensor_filter", framework="xla-tpu", model=LSTM_SPEC)
+    demux = sp.add_new("tensor_demux", tensorpick="0,1:2")
+    ssink = sp.add_new("tensor_query_serversink", id=231, async_depth=QUERY_DEPTH)
+    rsink = sp.add_new("tensor_reposink", slot_index=LSTM_SLOT)
+    Pipeline.link(ssrc, mux)
+    Pipeline.link(state, mux)
+    Pipeline.link(mux, filt, demux)
+    Pipeline.link(demux, sp.add_new("queue"), ssink)
+    Pipeline.link(demux, sp.add_new("queue"), rsink)
+
+    def client(batch, depth):
+        sent, arrived, outs = [], [], []
+
+        def gen():
+            for f in batch:
+                sent.append(time.perf_counter())
+                yield f
+
+        def on_result(b):
+            arrived.append(time.perf_counter())
+            outs.append(b.memories[0].host())
+
+        cp = Pipeline("qlstm-client", device=QUERY_DEVICE)
+        src = cp.add_new("appsrc", caps=caps, data=gen())
+        qc = cp.add_new("tensor_query_client", host="127.0.0.1", port=port,
+                        async_depth=depth)
+        Pipeline.link(src, qc, cp.add_new("tensor_sink", new_data=on_result))
+        cp.run(timeout=600)
+        return outs, sent, arrived
+
+    counters.reset()
+    with _host_copies() as copies:
+        sp.start()
+        try:
+            port = wait_bound_port(ssrc, timeout_s=60)
+            outs, sent, arrived = client(frames[:QUERY_LSTM_SYNC], 1)
+            pouts, _, parrived = client(frames[QUERY_LSTM_SYNC:], QUERY_DEPTH)
+        finally:
+            sp.stop()
+    launches = counters.read()
+    copies = dict(copies)
+    hop = outs + pouts
+    rtt = float(np.median([a - s for a, s in zip(arrived, sent)])) * 1e3
+    fps = _steady_fps(parrived[LSTM_WARM:])
+    if copies != {"h2d": n + 2, "d2h": n}:
+        raise AssertionError(f"query composite: host copies {copies} for {n} frames, "
+                             f"expected {{'h2d': {n + 2}, 'd2h': {n}}}")
+    loop = _repo_loop(QUERY_DEVICE, frames, LSTM_SPEC)[0]
+    if len(hop) != n or any(a.tobytes() != b.tobytes() for a, b in zip(hop, loop)):
+        bad = sum(a.tobytes() != b.tobytes() for a, b in zip(hop, loop))
+        raise AssertionError(f"query composite: {len(hop)} of {n} outputs, {bad} differ "
+                             "from the loop without the hop")
+    base = LOOP_STATS.get("repo_lstm", {})
+    stats = {"fps": fps, "rtt_p50_ms": rtt, "loop_fps": base.get("fps"),
+             "loop_rtt_p50_ms": base.get("rtt_p50_ms"),
+             "h2d_per_frame": copies["h2d"] / n, "d2h_per_frame": copies["d2h"] / n}
+    LOOP_STATS["query_composite"] = stats
+    print(f"query composite (d) repo-LSTM behind tensor_query (BASELINE config 5, d_in "
+          f"{LSTM_DIN}, features {LSTM_F}): sync round trip p50 {rtt:.4f} ms over "
+          f"{QUERY_LSTM_SYNC} frames, pipelined (async_depth {QUERY_DEPTH}) {fps:.2f} fps "
+          f"over {LSTM_FRAMES} after {LSTM_WARM}; the loop without the hop "
+          f"{base.get('fps', float('nan')):.2f} fps, p50 "
+          f"{base.get('rtt_p50_ms', float('nan')):.4f} ms; host copies a frame: h2d "
+          f"{copies['h2d'] / n:.4f}, d2h {copies['d2h'] / n:.4f} ({copies} over {n}); "
+          f"all {n} outputs == the loop without the hop on the same frames [{card}]",
+          flush=True)
+    return launches
+
+
+def _sink_wait(sink, n: int, what: str, timeout: float = 300) -> None:
+    deadline = time.monotonic() + timeout
+    while sink.num_buffers < n and time.monotonic() < deadline:
+        time.sleep(0.01)
+    if sink.num_buffers < n:
+        raise AssertionError(f"{what}: {sink.num_buffers} of {n} frames out")
+
+
+def _ssd_tail(p, src, opts):
+    """``src ! tensor_filter model=SSD-300 ! tensor_decoder ! tensor_sink``
+    in ``p``; returns the sink."""
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    sink = p.add_new("tensor_sink", store=True)
+    Pipeline.link(src, p.add_new("tensor_filter", framework="xla-tpu", model=SSD_SPEC),
+                  p.add_new("tensor_decoder", mode="bounding_box", **opts), sink)
+    return sink
+
+
+def run_query_transports(opts, frames, direct_outs, port, counters, card) -> dict:
+    """(e): SSD-300 frames over MQTT (the built-in broker), over the
+    discovery broker into (a)'s server, and over gRPC (``idl=flex`` and
+    ``protobuf``) when grpcio is present; every output == the direct
+    path's, host ms a frame to encode and to decode."""
+    import importlib.util
+
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.query import hybrid, pubsub
+    from nnstreamer_tpu_torch.query.mqtt import MqttBroker
+
+    batch, want = frames[:QUERY_HOP_FRAMES], direct_outs[:QUERY_HOP_FRAMES]
+    stats = {}
+    counters.reset()
+    # MQTT: appsrc ! tensor_converter ! mqttsink -> broker -> mqttsrc ! SSD
+    broker = MqttBroker(port=0).start()
+    enc, dec = [], []
+    saved = (_timed_attr(pubsub, "_buffer_to_mqtt", enc),
+             _timed_attr(pubsub, "_mqtt_to_buffer", dec))
+    try:
+        rp = Pipeline("qmqtt-rx", device=QUERY_DEVICE)
+        sink = _ssd_tail(rp, rp.add_new("mqttsrc", port=broker.port,
+                                        sub_topic="nns/ssd"), opts)
+        rp.start()
+        try:
+            time.sleep(0.3)  # the subscription is in place
+            tp = Pipeline("qmqtt-tx", device=QUERY_DEVICE)
+            Pipeline.link(tp.add_new("appsrc", caps=_qcaps(), data=list(batch)),
+                          tp.add_new("tensor_converter"),
+                          tp.add_new("mqttsink", port=broker.port, pub_topic="nns/ssd"))
+            tp.run(timeout=300)
+            _sink_wait(sink, len(batch), "query mqtt")
+        finally:
+            rp.stop()
+    finally:
+        pubsub._buffer_to_mqtt, pubsub._mqtt_to_buffer = saved
+        broker.stop()
+    _rgba_check("query mqtt", sink, want)
+    stats["mqtt"] = {"encode_ms": _median_ms(enc), "decode_ms": _median_ms(dec)}
+    # discovery: the client resolves (a)'s server by operation= through
+    # the DiscoveryBroker
+    dbroker = hybrid.DiscoveryBroker(port=0).start()
+    try:
+        hybrid.register_node("ssd300", "127.0.0.1", port, broker_port=dbroker.port)
+        with _wire_clock() as wire:
+            _, sink, _, _ = _ssd_client(batch, operation="ssd300",
+                                        broker_port=dbroker.port)
+    finally:
+        dbroker.stop()
+    _rgba_check("query discovery", sink, want)
+    stats["discovery"] = {"encode_ms": _median_ms(wire["client_encode"]),
+                          "decode_ms": _median_ms(wire["client_decode"])}
+    grpc_ran = importlib.util.find_spec("grpc") is not None
+    print(f"query transports: grpcio {'present: the gRPC hops run' if grpc_ran else 'absent: the gRPC hops do not run'}",
+          flush=True)
+    for idl in ("flex", "protobuf") if grpc_ran else ():
+        enc, dec = [], []
+        rp = Pipeline(f"qgrpc-rx-{idl}", device=QUERY_DEVICE)
+        gsrc = rp.add_new("tensor_grpc_src", port=0, idl=idl)
+        _timed_attr(gsrc, "_decode", dec)
+        sink = _ssd_tail(rp, gsrc, opts)
+        rp.start()
+        try:
+            deadline = time.monotonic() + 30
+            while not hasattr(gsrc, "bound_port") and time.monotonic() < deadline:
+                time.sleep(0.02)
+            tp = Pipeline(f"qgrpc-tx-{idl}", device=QUERY_DEVICE)
+            gsink = tp.add_new("tensor_grpc_sink", port=gsrc.bound_port, idl=idl)
+            _timed_attr(gsink, "_encode", enc)
+            Pipeline.link(tp.add_new("appsrc", caps=_qcaps(), data=list(batch)),
+                          tp.add_new("tensor_converter"), gsink)
+            tp.run(timeout=300)
+            _sink_wait(sink, len(batch), f"query grpc {idl}")
+        finally:
+            rp.stop()
+        _rgba_check(f"query grpc {idl}", sink, want)
+        stats[f"grpc_{idl}"] = {"encode_ms": _median_ms(enc), "decode_ms": _median_ms(dec)}
+    launches = counters.read()
+    hops = 2 + 2 * grpc_ran
+    for k in ("class_reduce", "nms_sweep"):
+        if launches[k] != hops * len(batch):
+            raise AssertionError(f"query transports: launches {launches} for {hops} hops "
+                                 f"of {len(batch)} frames")
+    LOOP_STATS["query_transports"] = dict(stats, grpc_ran=grpc_ran)
+    print("query transports (e), SSD-300 frames, every RGBA == the direct path's: "
+          + "; ".join(f"{k} host ms a frame encode {v['encode_ms']:.4f}, decode "
+                      f"{v['decode_ms']:.4f}" for k, v in stats.items())
+          + f"; launches {launches} [{card}]", flush=True)
+    return launches
+
+
+def run_query_cli(opts, servers, tmp: str, card) -> None:
+    """(f): ``nns-launch-torch --backends A,B --hedge-ms 5 --deadline-ms 2000
+    --fallback passthrough`` with a one-fault ``NNS_TPU_CHAOS`` plan against
+    (b)'s servers, in its own process: exit 0, the chaos line on stderr, and
+    the RGBA frames it writes equal to the direct path's on the same source."""
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.graph.parse import parse_pipeline
+
+    source = (f"videotestsrc width=300 height=300 pattern=random seed={QUERY_CLI_SEED} "
+              f"num-buffers={QUERY_HOP_FRAMES} ! video/x-raw,format=RGB ! "
+              "tensor_converter")
+    ref = parse_pipeline(
+        f"{source} ! tensor_filter framework=xla-tpu model=\"{SSD_SPEC}\" ! "
+        f"tensor_decoder mode=bounding_box option1={opts['option1']} "
+        f"option2={opts['option2']} option3={opts['option3']} option4=300:300 "
+        "option5=300:300 ! tensor_sink store=true",
+        Pipeline("qcli-ref", device=QUERY_DEVICE))
+    ref.run(timeout=300)
+    rsink = next(e for e in ref.elements.values() if e.ELEMENT_NAME == "tensor_sink")
+    want = b"".join(b.memories[0].host().tobytes() for b in rsink.buffers)
+    out = os.path.join(tmp, "query_cli.rgba")
+    backends = ",".join(f"127.0.0.1:{port}" for _, port in servers)
+    plan = {"seed": 19, "faults": [{"kind": "disconnect", "target": "send",
+                                    "cmd": "DATA", "nth": 3}]}
+    env = dict(os.environ, NNS_TPU_CHAOS=json.dumps(plan))
+    t0 = time.perf_counter()
+    run = subprocess.run(
+        [sys.executable, "-m", "nnstreamer_tpu_torch.cli", "--backends", backends,
+         "--hedge-ms", "5", "--deadline-ms", "2000", "--fallback", "passthrough",
+         f"{source} ! tensor_query_client ! filesink location={out}"],
+        cwd=ROOT, env=env, capture_output=True, text=True, timeout=300)
+    wall = time.perf_counter() - t0
+    if run.returncode != 0 or "chaos: fault plan installed (seed=19, 1 faults)" \
+            not in run.stderr:
+        raise AssertionError(f"query cli: exit {run.returncode}, stderr "
+                             f"{run.stderr[-2000:]}")
+    with open(out, "rb") as f:
+        got = f.read()
+    if got != want or len(want) != QUERY_HOP_FRAMES * 300 * 300 * 4:
+        raise AssertionError(f"query cli: {len(got)} bytes written, the direct path's "
+                             f"{len(want)}, equal {got == want}")
+    print(f"query cli (f): nns-launch-torch --backends A,B --hedge-ms 5 --deadline-ms "
+          f"2000 --fallback passthrough with NNS_TPU_CHAOS={json.dumps(plan)}: exit 0 in "
+          f"{wall:.3f} s (its own process), the chaos line on stderr, "
+          f"{QUERY_HOP_FRAMES} RGBA frames == the direct path's [{card}]", flush=True)
+
+
+def run_query(counters) -> dict:
+    """Phase 12b, the query and resilience layers on the card: (a) SSD-300
+    behind tensor_query with the reduce on the server, (b) routed over two
+    servers through a partition and a delay, (c) the client's fallback onto
+    the card, (d) the repo-LSTM composite behind the hop, (e) MQTT,
+    discovery and gRPC hops, (f) the CLI. Returns each part's launches."""
+    from nnstreamer_tpu_torch.graph import element as gel
+    from nnstreamer_tpu_torch.query import protocol
+
+    card = _card()
+    frames = _query_frames(QUERY_WARM + QUERY_FRAMES)
+    by_phase = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        opts = _ssd_opts(tmp)
+        direct = _direct_ssd(frames, opts)
+        direct_outs = direct[0]
+        print(f"query direct (the same frames without a hop): {len(frames)} frames, "
+              f"steady fps {direct[1]:.2f}, launches {direct[2]}, host copies "
+              f"{direct[3]} [{card}]", flush=True)
+        srv, port, by_phase["query ssd"] = run_query_ssd(opts, frames, direct, counters,
+                                                         card)
+        servers = []
+        try:
+            servers, by_phase["query routed"] = run_query_routed(
+                opts, frames, direct_outs, counters, card)
+            by_phase["query fallback"] = run_query_fallback(opts, frames, direct_outs,
+                                                            counters, card)
+            by_phase["query composite"] = run_query_composite(counters, card)
+            by_phase["query transports"] = run_query_transports(
+                opts, frames, direct_outs, port, counters, card)
+            counters.reset()
+            run_query_cli(opts, servers, tmp, card)
+            by_phase["query cli"] = counters.read()
+        finally:
+            for p, _ in servers:
+                p.stop()
+            srv.stop()
+    if protocol.CHAOS_HOOK is not None or gel.CHAOS_CHAIN_HOOK is not None:
+        raise AssertionError("query: a chaos hook is still installed")
+    _release()
+    return by_phase
+
+
 def _crop_inputs() -> tuple:
     """64 1920x1080x3 uint8 frames and 1-9 boxes a frame, each box's origin
     inside the frame and its sides 16-400 pixels (clipped at the edges)."""
@@ -4955,7 +5792,7 @@ def _check_layers_lm(run: dict, off: dict, qparams, mixes) -> dict:
     if rc != 0 or json.loads(buf.getvalue())["id"] != doc["id"] \
             or any(v is None or "error" in v for v in stanzas.values()) \
             or "lm" not in doc["slo"]["tenants"] or not doc["events"]["events"] \
-            or "§A8" not in doc["routing"].get("error", "") \
+            or not isinstance(doc["routing"], list) \
             or "§A9" not in doc["fleet_actions"].get("error", ""):
         raise AssertionError(f"layers lm: nns-diag-torch read rc {rc}, bundle stanzas "
                              f"{ {k: type(v).__name__ for k, v in doc.items()} }")
@@ -5380,6 +6217,7 @@ def main() -> int:
     by_phase["lm flash prefill float32"] = run_flash_prefill(counters, torch.float32)
     run_filter_options()
     by_phase["repo_lstm"] = run_repo_lstm(counters)
+    by_phase.update(run_query(counters))
     by_phase["crop_bucketed"] = run_crop_bucketed(counters)
     by_phase["stream_elements"] = run_stream_elements(counters)
     check_media_elements()

@@ -29,11 +29,18 @@ objectives; report at exit), --diag[=DIR] (critical-path attribution and
 incident debug bundles; implies --trace; read bundles with nns-diag-torch),
 --quality[=SPEC] (data-plane tensor stats, drift and LM confidence; report
 at exit) with --quality-record PATH (a drift baseline at exit) and
---tune[=STORE] (the autotuner; its report at exit, the store saved). The
-JAX CLI's flags whose layers the port has not reached are refused, naming
-the ROADMAP item that brings each: --deadline-ms, --fallback, --backends,
---hedge-ms (§A8), --obs-push, --obs-aggregate, --autoscale,
---checkpoint-dir, --checkpoint-interval, --role, --disagg (§A9).
+--tune[=STORE] (the autotuner; its report at exit, the store saved).
+Offload resilience as in the JAX CLI, applied to every
+``tensor_query_client`` of the pipeline: --deadline-ms MS (a per-buffer
+deadline budget; expired buffers are shed), --fallback SPEC (the degraded
+route when the breaker opens: ``passthrough`` or a local element kind),
+--backends HOST:PORT[,...] (routed dispatch over that backend set) and
+--hedge-ms MS (hedged dispatch; needs --backends with >= 2 endpoints); a
+JSON fault plan in ``NNS_TPU_CHAOS`` is installed for the run
+(resilience/chaos.py). The JAX CLI's flags whose layers the port has not
+reached are refused, naming the ROADMAP item that brings each:
+--obs-push, --obs-aggregate, --autoscale, --checkpoint-dir,
+--checkpoint-interval, --role, --disagg (§A9).
 
 Exit codes: 0 at EOS, 1 on a parse, negotiation or runtime error, 2 when
 the timeout passes before EOS.
@@ -54,10 +61,6 @@ _BARE_OK_FLAGS = ("--profile", "--watchdog", "--sched")
 #: the JAX CLI's flags whose layers the port has not reached yet, and the
 #: ROADMAP item that brings each back; each is refused
 _REFUSED_FLAGS = {
-    "--deadline-ms": "resilience/ and query/ (ROADMAP §A8)",
-    "--fallback": "resilience/ and query/ (ROADMAP §A8)",
-    "--backends": "query/router.py (ROADMAP §A8)",
-    "--hedge-ms": "query/router.py (ROADMAP §A8)",
     "--obs-push": "obs/fleet.py (ROADMAP §A9)",
     "--obs-aggregate": "obs/fleet.py (ROADMAP §A9)",
     "--autoscale": "fleet/ (ROADMAP §A9)",
@@ -173,6 +176,27 @@ def main(argv=None) -> int:
                          "breaches flip the tenant's slo:<name> component "
                          "DEGRADED in /healthz, show at /debug/slo, and the "
                          "per-tenant report prints at exit")
+    ap.add_argument("--deadline-ms", type=float, default=None, metavar="MS",
+                    help="stamp this per-buffer deadline budget on every "
+                         "tensor_query_client in the pipeline; expired "
+                         "buffers/requests are shed instead of processed "
+                         "(resilience.policy)")
+    ap.add_argument("--fallback", metavar="SPEC", default=None,
+                    help="degraded-mode route for every tensor_query_client "
+                         "when its circuit breaker opens: 'passthrough' or "
+                         "a local element kind (e.g. tensor_filter)")
+    ap.add_argument("--backends", metavar="HOST:PORT[,HOST:PORT...]",
+                    default=None,
+                    help="route every tensor_query_client across this "
+                         "backend set instead of its single host/port: "
+                         "per-backend circuit breakers, two-choice "
+                         "placement, mid-stream failover (query.router)")
+    ap.add_argument("--hedge-ms", type=float, default=None, metavar="MS",
+                    help="hedged dispatch for routed clients: duplicate a "
+                         "request to a second backend once the observed "
+                         "P95 round trip (floored at MS) elapses without "
+                         "a response; first result wins (needs --backends "
+                         "with >= 2 endpoints)")
     for flag in _REFUSED_FLAGS:
         ap.add_argument(flag, nargs="?", const=True, default=None,
                         help=argparse.SUPPRESS)
@@ -225,6 +249,23 @@ def main(argv=None) -> int:
             ap.error(f"{flag} waits for the port of {layer}")
     if not args.pipeline:
         ap.error("pipeline description required")
+    backend_eps = None
+    if args.backends is not None:
+        from .query.router import parse_endpoints
+
+        try:
+            backend_eps = parse_endpoints(args.backends)
+        except ValueError as e:
+            ap.error(f"--backends: {e}")
+    if args.hedge_ms is not None:
+        if backend_eps is None:
+            ap.error("--hedge-ms needs --backends (hedging is a routed-"
+                     "dispatch feature)")
+        if args.hedge_ms <= 0:
+            ap.error("--hedge-ms must be > 0")
+        if len(backend_eps) < 2:
+            ap.error("--hedge-ms needs --backends with >= 2 endpoints "
+                     "(a hedge must land on a different backend)")
     if args.profile is not None and args.profile < 1:
         ap.error("--profile must be >= 1 (ring capacity in records)")
     if args.profile_dump is not None and args.profile is None:
@@ -293,6 +334,24 @@ def main(argv=None) -> int:
     except Exception as e:  # noqa: BLE001 — CLI reports, never tracebacks
         print(f"ERROR: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    if args.deadline_ms is not None or args.fallback is not None \
+            or backend_eps is not None:
+        from .query.client import TensorQueryClient
+
+        clients = [el for el in p.elements.values()
+                   if isinstance(el, TensorQueryClient)]
+        if not clients:
+            ap.error("--deadline-ms/--fallback/--backends need a "
+                     "tensor_query_client in the pipeline")
+        for el in clients:
+            if args.deadline_ms is not None:
+                el.deadline_ms = float(args.deadline_ms)
+            if args.fallback is not None:
+                el.fallback = args.fallback
+            if backend_eps is not None:
+                el.backends = [f"{h}:{pt}" for h, pt in backend_eps]
+                if args.hedge_ms is not None:
+                    el.hedge_ms = float(args.hedge_ms)
     exporter = None
     if args.metrics_port is not None:
         # started (and collection enabled) BEFORE p.start(): the element
@@ -385,11 +444,22 @@ def main(argv=None) -> int:
               f"{', '.join(sorted(qeng.taps_enabled))})"
               f"{' with drift baseline' if qeng.baseline is not None else ''}",
               file=sys.stderr)
+    chaos_plan = None
+    if os.environ.get("NNS_TPU_CHAOS"):
+        from .resilience import chaos
+
+        chaos_plan = chaos.plan_from_env()
+        if chaos_plan is not None:
+            chaos.install(chaos_plan)
+            print(f"chaos: fault plan installed (seed={chaos_plan.seed}, "
+                  f"{len(chaos_plan.faults)} faults)", file=sys.stderr)
     t0 = time.monotonic()
     try:
         p.start()
     except Exception as e:  # noqa: BLE001
         print(f"ERROR: {type(e).__name__}: {e}", file=sys.stderr)
+        if chaos_plan is not None:
+            chaos.uninstall()
         if sched_engine is not None:
             from . import sched
 
@@ -416,6 +486,9 @@ def main(argv=None) -> int:
             return 2
     finally:
         p.stop()
+        if chaos_plan is not None:
+            # the hooks back to None: main() may run again in-process
+            chaos.uninstall()
         if sched_engine is not None:
             # AFTER p.stop(): chain threads must be gone before the
             # dispatch loop dies, or a chain could block on a future

@@ -18,5 +18,12 @@ from . import rate  # noqa: F401
 from . import repo  # noqa: F401
 from . import sparse  # noqa: F401
 from . import trainer  # noqa: F401
+from ..query import server as _query_server  # noqa: F401
+from ..query import client as _query_client  # noqa: F401
+from ..query import pubsub as _query_pubsub  # noqa: F401
+try:
+    from ..query import grpc_io as _query_grpc  # noqa: F401
+except ImportError:  # grpcio genuinely absent
+    pass
 from . import media  # noqa: F401
 from . import iio  # noqa: F401

@@ -51,10 +51,17 @@ def join_or_warn(t: threading.Thread, owner: str,
     return False
 
 
+#: chaos injection point (resilience/chaos.py installs/clears this):
+#: called as ``hook(sink_element_name, buf) -> bool`` before the peer's
+#: chain; True drops the buffer (the graph's legal drop semantics —
+#: return OK without delivering), a raise rides the existing chain-error
+#: path onto the bus. Disabled cost: one global load + None check.
+CHAOS_CHAIN_HOOK = None
+
 #: profiler timing point (obs/profile.py installs/clears this): called
 #: as ``hook(peer_pad, buf)`` IN PLACE of ``peer.element._chain_entry``
 #: — it runs the chain itself, timed, and returns the chain's
-#: FlowReturn. Disabled cost: one global load + None check.
+#: FlowReturn. Same disabled cost contract as CHAOS_CHAIN_HOOK.
 PROFILE_CHAIN_HOOK = None
 
 
@@ -108,8 +115,13 @@ class Pad:
         if peer.eos:
             return FlowReturn.EOS
         try:
+            if CHAOS_CHAIN_HOOK is not None \
+                    and CHAOS_CHAIN_HOOK(peer.element.name, buf):
+                return FlowReturn.OK  # buffer dropped by the fault plan
             # data-plane quality tap (obs/quality): observes the buffer
-            # the peer actually receives, from its host copy only
+            # the peer actually receives, from its host copy only — after
+            # chaos, so an injected corruption is visible to the NaN-storm
+            # rule
             qhook = _quality.QUALITY_HOOK
             if qhook is not None:
                 qhook.observe_chain(peer.element.name, buf)

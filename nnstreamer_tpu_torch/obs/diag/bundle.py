@@ -1,10 +1,9 @@
 """Debug bundles: one bounded JSON file of *evidence* per incident.
 
-Port of nnstreamer_tpu/obs/diag/bundle.py. The ``routing`` and
-``fleet_actions`` stanzas read layers the port has not reached (the query
-router, ROADMAP §A8; the fleet controller, §A9): their collectors raise
-naming the item, so every bundle records them as error stanzas, the JAX
-bundle's own marker for a missing layer.
+Port of nnstreamer_tpu/obs/diag/bundle.py. The ``fleet_actions`` stanza
+reads a layer the port has not reached (the fleet controller, ROADMAP
+§A9): its collector raises naming the item, so every bundle records it as
+an error stanza, the JAX bundle's own marker for a missing layer.
 
 A bundle freezes what the bounded obs rings would otherwise age out —
 the slowest span trees (with raw integer-ns spans so the offline
@@ -75,8 +74,9 @@ def default_collectors() -> Dict[str, Callable[[], Any]]:
         }
 
     def _routing() -> Any:
-        raise NotImplementedError(
-            "query/router.py is not ported (ROADMAP §A8)")
+        from ...query import router as _router
+
+        return _router.routing_view()
 
     def _fleet_actions() -> Any:
         raise NotImplementedError("fleet/ is not ported (ROADMAP §A9)")

@@ -26,9 +26,9 @@ cannot:
    ``slo.burn_alert``, shows in ``/debug/slo`` and the fleet rollup, and
    draws a per-tenant goodput counter lane in the Perfetto export.
 
-The router's dispatch tap (``ROUTER_SLO_HOOK``, ``record_dispatch``) and
-the fleet rollup wait for the query and fleet layers (ROADMAP §A8, §A9):
-the hook is set and cleared with the others, and no ported code reads it.
+The router's dispatch tap (``ROUTER_SLO_HOOK``, ``record_dispatch``) is
+read by ``query.router.QueryRouter`` per successful dispatch; the fleet
+rollup waits for the fleet layer (ROADMAP §A9).
 
 Zero-overhead-when-off: the three hooks below are module globals that stay
 ``None`` until :func:`enable` is called.  Instrumented call sites pay one
@@ -92,8 +92,7 @@ _TRACE_CAP = 4096
 SCHED_SLO_HOOK: Optional["SloRegistry"] = None
 #: Consumed by serving LMEngine/TPLMEngine phase + retire + shed sites.
 ENGINE_SLO_HOOK: Optional["SloRegistry"] = None
-#: Consumed by query.router.QueryRouter per dispatch (ROADMAP §A8: no
-#: ported code reads it yet).
+#: Consumed by query.router.QueryRouter per dispatch.
 ROUTER_SLO_HOOK: Optional["SloRegistry"] = None
 
 

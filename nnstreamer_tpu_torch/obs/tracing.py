@@ -1,10 +1,10 @@
 """Span-based request tracing with cross-wire context propagation.
 
-Port of nnstreamer_tpu/obs/tracing.py (stdlib only). The wire helpers
-and the export queue a fleet pusher drains are kept for the query and fleet
-layers (ROADMAP §A8-A9); the JAX store's ``requeue_export``/``ingest_remote``
-(the pusher's retry and the aggregator's side) come back with the fleet
-(§A9). The metrics answer "how slow is this element on average"; they
+Port of nnstreamer_tpu/obs/tracing.py (stdlib only). The query layer
+reads the wire helpers; the export queue a fleet pusher drains is kept for
+the fleet layer, and the JAX store's ``requeue_export``/``ingest_remote``
+(the pusher's retry and the aggregator's side) come back with it (ROADMAP
+§A9). The metrics answer "how slow is this element on average"; they
 cannot answer "where did *this* slow request spend its time" across
 client → query wire → server pipeline → serving engine. This module is
 the per-request complement: explicit span contexts (``trace_id`` /

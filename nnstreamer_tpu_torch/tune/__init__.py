@@ -5,8 +5,8 @@ the CUDA card's name (``torch.cuda.get_device_name()``), ``"cpu"`` without
 one. Flash attention's knob is its CUDA kernel's launch configuration
 (ops/kernels/flash_attention.py), not the Pallas block shapes. The fleet
 federation (``obs.fleet.TUNE_PUSH_HOOK``/``TUNE_ADOPT_HOOK``) waits for the
-fleet layer (ROADMAP §A9) and the router's hedge delay for the query layer
-(§A8); ``Tuner.push_doc``/``adopt`` are kept.
+fleet layer (ROADMAP §A9); ``Tuner.push_doc``/``adopt`` are kept. The
+router reads ``Tuner.auto_hedge`` to arm hedging from its observed P95.
 
 ``obs/profile.py`` records per-dispatch cost samples; this package
 *acts* on them. A :class:`~nnstreamer_tpu_torch.tune.tuner.Tuner` owns the

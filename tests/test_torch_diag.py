@@ -550,8 +550,8 @@ class TestBreachE2E:
         burn alert does. The bundle holds the offending tenant's spans,
         and the critical path it freezes is conservation-exact offline.
         (The JAX case's fleet remediation bundle waits for fleet/,
-        ROADMAP §A9; the bundle's routing and fleet stanzas are error
-        stanzas naming §A8 and §A9.)"""
+        ROADMAP §A9; the bundle's fleet stanza is an error stanza naming
+        §A9, its routing stanza the live routers' view.)"""
         deng = _enable(tmp_path)
         health.enable(interval_s=3600.0)
         fc = FakeClock()
@@ -604,7 +604,9 @@ class TestBreachE2E:
         # the bundle's critpath rollup blames the right tenant
         assert "rt" in doc["critpath"]["tenants"]
 
-        assert "§A8" in doc["routing"]["error"]
+        from nnstreamer_tpu_torch.query import router as qrouter
+
+        assert doc["routing"] == qrouter.routing_view()
         assert "§A9" in doc["fleet_actions"]["error"]
 
         # offline: nns-diag reproduces a conservation-exact waterfall

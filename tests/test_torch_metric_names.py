@@ -143,3 +143,28 @@ def test_lint_catches_an_slo_name_minted_outside_obs_slo(lint, tmp_path):
     assert len(problems) == 2
     assert all("lm_engine.py" in p for p in problems)
     assert lint.check_tune(tmp_path) == []
+
+
+@pytest.mark.parametrize("layer", ["query", "router", "resilience", "chaos"])
+def test_query_layers_register_where_the_jax_package_does(lint, layer):
+    """The query and resilience layers' metric families, event types and
+    span names are each minted in the same module of both trees, but the
+    router's prefix-aware placement event, which needs the fleet aggregator
+    (ROADMAP §A9)."""
+    def where(root):
+        regs, events, spans = set(), set(), set()
+        for path, _, _, name in lint.iter_registrations(root):
+            if name.split("_")[1] == layer:
+                regs.add((path.relative_to(root).as_posix(), name))
+        for path, _, name in lint.iter_event_sites(root):
+            if name.split(".")[0] == layer:
+                events.add((path.relative_to(root).as_posix(), name))
+        for path, _, name in lint.iter_span_sites(root):
+            if name.split(".")[0] == layer:
+                spans.add((path.relative_to(root).as_posix(), name))
+        return regs, events, spans
+
+    mine, ref = where(PORT), where(JAX)
+    assert mine[0], f"no {layer} metric family registered in the port"
+    waiting = {("query/router.py", "router.prefix_place")}
+    assert mine == (ref[0], ref[1] - waiting, ref[2])

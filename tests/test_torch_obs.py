@@ -881,9 +881,7 @@ def test_obs_flags_normalize_as_jax(argv):
     assert _normalize_argv(list(argv)) == jax_normalize(list(argv))
 
 
-@pytest.mark.parametrize("flag", ["--deadline-ms",
-                                  "--fallback", "--backends", "--hedge-ms",
-                                  "--obs-push", "--obs-aggregate",
+@pytest.mark.parametrize("flag", ["--obs-push", "--obs-aggregate",
                                   "--autoscale", "--checkpoint-dir",
                                   "--checkpoint-interval", "--role",
                                   "--disagg"])

@@ -9,9 +9,9 @@ storm bundling itself through the watchdog, the exporter routes and the
 Perfetto lane); then parity: the spec grammar, a baseline written by one
 package scored by the other, the drift verdicts, the confidence triple
 against the JAX engine's ``_conf_from_row``, and the confidence admission's
-first tokens against the plain admission's. The JAX NaN-storm case injects
-its poison with resilience/chaos.py (ROADMAP §A8); here the appsrc's own
-frames carry it. Every socket binds port 0.
+first tokens against the plain admission's. The NaN-storm case injects its
+poison with resilience/chaos.py's ``corrupt`` fault, as the JAX case does.
+Every socket binds port 0.
 """
 
 import inspect
@@ -544,20 +544,30 @@ class TestNanStormE2E:
 
     def test_nan_storm_auto_bundles_offending_tap(
             self, quality_off, diag_off, health, events, tmp_path):
-        """The acceptance scenario: NaN-poisoned consecutive frames
-        (the 3rd to 5th) enter the sink. Nobody calls capture — the
-        watchdog's quality rule does. The bundle names the offending tap
-        and freezes its stats in the quality stanza."""
+        """The acceptance scenario: a seeded chaos corrupt fault
+        NaN-poisons consecutive frames entering the sink. Nobody calls
+        capture — the watchdog's quality rule does. The bundle names
+        the offending tap and freezes its stats in the quality
+        stanza."""
+        from nnstreamer_tpu_torch.resilience import chaos
+
         deng = _enable_diag(tmp_path)
         health.enable(interval_s=3600.0)
         quality.enable(nan_storm=2)
-        frames = _frames(2) + _frames(3, fill=np.nan)
-        p = Pipeline(device="cpu")
-        src = p.add_new("appsrc", caps=self._caps(), data=frames)
-        sink = p.add_new("tensor_sink", "qsink", store=True)
-        Pipeline.link(src, sink)
-        p.run(timeout=30)
-        assert sink.num_buffers == 5  # poison flows on, never drops
+        plan = chaos.FaultPlan(
+            [chaos.Fault(kind="corrupt", target="chain:qsink",
+                         nth=(3, 4, 5))], seed=11)
+        chaos.install(plan)
+        try:
+            p = Pipeline(device="cpu")
+            src = p.add_new("appsrc", caps=self._caps(), data=_frames(5))
+            sink = p.add_new("tensor_sink", "qsink", store=True)
+            Pipeline.link(src, sink)
+            p.run(timeout=30)
+        finally:
+            chaos.uninstall()
+        assert sink.num_buffers == 5  # corrupt flows on, never drops
+        assert [f["kind"] for f in plan.fired] == ["corrupt"] * 3
 
         # the tap saw the poison the sink actually received
         row = quality.snapshot()["taps"]["chain:qsink"]
