@@ -149,6 +149,37 @@ Phases (any failure exits non-zero before the result lines are printed):
      --hedge-ms 5 --deadline-ms 2000 --fallback passthrough`` with a
      one-fault ``NNS_TPU_CHAOS`` plan against (b)'s servers: exit 0, the
      chaos line, its RGBA frames equal to the direct path's;
+ 12c. sessions and the fleet, every worker in-process on 127.0.0.1 port 0,
+     the bench LM at max_len 512, chunk 16, pages of 32, 2 slots an engine:
+     (a) bench.py's disaggregated serving lane at full width, float32 and
+     w8a8: a ``role="prefill"`` DisaggWorker ships its KV pages over
+     ``KV_PAGE_XFER`` to a ``role="decode"`` one for 32 requests sharing a
+     128-token prefix (prompts 160-256, 32 tokens each), two passes (cold,
+     with the captures; warm): every request token-equal to a unified
+     engine run request at a time, pages sent == received, no re-prefill,
+     ``dequant_gelu_requant`` launched on the w8a8 prefill, decode and
+     unified engines and never on float32's; tokens/s both ways, hit
+     rates, pages and bytes a request, the first request's time, peak
+     memory; then the host ms of each transfer stage (gather, copy to the
+     host, encode, wire round trip, decode, upload) for a 256-token
+     prompt's 8 pages; (b) the w8a8 prefill worker killed: 8 fresh-prefix
+     requests re-prefilled on the decode worker under their deadlines,
+     token-equal, 8 ``disagg.reprefill`` events; a PageSpiller pass whose
+     pages the neighbour's next shared-prefix request hits; (c) bench.py's
+     fleet lane at full width in w8a8: 4 workers, 16 sessions x 4 turns,
+     halved twice at the middle turn through SessionMigrator: goodput ratio
+     1.0, every turn equal to the unhalved run's; (e) on the unhalved run's
+     workers, an aggregator on an exporter fed over the query wire and
+     HTTP: every worker's series under its instance label, the fleet
+     rollups, a silent worker stalled and recovered, a page transfer's
+     trace stitched, a shared-prefix request placed on its holder; (d)
+     bench.py's restore lane at the same widths: neighbour checkpoints,
+     the busiest worker killed, its sessions restored warm and their next
+     turns equal to an uncrashed engine's, restore seconds, warm ratio and
+     the checkpoint overhead ratio; (f) ``python -m nnstreamer_tpu_torch.cli
+     --role decode --kv-page-size 32 --obs-push wire --obs-aggregate
+     --metrics-port 0 --checkpoint-dir DIR --autoscale 1:2 --backends A,B``
+     over two SSD-300 query servers: exit 0 and the JAX CLI's fleet lines;
  13. crop → bucketed classifier: 64 1920x1080 frames with 1-9 seeded boxes
      through ``tensor_crop → tensor_filter model=zoo://mobilenet_v2
      custom="bucket=4,resize=224:224"``: one graph a padded size, frames/s
@@ -3614,6 +3645,857 @@ def run_query(counters) -> dict:
     return by_phase
 
 
+#: the fleet phase (12c): bench.py's disaggregated serving lane
+#: (_disagg_serving_lane) at its full width, its fleet and restore lanes
+#: (_fleet_lane, _fleet_restore_lane) at the same widths: the bench LM,
+#: max_len 512, chunk 16, pages of 32 tokens, 2 slots an engine
+FLEET_DEVICE = "cuda"
+FLEET_DIMS = LM_DIMS
+FLEET_MAX_LEN, FLEET_CHUNK, FLEET_PAGE = 512, 16, 32
+#: (a): 32 greedy requests sharing a 128-token prefix, prompts 160-256
+#: tokens, 32 generated each, a pool of 32 pages per engine
+DISAGG_REQUESTS, DISAGG_PREFIX, DISAGG_GEN = 32, 128, 32
+DISAGG_PROMPTS = (160, 192, 224, 256)
+DISAGG_POOL = 2 * FLEET_MAX_LEN // FLEET_PAGE
+#: (b): requests with a fresh prefix after the prefill worker is killed
+DISAGG_LOST = 8
+#: (c): 4 unified workers, 16 sessions x 4 turns, 16 tokens a turn
+MIG_WORKERS, MIG_SESSIONS, MIG_TURNS, MIG_GEN = 4, 16, 4, 16
+MIG_POOL = 4 * FLEET_MAX_LEN // FLEET_PAGE
+#: (d): 3 workers, 6 sessions, 8 tokens a turn; the overhead sub-run's
+#: interleaved repetitions (bench.py takes 5)
+RESTORE_WORKERS, RESTORE_SESSIONS, RESTORE_GEN, RESTORE_REPS = 3, 6, 8, 3
+#: repetitions of each page-transfer stage (the median is printed)
+XFER_REPS = 5
+#: (f): frames the CLI's routed client sends
+FLEET_CLI_FRAMES = 8
+
+
+def _fsync() -> None:
+    if FLEET_DEVICE != "cpu":
+        torch.cuda.synchronize()
+
+
+def _peak_reset() -> None:
+    if FLEET_DEVICE != "cpu":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _peak_mib() -> float:
+    if FLEET_DEVICE == "cpu":
+        return 0.0
+    return torch.cuda.max_memory_allocated() / 2 ** 20
+
+
+def _fleet_params():
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.models.convert import causal_lm_params
+
+    v, d, h, n_layers = FLEET_DIMS
+    return causal_lm_params(
+        causal_lm.init_causal_lm(0, v, d, h, n_layers, FLEET_MAX_LEN), FLEET_DEVICE)
+
+
+def _fleet_engine(params, pages: int, role=None):
+    from nnstreamer_tpu_torch.serving import LMEngine
+
+    return LMEngine(params, FLEET_DIMS[2], FLEET_MAX_LEN, n_slots=2,
+                    chunk=FLEET_CHUNK, kv_page_size=FLEET_PAGE, kv_pages=pages,
+                    role=role, device=FLEET_DEVICE)
+
+
+def _disagg_requests(seed: int = 7, n: int = 0) -> list:
+    """bench.py's mix: ``n`` (default DISAGG_REQUESTS) prompts sharing a
+    DISAGG_PREFIX-token prefix, their lengths cycling through
+    DISAGG_PROMPTS."""
+    v, n = FLEET_DIMS[0], n or DISAGG_REQUESTS
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, v, DISAGG_PREFIX).astype(np.int32)
+    return [np.concatenate([prefix, rng.integers(
+        0, v, DISAGG_PROMPTS[i % len(DISAGG_PROMPTS)] - DISAGG_PREFIX).astype(np.int32)])
+        for i in range(n)]
+
+
+def _tally_runs(eng, wrapper, tally: dict, key: str) -> None:
+    """Count ``wrapper``'s launches made inside ``eng.run()`` under ``key``
+    (a worker's engine runs on its connection thread; the disagg requests
+    run one at a time, so no other engine launches meanwhile)."""
+    run = eng.run
+
+    def counted():
+        before = wrapper.launches
+        try:
+            return run()
+        finally:
+            tally[key] = tally.get(key, 0) + wrapper.launches - before
+
+    eng.run = counted
+
+
+def _unified(eng, reqs, gen: int) -> tuple:
+    """Request at a time on a unified engine: (tokens, wall s, first s)."""
+    outs, first = [], None
+    t0 = time.perf_counter()
+    for p in reqs:
+        ts = time.perf_counter()
+        rid = eng.submit(p, max_new=gen)
+        eng.run()
+        outs.append([int(t) for t in eng.results[rid]])
+        if first is None:
+            first = time.perf_counter() - ts
+    _fsync()
+    return outs, time.perf_counter() - t0, first
+
+
+def _kv_distance(a_eng, b_eng, prompt) -> float:
+    """Largest K/V difference over the pages both engines hold for
+    ``prompt`` (inf when either holds none)."""
+    a, b = a_eng._kv.export_pages(prompt), b_eng._kv.export_pages(prompt)
+    if a is None or b is None:
+        return float("inf")
+    return max(float(np.max(np.abs(x[s] - y[s])))
+               for x, y in zip(a["entries"], b["entries"]) for s in ("k", "v"))
+
+
+def _first_difference(name: str, reqs, got, want, dec_eng, uni_eng) -> None:
+    for i, (g, w) in enumerate(zip(got, want)):
+        if g != w:
+            t = next((j for j, (x, y) in enumerate(zip(g, w)) if x != y),
+                     min(len(g), len(w)))
+            raise AssertionError(
+                f"{name}: request {i} ({reqs[i].size} tokens) differs from the "
+                f"unified engine first at token {t} ({g[t:t + 4]} against "
+                f"{w[t:t + 4]}); K/V distance over its pages "
+                f"{_kv_distance(dec_eng, uni_eng, reqs[i]):.3e}")
+
+
+def _xfer_stages(kv, prompt, peer, card: str, quant: str) -> None:
+    """Host ms and bytes of each stage of one full-width page transfer (the
+    256-token prompt's full pages): the gather on the card, the copy to
+    the host, ``encode_pages``, the wire round trip to the decode worker
+    (its decode and splice included), ``decode_pages`` and the upload into
+    a pool (``_pool_set``, the import's copy). Medians of XFER_REPS."""
+    from nnstreamer_tpu_torch.serving import disagg
+    from nnstreamer_tpu_torch.serving.kv_cache import PagedKVCache
+
+    ps = kv.page_size
+    node, ids, keys = kv.root, [], []
+    for k in range(int(prompt.size) // ps):
+        key = tuple(int(x) for x in prompt[k * ps:(k + 1) * ps])
+        child = node.children.get(key)
+        if child is None or child.page is None:
+            break
+        ids.append(child.page)
+        keys.append(list(key))
+        node = child
+    if len(ids) != int(prompt.size) // ps:
+        raise AssertionError(f"transfer stages: {len(ids)} of "
+                             f"{int(prompt.size) // ps} pages in the pool")
+    dev = kv.kpool.device
+    idx = torch.tensor(ids, dtype=torch.int64, device=dev)
+    hdr = kv._header()
+    lh, hd = hdr["lh"], hdr["hd"]
+    times = {s: [] for s in ("gather", "d2h", "encode", "wire", "decode", "upload")}
+    scratch = PagedKVCache(FLEET_DIMS[3], FLEET_DIMS[2], ps, len(ids), hd,
+                           device=dev)
+    payload_bytes = 0
+    for _ in range(XFER_REPS):
+        with kv.on_stream():
+            _fsync()
+            t = time.perf_counter()
+            ks, vs = kv.kpool.index_select(0, idx), kv.vpool.index_select(0, idx)
+            _fsync()
+            times["gather"].append(time.perf_counter() - t)
+            t = time.perf_counter()
+            kh, vh = ks.cpu().numpy(), vs.cpu().numpy()
+            times["d2h"].append(time.perf_counter() - t)
+        doc = dict(hdr, entries=[{"key": keys[i], "k": kh[i], "v": vh[i]}
+                                 for i in range(len(ids))])
+        t = time.perf_counter()
+        meta, payload = disagg.encode_pages(doc)
+        times["encode"].append(time.perf_counter() - t)
+        payload_bytes = len(payload)
+        t = time.perf_counter()
+        peer.send_frame(dict(meta), payload, pages=len(ids))
+        times["wire"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        back = disagg.decode_pages(meta, payload)
+        times["decode"].append(time.perf_counter() - t)
+        t = time.perf_counter()
+        for i, ent in enumerate(back["entries"]):
+            scratch._pool_set(i + 1, ent["k"], ent["v"])
+        _fsync()
+        times["upload"].append(time.perf_counter() - t)
+        for i, ent in enumerate(back["entries"]):
+            if not (np.array_equal(ent["k"], kh[i]) and np.array_equal(ent["v"], vh[i])):
+                raise AssertionError("transfer stages: decoded page differs")
+        for i in range(len(ids)):
+            if not (torch.equal(scratch.kpool[i + 1], ks[i])
+                    and torch.equal(scratch.vpool[i + 1], vs[i])):
+                raise AssertionError("transfer stages: uploaded page differs")
+    med = {s: float(np.median(v)) * 1e3 for s, v in times.items()}
+    page = lh * ps * hd * 4
+    print(f"fleet disagg {quant} transfer stages, {len(ids)} pages (K and V "
+          f"{page / 2 ** 20:.3f} MiB each, {payload_bytes} payload bytes), host ms "
+          "(median of " f"{XFER_REPS}): " + ", ".join(
+              f"{s} {med[s]:.6f}" for s in times)
+          + " (the wire round trip includes the peer's decode and splice) "
+          f"[{card}]", flush=True)
+
+
+def run_fleet_disagg(params, quant: str, counters, card: str, lost: bool) -> dict:
+    """(a), and with ``lost`` (b): bench.py's disaggregated serving lane at
+    full width against a unified engine, two passes (cold, with the
+    programs' captures; warm), every request token-equal; then the prefill
+    worker killed and DISAGG_LOST fresh-prefix requests re-prefilled on the
+    decode worker under their deadlines, and one PageSpiller pass whose
+    pages the neighbour's next shared-prefix request hits."""
+    from nnstreamer_tpu_torch.obs import events
+    from nnstreamer_tpu_torch.query.router import BackendSet, QueryRouter
+    from nnstreamer_tpu_torch.resilience.policy import Deadline
+    from nnstreamer_tpu_torch.serving import disagg
+
+    reqs = _disagg_requests()
+    dgr = counters.wrappers["dequant_gelu_requant"]
+    tally: dict = {}
+    pre_eng = _fleet_engine(params, DISAGG_POOL, "prefill")
+    dec_eng = _fleet_engine(params, DISAGG_POOL, "decode")
+    uni = _fleet_engine(params, DISAGG_POOL)
+    for key, eng in (("prefill", pre_eng), ("decode", dec_eng), ("unified", uni)):
+        _tally_runs(eng, dgr, tally, key)
+    pre_w, dec_w = disagg.DisaggWorker(pre_eng), disagg.DisaggWorker(dec_eng)
+    client = disagg.DisaggClient([(pre_w.host, pre_w.port)],
+                                 [(dec_w.host, dec_w.port)],
+                                 page_size=FLEET_PAGE, name=f"disagg-{quant}")
+    nb = peer = None
+    by_phase = {}
+    counters.reset()
+    try:
+        for pas in ("cold", "warm"):
+            _peak_reset()
+            tally.clear()
+            sent0 = disagg._PAGES_SENT.labels().value
+            recv0 = disagg._PAGES_RECV.labels().value
+            bytes0 = disagg._XFER_BYTES.labels().value
+            rep0, cs0 = disagg._REPREFILL.labels().value, dict(client.stats)
+            kv0 = {k: dict(e.kv_stats) for k, e in (("prefill", pre_eng),
+                                                     ("decode", dec_eng))}
+            outs, first = [], None
+            t0 = time.perf_counter()
+            for p in reqs:
+                ts = time.perf_counter()
+                outs.append(client.generate(p, DISAGG_GEN))
+                if first is None:
+                    first = time.perf_counter() - ts
+            _fsync()
+            dwall = time.perf_counter() - t0
+            uouts, uwall, ufirst = _unified(uni, reqs, DISAGG_GEN)
+            _first_difference(f"fleet disagg {quant} {pas}", reqs, outs, uouts,
+                              dec_eng, uni)
+            sent = disagg._PAGES_SENT.labels().value - sent0
+            recv = disagg._PAGES_RECV.labels().value - recv0
+            nbytes = disagg._XFER_BYTES.labels().value - bytes0
+            reps = disagg._REPREFILL.labels().value - rep0
+            if sent != recv or sent != client.stats["pages_sent"] - cs0["pages_sent"] \
+                    or sent == 0 or reps or client.stats["reprefills"] != cs0["reprefills"]:
+                raise AssertionError(f"fleet disagg {quant} {pas}: pages sent {sent}, "
+                                     f"received {recv}, re-prefills {reps}")
+            if quant == "w8a8" and not (tally.get("prefill") and tally.get("decode")
+                                        and tally.get("unified")):
+                raise AssertionError(f"fleet disagg {quant}: dequant_gelu_requant "
+                                     f"launches by engine {tally}")
+            if quant == "float32" and any(tally.values()):
+                raise AssertionError(f"fleet disagg float32 launched "
+                                     f"dequant_gelu_requant: {tally}")
+            hit = {}
+            for k, e in (("prefill", pre_eng), ("decode", dec_eng)):
+                s = e.kv_stats
+                hit[k] = (s["hit_tokens"] - kv0[k]["hit_tokens"]) / max(
+                    1, s["prompt_tokens"] - kv0[k]["prompt_tokens"])
+            ntok = sum(len(o) for o in outs)
+            print(f"fleet disagg {quant} {pas} (a): {len(reqs)} requests x "
+                  f"{DISAGG_GEN} tokens, every one == the unified engine's; disagg "
+                  f"{ntok / dwall:.2f} tokens/s against unified "
+                  f"{sum(len(o) for o in uouts) / uwall:.2f} (relative "
+                  f"{(ntok / dwall) / (sum(len(o) for o in uouts) / uwall):.4f}); "
+                  f"prefix hit rate decode {hit['decode']:.4f}, prefill "
+                  f"{hit['prefill']:.4f}; pages sent {sent} == received {recv}, "
+                  f"{sent / len(reqs):.3f} pages and {nbytes / len(reqs):.1f} bytes a "
+                  f"request, 0 re-prefills; first request {first:.6f} s disagg, "
+                  f"{ufirst:.6f} s unified; dequant_gelu_requant launches {tally}; "
+                  f"peak memory {_peak_mib():.1f} MiB [{card}]", flush=True)
+        by_phase[f"fleet disagg {quant}"] = counters.read()
+        peer = disagg.PageTransferClient(dec_w.host, dec_w.port)
+        with pre_w._elock:
+            _xfer_stages(pre_eng._kv, reqs[-1], peer, card, quant)
+        if not lost:
+            return by_phase
+        # (b) the prefill worker dies before the next transfer
+        counters.reset()
+        fresh = _disagg_requests(seed=17, n=DISAGG_LOST)
+        want, _, _ = _unified(uni, fresh, DISAGG_GEN)
+        events.enable()
+        events.ring().reset()
+        cs0 = dict(client.stats)
+        rep0 = disagg._REPREFILL.labels().value
+        pre_w.kill()
+        got, waits = [], []
+        for p in fresh:
+            dl = Deadline.after_s(120.0)
+            t = time.perf_counter()
+            got.append(client.generate(p, DISAGG_GEN, deadline=dl))
+            waits.append(time.perf_counter() - t)
+            if dl.expired():
+                raise AssertionError("fleet disagg (b): a request outlived its deadline")
+        _first_difference("fleet disagg (b)", fresh, got, want, dec_eng, uni)
+        fired = [e for e in events.ring().snapshot() if e["type"] == "disagg.reprefill"]
+        reps = client.stats["reprefills"] - cs0["reprefills"]
+        if reps != DISAGG_LOST or len(fired) != DISAGG_LOST \
+                or disagg._REPREFILL.labels().value - rep0 != DISAGG_LOST:
+            raise AssertionError(f"fleet disagg (b): {reps} re-prefills, "
+                                 f"{len(fired)} disagg.reprefill events")
+        print(f"fleet disagg {quant} (b): prefill worker killed; {DISAGG_LOST} "
+              f"fresh-prefix requests re-prefilled on the decode worker under "
+              f"their deadlines, every one == the unified engine's, "
+              f"{len(fired)} disagg.reprefill events; request s median "
+              f"{float(np.median(waits)):.6f} [{card}]", flush=True)
+        # PageSpiller: the unified engine sheds its coldest paths to a
+        # neighbour, whose next request over the same prefix hits them
+        nb_eng = _fleet_engine(params, DISAGG_POOL, "decode")
+        nb = disagg.DisaggWorker(nb_eng)
+        kv = uni._kv
+        cold = kv.coldest(1)
+        if not cold:
+            raise AssertionError("fleet disagg spill: no cold path to spill")
+        path, nd = [], cold[0]
+        while nd is not None and nd.key is not None:
+            path.append(nd.key)
+            nd = nd.parent
+        path.reverse()
+        shared = DISAGG_PREFIX // FLEET_PAGE
+        if len(path) <= shared:
+            raise AssertionError(f"fleet disagg spill: cold path of {len(path)} pages")
+        spiller = disagg.PageSpiller(kv, disagg.PageTransferClient(nb.host, nb.port),
+                                     watermark=0.5, max_nodes=2)
+        used = kv.used_pages()
+        freed = spiller.maybe_spill()
+        if freed <= 0 or kv.used_pages() != used - freed \
+                or nb_eng.kv_stats["imported_pages"] <= 0:
+            raise AssertionError(f"fleet disagg spill: freed {freed} of {used} used, "
+                                 f"neighbour imported {nb_eng.kv_stats['imported_pages']}")
+        rng = np.random.default_rng(23)
+        probe = np.concatenate([np.asarray(k, np.int32) for k in path[:shared]]
+                               + [rng.integers(0, FLEET_DIMS[0],
+                                               2 * FLEET_PAGE).astype(np.int32)])
+        router = QueryRouter(BackendSet([(nb.host, nb.port)], "spill"), "spill")
+        router.set_caps_provider(lambda: disagg.LM_CAPS)
+        hit0 = nb_eng.kv_stats["hit_tokens"]
+        try:
+            rmeta, _ = router.dispatch(
+                {"lm": {"prompt": [int(x) for x in probe], "max_new": DISAGG_GEN}}, b"")
+        finally:
+            router.close()
+        hits = nb_eng.kv_stats["hit_tokens"] - hit0
+        want, _, _ = _unified(uni, [probe], DISAGG_GEN)
+        if hits < DISAGG_PREFIX or rmeta.get("tokens") != want[0]:
+            raise AssertionError(f"fleet disagg spill: the neighbour hit {hits} "
+                                 f"tokens; tokens equal {rmeta.get('tokens') == want[0]}")
+        print(f"fleet disagg {quant} spill: {freed} cold pages shed to a neighbour "
+              f"({used} used of {DISAGG_POOL}); its next shared-prefix request hit "
+              f"{hits} tokens of the spilled pages, tokens == the unified engine's "
+              f"[{card}]", flush=True)
+        by_phase[f"fleet disagg {quant} lost prefill"] = counters.read()
+        return by_phase
+    finally:
+        client.close()
+        if peer is not None:
+            peer.close()
+        for w in (pre_w, dec_w, nb):
+            if w is not None:
+                w.stop()
+        events.disable()
+        events.ring().reset()
+
+
+def _mig_prompts() -> list:
+    rng = np.random.default_rng(11)
+    return [rng.integers(0, FLEET_DIMS[0], 3 * FLEET_PAGE).astype(np.int32)
+            for _ in range(MIG_SESSIONS)]
+
+
+def _warm_prompt() -> np.ndarray:
+    return np.random.default_rng(99).integers(
+        0, FLEET_DIMS[0], 3 * FLEET_PAGE).astype(np.int32)
+
+
+def _warm(eng, gen: int) -> None:
+    """Capture an engine's programs before its timed run: a no-hit and a
+    prefix-hit admission and their decode chunks."""
+    p = _warm_prompt()
+    for _ in range(2):
+        eng.submit(p, max_new=gen)
+        eng.run()
+
+
+def _lm_fleet(params, n: int, name: str, gen: int) -> tuple:
+    from nnstreamer_tpu_torch.fleet.migrate import LM_CAPS
+    from nnstreamer_tpu_torch.query.router import BackendSet, QueryRouter
+    from nnstreamer_tpu_torch.serving import disagg
+
+    engines = [_fleet_engine(params, MIG_POOL) for _ in range(n)]
+    for e in engines:
+        _warm(e, gen)
+    workers = [disagg.DisaggWorker(e) for e in engines]
+    router = QueryRouter(BackendSet([(w.host, w.port) for w in workers], name), name)
+    router.set_caps_provider(lambda: LM_CAPS)
+    return engines, workers, router
+
+
+def _lm_turn(router, prompt, sid: str, gen: int) -> list:
+    rmeta, _ = router.dispatch(
+        {"lm": {"prompt": [int(x) for x in prompt], "max_new": gen, "session": sid}},
+        b"", session=sid)
+    return [int(t) for t in rmeta.get("tokens") or []]
+
+
+def _mig_run(params, halve: bool) -> dict:
+    """bench.py's _fleet_lane run: MIG_SESSIONS sessions x MIG_TURNS turns
+    on MIG_WORKERS unified workers; with ``halve``, the controller's
+    scale-in by hand twice at the middle turn (deterministic victim,
+    migrate its census, drain). The workers stay up for the caller."""
+    from nnstreamer_tpu_torch.fleet.migrate import SessionMigrator
+
+    _peak_reset()
+    engines, workers, router = _lm_fleet(params, MIG_WORKERS, "fleet-mig", MIG_GEN)
+    mig = SessionMigrator(router)
+    ok = total = 0
+    toks, mig_secs = {}, []
+    t0 = time.perf_counter()
+    for turn in range(MIG_TURNS):
+        if halve and turn == MIG_TURNS // 2:
+            for _ in range(2):
+                active = [be for be in router.backends.backends() if be.state == "active"]
+                owned = router.backends.sessions_owned
+                victim = min(active, key=lambda be: (len(owned(be.endpoint)), be.endpoint))
+                for s in owned(victim.endpoint):
+                    tgt = router.backends.pick(session=s,
+                                               exclude=frozenset({victim.endpoint}))
+                    if tgt is not None:
+                        mig_secs.append(mig.migrate(s, victim, tgt)["seconds"])
+                router.remove_backend(victim.endpoint, drain=True)
+        for i, prompt in enumerate(_mig_prompts()):
+            total += 1
+            out = _lm_turn(router, prompt, f"fleet-s{i}", MIG_GEN)
+            toks[(turn, i)] = out
+            ok += bool(out)
+    _fsync()
+    return {"goodput": ok / max(1, total), "wall": time.perf_counter() - t0,
+            "mig_secs": mig_secs, "stats": dict(mig.stats), "tokens": toks,
+            "engines": engines, "workers": workers, "router": router,
+            "peak": _peak_mib()}
+
+
+def _stop_fleet(run: dict) -> None:
+    run["router"].close()
+    for w in run["workers"]:
+        w.stop()
+
+
+def run_fleet_migration(params, counters, card: str) -> tuple:
+    """(c), then (e) on the unhalved run's workers."""
+    from nnstreamer_tpu_torch.obs import health
+
+    counters.reset()
+    # health on before the unhalved run's engines are built: each registers
+    # its warmed-readiness condition, which (e)'s push documents carry
+    health.enable(interval_s=3600.0)
+    try:
+        full = _mig_run(params, halve=False)
+        try:
+            fed = run_federation(full, card)
+        finally:
+            _stop_fleet(full)
+    finally:
+        health.disable()
+        health.registry().reset()
+    halved = _mig_run(params, halve=True)
+    _stop_fleet(halved)
+    launches = counters.read()
+    ratio = halved["goodput"] / max(full["goodput"], 1e-9)
+    if ratio != 1.0 or halved["tokens"] != full["tokens"]:
+        bad = [k for k in full["tokens"] if halved["tokens"].get(k) != full["tokens"][k]]
+        raise AssertionError(f"fleet migration (c): goodput ratio {ratio}, turns "
+                             f"differing from the unhalved run {bad[:8]}")
+    st = halved["stats"]
+    if st["migrated"] + st["absorbed"] == 0 or not launches.get("dequant_gelu_requant"):
+        raise AssertionError(f"fleet migration (c): migrations {st}, launches {launches}")
+    print(f"fleet migration (c): {MIG_WORKERS} workers halved twice mid-load, "
+          f"{MIG_SESSIONS} sessions x {MIG_TURNS} turns x {MIG_GEN} tokens, w8a8: goodput "
+          f"ratio {ratio:.4f}, every turn == the unhalved run's; migration "
+          f"{float(np.mean(halved['mig_secs'])):.6f} s a session (max "
+          f"{max(halved['mig_secs']):.6f}), {st['migrated']} migrated, {st['absorbed']} "
+          f"absorbed, {st['pages_moved']} pages moved; wall {halved['wall']:.3f} s halved "
+          f"against {full['wall']:.3f} s; peak memory {full['peak']:.1f} / "
+          f"{halved['peak']:.1f} MiB [{card}]", flush=True)
+    return launches, fed
+
+
+def run_federation(run: dict, card: str) -> dict:
+    """(e): an aggregator on an exporter; (c)'s workers push (half over the
+    query wire, an OBS_PUSH frame on each worker's own connection; half
+    over HTTP), each with its engine's prefix digest. Checks the federated
+    /metrics, the worst-of-fleet /debug/fleet and /healthz, a silent worker
+    going stalled and recovering, a page transfer's trace stitched across
+    the sender and the receiving worker, and a routed request placed on
+    its prefix's holder."""
+    import socket
+    import urllib.error
+    import urllib.request
+
+    from nnstreamer_tpu_torch import obs
+    from nnstreamer_tpu_torch.obs import events, fleet as ofl, health, tracing
+    from nnstreamer_tpu_torch.query import protocol
+    from nnstreamer_tpu_torch.query import router as qrouter
+    from nnstreamer_tpu_torch.serving import disagg
+    from nnstreamer_tpu_torch.serving.kv_cache import prompt_path_hashes
+
+    workers, engines, router = run["workers"], run["engines"], run["router"]
+    tracing.enable()
+    events.enable()
+    events.ring().reset()
+    agg = ofl.enable_aggregator(ttl_s=1.0, expire_after_s=600.0)
+    exp = obs.start_exporter(port=0)
+    base = exp.url.rsplit("/", 1)[0]
+    pushers = []
+
+    def digest(w):
+        def read():
+            with w._elock:
+                return w.engine.kv_prefix_digest()
+        return read
+
+    def get(path):
+        try:
+            with urllib.request.urlopen(base + path, timeout=10) as r:
+                return r.status, r.read()
+        except urllib.error.HTTPError as e:
+            return e.code, e.read()
+
+    half = len(workers) // 2
+
+    def push(i):
+        w, p = workers[i], pushers[i]
+        if i >= half:
+            if not p.push_now():
+                raise AssertionError(f"fleet federation: HTTP push of {w.instance} failed")
+            return
+        frame = p.wire_frame()
+        while frame is None:  # the wire interval (0.05 s) has not passed
+            time.sleep(0.01)
+            frame = p.wire_frame()
+        with socket.create_connection((w.host, w.port), timeout=10) as s:
+            protocol.send_message(s, protocol.Cmd.OBS_PUSH, *frame)
+            protocol.send_message(s, protocol.Cmd.PING, {})
+            protocol.recv_message(s)
+
+    try:
+        for i, w in enumerate(workers):
+            pushers.append(ofl.FleetPusher(
+                url=None if i < half else base,
+                interval_s=0.05 if i < half else 3600.0,
+                instance=w.instance, kv_digest=digest(w)))
+        sp = _mig_prompts()[0]
+        t0 = time.perf_counter()
+        for i in range(len(workers)):
+            push(i)
+        push_s = time.perf_counter() - t0
+        code, text = get("/metrics")
+        text = text.decode()
+        missing = [w.instance for w in workers if f'instance="{w.instance}"' not in text]
+        if code != 200 or missing:
+            raise AssertionError(f"fleet federation: /metrics {code}, no series of {missing}")
+        code, body = get("/debug/fleet")
+        snap = json.loads(body)
+        if code != 200 or sorted(i["instance"] for i in snap["instances"]) \
+                != sorted(w.instance for w in workers):
+            raise AssertionError(f"fleet federation: /debug/fleet {code} {snap}")
+        code, body = get("/healthz")
+        hz = json.loads(body)
+        if code != 200 or hz.get("fleet", {}).get("instances") != len(workers):
+            raise AssertionError(f"fleet federation: /healthz {code} {hz}")
+        # prefix placement: a request sharing a session's prompt lands on
+        # the worker whose digest holds it
+        hashes = prompt_path_hashes(sp, FLEET_PAGE)
+        holder, depth = agg.longest_prefix(hashes)
+        hw = next(w for w in workers if w.instance == holder)
+        placed0 = qrouter._PREFIX_PLACED.labels(router.backends.owner).value
+        hit0 = hw.engine.kv_stats["hit_tokens"]
+        probe = np.concatenate([sp, np.random.default_rng(5).integers(
+            0, FLEET_DIMS[0], 8).astype(np.int32)])
+        rmeta, _ = router.dispatch({"lm": {"prompt": [int(x) for x in probe],
+                                           "max_new": MIG_GEN}}, b"",
+                                   prefix_hashes=hashes)
+        placed = qrouter._PREFIX_PLACED.labels(router.backends.owner).value - placed0
+        hits = hw.engine.kv_stats["hit_tokens"] - hit0
+        if not rmeta.get("tokens") or placed != 1 or hits < depth * FLEET_PAGE:
+            raise AssertionError(f"fleet federation: prefix placement placed {placed}, "
+                                 f"holder {holder} hit {hits} of {depth} pages")
+        # one page transfer under a root span: the sender's disagg.xfer
+        # and the receiving worker's query.recv (the chunked frame's
+        # assembly) share its trace; the workers' next pushes carry the
+        # worker-side spans back to the aggregator
+        src = next(i for i in range(len(workers)) if workers[i].instance != holder)
+        with workers[src]._elock:
+            doc = next(d for d in (engines[src]._kv.export_pages(q) for q in
+                                   [_warm_prompt()] + _mig_prompts()) if d)
+        chunked = len(disagg.encode_pages(doc)[1]) > protocol.CHUNK_SIZE
+        xfer = disagg.PageTransferClient(hw.host, hw.port)
+        with tracing.start_span("disagg.probe") as root:
+            xfer.send_pages(doc)
+        xfer.close()
+        tid = root.context.trace_id
+        for i in range(len(workers)):
+            push(i)
+        # the trace: the sender's span and the worker's, and copies that
+        # came back through the workers' pushes
+        code, body = get(f"/debug/traces/{tid}")
+        tree = json.loads(body)
+
+        def spans(node):
+            out = [node]
+            for c in node.get("children", []):
+                out += spans(c)
+            return out
+
+        flat = [x for r in tree["tree"] for x in spans(r)]
+        names = {s.get("name") for s in flat}
+        pushed = {(s.get("attrs") or {}).get("instance") for s in flat} - {None}
+        want = {"disagg.probe", "disagg.xfer"} | ({"query.recv"} if chunked else set())
+        if code != 200 or not want <= names or not pushed & {w.instance for w in workers}:
+            raise AssertionError(f"fleet federation: trace {tid}: {code}, spans "
+                                 f"{sorted(n for n in names if n)}, pushed by {pushed}")
+        # a worker that stops pushing goes stalled, then recovers
+        quiet = workers[-1]
+        time.sleep(1.2)
+        for i in range(len(workers) - 1):
+            push(i)
+        health.check_now()
+        code, body = get("/healthz")
+        hz = json.loads(body)
+        stalled = [c for c in hz["components"] if c["name"] == f"fleet:{quiet.instance}"]
+        stall_ev = [e for e in events.ring().snapshot() if e["type"] == "fleet.stall"]
+        if code != 503 or hz["status"] != "stalled" or not stalled \
+                or stalled[0]["status"] != "stalled" or not stall_ev:
+            raise AssertionError(f"fleet federation: a silent worker: /healthz {code} "
+                                 f"{hz['status']}, {stalled}, {len(stall_ev)} stall events")
+        for i in range(len(workers)):
+            push(i)
+        health.check_now()
+        # in one process the workers' pushed health is this process's,
+        # which held the stalled component until that check: push again
+        for i in range(len(workers)):
+            push(i)
+        code, body = get("/healthz")
+        rec_ev = [e for e in events.ring().snapshot() if e["type"] == "fleet.recover"]
+        if code != 200 or not rec_ev:
+            bad = [(c["name"], c["status"]) for c in json.loads(body)["components"]
+                   if c["status"] != "ok"]
+            raise AssertionError(f"fleet federation: recovery /healthz {code} {bad}, "
+                                 f"{len(rec_ev)} recover events")
+        print(f"fleet federation (e): {len(workers)} workers pushed ({half} over the "
+              f"query wire, {len(workers) - half} over HTTP) in {push_s:.6f} s; /metrics "
+              f"carries every worker's series under its instance label "
+              f"({len(text)} bytes), /debug/fleet and /healthz roll up "
+              f"{len(workers)} instances; a silent worker went stalled (503, fleet.stall) "
+              f"and recovered (fleet.recover); trace {tid} stitched "
+              f"({', '.join(sorted(want))}; spans pushed by {sorted(pushed)}); a routed "
+              f"shared-prefix request placed on the digest's holder ({depth} pages, "
+              f"{hits} tokens hit, nnstpu_router_prefix_placed_total +{placed:.0f}) "
+              f"[{card}]", flush=True)
+        return {"push_s": push_s}
+    finally:
+        for p in pushers:
+            p.close()
+        exp.close()
+        ofl.disable_aggregator()
+        events.disable()
+        events.ring().reset()
+        tracing.disable()
+        tracing.store().reset()
+
+
+def run_fleet_restore(params, counters, card: str) -> dict:
+    """(d): bench.py's restore lane at the fleet widths: checkpoints to
+    neighbour shelves, the busiest worker killed, its sessions restored
+    onto the survivors; each restored session's next turn equals the same
+    turn on an engine that never crashed; then the daemon's overhead."""
+    from nnstreamer_tpu_torch.fleet import checkpoint as ckpt
+
+    counters.reset()
+    _peak_reset()
+    engines, workers, router = _lm_fleet(params, RESTORE_WORKERS, "fleet-restore",
+                                         RESTORE_GEN)
+    rng = np.random.default_rng(13)
+    prompts = [rng.integers(0, FLEET_DIMS[0], 3 * FLEET_PAGE).astype(np.int32)
+               for _ in range(RESTORE_SESSIONS)]
+    daemons = []
+    try:
+        hist = {}
+        for i, prompt in enumerate(prompts):
+            sid = f"fleet-r{i}"
+            hist[sid] = [int(x) for x in prompt] + _lm_turn(router, prompt, sid,
+                                                             RESTORE_GEN)
+        for i, w in enumerate(workers):
+            peers = [workers[j].endpoint for j in range(len(workers)) if j != i]
+            d = ckpt.CheckpointDaemon(engines[i], ckpt.NeighborStore(peers),
+                                      lock=w._elock, name=f"fleet-ckpt-{i}")
+            d.run_once()
+            daemons.append(d)
+        vi = max(range(len(workers)),
+                 key=lambda i: len(router.backends.sessions_owned(workers[i].endpoint)))
+        victim = workers[vi]
+        moved = router.backends.sessions_owned(victim.endpoint)
+        victim.kill()
+        t0 = time.perf_counter()
+        report = ckpt.SessionRestorer(router).restore_instance(
+            victim.instance, victim.endpoint, daemons[vi].watermarks())
+        restore_s = time.perf_counter() - t0
+        live = [e for i, e in enumerate(engines) if i != vi]
+        hit0 = sum(e.kv_stats["hit_tokens"] for e in live)
+        tok0 = sum(e.kv_stats["prompt_tokens"] for e in live)
+        after = {sid: _lm_turn(router, hist[sid], sid, RESTORE_GEN) for sid in moved}
+        hits = sum(e.kv_stats["hit_tokens"] for e in live) - hit0
+        toks = sum(e.kv_stats["prompt_tokens"] for e in live) - tok0
+        warm = hits / max(1, toks)
+    finally:
+        router.close()
+        for d in daemons:
+            d.stop()
+        for w in workers:
+            w.stop()
+    ref = _fleet_engine(params, MIG_POOL)
+    want, _, _ = _unified(ref, [np.asarray(hist[s], np.int32) for s in moved], RESTORE_GEN)
+    got = [after[s] for s in moved]
+    if not moved or report["restored"] != len(moved) or got != want:
+        raise AssertionError(f"fleet restore (d): {len(moved)} sessions moved, report "
+                             f"{report['restored']} restored / {report['re_prefilled']} "
+                             f"re-prefilled, tokens equal {got == want}")
+    peak = _peak_mib()
+
+    def serve(checkpointed: bool) -> float:
+        eng = _fleet_engine(params, MIG_POOL)
+        daemon = ckpt.CheckpointDaemon(eng, ckpt.MemoryStore(), name="fleet-ov")
+        ov = {i: [int(x) for x in p] for i, p in enumerate(prompts)}
+        n_tok, t0 = 0, time.perf_counter()
+        for r in range(4):
+            for i in range(RESTORE_SESSIONS):
+                rid = eng.submit(np.asarray(ov[i], np.int32), max_new=RESTORE_GEN,
+                                 session=f"ov-{i}")
+                eng.run()
+                out = [int(t) for t in eng.results[rid]]
+                ov[i] += out
+                n_tok += len(out)
+            if checkpointed and r % 2 == 1:
+                daemon.run_once()
+        _fsync()
+        return n_tok / (time.perf_counter() - t0)
+
+    serve(True)
+    base_runs, ckpt_runs = [], []
+    for _ in range(RESTORE_REPS):
+        base_runs.append(serve(False))
+        ckpt_runs.append(serve(True))
+    overhead = float(np.median(ckpt_runs)) / max(float(np.median(base_runs)), 1e-9)
+    launches = counters.read()
+    print(f"fleet restore (d): {RESTORE_WORKERS} workers, {RESTORE_SESSIONS} sessions, "
+          f"checkpoints on neighbour shelves, the busiest worker killed: "
+          f"{report['restored']} of {len(moved)} sessions restored from checkpoint in "
+          f"{restore_s:.6f} s, warm ratio {warm:.4f}, their next turns == an uncrashed "
+          f"engine's; checkpoint overhead ratio {overhead:.4f} (median of "
+          f"{RESTORE_REPS} interleaved runs; the JAX bench gates 0.95, claimed nothing "
+          f"here); peak memory {peak:.1f} MiB [{card}]", flush=True)
+    return launches
+
+
+def run_fleet_cli(tmp: str, card: str) -> None:
+    """(f): ``nns-launch-torch`` in its own process with ``--role decode
+    --kv-page-size 32 --obs-push wire --obs-aggregate --metrics-port 0
+    --checkpoint-dir --autoscale 1:2 --backends A,B`` over two SSD-300
+    query servers: exit 0 and the JAX CLI's ``fleet:`` lines."""
+    import re
+
+    opts = _ssd_opts(tmp)
+    servers = [_ssd_server(60 + i, opts) for i in range(2)]
+    try:
+        backends = ",".join(f"127.0.0.1:{port}" for _, port in servers)
+        source = (f"videotestsrc width=300 height=300 pattern=random "
+                  f"num-buffers={FLEET_CLI_FRAMES} ! video/x-raw,format=RGB ! "
+                  "tensor_converter")
+        argv = [sys.executable, "-m", "nnstreamer_tpu_torch.cli",
+                "--role", "decode", "--kv-page-size", str(FLEET_PAGE),
+                "--obs-push", "wire", "--obs-aggregate", "--metrics-port", "0",
+                "--checkpoint-dir", os.path.join(tmp, "ckpt"),
+                "--autoscale", "1:2", "--backends", backends]
+        if FLEET_DEVICE == "cpu":
+            argv += ["--device", "cpu"]
+        t0 = time.perf_counter()
+        run = subprocess.run(argv + [f"{source} ! tensor_query_client ! tensor_sink"],
+                             cwd=ROOT, capture_output=True, text=True, timeout=300)
+        wall = time.perf_counter() - t0
+    finally:
+        for p, _ in servers:
+            p.stop()
+    want = [r"^fleet: aggregating as \S+ \(POST http://127\.0\.0\.1:\d+/fleet/push\)$",
+            r"^fleet: pushing as \S+ \(query-wire piggyback\)$",
+            r"^fleet: autoscaling 1\.\.2 replicas \(policy default\)$",
+            r"^fleet: \d+ reconcile tick\(s\), \d+ up / \d+ in, \d+ migration\(s\)$"]
+    lines = [ln for ln in run.stderr.splitlines() if ln.startswith("fleet:")]
+    if run.returncode != 0 or len(lines) != len(want) \
+            or not all(re.match(w, ln) for w, ln in zip(want, lines)):
+        raise AssertionError(f"fleet cli (f): exit {run.returncode}, fleet lines {lines}, "
+                             f"stderr {run.stderr[-2000:]}")
+    print(f"fleet cli (f): nns-launch-torch --role decode --kv-page-size {FLEET_PAGE} "
+          f"--obs-push wire --obs-aggregate --metrics-port 0 --checkpoint-dir DIR "
+          f"--autoscale 1:2 --backends A,B over two SSD-300 query servers: exit 0 in "
+          f"{wall:.3f} s (its own process), the JAX CLI's fleet lines: {lines} [{card}]",
+          flush=True)
+
+
+def run_fleet(counters) -> dict:
+    """Phase 12c, sessions and the fleet on the card: (a) disaggregated
+    w8a8 and float32 serving at full width against a unified engine, (b) a
+    lost prefill worker and a page spill, (c) live migration through two
+    halvings, (d) crash restore, (e) federation and fleet routing on (c)'s
+    workers, (f) the CLI. Returns each part's launches."""
+    from nnstreamer_tpu_torch import obs
+    from nnstreamer_tpu_torch.models.causal_lm import quantize_lm_params
+
+    card = _card()
+    by_phase = {}
+    obs.enable()
+    try:
+        params = _fleet_params()
+        by_phase.update(run_fleet_disagg(params, "float32", counters, card, lost=False))
+        _release()
+        qparams = quantize_lm_params(params)
+        del params
+        by_phase.update(run_fleet_disagg(qparams, "w8a8", counters, card, lost=True))
+        _release()
+        by_phase["fleet migration"], _ = run_fleet_migration(qparams, counters, card)
+        _release()
+        by_phase["fleet restore"] = run_fleet_restore(qparams, counters, card)
+        del qparams
+        _release()
+        counters.reset()
+        with tempfile.TemporaryDirectory() as tmp:
+            run_fleet_cli(tmp, card)
+        by_phase["fleet cli"] = counters.read()
+    finally:
+        obs.disable()
+    _release()
+    return by_phase
+
+
 def _crop_inputs() -> tuple:
     """64 1920x1080x3 uint8 frames and 1-9 boxes a frame, each box's origin
     inside the frame and its sides 16-400 pixels (clipped at the edges)."""
@@ -5793,7 +6675,7 @@ def _check_layers_lm(run: dict, off: dict, qparams, mixes) -> dict:
             or any(v is None or "error" in v for v in stanzas.values()) \
             or "lm" not in doc["slo"]["tenants"] or not doc["events"]["events"] \
             or not isinstance(doc["routing"], list) \
-            or "§A9" not in doc["fleet_actions"].get("error", ""):
+            or doc["fleet_actions"] is not None:
         raise AssertionError(f"layers lm: nns-diag-torch read rc {rc}, bundle stanzas "
                              f"{ {k: type(v).__name__ for k, v in doc.items()} }")
     if run["box"]["tn_stats"]["trials"] or run["box"]["tn_stats"]["sweeps"]:
@@ -6218,6 +7100,7 @@ def main() -> int:
     run_filter_options()
     by_phase["repo_lstm"] = run_repo_lstm(counters)
     by_phase.update(run_query(counters))
+    by_phase.update(run_fleet(counters))
     by_phase["crop_bucketed"] = run_crop_bucketed(counters)
     by_phase["stream_elements"] = run_stream_elements(counters)
     check_media_elements()

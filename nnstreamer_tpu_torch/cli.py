@@ -37,10 +37,16 @@ route when the breaker opens: ``passthrough`` or a local element kind),
 --backends HOST:PORT[,...] (routed dispatch over that backend set) and
 --hedge-ms MS (hedged dispatch; needs --backends with >= 2 endpoints); a
 JSON fault plan in ``NNS_TPU_CHAOS`` is installed for the run
-(resilience/chaos.py). The JAX CLI's flags whose layers the port has not
-reached are refused, naming the ROADMAP item that brings each:
---obs-push, --obs-aggregate, --autoscale, --checkpoint-dir,
---checkpoint-interval, --role, --disagg (§A9).
+(resilience/chaos.py). The fleet as in the JAX CLI: --obs-push URL|wire
+(push this process's snapshots to an aggregator over HTTP or piggybacked
+on the query wire), --obs-aggregate (serve the merged fleet on the
+exporter; needs --metrics-port), --autoscale MIN:MAX[:policy] (a
+reconcile-loop controller over the --backends set), --checkpoint-dir DIR
+and --checkpoint-interval S (crash checkpoints of every DisaggWorker built
+during the run, through ``NNS_FLEET_CKPT_*``), --role
+{prefill,decode,unified} (every LMEngine's disaggregated-serving role,
+through ``NNS_LM_ROLE``) and --disagg PREFILL_EPS;DECODE_EPS (the fleet
+split, validated and exported as ``NNS_LM_DISAGG``).
 
 Exit codes: 0 at EOS, 1 on a parse, negotiation or runtime error, 2 when
 the timeout passes before EOS.
@@ -57,18 +63,6 @@ import time
 #: swallow a following pipeline positional, which argparse would otherwise
 #: consume before type conversion rejects it
 _BARE_OK_FLAGS = ("--profile", "--watchdog", "--sched")
-
-#: the JAX CLI's flags whose layers the port has not reached yet, and the
-#: ROADMAP item that brings each back; each is refused
-_REFUSED_FLAGS = {
-    "--obs-push": "obs/fleet.py (ROADMAP §A9)",
-    "--obs-aggregate": "obs/fleet.py (ROADMAP §A9)",
-    "--autoscale": "fleet/ (ROADMAP §A9)",
-    "--checkpoint-dir": "fleet/checkpoint.py (ROADMAP §A9)",
-    "--checkpoint-interval": "fleet/checkpoint.py (ROADMAP §A9)",
-    "--role": "serving/disagg.py (ROADMAP §A9)",
-    "--disagg": "serving/disagg.py (ROADMAP §A9)",
-}
 
 
 def _normalize_argv(argv):
@@ -197,9 +191,51 @@ def main(argv=None) -> int:
                          "P95 round trip (floored at MS) elapses without "
                          "a response; first result wins (needs --backends "
                          "with >= 2 endpoints)")
-    for flag in _REFUSED_FLAGS:
-        ap.add_argument(flag, nargs="?", const=True, default=None,
-                        help=argparse.SUPPRESS)
+    ap.add_argument("--obs-push", metavar="URL", default=None,
+                    help="push metric/health/span snapshots to a fleet "
+                         "aggregator (obs.fleet): http://host:port for a "
+                         "background HTTP pusher, or the literal 'wire' to "
+                         "piggyback pushes on this pipeline's query-client "
+                         "connection only (no extra thread)")
+    ap.add_argument("--obs-aggregate", action="store_true",
+                    help="act as the fleet aggregator: accept pushes "
+                         "(OBS_PUSH frames + POST /fleet/push) and serve "
+                         "the merged fleet /metrics, /healthz, /readyz and "
+                         "/debug/fleet; requires --metrics-port")
+    ap.add_argument("--autoscale", metavar="MIN:MAX[:policy]", default=None,
+                    help="SLO-driven autoscaling over the routed backend "
+                         "set (fleet/): a reconcile-loop controller "
+                         "scales between MIN and MAX replicas, migrating "
+                         "live sessions off drained backends with zero "
+                         "stream loss; policy is 'default' or 'priced' "
+                         "(needs --backends)")
+    ap.add_argument("--checkpoint-dir", metavar="DIR", default=None,
+                    help="crash-checkpoint every DisaggWorker built "
+                         "during the run: a CheckpointDaemon snapshots "
+                         "live sessions (token path + KV pages) into a "
+                         "LocalDirStore at DIR, and a crash-restore "
+                         "splices the freshest valid snapshot back in "
+                         "(sets NNS_FLEET_CKPT_DIR)")
+    ap.add_argument("--checkpoint-interval", type=float, default=None,
+                    metavar="S",
+                    help="seconds between checkpoint passes (default 5; "
+                         "sets NNS_FLEET_CKPT_INTERVAL; needs "
+                         "--checkpoint-dir)")
+    ap.add_argument("--role", choices=("prefill", "decode", "unified"),
+                    default=None,
+                    help="disaggregated-serving role for every LMEngine "
+                         "built during the run (sets NNS_LM_ROLE): "
+                         "'prefill' runs prefill only and exports KV "
+                         "pages, 'decode' splices imported pages; both "
+                         "need --kv-page-size (the page pool is the "
+                         "transfer substrate) — serving/disagg.py")
+    ap.add_argument("--disagg", metavar="PREFILL_EPS;DECODE_EPS",
+                    default=None,
+                    help="declare the disaggregated fleet split: two "
+                         "comma-separated host:port lists divided by ';' "
+                         "(prefill backends, then decode backends); "
+                         "validated here and exported as NNS_LM_DISAGG "
+                         "for serving.disagg.DisaggClient construction")
     ap.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
                     help="device the pipeline runs on (default cuda)")
     ap.add_argument("--list-elements", action="store_true")
@@ -244,9 +280,6 @@ def main(argv=None) -> int:
         return 0
     if args.inspect:
         return inspect_element(args.inspect)
-    for flag, layer in _REFUSED_FLAGS.items():
-        if getattr(args, flag[2:].replace("-", "_")) is not None:
-            ap.error(f"{flag} waits for the port of {layer}")
     if not args.pipeline:
         ap.error("pipeline description required")
     backend_eps = None
@@ -266,6 +299,17 @@ def main(argv=None) -> int:
         if len(backend_eps) < 2:
             ap.error("--hedge-ms needs --backends with >= 2 endpoints "
                      "(a hedge must land on a different backend)")
+    autoscale_spec = None
+    if args.autoscale is not None:
+        if backend_eps is None:
+            ap.error("--autoscale needs --backends (the routed backend "
+                     "set is the membership the controller scales)")
+        from .fleet import parse_autoscale_spec
+
+        try:
+            autoscale_spec = parse_autoscale_spec(args.autoscale)
+        except ValueError as e:
+            ap.error(f"--autoscale: {e}")
     if args.profile is not None and args.profile < 1:
         ap.error("--profile must be >= 1 (ring capacity in records)")
     if args.profile_dump is not None and args.profile is None:
@@ -323,6 +367,33 @@ def main(argv=None) -> int:
         os.environ["NNS_LM_KV_PAGE_SIZE"] = str(args.kv_page_size)
         if args.kv_pages is not None:
             os.environ["NNS_LM_KV_PAGES"] = str(args.kv_pages)
+    if args.role is not None:
+        if args.role != "unified" and args.kv_page_size is None:
+            ap.error(f"--role {args.role} needs --kv-page-size (the "
+                     "paged KV pool is the page-transfer substrate)")
+        os.environ["NNS_LM_ROLE"] = args.role
+    if args.disagg is not None:
+        from .serving.disagg import parse_disagg_spec
+
+        try:
+            parse_disagg_spec(args.disagg)
+        except ValueError as e:
+            ap.error(f"--disagg: {e}")
+        os.environ["NNS_LM_DISAGG"] = args.disagg
+    if args.checkpoint_interval is not None:
+        if args.checkpoint_dir is None:
+            ap.error("--checkpoint-interval needs --checkpoint-dir "
+                     "(no daemon runs without a store)")
+        if args.checkpoint_interval <= 0:
+            ap.error("--checkpoint-interval must be > 0")
+    if args.checkpoint_dir is not None:
+        # the environment carries them like NNS_LM_*: DisaggWorker reads
+        # these at construction and starts its own daemon against a
+        # LocalDirStore
+        os.environ["NNS_FLEET_CKPT_DIR"] = args.checkpoint_dir
+        if args.checkpoint_interval is not None:
+            os.environ["NNS_FLEET_CKPT_INTERVAL"] = str(
+                args.checkpoint_interval)
 
     from .core.hw import resolve_device
     from .graph import Pipeline
@@ -334,12 +405,15 @@ def main(argv=None) -> int:
     except Exception as e:  # noqa: BLE001 — CLI reports, never tracebacks
         print(f"ERROR: {type(e).__name__}: {e}", file=sys.stderr)
         return 1
+    routed_clients = []
     if args.deadline_ms is not None or args.fallback is not None \
             or backend_eps is not None:
         from .query.client import TensorQueryClient
 
         clients = [el for el in p.elements.values()
                    if isinstance(el, TensorQueryClient)]
+        if backend_eps is not None:
+            routed_clients = clients
         if not clients:
             ap.error("--deadline-ms/--fallback/--backends need a "
                      "tensor_query_client in the pipeline")
@@ -364,12 +438,43 @@ def main(argv=None) -> int:
             print(f"ERROR: metrics exporter: {e}", file=sys.stderr)
             return 1
         print(f"metrics: {exporter.url}", file=sys.stderr)
+    if args.obs_aggregate:
+        if exporter is None:
+            ap.error("--obs-aggregate requires --metrics-port (the "
+                     "aggregator serves the fleet on the exporter)")
+        # fleet.* push/expiry/conflict events are the aggregator's audit
+        # trail — turn the ring on with the role
+        from .obs import events, fleet
+
+        events.enable()
+        agg = fleet.enable_aggregator()
+        print(f"fleet: aggregating as {agg.instance} "
+              f"(POST {exporter.url.rsplit('/', 1)[0]}/fleet/push)",
+              file=sys.stderr)
     if args.tune is not None:
+        # BEFORE --obs-push: the tuner's fleet hooks must be installed
+        # when the pusher sends its first doc, so a fresh instance adopts
+        # fleet-tuned configs on its first push-ack
         from . import tune as _tune_mod
 
         tn = _tune_mod.enable(store_path=args.tune or None)
         print(f"tune: autotuner on ({len(tn.store)} stored config(s), "
               f"store {tn.store.path})", file=sys.stderr)
+    if args.obs_push is not None:
+        from .obs import fleet
+
+        url = None if args.obs_push == "wire" else args.obs_push
+        try:
+            psh = fleet.enable_push(url=url)
+        except ValueError as e:
+            print(f"ERROR: --obs-push: {e}", file=sys.stderr)
+            if exporter is not None:
+                fleet.disable_aggregator()
+                exporter.close()
+            return 1
+        print(f"fleet: pushing as {psh.instance} "
+              f"({'query-wire piggyback' if url is None else url})",
+              file=sys.stderr)
     if args.trace or args.profile is not None or args.diag is not None:
         # like metrics: on BEFORE p.start() so the element chains get the
         # span-opening wrap (--profile implies tracing: the Perfetto host
@@ -464,9 +569,36 @@ def main(argv=None) -> int:
             from . import sched
 
             sched.uninstall()
+        if args.obs_push is not None or args.obs_aggregate:
+            from .obs import fleet
+
+            fleet.disable_push()
+            fleet.disable_aggregator()
         if exporter is not None:
             exporter.close()
         return 1
+    autoscale_ctl = None
+    if autoscale_spec is not None:
+        # AFTER p.start(): the routed clients build their QueryRouter (the
+        # membership the controller scales) at start
+        from . import fleet as _fleet_mod
+        from .obs import fleet as _obs_fleet
+
+        mn, mx, pol = autoscale_spec
+        router = next((el.router for el in routed_clients
+                       if el.router is not None), None)
+        if router is None:
+            print("ERROR: --autoscale: no routed query client came up",
+                  file=sys.stderr)
+            p.stop()
+            if chaos_plan is not None:
+                chaos.uninstall()
+            return 1
+        autoscale_ctl = _fleet_mod.enable(
+            router, mn, mx, policy=pol,
+            aggregator=_obs_fleet.aggregator(), start=True)
+        print(f"fleet: autoscaling {mn}..{mx} replicas (policy {pol})",
+              file=sys.stderr)
     try:
         ok = p.wait_eos(args.timeout)
         err = p.bus.error
@@ -485,6 +617,16 @@ def main(argv=None) -> int:
             print(f"(stopped after {args.timeout}s timeout)", file=sys.stderr)
             return 2
     finally:
+        if autoscale_ctl is not None:
+            # BEFORE p.stop(): the controller's reconcile thread acts
+            # through the router, which dies with the pipeline
+            from . import fleet as _fleet_mod
+
+            st = autoscale_ctl.stats
+            print(f"fleet: {st['ticks']} reconcile tick(s), "
+                  f"{st['scale_up']} up / {st['scale_in']} in, "
+                  f"{st['migrations']} migration(s)", file=sys.stderr)
+            _fleet_mod.disable()
         p.stop()
         if chaos_plan is not None:
             # the hooks back to None: main() may run again in-process
@@ -513,13 +655,18 @@ def main(argv=None) -> int:
                 kv = eng.kv_stats
                 if hr is None or kv is None:
                     continue
-                print(f"kv[{eng._engine_label}]: "
+                print(f"kv[{eng._engine_label}/{eng.role}]: "
                       f"prefix_hit_rate {hr:.3f} "
                       f"({kv['hit_tokens']}/{kv['prompt_tokens']} tokens), "
                       f"pages_peak {kv['pages_peak']}, "
                       f"imported {kv['imported_pages']}, "
                       f"exported {kv['exported_pages']}, "
                       f"spilled {kv['spilled_pages']}", file=sys.stderr)
+        if args.obs_push is not None or args.obs_aggregate:
+            from .obs import fleet
+
+            fleet.disable_push()
+            fleet.disable_aggregator()
         if exporter is not None:
             exporter.close()
         if args.trace:

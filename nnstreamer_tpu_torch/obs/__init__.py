@@ -22,7 +22,9 @@ Every layer is independently switchable (``enable()`` /
 ``tracing.enable()`` / ``health.enable()`` / ``events.enable()`` /
 ``profile.enable()`` / ``slo.enable()`` / ``diag.enable()`` /
 ``quality.enable()``); each is a flag-check or None-check no-op when off.
-The JAX package's ``fleet`` layer waits for its port (ROADMAP §A9).
+The fleet layer (``fleet``) federates metrics, health and spans across
+processes: workers push snapshots over the query wire or plain HTTP, and
+one aggregator re-exposes the merged fleet on its exporter.
 """
 
 from .metrics import (DEFAULT_LATENCY_BUCKETS, MetricsRegistry, disable,
@@ -30,20 +32,23 @@ from .metrics import (DEFAULT_LATENCY_BUCKETS, MetricsRegistry, disable,
 from .exporter import MetricsExporter, start_exporter
 from .instrument import instrument_pipeline
 from . import events
+from . import fleet
 from . import health
 from . import profile
 from . import slo
 from . import tracing
 from .events import EventRing
+from .fleet import FleetAggregator, FleetPusher
 from .health import Component, HealthRegistry, Status
 from .profile import Profiler, perfetto_trace
 from .tracing import Span, SpanContext, SpanStore, start_span
 
 __all__ = [
-    "Component", "DEFAULT_LATENCY_BUCKETS", "EventRing", "HealthRegistry",
+    "Component", "DEFAULT_LATENCY_BUCKETS", "EventRing",
+    "FleetAggregator", "FleetPusher", "HealthRegistry",
     "MetricsRegistry", "MetricsExporter", "Profiler", "Span",
     "SpanContext", "SpanStore", "Status", "disable", "enable",
-    "enabled", "events", "health", "instrument_pipeline",
+    "enabled", "events", "fleet", "health", "instrument_pipeline",
     "perfetto_trace", "profile", "registry", "slo", "start_exporter",
     "start_span", "tracing",
 ]

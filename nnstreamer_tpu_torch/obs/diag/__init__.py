@@ -1,10 +1,7 @@
 """obs.diag — critical-path latency attribution + automatic incident
 debug bundles.
 
-Port of nnstreamer_tpu/obs/diag (stdlib only). The fleet's push-doc
-reference (``obs.fleet.DIAG_PUSH_HOOK``) and the fleet controller's
-``on_fleet_action`` tap wait for the fleet layer (ROADMAP §A9):
-:meth:`DiagEngine.push_doc` is kept, and nothing installs it.
+Port of nnstreamer_tpu/obs/diag (stdlib only).
 
 Three pieces behind one None-gated hook:
 
@@ -205,10 +202,10 @@ def enable(directory: Optional[str] = None, *,
            z_threshold: float = 4.0, min_samples: int = 16,
            max_bundles: int = 16,
            clock: Callable[[], float] = time.monotonic) -> DiagEngine:
-    """Install the diag engine (idempotent), anchoring the cost-anomaly
-    detector on the tune/ cost model when the autotuner is enabled. (The
-    JAX package also sets obs/fleet's ``DIAG_PUSH_HOOK`` here: ROADMAP
-    §A9.)"""
+    """Install the diag engine (idempotent). Also flips the obs/fleet
+    ``DIAG_PUSH_HOOK`` so push docs start referencing local bundles,
+    and anchors the cost-anomaly detector on the tune/ cost model when
+    the autotuner is enabled."""
     global DIAG_HOOK
     if DIAG_HOOK is not None:
         return DIAG_HOOK
@@ -223,6 +220,9 @@ def enable(directory: Optional[str] = None, *,
         cost_model=getattr(tuner, "model", None),
         device_kind=_tune.device_kind() if tuner is not None else "",
         clock=clock)
+    from .. import fleet as _obsfleet
+
+    _obsfleet.DIAG_PUSH_HOOK = eng.push_doc
     DIAG_HOOK = eng
     return eng
 
@@ -230,6 +230,9 @@ def enable(directory: Optional[str] = None, *,
 def disable() -> None:
     global DIAG_HOOK
     DIAG_HOOK = None
+    from .. import fleet as _obsfleet
+
+    _obsfleet.DIAG_PUSH_HOOK = None
 
 
 def enabled() -> bool:

@@ -1,9 +1,6 @@
 """Debug bundles: one bounded JSON file of *evidence* per incident.
 
-Port of nnstreamer_tpu/obs/diag/bundle.py. The ``fleet_actions`` stanza
-reads a layer the port has not reached (the fleet controller, ROADMAP
-§A9): its collector raises naming the item, so every bundle records it as
-an error stanza, the JAX bundle's own marker for a missing layer.
+Port of nnstreamer_tpu/obs/diag/bundle.py.
 
 A bundle freezes what the bounded obs rings would otherwise age out —
 the slowest span trees (with raw integer-ns spans so the offline
@@ -79,7 +76,9 @@ def default_collectors() -> Dict[str, Callable[[], Any]]:
         return _router.routing_view()
 
     def _fleet_actions() -> Any:
-        raise NotImplementedError("fleet/ is not ported (ROADMAP §A9)")
+        from ... import fleet as _fleet_pkg
+
+        return _fleet_pkg.snapshot() if _fleet_pkg.enabled() else None
 
     def _events_snap() -> Any:
         ring = _events.ring()

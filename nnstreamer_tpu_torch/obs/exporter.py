@@ -43,12 +43,25 @@ the health and debug surfaces:
   * ``GET /debug/bundles/<id>``      — one full bundle document; 503
     while diag is off
 
-The fleet layer's routes answer as the JAX exporter answers with it off
-(ROADMAP §A9): ``/debug/fleet/actions`` and ``/debug/fleet/checkpoints``
-with their "off" bodies, ``/debug/fleet`` and ``POST /fleet/push`` with
-503 (this process is never a fleet aggregator), and the ``fleet`` keys of
-the tune and bundle routes are None. ``/metrics``, ``/healthz`` and
-``/readyz`` serve this process alone (no fleet rollup).
+The fleet routes (obs/fleet.py, fleet/):
+
+  * ``GET /debug/fleet``             — per-instance fleet state when this
+    process aggregates; 503 otherwise
+  * ``GET /debug/fleet/actions``     — the fleet controller's action
+    journal, plus the fleet rollup when aggregating
+  * ``GET /debug/fleet/checkpoints`` — the local checkpoint daemon's
+    session watermarks (fleet/checkpoint.py) plus, when aggregating, every
+    instance's pushed watermarks and the tombstoned instances whose
+    checkpoints still await a restore
+  * ``POST /fleet/push``             — snapshot-push ingestion for workers
+    without a query wire; 503 unless aggregating
+
+When fleet aggregation is enabled (``--obs-aggregate``), ``/metrics``
+serves the merged fleet exposition (every instance's series with
+``instance``/``role`` labels) and ``/healthz`` / ``/readyz`` the
+worst-of-fleet rollups, checked per request; ``/debug/slo``,
+``/debug/quality``, ``/debug/tune`` and ``/debug/bundles`` add the fleet
+rollup.
 
 All routes — GET and POST — live in ONE ``(method, path)`` dispatch table;
 the 404 hint is derived from it.
@@ -74,6 +87,7 @@ from typing import Optional
 from urllib.parse import parse_qs
 
 from . import events as _events
+from . import fleet as _fleet
 from . import health as _health
 from . import metrics as _metrics
 from . import profile as _profile
@@ -84,10 +98,6 @@ __all__ = ["MetricsExporter", "start_exporter", "build_info"]
 
 #: Prometheus text exposition content type (format 0.0.4)
 CONTENT_TYPE = "text/plain; version=0.0.4; charset=utf-8"
-
-#: the JAX exporter's push-body bound (obs/fleet.py MAX_PUSH_BYTES)
-MAX_PUSH_BYTES = 8 << 20
-
 
 _BUILD_INFO: Optional[dict] = None
 
@@ -175,13 +185,33 @@ class MetricsExporter:
                         return
                 self._reply(404, "text/plain", self._HINT)
 
+            def _read_body(self):
+                """Size-checked request body for POST handlers; replies
+                413 and returns None when over MAX_PUSH_BYTES."""
+                try:
+                    n = int(self.headers.get("Content-Length") or 0)
+                except ValueError:
+                    n = -1
+                if n < 0 or n > _fleet.MAX_PUSH_BYTES:
+                    self._json(413, {"error": "push body too large"})
+                    return None
+                return self.rfile.read(n)
+
             # -- routes ------------------------------------------------ #
+            # /metrics, /healthz, /readyz consult the fleet aggregator per
+            # request: the process becomes (or stops being) the fleet
+            # scrape target without an exporter restart
             def _get_metrics(self, query):
-                self._reply(200, CONTENT_TYPE,
-                            reg.exposition().encode("utf-8"))
+                agg = _fleet.aggregator()
+                text = reg.exposition() if agg is None \
+                    else agg.exposition(reg)
+                self._reply(200, CONTENT_TYPE, text.encode("utf-8"))
 
             def _get_healthz(self, query):
                 snap = _health.snapshot()
+                agg = _fleet.aggregator()
+                if agg is not None:
+                    snap = agg.health_rollup(snap)
                 # liveness: degraded still serves traffic; a stalled or
                 # failing component flips the scrape to 503
                 self._json(200 if snap["ok"] else 503, {
@@ -192,10 +222,14 @@ class MetricsExporter:
                     "events_enabled": _events.enabled(),
                     "families": len(reg.names()),
                     "components": snap["components"],
+                    **({"fleet": snap["fleet"]} if "fleet" in snap else {}),
                 })
 
             def _get_readyz(self, query):
                 ready, conds = _health.readiness()
+                agg = _fleet.aggregator()
+                if agg is not None:
+                    ready, conds = agg.ready_rollup(ready, conds)
                 self._json(200 if ready else 503, {
                     "ready": ready,
                     "health_enabled": _health.enabled(),
@@ -270,18 +304,32 @@ class MetricsExporter:
                 self._json(200, build_info())
 
             def _get_slo(self, query):
-                self._json(200, _slo.snapshot())
+                snap = _slo.snapshot()
+                agg = _fleet.aggregator()
+                if agg is not None:
+                    snap = {**snap, "fleet": agg.slo_rollup(
+                        snap if snap.get("enabled") else None)}
+                self._json(200, snap)
 
             def _get_quality(self, query):
                 from . import quality as _quality
 
-                self._json(200, _quality.snapshot())
+                snap = _quality.snapshot()
+                agg = _fleet.aggregator()
+                if agg is not None:
+                    snap = {**snap, "fleet": agg.quality_rollup()}
+                self._json(200, snap)
 
             def _get_tune(self, query):
                 from .. import tune as _tune
 
-                self._json(200, {"enabled": _tune.enabled(),
-                                 "local": _tune.snapshot(), "fleet": None})
+                agg = _fleet.aggregator()
+                self._json(200, {
+                    "enabled": _tune.enabled(),
+                    "local": _tune.snapshot(),
+                    "fleet": agg.tuned_view() if agg is not None
+                    else None,
+                })
 
             def _get_diag_critpath(self, query):
                 # critpath is pure span-store analysis: it answers with
@@ -311,13 +359,15 @@ class MetricsExporter:
                 from . import diag as _diag
 
                 eng = _diag.DIAG_HOOK
+                agg = _fleet.aggregator()
                 self._json(200, {
                     "diag_enabled": eng is not None,
                     "bundles": eng.bundles.list() if eng is not None
                     else [],
                     "triggers": dict(eng.triggers.stats)
                     if eng is not None else None,
-                    "fleet": None,
+                    "fleet": agg.diag_rollup() if agg is not None
+                    else None,
                 })
 
             def _get_bundle(self, bid, query):
@@ -334,30 +384,58 @@ class MetricsExporter:
                 else:
                     self._json(200, doc)
 
-            # -- the fleet layer's routes, answering as the JAX exporter
-            #    does with it off (ROADMAP §A9) --------------------------- #
+            # -- the fleet layer's routes ------------------------------ #
             def _get_fleet(self, query):
-                self._json(503, {"error": "fleet aggregation is off "
-                                 "(enable with --obs-aggregate)"})
+                agg = _fleet.aggregator()
+                if agg is None:
+                    self._json(503, {"error": "fleet aggregation is off "
+                                     "(enable with --obs-aggregate)"})
+                else:
+                    self._json(200, agg.snapshot())
 
             def _get_fleet_actions(self, query):
-                self._json(200, {"enabled": False, "local": None,
-                                 "fleet": None})
+                # module-level _fleet is obs.fleet; the controller
+                # package resolves lazily like _get_tune's import
+                from .. import fleet as _fleetpkg
+
+                agg = _fleet.aggregator()
+                self._json(200, {
+                    "enabled": _fleetpkg.enabled(),
+                    "local": _fleetpkg.snapshot(),
+                    "fleet": agg.actions_rollup() if agg is not None
+                    else None,
+                })
 
             def _get_fleet_checkpoints(self, query):
-                self._json(200, {"local": None, "fleet": None})
+                # local watermarks ride the same hook the push doc reads;
+                # the rollup needs this process to aggregate
+                hook = _fleet.CHECKPOINT_HOOK
+                agg = _fleet.aggregator()
+                self._json(200, {
+                    "local": None if hook is None else hook(),
+                    "fleet": agg.checkpoints_rollup() if agg is not None
+                    else None,
+                })
 
             def _post_fleet_push(self, query):
-                try:
-                    n = int(self.headers.get("Content-Length") or 0)
-                except ValueError:
-                    n = -1
-                if n < 0 or n > MAX_PUSH_BYTES:
-                    self._json(413, {"error": "push body too large"})
+                body = self._read_body()
+                if body is None:
                     return
-                self.rfile.read(n)
-                self._json(503, {"error": "this process is not a "
-                                 "fleet aggregator (--obs-aggregate)"})
+                agg = _fleet.aggregator()
+                if agg is None:
+                    self._json(503, {"error": "this process is not a "
+                                     "fleet aggregator (--obs-aggregate)"})
+                    return
+                try:
+                    agg.ingest(json.loads(body or b"{}"), via="http")
+                except (TypeError, ValueError) as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                # the ack carries the fleet's merged tuned configs so a
+                # worker's very first push makes it warm (tune/ adopts
+                # through obs/fleet.py TUNE_ADOPT_HOOK); None while no
+                # instance has pushed tune data
+                self._json(200, {"ok": True, "tune": agg.tuned_view()})
 
             #: THE route table — GET and POST share it, and the 404 hint
             #: below derives from it

@@ -1,10 +1,6 @@
 """Health model: component liveness registry + stall watchdog.
 
-Port of nnstreamer_tpu/obs/health.py (stdlib only). The JAX module's
-rule for the fleet's push heartbeat (``kind="fleet"``, with
-``status_from_string`` for its rollup) waits for the port of
-``obs/fleet.py`` (ROADMAP §A9): a component of that kind is tracked and
-never judged.
+Port of nnstreamer_tpu/obs/health.py (stdlib only).
 
 The dangerous failure mode of a long-running streaming graph is not a
 crash but a silent stall — an element stops pulling, a query peer
@@ -81,7 +77,7 @@ from . import events as _events
 __all__ = [
     "Component", "HealthRegistry", "Status", "add_readiness",
     "component", "check_now", "disable", "enable", "enabled",
-    "readiness", "registry", "snapshot",
+    "readiness", "registry", "snapshot", "status_from_string",
     "status_string", "track_pipeline",
 ]
 
@@ -107,6 +103,16 @@ _STATUS_STRINGS = {
 
 def status_string(s: Status) -> str:
     return _STATUS_STRINGS[s]
+
+
+#: inverse map for fleet rollup: a pushed status string from a peer
+#: re-enters the severity order; unknown strings rank DEGRADED (a peer
+#: speaking a newer grammar is suspicious, not fatal)
+_STATUS_BY_STRING = {v: k for k, v in _STATUS_STRINGS.items()}
+
+
+def status_from_string(s: str) -> Status:
+    return _STATUS_BY_STRING.get(s, Status.DEGRADED)
 
 
 class Component:
@@ -392,6 +398,8 @@ class HealthRegistry:
                 self._check_query(c, st, now_ns)
             elif c.kind == "serving":
                 self._check_serving(c, st, data or {})
+            elif c.kind == "fleet":
+                self._check_fleet(c, st, data or {})
             elif c.kind == "sched":
                 self._check_sched(c, st, data or {}, now_ns)
             elif c.kind == "slo":
@@ -480,6 +488,29 @@ class HealthRegistry:
             _events.record("query.recover",
                            f"{c.name}: reconnects settled", **c.attrs)
         st["win_start"], st["win_rc"] = now_ns, rc
+
+    # rule: fleet instance missing its push heartbeat → STALLED
+    # (obs/fleet.py registers one kind="fleet" component per pushing
+    # instance; the probe reports the age of its last push and the ttl
+    # derived from its advertised push interval)
+    def _check_fleet(self, c: Component, st: Dict[str, Any],
+                     data: Dict[str, Any]) -> None:
+        age = float(data.get("push_age_s") or 0.0)
+        ttl = float(data.get("ttl_s") or 0.0)
+        if ttl > 0.0 and age > ttl:
+            if not st.get("heartbeat"):
+                st["heartbeat"] = True
+                c.set_status(Status.STALLED,
+                             f"no push for {age:.2f}s (ttl {ttl:.1f}s)")
+                _events.record(
+                    "fleet.stall",
+                    f"{c.name}: no push for {age:.2f}s (ttl {ttl:.1f}s)",
+                    severity="warning", push_age_s=round(age, 3),
+                    **c.attrs)
+        elif st.pop("heartbeat", None):
+            c.set_status(Status.OK, "pushes resumed")
+            _events.record("fleet.recover",
+                           f"{c.name}: pushes resumed", **c.attrs)
 
     # rule: scheduler starvation storm → DEGRADED
     # (sched/engine.py registers one kind="sched" component per engine;

@@ -772,6 +772,7 @@ class Profiler:
 # --------------------------------------------------------------------------- #
 
 _PID_HOST, _PID_DEVICE, _PID_SERVING, _PID_SCHED, _PID_SLO = 1, 2, 3, 4, 5
+_PID_FLEET = 6
 _PID_QUALITY = 7
 
 
@@ -794,12 +795,13 @@ def perfetto_trace(span_store: Optional[_tracing.SpanStore] = None,
       * pid 5 **slo** — one cumulative goodput counter track per tenant
         (met/missed/shed) from obs/slo.py, present when the SLO layer is
         recording
+      * pid 6 **fleet** — fleet.* spans (session migrations and restores,
+        one lane per operation) from fleet/, present when the fleet acted
       * pid 7 **quality** — one counter track per data-plane tap (mean /
         PSI drift score / cumulative NaN count) from obs/quality, present
         when quality telemetry is recording
 
-    The JAX package's fleet group (pid 6) waits for its layer (ROADMAP
-    §A9). All timestamps share the process monotonic clock (µs)."""
+    All timestamps share the process monotonic clock (µs)."""
     store = span_store if span_store is not None else _tracing.store()
     p = prof if prof is not None else _PROFILER
     ev: List[Dict[str, Any]] = []
@@ -816,11 +818,14 @@ def perfetto_trace(span_store: Optional[_tracing.SpanStore] = None,
     thread_names = {t.ident: t.name for t in threading.enumerate()}
     named_host: set = set()
     rows: Dict[int, Dict[str, int]] = {
-        _PID_SERVING: {}, _PID_DEVICE: {}, _PID_SCHED: {}}
+        _PID_SERVING: {}, _PID_DEVICE: {}, _PID_SCHED: {}, _PID_FLEET: {}}
 
     def row(pid: int, label: str) -> int:
         r = rows[pid].get(label)
         if r is None:
+            if pid == _PID_FLEET and not rows[pid]:
+                # the fleet group appears only once the fleet acted
+                meta(_PID_FLEET, 0, "process_name", "fleet")
             r = rows[pid][label] = len(rows[pid]) + 1
             meta(pid, r, "thread_name", label)
         return r
@@ -835,11 +840,12 @@ def perfetto_trace(span_store: Optional[_tracing.SpanStore] = None,
     for s in store.snapshot_spans():
         layer, _, rest = s.name.partition(".")
         dur = max(s.end_ns - s.start_ns, 0) / 1e3
-        if layer == "serving":
+        if layer in ("serving", "fleet"):
+            pid = _PID_SERVING if layer == "serving" else _PID_FLEET
             ev.append({
-                "name": rest or s.name, "cat": "serving", "ph": "X",
-                "ts": s.start_ns / 1e3, "dur": dur, "pid": _PID_SERVING,
-                "tid": row(_PID_SERVING, rest or s.name), "args": s.attrs,
+                "name": rest or s.name, "cat": layer, "ph": "X",
+                "ts": s.start_ns / 1e3, "dur": dur, "pid": pid,
+                "tid": row(pid, rest or s.name), "args": s.attrs,
             })
             continue
         ev.append({

@@ -5,8 +5,7 @@ tap reads only a buffer memory's host copy (``TensorMemory._host``) and
 never calls ``.host()``: a frame resident on the card counts as
 ``skipped_device``, so on a card pipeline the filter and decoder taps
 mostly skip, and ``seen == frames + skipped_device`` per tap says how many.
-The fleet push doc's ``quality`` field waits for the fleet layer (ROADMAP
-§A9).
+The fleet push doc's ``quality`` field reads ``push_data()``.
 
 Every other observability pillar (metrics, tracing, health, profile,
 slo, diag, fleet) watches the *machinery* — queues, latencies, device

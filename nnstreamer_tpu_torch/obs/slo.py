@@ -28,7 +28,7 @@ cannot:
 
 The router's dispatch tap (``ROUTER_SLO_HOOK``, ``record_dispatch``) is
 read by ``query.router.QueryRouter`` per successful dispatch; the fleet
-rollup waits for the fleet layer (ROADMAP §A9).
+push doc carries ``push_data()`` and an aggregator rolls it up.
 
 Zero-overhead-when-off: the three hooks below are module globals that stay
 ``None`` until :func:`enable` is called.  Instrumented call sites pay one

@@ -1,10 +1,10 @@
 """Span-based request tracing with cross-wire context propagation.
 
 Port of nnstreamer_tpu/obs/tracing.py (stdlib only). The query layer
-reads the wire helpers; the export queue a fleet pusher drains is kept for
-the fleet layer, and the JAX store's ``requeue_export``/``ingest_remote``
-(the pusher's retry and the aggregator's side) come back with it (ROADMAP
-§A9). The metrics answer "how slow is this element on average"; they
+reads the wire helpers; obs/fleet.py drains the export queue (a pusher
+requeues a batch it failed to send) and ingests a peer's spans into this
+store (``ingest_remote``). The metrics answer "how slow is this element
+on average"; they
 cannot answer "where did *this* slow request spend its time" across
 client → query wire → server pipeline → serving engine. This module is
 the per-request complement: explicit span contexts (``trace_id`` /
@@ -46,7 +46,7 @@ import threading
 import time
 from collections import OrderedDict
 from collections import deque as _deque
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 __all__ = [
     "Span", "SpanContext", "SpanStore", "CTX_META_KEY", "ROOT_META_KEY",
@@ -480,7 +480,7 @@ class SpanStore:
         self._record(span)
         return ctx
 
-    # -- fleet span export (obs/fleet.py) -------------------------------- #
+    # -- fleet span export/ingest (obs/fleet.py) ------------------------ #
     def set_export(self, on: bool) -> None:
         """Flip fleet span export. Off (the default) keeps _record's
         extra cost at one attribute read; turning off also drops any
@@ -512,6 +512,88 @@ class SpanStore:
             while self._export_pending and len(out) < int(max_n):
                 out.append(self._export_pending.popleft())
         return out
+
+    def requeue_export(self, spans: List[Dict[str, Any]]) -> None:
+        """Put a drained batch back at the FRONT of the export queue —
+        the pusher's failure path, so a briefly unreachable aggregator
+        doesn't silently lose the spans it drained. Overflow evicts the
+        newest queued entries (the requeued batch is older) and counts
+        them as export drops."""
+        if not spans:
+            return
+        with self._lock:
+            if not self._export_on:
+                return
+            free = self._export_pending.maxlen - len(self._export_pending)
+            overflow = len(spans) - free
+            if overflow > 0:
+                self._export_dropped += overflow
+            for s in reversed(spans):
+                self._export_pending.appendleft(s)
+
+    def ingest_remote(self, spans: List[Dict[str, Any]],
+                      instance: str) -> int:
+        """Insert pushed wire-format spans from ``instance`` into this
+        store so /debug/traces/<id> renders the cross-host tree.
+        Remote timestamps arrive wall-clock-derived (monotonic clocks
+        do not travel between hosts) and are rebased here into the
+        local monotonic domain — local spans carry ``monotonic_ns``
+        starts, and a trace holding both halves (aggregator tracing its
+        own side of the same request) must not mix clock domains in
+        tree() offsets or trace start/end rollups. Malformed entries
+        are skipped, never raised — a peer must not 500 the aggregator.
+        Returns the count actually ingested. Works on a disabled store:
+        the aggregator exposes fleet traces without recording its own."""
+        # one anchor per batch: local monotonic "now" minus wall "now";
+        # remote wall ns + offset lands in the local monotonic domain
+        # (to the accuracy of inter-host clock sync, the best we have)
+        offset_ns = time.monotonic_ns() - int(time.time() * 1e9)
+        n = 0
+        for d in spans:
+            try:
+                ctx = SpanContext(str(d["tid"]), str(d["sid"]),
+                                  d.get("par") or None)
+                span = Span.__new__(Span)
+                span._store = self
+                span.name = str(d["name"])
+                span.context = ctx
+                span.attrs = dict(d.get("attrs") or {})
+                span.attrs.setdefault("instance", instance)
+                span.wall = float(d["wall"])
+                span.start_ns = int(span.wall * 1e9) + offset_ns
+                span.end_ns = span.start_ns + max(int(d["dur_ns"]), 0)
+                span.tid = 0  # remote thread idents are meaningless here
+                span._token = None
+            except Exception:
+                # the docstring's "never raised" is load-bearing: any
+                # malformed field shape (not just the anticipated
+                # KeyError/TypeError/ValueError) must skip the entry,
+                # not 500 the aggregator
+                continue
+            # bypass Span.end(): end_ns is already set, record directly
+            tid = span.context.trace_id
+            with self._lock:
+                tr = self._traces.get(tid)
+                if tr is None:
+                    tr = _Trace()
+                    self._traces[tid] = tr
+                if len(tr.spans) >= self.max_spans_per_trace:
+                    self._dropped_spans += 1
+                else:
+                    tr.spans.append(span)
+                if tr.start_ns is None or span.start_ns < tr.start_ns:
+                    tr.start_ns = span.start_ns
+                    tr.wall = span.wall
+                if tr.end_ns is None or span.end_ns > tr.end_ns:
+                    tr.end_ns = span.end_ns
+                if span.context.parent_id is None:
+                    tr.completed = True
+                    tr.root_name = span.name
+                    tr.duration_ns = span.end_ns - span.start_ns
+                    self._rank_slow(tid, tr.duration_ns)
+                self._evict_locked()
+            n += 1
+        return n
 
 
 def _span_to_wire(span: Span) -> Dict[str, Any]:

@@ -30,10 +30,10 @@ silently replaying frames.
 
 A ``fallback=`` element (a callable becomes a local ``tensor_filter``) runs
 on the device the hosting pipeline offers (``set_default_device``), so a
-card pipeline's fallback runs on the card. The fleet telemetry piggyback
-the JAX client sends ahead of DATA frames (``OBS_PUSH``) waits for the
-fleet layer (ROADMAP §A9); without it no such frame is sent, as in the JAX
-client with the fleet push off.
+card pipeline's fallback runs on the card. With the fleet push on
+(obs/fleet.py ``--obs-push wire``), an ``OBS_PUSH`` frame rides ahead of a
+DATA frame whenever the push interval has elapsed; with it off none is
+built.
 """
 
 from __future__ import annotations
@@ -57,6 +57,7 @@ from ..graph.element import (
     register_element,
 )
 from ..obs import events as _events
+from ..obs import fleet as _fleet
 from ..obs import health as _health
 from ..obs import metrics as _obs
 from ..obs import tracing as _tracing
@@ -65,6 +66,7 @@ from .protocol import (
     Cmd,
     QueryProtocolError,
     buffer_to_payload,
+    pack_message,
     payload_to_buffer,
     recv_message,
     send_message,
@@ -549,6 +551,7 @@ class TensorQueryClient(Element):
                          buf.meta.get(_tracing.ROOT_META_KEY)]
                 self._pending.append(entry)
             try:
+                self._maybe_push_obs(sock)
                 if dl is not None:
                     # wire form is REMAINING ms, re-anchored on the
                     # server's own clock — recomputed per attempt so
@@ -636,6 +639,17 @@ class TensorQueryClient(Element):
             self._draining = False
 
     # -- degraded paths -------------------------------------------------------- #
+    def _maybe_push_obs(self, sock: socket.socket) -> None:
+        """Piggyback one fleet ``OBS_PUSH`` frame ahead of a DATA send
+        when the push interval has elapsed (obs/fleet.py). Fleet off →
+        one module-global None check, zero wire bytes. Sent raw (no
+        tracing wrap, no reply expected) on the caller's socket and
+        thread, so it can never interleave with a request frame."""
+        frame = _fleet.wire_frame_due()
+        if frame is not None:
+            pmeta, ppayload = frame
+            sock.sendall(pack_message(Cmd.OBS_PUSH, pmeta, ppayload))
+
     def _shed(self, buf: Buffer, why: str) -> FlowReturn:
         """Drop a past-deadline buffer (the graph's legal drop: return
         OK without pushing) — sending it would spend wire and server
@@ -757,6 +771,7 @@ class TensorQueryClient(Element):
                              f"attempt(s)")
                 try:
                     sock = self._ensure_conn()
+                    self._maybe_push_obs(sock)
                     if dl is not None:
                         # wire form is REMAINING ms (re-anchored on the
                         # server's clock); recomputed per attempt so a

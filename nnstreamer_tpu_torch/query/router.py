@@ -9,11 +9,10 @@ fleet — a :class:`BackendSet` of N servers behind one
 
 * **Placement** is least-loaded-of-two-random-choices ("power of two
   choices"): draw two distinct healthy backends, dispatch to the less
-  loaded, by locally observed in-flight counts + EWMA latency. (The JAX
-  router also reads a fleet aggregator's per-instance queue depth and
-  prefix digests when one is attached; the fleet layer waits for ROADMAP
-  §A9, so ``_fleet_load`` and ``_prefix_match`` answer as the JAX ones do
-  with no aggregator attached: None.)
+  loaded. Load is the obs.fleet aggregator's per-instance
+  queue-depth/readiness snapshot (``FleetAggregator.routing_view``)
+  when an aggregator is attached, falling back to locally observed
+  in-flight counts + EWMA latency otherwise.
 * **Per-backend isolation.** Every backend owns its connection, its
   :class:`resilience.policy.CircuitBreaker` (named
   ``query:<router>:<host:port>`` so the state gauge separates
@@ -64,6 +63,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 from .. import tune as _tune
 from ..core.log import logger
 from ..obs import events as _events
+from ..obs import fleet as _fleet
 from ..obs import metrics as _obs
 from ..obs import slo as _slo
 from ..obs import tracing as _tracing
@@ -516,11 +516,18 @@ class BackendSet:
 
     # -- load signals ------------------------------------------------------ #
     def _fleet_load(self, be: Backend) -> Optional[float]:
-        """Queue depth from an attached fleet aggregator's routing view,
-        or None when no view covers this backend. No aggregator exists in
-        this package yet (ROADMAP §A9): always None, the JAX answer with
-        none attached."""
-        return None
+        """Queue depth from the attached aggregator's routing view, or
+        None when no view covers this backend (unknown instance, no
+        aggregator, instance not yet pushed)."""
+        agg = _fleet.aggregator()
+        if agg is None or be.instance is None:
+            return None
+        view = agg.routing_view().get(be.instance)
+        if view is None:
+            return None
+        if not view["routable"]:
+            return float("inf")  # stale/not-ready: last-choice only
+        return float(view["queue_depth"])
 
     def _load(self, be: Backend) -> float:
         fleet = self._fleet_load(be)
@@ -586,8 +593,25 @@ class BackendSet:
         attached, no instance advertises the prefix, or the holder is
         not in this set / not admissible; the caller falls through to
         two-choice."""
-        # no fleet aggregator exists in this package yet (ROADMAP §A9):
-        # the JAX answer with none attached
+        agg = _fleet.aggregator()
+        if agg is None:
+            return None
+        inst, depth = agg.longest_prefix(hashes)
+        if inst is None or depth <= 0:
+            return None
+        with self._lock:
+            cands = [be for be in self._backends.values()
+                     if be.state == ACTIVE and be.instance == inst
+                     and be.endpoint not in exclude]
+        for be in cands:
+            if be.breaker.state != _rp.OPEN and be.breaker.allow():
+                _PREFIX_PLACED.labels(self.owner).inc()
+                _events.record(
+                    "router.prefix_place",
+                    f"{self.owner}: placed on {be.endpoint} holding "
+                    f"{depth} shared KV prefix page(s)",
+                    element=self.owner, backend=be.endpoint, depth=depth)
+                return be
         return None
 
     def _affinity(self, session: str,
@@ -665,8 +689,6 @@ _BACKEND_STATE = _reg.gauge(
 _INFLIGHT = _reg.gauge(
     "nnstpu_router_inflight_depth",
     "Requests in flight per backend", ("element", "backend"))
-#: counted by prefix-aware placement, which needs the fleet aggregator
-#: (ROADMAP §A9); registered so the family exists as in the JAX package
 _PREFIX_PLACED = _reg.counter(
     "nnstpu_router_prefix_placed_total",
     "Dispatches placed on the backend advertising the longest shared"

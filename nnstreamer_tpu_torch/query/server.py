@@ -13,15 +13,15 @@ the pipeline (buffer.meta carries the connection id) and the matching
 serversink routes the RESULT back on the same connection. The server
 pipeline's filter runs on the card; a result on the card is read back once
 into the wire bytes (with ``async_depth > 1`` the copy is issued at chain
-time on the producing thread and waited for by the drain thread). The
-fleet layer's telemetry ingest (``OBS_PUSH``) and KV page-import target
-wait for ROADMAP §A9: OBS_PUSH frames are dropped, as the JAX server drops
-them when no aggregator runs, and ``KV_PAGE_XFER`` is answered ERROR.
+time on the producing thread and waited for by the drain thread). An
+``OBS_PUSH`` frame is ingested when this process aggregates the fleet
+(obs/fleet.py) and dropped otherwise; a ``KV_PAGE_XFER`` frame goes to the
+page-import target serving/disagg.py registers, and is answered ERROR
+without one.
 """
 
 from __future__ import annotations
 
-import os
 import socket
 import threading
 import time
@@ -40,6 +40,7 @@ from ..graph.element import (
 )
 from ..graph.pipeline import SourceElement
 from ..obs import events as _events
+from ..obs import fleet as _fleet
 from ..obs import health as _health
 from ..obs import metrics as _obs
 from ..obs import tracing as _tracing
@@ -55,19 +56,11 @@ from .protocol import (
 
 log = logger("query")
 
-def _default_instance() -> str:
-    """``host:pid`` unless ``NNSTPU_INSTANCE`` names the process — the
-    fleet instance id a serversrc advertises in INFO_APPROVE (a copy of
-    the JAX package's ``obs.fleet.default_instance``)."""
-    return os.environ.get("NNSTPU_INSTANCE") \
-        or f"{socket.gethostname()}:{os.getpid()}"
-
-
 _pairs_lock = threading.Lock()
 _server_pairs: Dict[int, "TensorQueryServerSrc"] = {}
 
-#: disaggregated-serving import point (set by the disaggregated serving
-#: layer, ROADMAP §A9; nothing in this package sets it yet): called as
+#: disaggregated-serving import point (serving/disagg.py
+#: register_import_target installs/clears this): called as
 #: ``hook(meta, payload, deadline) -> pages_imported`` for every
 #: ``KV_PAGE_XFER`` frame a serversrc receives; ``deadline`` is already
 #: re-anchored on this host's clock (like DATA). None — the default —
@@ -247,7 +240,7 @@ class TensorQueryServerSrc(SourceElement):
                         continue
                     send_message(conn, Cmd.INFO_APPROVE,
                                  {"caps": str(self.caps), "client_id": cid,
-                                  "instance": _default_instance()})
+                                  "instance": _fleet.default_instance()})
                 elif cmd is Cmd.PING:
                     send_message(conn, Cmd.PONG, {})
                 elif cmd is Cmd.DATA:
@@ -286,10 +279,9 @@ class TensorQueryServerSrc(SourceElement):
                                 buf.meta[_tracing.ROOT_META_KEY] = span
                     self._inbox.put(buf)
                 elif cmd is Cmd.OBS_PUSH:
-                    # fleet telemetry piggyback: no aggregator runs in
-                    # this package yet (ROADMAP §A9), so it is dropped;
-                    # never a reply frame
-                    pass
+                    # fleet telemetry piggyback: ingest when this process
+                    # aggregates, drop otherwise; never a reply frame
+                    _fleet.ingest_wire(meta, payload)
                 elif cmd is Cmd.KV_PAGE_XFER:
                     # disaggregated serving: splice migrated KV pages
                     # into the registered engine's pool and answer

@@ -39,8 +39,8 @@ component per engine (the watchdog's starvation-storm rule) and the
 profiler's ``SCHED_HOOK`` per batch, the SLO layer's ``SCHED_SLO_HOOK``
 (each shed, and each batch's per-tenant attribution) and diag's
 ``DIAG_HOOK`` (the submitter's trace context at submit, the batch's
-attribution spans and cost sample at its end). The JAX engine's hook into
-the fleet (``AUTOSCALE_HOOK``) waits for that layer (ROADMAP §A9).
+attribution spans and cost sample at its end), and the fleet's
+``AUTOSCALE_HOOK`` (each batch's occupancy, for the autoscaler).
 """
 
 from __future__ import annotations
@@ -53,6 +53,7 @@ from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from .. import fleet as _fleet
 from ..core.log import logger
 from ..graph.element import join_or_warn
 from ..obs import diag as _diag
@@ -582,6 +583,11 @@ class DeviceEngine:
                 self.name, busy,
                 [(w.tenant.name, max(now - w.t_enq, 0.0), _work_rows(w),
                   w.deadline) for w in batch])
+        fhook = _fleet.AUTOSCALE_HOOK
+        if fhook is not None:
+            # engine busy fraction as a scale signal, sampled at batch
+            # boundaries — same one-load None gate as the hooks above
+            fhook.observe_occupancy(self.name, self.occupancy())
         dhook = _diag.DIAG_HOOK
         if dhook is not None:
             # critical-path spans + cost-anomaly sample for the batch

@@ -34,8 +34,10 @@ Unlike the JAX package, which donates the pools through its jitted calls and
 rebinds ``kpool``/``vpool`` after each, the port allocates each pool once and
 writes it in place (``index_copy_``/``copy_``): the engine's CUDA graphs keep
 the pools' addresses, so nothing may rebind them. Every write and read of a
-pool is issued on the caller's current stream, which orders a page's writes
-before the next program that reads it. The free list, LRU order and
+pool that this class issues runs on the pool's stream (the stream current
+when the cache was built, which the engine runs its programs on), whichever
+thread issues it: a page import or export on a wire or checkpoint thread is
+ordered against the engine's programs without a device-wide sync. The free list, LRU order and
 ``stats`` are the JAX module's, so the same workload gets the same page ids
 in both packages. The pool gauges, the hit/evict/offload/re-upload counters
 (``nnstpu_serving_kv_*``) and the ``serving.kv_offload``/``kv_reupload``
@@ -45,6 +47,7 @@ events are the JAX module's too; the gauges read the host-side allocator
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 from collections import OrderedDict, deque
 from dataclasses import dataclass, field
@@ -186,6 +189,10 @@ class PagedKVCache:
         self.host_offload = host_offload
         self.kpool, self.vpool = empty_page_pool(
             n_pages, n_layers, n_heads, page_size, head_dim, device)
+        #: the stream every pool access of this class is issued on (None
+        #: for a CPU pool)
+        self.stream = torch.cuda.current_stream(self.kpool.device) \
+            if self.kpool.device.type == "cuda" else None
         self.free: deque[int] = deque(range(1, n_pages + 1))
         self.reserved = 0
         self.root = PageNode(None, None, None)
@@ -410,6 +417,14 @@ class PagedKVCache:
         return {"v": PAGE_DOC_VERSION, "page_size": ps, "lh": lh,
                 "hd": hd, "dtype": _dtype_name(self.kpool.dtype)}
 
+    def on_stream(self):
+        """Context that makes the pool's stream current (a no-op for a CPU
+        pool): pool reads and writes issued inside it are ordered after the
+        engine's programs already enqueued there."""
+        if self.stream is None:
+            return contextlib.nullcontext()
+        return torch.cuda.stream(self.stream)
+
     def _export_doc(self, path: List[PageNode]) -> Optional[Dict[str, Any]]:
         # one gather and one copy to the host for every device-resident
         # page of the path, not two copies per page
@@ -421,10 +436,12 @@ class PagedKVCache:
             # padded to the next power of two (repeating valid ids), so the
             # gather sees one shape per bucket, not one per path length
             cap = 1 << max(0, int(raw.size) - 1).bit_length()
-            idx = torch.from_numpy(np.resize(raw, cap)).to(
-                self.kpool.device)
-            ks = self.kpool.index_select(0, idx).cpu().numpy()
-            vs = self.vpool.index_select(0, idx).cpu().numpy()
+            with self.on_stream():
+                idx = torch.from_numpy(np.resize(raw, cap)).to(
+                    self.kpool.device)
+                # .cpu() waits for the pool's stream only
+                ks = self.kpool.index_select(0, idx).cpu().numpy()
+                vs = self.vpool.index_select(0, idx).cpu().numpy()
             for (i, _), k, v in zip(dev, ks[:raw.size], vs[:raw.size]):
                 fetched[i] = (k, v)
         entries = []
@@ -666,8 +683,10 @@ class PagedKVCache:
                 # every later re-upload (content is immutable once
                 # registered); copy=True: on a CPU pool ``.cpu()`` would
                 # return the page's own memory, which later writes change
-                nd.host_kv = tuple(pool[nd.page].to("cpu", copy=True).numpy()
-                                   for pool in (self.kpool, self.vpool))
+                with self.on_stream():
+                    nd.host_kv = tuple(
+                        pool[nd.page].to("cpu", copy=True).numpy()
+                        for pool in (self.kpool, self.vpool))
                 self.stats["offloads"] += 1
                 self._m_offload.inc()
                 _events.record(
@@ -704,9 +723,10 @@ class PagedKVCache:
 
     def _pool_set(self, pid: int, k: np.ndarray, v: np.ndarray) -> None:
         """Write one page's K/V from host arrays (a document's may be
-        read-only) into the pools, in place."""
-        self.kpool[pid].copy_(torch.from_numpy(np.array(k, np.float32)))
-        self.vpool[pid].copy_(torch.from_numpy(np.array(v, np.float32)))
+        read-only) into the pools, in place, on the pool's stream."""
+        with self.on_stream():
+            self.kpool[pid].copy_(torch.from_numpy(np.array(k, np.float32)))
+            self.vpool[pid].copy_(torch.from_numpy(np.array(v, np.float32)))
 
     def _upload(self, nd: PageNode, pid: int) -> None:
         self._pool_set(pid, *nd.host_kv)
@@ -720,5 +740,6 @@ class PagedKVCache:
 
     def _copy_page(self, dst: int, src: int) -> None:
         # the COW primitive: one on-device page copy, no host round trip
-        self.kpool[dst].copy_(self.kpool[src])
-        self.vpool[dst].copy_(self.vpool[src])
+        with self.on_stream():
+            self.kpool[dst].copy_(self.kpool[src])
+            self.vpool[dst].copy_(self.vpool[src])

@@ -86,19 +86,29 @@ entropy, top-1 probability and top-1/top-2 margin of the first-token
 logits (``_conf_from_row``). The triple stays on the card until the request
 retires, where it is read back outside any capture.
 
-Not ported yet (ROADMAP): disaggregation roles, page imports and the session
-API (freeze/export/checkpoint, and the frozen-session refusal at submit,
-§A9).
+Roles and sessions as in the JAX engine (serving/disagg.py,
+fleet/migrate.py, fleet/checkpoint.py): ``role="prefill"`` runs prefill only
+(``max_new == 1``) and exports the finished KV pages, ``role="decode"``
+splices imported pages (``enqueue_kv_import``, drained at the top of an
+iteration) and prefix-hits them; both need the paged cache. A session's
+committed token path is recorded at retirement, so ``freeze_session``,
+``export_session``, ``checkpoint_session`` and ``adopt_restored_session``
+can ship, snapshot and restore it; a frozen session's submits are refused.
+A paged engine runs its programs on its pool's stream (the stream current
+at construction), and every page import and export, from any thread, is
+issued on that stream too.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
 import weakref
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass, field
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -132,6 +142,18 @@ def _env_int(name: str) -> Optional[int]:
     except ValueError:
         raise ValueError(f"{name} must be an integer, got {v!r}")
 
+
+#: disaggregated-serving roles (serving/disagg.py): "prefill" engines run
+#: prefill only and export finished KV pages; "decode" engines accept
+#: imported pages and decode (they can still re-prefill from scratch when a
+#: transfer fails); "unified" is the classic both-phases engine and the
+#: default
+ROLES = ("unified", "prefill", "decode")
+
+#: bound on the per-engine session→token-path table behind live migration
+#: (LRU-evicted; an evicted session migrates by the re-prefill absorb path
+#: instead of a page shipment)
+SESSION_PATHS_LIMIT = 256
 
 #: weak registry of every constructed engine — the CLI walks it at exit to
 #: print per-engine KV summaries without threading a handle through the
@@ -246,6 +268,7 @@ class LMEngine:
                  kv_pages: Optional[int] = None,
                  kv_slot_pages: Optional[int] = None,
                  kv_host_offload: Optional[bool] = None,
+                 role: Optional[str] = None,
                  device: Any = None) -> None:
         # prefill/decode chunk: explicit wins; unset consults the autotuner
         # (store/model only — no sweep closure: constructing an engine
@@ -262,6 +285,15 @@ class LMEngine:
                     candidates=(4, 8, 16, 32), default=8))
         if n_slots < 1 or chunk < 1:
             raise ValueError("n_slots and chunk must be >= 1")
+        # disaggregated-serving role: explicit argument wins, else the
+        # NNS_LM_ROLE environment (the CLI's --role), else unified — the
+        # precedence of the NNS_LM_KV_* knobs
+        r = role if role is not None \
+            else (os.environ.get("NNS_LM_ROLE", "") or "unified")
+        if r not in ROLES:
+            raise ValueError(
+                f"role must be one of {ROLES}, got {r!r}")
+        self.role = r
         if spec_draft < 0 or spec_draft + 1 > max_len:
             raise ValueError("spec_draft must be in [0, max_len-1]")
         self.device = resolve_device(device)
@@ -341,6 +373,19 @@ class LMEngine:
             shape = (n_slots, n_layers * n_heads, max_len, hd)
             self._kc = torch.zeros(shape, dtype=torch.float32, device=dev)
             self._vc = torch.zeros(shape, dtype=torch.float32, device=dev)
+        if self.role != "unified" and self._kv is None:
+            # the page pool is the transfer substrate: a prefill engine has
+            # nothing to export and a decode engine nowhere to splice
+            # imports without it
+            raise ValueError(
+                f"role={self.role!r} requires the paged KV cache "
+                f"(set kv_page_size > 0)")
+        # cross-backend KV-page imports (serving/disagg.py): documents land
+        # here from the wire thread and are spliced by the scheduler thread
+        # at the top of each iteration — PagedKVCache itself is
+        # single-threaded by contract
+        self._kv_imports: deque = deque()
+        self._kv_imports_lock = threading.Lock()
         self._tokens = torch.zeros((n_slots, 1, 1), dtype=torch.int32,
                                    device=dev)
         self._pos = torch.zeros((n_slots, 1), dtype=torch.int32, device=dev)
@@ -368,6 +413,26 @@ class LMEngine:
         self._queue: deque = deque()
         self._finished: Dict[int, List[int]] = {}
         self._next_rid = 0
+        # live-migration session state (fleet/migrate.py): the token path
+        # each session last committed to the KV cache — what export_session
+        # ships — plus the set frozen mid-migration (their submits are
+        # refused so the router fails them over to the re-pinned target).
+        # LRU-bounded; eviction only costs the evicted session its
+        # migration warmth.
+        self._session_paths: "OrderedDict[str, np.ndarray]" = OrderedDict()
+        self._frozen_sessions: set = set()
+        # path snapshots taken at freeze time: export_session ships the
+        # snapshot, so a retire landing between freeze and export cannot
+        # move the exported path under the migrator's feet
+        self._frozen_paths: Dict[str, np.ndarray] = {}
+        # sessions whose migration was absorbed (resume_session): their next
+        # prefill re-derives state the fleet failed to ship, and the diag
+        # critical path bills it as re_prefill, not compute
+        self._reprefill_sessions: set = set()
+        # sessions a crash-restore spliced a checkpoint into
+        # (adopt_restored_session): their next prefill rides the imported
+        # pages and diag bills it as restore, not re_prefill
+        self._restored_sessions: set = set()
         # decode_steps/slot_steps/wasted_slot_steps account the chunk path
         # only; speculative iterations are in the spec_* keys
         self.stats = {"prefills": 0, "decode_steps": 0,
@@ -483,9 +548,25 @@ class LMEngine:
         if p.size < 1:
             self._reject("empty prompt")
             raise ValueError("empty prompt")
+        if session is not None and str(session) in self._frozen_sessions:
+            # mid-migration: the session's KV pages are in flight to
+            # another backend — refusing here makes the router fail the
+            # request over to the re-pinned target under its original
+            # deadline instead of decoding against a torn cache
+            self._reject("session frozen for migration")
+            raise ValueError(
+                f"session {session!r} is frozen for migration")
         if max_new < 1:
             self._reject("max_new must be >= 1")
             raise ValueError("max_new must be >= 1")
+        if self.role == "prefill" and max_new != 1:
+            # a prefill engine's product is the KV pages, not tokens: the
+            # single generated token only proves exactness (it must match
+            # what the decode backend regenerates from the imported prefix)
+            self._reject("prefill role accepts max_new=1 only")
+            raise ValueError(
+                f"role='prefill' engines run prefill only "
+                f"(max_new must be 1, got {max_new})")
         if p.size + max_new - 1 > self.max_len:
             # the last generated token needs no cache slot, hence -1
             self._reject("prompt + max_new exceeds cache capacity")
@@ -529,6 +610,12 @@ class LMEngine:
                        "prompt_len": int(p.size), "max_new": int(max_new)})
             if req.session is not None:
                 req.span.set_attribute("session", req.session)
+            if req.span.recording and req.span.context.parent_id is not None:
+                # remote-parented request (came in over the query wire):
+                # mark the trace so the fleet push exports the engine-side
+                # spans — admission, prefill and decode join the client's
+                # tree on the aggregator
+                _tracing.store().mark_export(req.span.context.trace_id)
             req.wait_span = _tracing.start_span(
                 "serving.admission_wait", parent=req.span.context,
                 attrs={"queued_behind": len(self._queue)})
@@ -593,10 +680,22 @@ class LMEngine:
 
     def _step_direct(self) -> bool:
         t0 = time.monotonic()
-        self._admit()
-        self._decode()
+        with self._on_stream():
+            if self._kv_imports:  # truthiness: free when nothing arrived
+                self.drain_kv_imports()
+            self._admit()
+            self._decode()
         self.stats["wall_s"] += time.monotonic() - t0
         return self.pending() > 0
+
+    def _on_stream(self):
+        """Make the page pool's stream current for an iteration (a no-op for
+        a contiguous engine or on the CPU), so the programs and the pool's
+        imports and exports from other threads share one stream whichever
+        thread steps the engine."""
+        if self._kv is None:
+            return contextlib.nullcontext()
+        return self._kv.on_stream()
 
     # -- sched.DeviceEngine tenancy ---------------------------------------- #
     def enroll(self, scheduler: Any, *, name: Optional[str] = None,
@@ -647,6 +746,157 @@ class LMEngine:
         """Bounded radix-prefix digest: chained path hashes a prefix-aware
         router probes. Empty when running contiguous."""
         return [] if self._kv is None else self._kv.prefix_digest(max_entries)
+
+    # -- disaggregated serving (serving/disagg.py) ------------------------- #
+
+    def prefill_and_export(self, prompt: Sequence[int], *,
+                           eos: Optional[int] = None,
+                           temperature: float = 0.0, top_k: int = 0,
+                           top_p: float = 1.0, seed: int = 0,
+                           deadline: Any = None,
+                           session: Optional[str] = None):
+        """Prefill-role entry point: prefill ``prompt`` (max_new=1 — the one
+        sampled token proves exactness), then export the finished full-page
+        KV path for wire transfer.
+
+        Returns ``(first_token_or_None, export_doc_or_None)``: the token is
+        None when the request was shed (expired deadline) and the document
+        is None when no full page finished (short prompt) or the pages were
+        evicted before export — the decode backend then re-prefills from
+        scratch.
+        """
+        if self._kv is None:
+            raise RuntimeError(
+                "prefill_and_export requires the paged KV cache")
+        p = np.asarray(prompt, np.int32).reshape(-1)
+        rid = self.submit(
+            p, 1, eos, temperature=temperature, top_k=top_k, top_p=top_p,
+            seed=seed, deadline=deadline, session=session)
+        self.run()
+        out = self._finished.get(rid, [])
+        if not out:  # shed at the door or at admission
+            return None, None
+        return out[0], self._kv.export_pages(p)
+
+    # -- live migration (fleet/migrate.py) --------------------------------- #
+
+    def freeze_session(self, session: str) -> bool:
+        """Refuse new submits for ``session`` while its KV pages are in
+        flight to another backend. Returns whether the session has a
+        recorded token path to export. Requests already in a slot run to
+        completion — freezing gates admission, not decode."""
+        s = str(session)
+        self._frozen_sessions.add(s)
+        path = self._session_paths.get(s)
+        if path is not None and s not in self._frozen_paths:
+            # snapshot the path at freeze time: retires replace (never
+            # mutate) the recorded array, so this reference pins exactly
+            # the state the freeze observed. Re-freezing keeps the original
+            # snapshot (export_session freezes again before exporting)
+            self._frozen_paths[s] = path
+        return s in self._frozen_paths
+
+    def resume_session(self, session: str) -> None:
+        """Lift a migration freeze (the absorb path when the page shipment
+        failed and this backend must keep serving)."""
+        s = str(session)
+        self._frozen_sessions.discard(s)
+        self._frozen_paths.pop(s, None)
+        self._reprefill_sessions.add(s)
+
+    def export_session(self, session: str) -> Optional[Dict[str, Any]]:
+        """Freeze ``session`` and export the KV pages covering its last
+        committed token path (``kv_cache.export_pages`` — the document the
+        disagg prefill→decode hand-off ships). None when the engine runs
+        contiguous, the session is unknown, or its pages were already
+        evicted — the migration target then re-prefills.
+
+        Freeze happens first: a ``submit()`` racing this export gets the
+        frozen-session error and fails over to the re-pinned target, and the
+        exported document covers the freeze-time path snapshot."""
+        s = str(session)
+        self.freeze_session(s)
+        path = self._frozen_paths.get(s)
+        if self._kv is None or path is None:
+            return None
+        return self._kv.export_pages(path)
+
+    # -- crash checkpoint/restore (fleet/checkpoint.py) -------------------- #
+
+    def session_watermarks(self) -> Dict[str, int]:
+        """Committed token-path length per live session — the monotone
+        checkpoint sequence number. Empty until a session retires a turn."""
+        return {s: int(p.size) for s, p in self._session_paths.items()}
+
+    def checkpoint_session(
+            self, session: str) -> Optional[Tuple[np.ndarray, Dict[str, Any]]]:
+        """Read-only checkpoint snapshot: ``(token_path, pages_doc)`` for the
+        session's last committed turn, or None when the session is unknown,
+        the engine runs contiguous, or the path's pages were evicted. Unlike
+        :meth:`export_session` this does not freeze: ``export_pages`` walks
+        the radix tree read-only and reads the pool on its stream."""
+        path = self._session_paths.get(str(session))
+        if path is None or self._kv is None:
+            return None
+        doc = self._kv.export_pages(path)
+        if doc is None:
+            return None
+        return path, doc
+
+    def adopt_restored_session(self, session: str, path: Any, *,
+                               restored: bool = True) -> None:
+        """Crash-restore adoption: record ``path`` as the session's committed
+        token path (so the next export or checkpoint works) and tag its next
+        prefill for the diag critical path — ``restore`` when a checkpoint's
+        pages were spliced, ``re_prefill`` when the stale, corrupt or missing
+        fallback recomputes from scratch."""
+        s = str(session)
+        if path is not None:
+            self._record_session_path(s, np.asarray(path, np.int32)
+                                      .reshape(-1))
+        self._frozen_sessions.discard(s)
+        self._frozen_paths.pop(s, None)
+        if restored:
+            self._restored_sessions.add(s)
+            self._reprefill_sessions.discard(s)
+        else:
+            self._reprefill_sessions.add(s)
+            self._restored_sessions.discard(s)
+
+    def _record_session_path(self, session: str, seq: np.ndarray) -> None:
+        self._session_paths[session] = seq
+        self._session_paths.move_to_end(session)
+        while len(self._session_paths) > SESSION_PATHS_LIMIT:
+            self._session_paths.popitem(last=False)
+
+    def enqueue_kv_import(self, doc: Dict[str, Any]) -> None:
+        """Queue a wire-received page document for splicing (any thread);
+        the scheduler thread drains at the top of its next iteration."""
+        with self._kv_imports_lock:
+            self._kv_imports.append(doc)
+
+    def drain_kv_imports(self) -> int:
+        """Splice every queued page document into the pool (scheduler thread
+        or a quiesced engine only — PagedKVCache is single-threaded).
+        Returns pages spliced; a rejected document (geometry mismatch, pool
+        exhaustion) is dropped with a flight-recorder event — the next
+        request over that prefix prefills locally."""
+        if self._kv is None:
+            return 0
+        spliced = 0
+        while True:
+            with self._kv_imports_lock:
+                if not self._kv_imports:
+                    break
+                doc = self._kv_imports.popleft()
+            try:
+                spliced += self._kv.import_pages(doc)
+            except (ValueError, RuntimeError) as e:
+                _events.record(
+                    "serving.kv_import_reject",
+                    f"{self._engine_label}: page import dropped ({e})",
+                    severity="warning", engine=self._engine_label)
+        return spliced
 
     # -- scheduler internals ---------------------------------------------- #
 
@@ -702,6 +952,19 @@ class LMEngine:
                 pspan = _tracing.start_span(
                     "serving.prefill", parent=req.span.context,
                     attrs={"bucket": tb, "slot": slot})
+                if req.session is not None \
+                        and req.session in self._restored_sessions:
+                    # first prefill after a checkpoint splice — it rides
+                    # the imported radix pages; diag bills it as restore
+                    # (cheap) rather than re_prefill (full)
+                    self._restored_sessions.discard(req.session)
+                    pspan.set_attribute("restore", True)
+                elif req.session is not None \
+                        and req.session in self._reprefill_sessions:
+                    # post-absorb recompute, not fresh work — the diag
+                    # critical path bills this span as re_prefill
+                    self._reprefill_sessions.discard(req.session)
+                    pspan.set_attribute("re_prefill", True)
             tp0 = time.monotonic_ns() \
                 if (_profile.ENGINE_HOOK is not None
                     or _slo.ENGINE_SLO_HOOK is not None) else 0
@@ -1196,6 +1459,11 @@ class LMEngine:
                     [req.prompt, np.asarray(req.out[:-1], np.int32)])
                 self._kv.release(req.kv_lease, seq)
                 req.kv_lease = None
+                if req.session is not None:
+                    # the committed token path is the session's exportable
+                    # KV state — fleet/migrate.py ships the pages covering
+                    # it on a scale-in drain
+                    self._record_session_path(req.session, seq)
                 self._table_host[slot] = 0
             if req.temperature > 0.0:
                 # restore greedy defaults so a finished sampled stream does

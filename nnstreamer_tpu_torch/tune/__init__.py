@@ -3,10 +3,9 @@
 Port of nnstreamer_tpu/tune (stdlib and numpy). The store's device axis is
 the CUDA card's name (``torch.cuda.get_device_name()``), ``"cpu"`` without
 one. Flash attention's knob is its CUDA kernel's launch configuration
-(ops/kernels/flash_attention.py), not the Pallas block shapes. The fleet
-federation (``obs.fleet.TUNE_PUSH_HOOK``/``TUNE_ADOPT_HOOK``) waits for the
-fleet layer (ROADMAP §A9); ``Tuner.push_doc``/``adopt`` are kept. The
-router reads ``Tuner.auto_hedge`` to arm hedging from its observed P95.
+(ops/kernels/flash_attention.py), not the Pallas block shapes. Tuned
+configurations ride the fleet's push docs and push-acks
+(``obs.fleet.TUNE_PUSH_HOOK``/``TUNE_ADOPT_HOOK``). The router reads ``Tuner.auto_hedge`` to arm hedging from its observed P95.
 
 ``obs/profile.py`` records per-dispatch cost samples; this package
 *acts* on them. A :class:`~nnstreamer_tpu_torch.tune.tuner.Tuner` owns the
@@ -79,9 +78,9 @@ def enable(store_path: Optional[str] = None, max_trials: int = 8,
     ``store_path`` None resolves through $NNSTPU_TUNE_STORE then the
     ``.nnstpu_tune.json`` default; the file is loaded when present
     (warm store → zero sweeps). When the live profiler already holds
-    samples the cost model is fit from them immediately. (The JAX
-    package also installs the fleet's push and adopt hooks here: ROADMAP
-    §A9.)
+    samples the cost model is fit from them immediately; either way
+    the fleet hooks are installed so tuned configs ride push docs and
+    push-acks.
     """
     global TUNE_HOOK
     if TUNE_HOOK is not None:
@@ -98,6 +97,12 @@ def enable(store_path: Optional[str] = None, max_trials: int = 8,
                 tn.fit(rows)
         except Exception:
             pass
+    # federation: the push doc carries the store, the push-ack merges
+    # the fleet's — both None-gated module hooks on obs/fleet.py
+    from ..obs import fleet as _fleet
+
+    _fleet.TUNE_PUSH_HOOK = tn.push_doc
+    _fleet.TUNE_ADOPT_HOOK = tn.adopt
     TUNE_HOOK = tn
     return tn
 
@@ -107,6 +112,10 @@ def disable(save: bool = True) -> None:
     global TUNE_HOOK
     tn = TUNE_HOOK
     TUNE_HOOK = None
+    from ..obs import fleet as _fleet
+
+    _fleet.TUNE_PUSH_HOOK = None
+    _fleet.TUNE_ADOPT_HOOK = None
     if tn is not None and save and tn.store.path and tn.store.dirty:
         try:
             tn.store.save()

@@ -22,6 +22,7 @@ import pytest
 from nnstreamer_tpu_torch.core.buffer import TensorMemory
 from nnstreamer_tpu_torch.obs import diag
 from nnstreamer_tpu_torch.obs import events as obs_events
+from nnstreamer_tpu_torch.obs import fleet as obs_fleet
 from nnstreamer_tpu_torch.obs import health as obs_health
 from nnstreamer_tpu_torch.obs import metrics as obs_metrics
 from nnstreamer_tpu_torch.obs import slo as obs_slo
@@ -520,6 +521,15 @@ class TestBundleStore:
 # Trigger wiring: the cold-path taps fire the capture automatically
 # --------------------------------------------------------------------------- #
 
+class _StubBackends:
+    def backends(self):
+        return []
+
+
+class _StubRouter:
+    backends = _StubBackends()
+
+
 class TestTriggerWiring:
     def test_watchdog_degraded_captures(self, diag_off, health, events,
                                         tmp_path):
@@ -536,6 +546,45 @@ class TestTriggerWiring:
         comp.set_status(obs_health.Status.DEGRADED, "again")
         assert eng.triggers.stats["fired"] == 1
 
+    def test_fleet_action_journal_captures_with_signals(
+            self, diag_off, tmp_path):
+        from nnstreamer_tpu_torch.fleet.controller import FleetController
+
+        eng = _enable(tmp_path)
+        ctl = FleetController(_StubRouter(), policy=None,
+                              clock=FakeClock())
+        ctl._last_signals = {"occupancy": 0.93, "replicas": 2}
+        ctl._journal_add("scale_up", "occupancy above target",
+                         endpoint="h:1")
+        # the journal entry itself records the deciding evidence
+        entry = ctl.actions()[-1]
+        assert entry["signals"]["occupancy"] == 0.93
+        bundles = eng.bundles.list()
+        assert len(bundles) == 1
+        cause = bundles[0]["cause"]
+        assert cause["kind"] == "fleet_action" and cause["key"] == "scale_up"
+        assert cause["detail"]["signals"]["replicas"] == 2
+        # holds/skips are bookkeeping, not incidents
+        ctl._journal_add("scale_up_skipped", "cooldown")
+        assert eng.triggers.stats["fired"] == 1
+
+    def test_push_doc_carries_bundle_refs(self, diag_off, tmp_path):
+        eng = _enable(tmp_path)
+        bid = eng.on_burn_alert("tenant:acme", {"burn": 2.0})
+        doc = obs_fleet.build_push("w-diag", "worker", 1)
+        assert doc["diag"]["bundles"][0]["id"] == bid
+        assert doc["diag"]["triggers"]["fired"] == 1
+        agg = obs_fleet.enable_aggregator(ttl_s=30.0)
+        try:
+            agg.ingest(doc)
+            rolled = agg.diag_rollup()
+            assert rolled["w-diag"]["bundles"][0]["id"] == bid
+        finally:
+            obs_fleet.disable_aggregator()
+
+    def test_push_doc_diag_field_none_when_off(self, diag_off):
+        assert obs_fleet.build_push("w-off", "worker", 1)["diag"] is None
+
 
 # --------------------------------------------------------------------------- #
 # E2E: seeded SLO breach -> automatic bundle with the evidence
@@ -547,11 +596,13 @@ class TestBreachE2E:
             tmp_path):
         """The acceptance scenario: a deterministic (fake-clock,
         seeded-outcome) SLO breach run. Nobody calls capture — the
-        burn alert does. The bundle holds the offending tenant's spans,
-        and the critical path it freezes is conservation-exact offline.
-        (The JAX case's fleet remediation bundle waits for fleet/,
-        ROADMAP §A9; the bundle's fleet stanza is an error stanza naming
-        §A9, its routing stanza the live routers' view.)"""
+        burn alert does. The bundle holds the offending tenant's spans
+        and the fleet action that followed, and the critical path it
+        freezes is conservation-exact offline. (The bundle's routing
+        stanza is the live routers' view, its fleet stanza the fleet
+        controller's snapshot: None with no controller enabled.)"""
+        from nnstreamer_tpu_torch.fleet.controller import FleetController
+
         deng = _enable(tmp_path)
         health.enable(interval_s=3600.0)
         fc = FakeClock()
@@ -607,7 +658,18 @@ class TestBreachE2E:
         from nnstreamer_tpu_torch.query import router as qrouter
 
         assert doc["routing"] == qrouter.routing_view()
-        assert "§A9" in doc["fleet_actions"]["error"]
+        assert doc["fleet_actions"] is None
+
+        # the remediation that follows the breach is captured too
+        ctl = FleetController(_StubRouter(), policy=None,
+                              clock=FakeClock())
+        ctl._last_signals = {"occupancy": 0.99, "breached": ["rt"]}
+        ctl._journal_add("scale_up", "rt burn", endpoint="h:2")
+        bundles = deng.bundles.list()
+        assert len(bundles) == n_breach + 1
+        assert bundles[0]["cause"]["kind"] == "fleet_action"
+        assert bundles[0]["cause"]["detail"]["signals"]["breached"] \
+            == ["rt"]
 
         # offline: nns-diag reproduces a conservation-exact waterfall
         views = diag_cli._trace_spans(doc)[root.context.trace_id]
@@ -655,6 +717,37 @@ class TestServingTaps:
         # the critpath endpoint view joins requests to the rollup
         view = deng.critpath()
         assert view["requests"][-1]["rid"] == rid
+
+    def test_resume_session_marks_next_prefill(self, diag_off,
+                                               tracing_on, params):
+        """Migration-absorb recompute: the first prefill after
+        resume_session carries re_prefill=True, so its device time
+        bills to the re_prefill segment, once."""
+        eng = self._mkeng(params)
+        p = np.arange(12, dtype=np.int32) % 97
+        eng.submit(p, 2, session="sess-m")
+        eng.run()
+        eng.freeze_session("sess-m")
+        eng.resume_session("sess-m")
+        rid = eng.submit(p, 2, session="sess-m")
+        eng.run()
+        assert len(eng.results[rid]) == 2
+
+        def prefills():
+            return [s for sm in tracing_on.summaries()
+                    for s in tracing_on.spans_of(sm["trace_id"])
+                    if s.name == "serving.prefill"]
+
+        marked = [s for s in prefills() if s.attrs.get("re_prefill")]
+        assert len(marked) == 1
+        assert critpath.segment_of(marked[0].name, marked[0].attrs) \
+            == "re_prefill"
+        # the marker is consumed: a further request is a plain prefill
+        eng.submit(p, 2, session="sess-m")
+        eng.run()
+        assert len([s for s in prefills()
+                    if s.attrs.get("re_prefill")]) == 1
+
 
 
 # --------------------------------------------------------------------------- #

@@ -294,17 +294,22 @@ def test_watchdog_thread_starts_lazily(health):
     assert "obs-health-watchdog" in [t.name for t in threading.enumerate()]
 
 
-def test_unported_kinds_are_tracked_not_judged(health, events):
-    """A fleet component (its layer waits for ROADMAP §A9) keeps the status
-    its owner sets; the watchdog adds no verdict. (The slo and quality
-    kinds are judged since their layers were ported:
-    tests/test_torch_slo.py, tests/test_torch_quality.py.)"""
-    events.enable()
-    health.enable(interval_s=60.0)
-    c = health.component("fleet:w1", kind="fleet",
-                         probe=lambda: {"push_age_s": 90.0, "ttl_s": 6.0})
-    health.check_now()
-    assert c.status is Status.OK and not events.ring().snapshot()
+def test_unported_kinds_are_tracked_not_judged(both):
+    """The ``kind="fleet"`` rule (once the one kind the port tracked without
+    judging; the name is kept): a pushing instance whose last push is older
+    than its ttl goes STALLED with ``fleet.stall``, and recovers with
+    ``fleet.recover`` when pushes resume — the JAX watchdog's verdicts and
+    events, step for step. ``status_from_string`` maps a pushed status back
+    into the severity order, an unknown string ranking DEGRADED, as JAX's
+    does."""
+    mine = _verdicts(*both["torch"], "fleet_heartbeat")
+    ref = _verdicts(*both["jax"], "fleet_heartbeat")
+    assert mine == ref
+    assert mine[0] == ["stalled", "stalled", "ok"]
+    assert [e[0] for e in mine[1]] == ["fleet.stall", "fleet.recover"]
+    for s in ("ok", "degraded", "stalled", "failing", "unheard-of"):
+        assert obs_health.status_string(obs_health.status_from_string(s)) \
+            == jax_health.status_string(jax_health.status_from_string(s))
 
 
 # --------------------------------------------------------------------------- #
@@ -396,6 +401,22 @@ def _scenario_admission(h, ev):
     yield c
 
 
+def _scenario_fleet_heartbeat(h, ev):
+    ev.enable()
+    h.enable(interval_s=60.0)
+    state = {"age": 90.0}
+    c = h.component("fleet:w1", kind="fleet",
+                    probe=lambda: {"push_age_s": state["age"], "ttl_s": 6.0},
+                    attrs={"instance": "w1", "role": "worker"})
+    h.check_now()
+    yield c
+    h.check_now()   # still stalled: the verdict is not recorded again
+    yield c
+    state["age"] = 1.0
+    h.check_now()
+    yield c
+
+
 def _scenario_starvation(h, ev):
     ev.enable()
     h.enable(starvation_storm=2, starvation_window_s=0.0, interval_s=60.0)
@@ -419,6 +440,7 @@ SCENARIOS = {
     "storm_never_masks_failed": _scenario_storm_never_masks_failed,
     "admission_stall": _scenario_admission,
     "starvation_storm": _scenario_starvation,
+    "fleet_heartbeat": _scenario_fleet_heartbeat,
 }
 
 #: the verdicts tests/test_health.py asserts, per scenario step
@@ -430,6 +452,7 @@ EXPECTED = {
     "storm_never_masks_failed": ["failing"],
     "admission_stall": ["stalled", "ok"],
     "starvation_storm": ["degraded", "ok"],
+    "fleet_heartbeat": ["stalled", "stalled", "ok"],
 }
 
 

@@ -200,13 +200,15 @@ def test_cli_lists_and_inspects():
 
 
 @pytest.mark.parametrize("flag", [["--device", "cpu", "--deadline-ms", "50"],
-                                  ["--obs-push", "wire"],
+                                  ["--device", "cpu",
+                                   "--checkpoint-interval", "5"],
                                   ["--role", "prefill"],
                                   ["--device", "cpu", "--backends", "127.0.0.1:1"],
                                   ["--device", "tpu"]])
 def test_cli_refuses_unported_flags(flag):
-    # --deadline-ms and --backends are ported: refused, as by the JAX CLI,
-    # for a pipeline without a tensor_query_client
+    # combinations the JAX CLI refuses too: --deadline-ms and --backends
+    # for a pipeline without a tensor_query_client, --checkpoint-interval
+    # without --checkpoint-dir, --role prefill without --kv-page-size
     with pytest.raises(SystemExit) as e:
         port_cli(flag + ["videotestsrc num-buffers=1 ! tensor_sink"])
     assert e.value.code == 2

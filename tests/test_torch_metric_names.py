@@ -148,9 +148,9 @@ def test_lint_catches_an_slo_name_minted_outside_obs_slo(lint, tmp_path):
 @pytest.mark.parametrize("layer", ["query", "router", "resilience", "chaos"])
 def test_query_layers_register_where_the_jax_package_does(lint, layer):
     """The query and resilience layers' metric families, event types and
-    span names are each minted in the same module of both trees, but the
-    router's prefix-aware placement event, which needs the fleet aggregator
-    (ROADMAP §A9)."""
+    span names are each minted in the same module of both trees (the
+    router's prefix-aware placement event too, now that the fleet
+    aggregator it reads is ported)."""
     def where(root):
         regs, events, spans = set(), set(), set()
         for path, _, _, name in lint.iter_registrations(root):
@@ -166,5 +166,27 @@ def test_query_layers_register_where_the_jax_package_does(lint, layer):
 
     mine, ref = where(PORT), where(JAX)
     assert mine[0], f"no {layer} metric family registered in the port"
-    waiting = {("query/router.py", "router.prefix_place")}
-    assert mine == (ref[0], ref[1] - waiting, ref[2])
+    assert mine == ref
+
+
+@pytest.mark.parametrize("layer", ["disagg", "fleet"])
+def test_fleet_layers_register_where_the_jax_package_does(lint, layer):
+    """The disaggregated-serving and fleet (obs/fleet.py federation, fleet/
+    migration, autoscaling and checkpoints) layers' metric families, event
+    types and span names are minted in the same modules of both trees."""
+    def where(root):
+        regs, events, spans = set(), set(), set()
+        for path, _, _, name in lint.iter_registrations(root):
+            if name.split("_")[1] == layer:
+                regs.add((path.relative_to(root).as_posix(), name))
+        for path, _, name in lint.iter_event_sites(root):
+            if name.split(".")[0] == layer:
+                events.add((path.relative_to(root).as_posix(), name))
+        for path, _, name in lint.iter_span_sites(root):
+            if name.split(".")[0] == layer:
+                spans.add((path.relative_to(root).as_posix(), name))
+        return regs, events, spans
+
+    mine, ref = where(PORT), where(JAX)
+    assert mine[0] or mine[1], f"no {layer} name minted in the port"
+    assert mine == ref

@@ -5,8 +5,9 @@ Every case of tests/test_obs.py that applies, and the span-store, serving
 span, PipelineTracer and device_trace cases of tests/test_tracing.py, run
 against ``nnstreamer_tpu_torch``; then parity with the JAX package on the
 same seeded inputs: the Prometheus exposition of one registration and
-observation sequence byte for byte, the unported layers' routes answered as
-the JAX exporter answers them with those layers off, and one ``videotestsrc
+observation sequence byte for byte, the layers' routes answered as the JAX
+exporter answers them with those layers off, the fleet flags of the CLI
+taken as the JAX CLI takes them, and one ``videotestsrc
 ! tensor_converter ! tensor_filter ! tensor_decoder mode=bounding_box !
 tensor_sink`` run through both packages — metric families and label sets,
 the span tree of every frame, the event types in order and the profiler's
@@ -15,6 +16,7 @@ waits with a deadline; every socket binds port 0.
 """
 
 import json
+import os
 import threading
 import time
 import urllib.error
@@ -436,7 +438,8 @@ def test_version_and_debug_index(global_metrics):
         torch.__version__
 
 
-#: the routes of the layers the port has not reached: (method, path, body)
+#: the routes of the obs layers and the fleet, asked with each layer off:
+#: (method, path, body)
 _OFF_ROUTES = [
     ("GET", "/debug/slo", None), ("GET", "/debug/quality", None),
     ("GET", "/debug/tune", None), ("GET", "/debug/fleet", None),
@@ -881,17 +884,64 @@ def test_obs_flags_normalize_as_jax(argv):
     assert _normalize_argv(list(argv)) == jax_normalize(list(argv))
 
 
-@pytest.mark.parametrize("flag", ["--obs-push", "--obs-aggregate",
-                                  "--autoscale", "--checkpoint-dir",
-                                  "--checkpoint-interval", "--role",
-                                  "--disagg"])
-def test_unported_flags_are_refused_naming_their_roadmap_item(flag, capsys):
+#: the fleet flags on a CPU pipeline, each as the JAX CLI takes it: a
+#: combination it refuses (exit 2 and its message), or one it accepts and
+#: wires (exit 0, the environment it exports)
+_FLEET_FLAG_CASES = {
+    "--obs-push": ["--obs-push", "ftp://nowhere"],
+    "--obs-aggregate": ["--obs-aggregate"],
+    "--autoscale": ["--autoscale", "1:2"],
+    "--checkpoint-dir": ["--checkpoint-dir", "ckpt"],
+    "--checkpoint-interval": ["--checkpoint-dir", "ckpt",
+                              "--checkpoint-interval", "0"],
+    "--role": ["--role", "decode"],
+    "--disagg": ["--disagg", "127.0.0.1:1"],
+    "--role-unified": ["--role", "unified", "--disagg",
+                       "127.0.0.1:1;127.0.0.1:2"],
+}
+
+_FLEET_ENV = ("NNS_LM_ROLE", "NNS_LM_DISAGG", "NNS_FLEET_CKPT_DIR",
+              "NNS_FLEET_CKPT_INTERVAL")
+
+
+def _run_cli(main, argv, capsys):
+    try:
+        code = main(argv)
+    except SystemExit as e:
+        code = e.code
+    err = capsys.readouterr().err
+    env = {k: os.environ.get(k) for k in _FLEET_ENV}
+    for k in _FLEET_ENV:
+        os.environ.pop(k, None)
+    return code, err, env
+
+
+@pytest.mark.parametrize("flag", sorted(_FLEET_FLAG_CASES))
+def test_unported_flags_are_refused_naming_their_roadmap_item(
+        flag, capsys, monkeypatch, tmp_path):
+    """Each fleet flag as the JAX CLI takes it (the flags were refused
+    before the fleet layer was ported; the name is kept): the same exit
+    code, the same refusal message or ``fleet:`` line, and the same
+    ``NNS_LM_*``/``NNS_FLEET_CKPT_*`` environment exported for the engines
+    and workers the run builds."""
+    from nnstreamer_tpu.cli import main as jax_main
     from nnstreamer_tpu_torch.cli import main
 
-    with pytest.raises(SystemExit) as e:
-        main([flag, "x", "videotestsrc num-buffers=1 ! tensor_sink"])
-    assert e.value.code == 2
-    assert "ROADMAP §A" in capsys.readouterr().err
+    monkeypatch.chdir(tmp_path)
+    for k in _FLEET_ENV:
+        monkeypatch.delenv(k, raising=False)
+    pipe = "videotestsrc num-buffers=1 ! tensor_sink"
+    argv = _FLEET_FLAG_CASES[flag]
+    mine = _run_cli(main, ["--device", "cpu"] + argv + [pipe], capsys)
+    ref = _run_cli(jax_main, argv + [pipe], capsys)
+    assert mine[0] == ref[0]
+    assert mine[2] == ref[2]
+    want = [ln for ln in ref[1].splitlines()
+            if ln.startswith(("fleet:", "ERROR:")) or "error:" in ln]
+    got = [ln for ln in mine[1].splitlines()
+           if ln.startswith(("fleet:", "ERROR:")) or "error:" in ln]
+    assert [ln.replace("nns-launch-torch", "nns-launch") for ln in got] \
+        == want
 
 
 def test_profile_dump_needs_profile(capsys):

@@ -1,11 +1,12 @@
 """The port's obs.quality against the JAX package's.
 
-Every case of tests/test_quality.py that needs no fleet layer, run against
-``nnstreamer_tpu_torch`` (the zero-overhead hook contract, the streaming
+Every case of tests/test_quality.py, run against ``nnstreamer_tpu_torch``
+(the zero-overhead hook contract, the streaming
 statistics against numpy, sketches and PSI, drift baselines and the
 fake-clock multi-window burn, the NaN-storm / dead-output rules, sampling,
 cardinality, the spec grammar, LM confidence on the port's engine, a NaN
-storm bundling itself through the watchdog, the exporter routes and the
+storm bundling itself through the watchdog, the push document's
+``quality`` field and the fleet rollup, the exporter routes and the
 Perfetto lane); then parity: the spec grammar, a baseline written by one
 package scored by the other, the drift verdicts, the confidence triple
 against the JAX engine's ``_conf_from_row``, and the confidence admission's
@@ -28,6 +29,7 @@ from nnstreamer_tpu_torch.graph import Pipeline
 from nnstreamer_tpu_torch.graph.element import Pad
 from nnstreamer_tpu_torch.obs import diag
 from nnstreamer_tpu_torch.obs import events as obs_events
+from nnstreamer_tpu_torch.obs import fleet as obs_fleet
 from nnstreamer_tpu_torch.obs import health as obs_health
 from nnstreamer_tpu_torch.obs import quality
 from nnstreamer_tpu_torch.obs.exporter import start_exporter
@@ -645,6 +647,25 @@ class TestSurfaces:
         bid = deng.on_burn_alert("tenant:acme", {"burn": 2.0})
         doc = deng.bundles.get(bid)
         assert "quality is not enabled" in doc["quality"]["error"]
+
+    def test_push_doc_quality_field(self, quality_off):
+        assert obs_fleet.build_push("w-off", "worker", 1)["quality"] \
+            is None
+        eng = quality.enable(nan_storm=1)
+        eng.observe_chain("s0", _buf(np.full(2, np.nan, np.float32)))
+        doc = obs_fleet.build_push("w-q", "worker", 1)
+        assert doc["quality"]["taps"]["chain:s0"]["nan"] == 2
+        assert doc["quality"]["anomalies"]["chain:s0"]["kind"] \
+            == "nan_storm"
+        agg = obs_fleet.enable_aggregator(ttl_s=30.0)
+        try:
+            agg.ingest(doc)
+            rolled = agg.quality_rollup()
+            assert rolled["instances"]["w-q"]["taps"]["chain:s0"]["nan"] \
+                == 2
+            assert rolled["anomalous"] == ["w-q/chain:s0"]
+        finally:
+            obs_fleet.disable_aggregator()
 
     def _get(self, port, path):
         return json.loads(urllib.request.urlopen(

@@ -1,8 +1,9 @@
-"""The port's query.router: every case of tests/test_router.py but the
-fleet-fed load signals (TestFleetSignals: the fleet aggregator is ROADMAP
-§A9), run against ``nnstreamer_tpu_torch`` on the CPU — endpoint parsing,
-two-random-choice placement, session affinity (stability, minimal remap,
-spill-on-death), graceful drain, endpoint-scoped chaos faults with the
+"""The port's query.router: every case of tests/test_router.py, run
+against ``nnstreamer_tpu_torch`` on the CPU — endpoint parsing,
+two-random-choice placement, the fleet aggregator's load signals
+(routing view scalars, tombstones, stale instances, the shallow fleet
+queue), session affinity (stability, minimal remap, spill-on-death),
+graceful drain, endpoint-scoped chaos faults with the
 latching ``partition`` kind, hedged dispatch (first response wins, the
 loser's connection stays in protocol sync), deadline admission at the
 router door, and the last-resort fallback when every backend is down.
@@ -29,6 +30,7 @@ from nnstreamer_tpu_torch.graph import Pipeline
 from nnstreamer_tpu_torch.graph import element as gel
 from nnstreamer_tpu_torch.graph.element import FlowReturn
 from nnstreamer_tpu_torch.obs import events as obs_events
+from nnstreamer_tpu_torch.obs import fleet as obs_fleet
 from nnstreamer_tpu_torch.obs import health as obs_health
 from nnstreamer_tpu_torch.query import protocol
 from nnstreamer_tpu_torch.query import router as qrouter
@@ -248,6 +250,65 @@ class TestPlacement:
         bs = mkset(self.EPS, "dup")
         with pytest.raises(ValueError, match="already"):
             bs.add("127.0.0.1:9001")
+
+
+class TestFleetSignals:
+    def _doc(self, iid, depth=None, ready=True, seq=1):
+        doc = {"instance": iid, "seq": seq, "role": "worker",
+               "ready": {"ready": ready}}
+        if depth is not None:
+            doc["metrics"] = {"nnstpu_serving_queue_depth": {
+                "type": "gauge", "help": "",
+                "series": [{"labels": {}, "value": float(depth)}]}}
+        return doc
+
+    def test_routing_view_scalars_and_tombstones(self):
+        agg = obs_fleet.FleetAggregator(ttl_s=30.0, expire_after_s=0.15,
+                                        instance="agg-test")
+        agg.ingest(self._doc("w1", depth=3.0), via="test")
+        agg.ingest(self._doc("w2", ready=False), via="test")
+        view = agg.routing_view()
+        assert view["w1"]["routable"] and view["w1"]["queue_depth"] == 3.0
+        assert not view["w2"]["routable"]  # self-reported not ready
+        assert agg.snapshot()["instances"][0]["queue_depth"] == 3.0
+        time.sleep(0.2)  # past expire_after_s: both expire
+        view = agg.routing_view()
+        # expiry leaves tombstones, not silence: "known dead", with a
+        # queue depth no placement comparison can ever prefer
+        for iid in ("w1", "w2"):
+            assert view[iid]["expired"] and not view[iid]["routable"]
+            assert view[iid]["queue_depth"] == float("inf")
+        assert sorted(agg.snapshot()["expired"]) == ["w1", "w2"]
+        agg.ingest(self._doc("w1", depth=0.0, seq=2), via="test")
+        view = agg.routing_view()  # a returning instance sheds its stone
+        assert view["w1"]["routable"] and "expired" not in view["w1"]
+        assert agg.snapshot()["expired"] == ["w2"]
+
+    def test_stale_instance_not_routable_but_present(self):
+        agg = obs_fleet.FleetAggregator(ttl_s=0.05, expire_after_s=60.0,
+                                        instance="agg-stale")
+        agg.ingest(self._doc("w1", depth=1.0), via="test")
+        time.sleep(0.1)  # past ttl, before expiry
+        view = agg.routing_view()
+        assert view["w1"]["stale"] and not view["w1"]["routable"]
+        assert "expired" not in view["w1"]
+
+    def test_pick_prefers_the_shallow_fleet_queue(self, monkeypatch):
+        agg = obs_fleet.FleetAggregator(ttl_s=30.0, expire_after_s=60.0,
+                                        instance="agg-place")
+        agg.ingest(self._doc("w1", depth=50.0), via="test")
+        agg.ingest(self._doc("w2", depth=0.0), via="test")
+        monkeypatch.setattr(obs_fleet, "_AGGREGATOR", agg)
+        bs = mkset("127.0.0.1:9101,127.0.0.1:9102", "fleetp",
+                   rng=random.Random(6))
+        bs.get("127.0.0.1:9101").instance = "w1"
+        bs.get("127.0.0.1:9102").instance = "w2"
+        assert all(bs.pick().endpoint == "127.0.0.1:9102"
+                   for _ in range(20))
+        # w2 stops reporting ready: inf load flips the preference
+        agg.ingest(self._doc("w2", ready=False, seq=2), via="test")
+        assert all(bs.pick().endpoint == "127.0.0.1:9101"
+                   for _ in range(20))
 
 
 # --------------------------------------------------------------------------- #

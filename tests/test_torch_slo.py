@@ -1,12 +1,14 @@
 """The port's obs.slo against the JAX package's.
 
-Every case of tests/test_slo.py that needs no fleet layer, run against
-``nnstreamer_tpu_torch`` (the zero-overhead-when-off hook contract,
+Every case of tests/test_slo.py, run against ``nnstreamer_tpu_torch``
+(the zero-overhead-when-off hook contract,
 per-tenant cost-attribution conservation against DeviceEngine totals,
 goodput and shed accounting, fake-clock multi-window burn-rate evaluation,
 the health-registry breach/recovery loop, the sched starvation-storm
-watchdog rule, the /debug/slo and /debug/profile/samples routes, the
-Perfetto per-tenant goodput lane, and the --slo spec parser); then parity
+watchdog rule, the /debug/slo and /debug/profile/samples routes with the
+fleet rollup, the fleet aggregator's SLO rollup and the push document's
+``slo`` field, the Perfetto per-tenant goodput lane, and the --slo spec
+parser); then parity
 with the JAX package: spec parsing, burn verdicts under the same injected
 clock, the SLO ledger after the seeded sched scenarios of
 tests/test_torch_sched.py, and a seeded paged LM run with deadlines and
@@ -22,11 +24,13 @@ import pytest
 
 from nnstreamer_tpu_torch.core.buffer import TensorMemory
 from nnstreamer_tpu_torch.obs import events as obs_events
+from nnstreamer_tpu_torch.obs import fleet as obs_fleet
 from nnstreamer_tpu_torch.obs import health as obs_health
 from nnstreamer_tpu_torch.obs import metrics as obs_metrics
 from nnstreamer_tpu_torch.obs import profile as obs_profile
 from nnstreamer_tpu_torch.obs import slo
 from nnstreamer_tpu_torch.obs.exporter import start_exporter
+from nnstreamer_tpu_torch.obs.fleet import FleetAggregator
 from nnstreamer_tpu_torch.obs.health import Status
 from nnstreamer_tpu_torch.sched import SHED, DeviceEngine
 
@@ -467,19 +471,22 @@ class TestExporterRoutes:
 
     def test_debug_slo_serves_snapshot_and_fleet_rollup(
             self, slo_off, global_metrics):
-        """The snapshot half of the JAX case; the fleet rollup waits for
-        obs/fleet.py (ROADMAP §A9) and this process never aggregates, so
-        the route carries no ``fleet`` key."""
         slo.enable(fast_window_s=10.0, slow_window_s=100.0)
         slo.set_objective("rt", goodput_ratio=0.9)
         reg = slo.slo_registry()
         for _ in range(4):
             reg.record_outcome("rt", "missed", 0.2)
-        with start_exporter(port=0) as exp:
-            doc = self._get(exp.port, "/debug/slo")
+        obs_fleet.enable_aggregator(ttl_s=30.0)
+        try:
+            with start_exporter(port=0) as exp:
+                doc = self._get(exp.port, "/debug/slo")
+        finally:
+            obs_fleet.disable_aggregator()
         assert doc["enabled"] is True
         assert doc["tenants"]["rt"]["burn"]["breached"] is True
-        assert "fleet" not in doc
+        assert "rt" in doc["fleet"]["breached"]
+        assert any(s.get("enabled")
+                   for s in doc["fleet"]["instances"].values())
 
     def test_debug_profile_samples_route(self, slo_off, global_metrics):
         with start_exporter(port=0) as exp:
@@ -497,6 +504,52 @@ class TestExporterRoutes:
             hint = ei.value.read().decode()
         assert "/debug/slo" in hint
         assert "/debug/profile/samples" in hint
+
+
+# --------------------------------------------------------------------------- #
+# Fleet rollup
+# --------------------------------------------------------------------------- #
+
+class TestFleetRollup:
+    def test_rollup_merges_local_and_remote_breaches(self, slo_off):
+        agg = FleetAggregator(instance="agg:1")
+        agg.ingest({
+            "v": 1, "instance": "w1:1", "seq": 1,
+            "slo": {"enabled": True,
+                    "tenants": {"rt": {"burn": {"breached": True}}}},
+        })
+        local = {"enabled": True,
+                 "tenants": {"bulk": {"burn": {"breached": True}},
+                             "ok-t": {"burn": {"breached": False}}}}
+        roll = agg.slo_rollup(local)
+        assert set(roll["instances"]) == {"agg:1", "w1:1"}
+        assert roll["breached"] == ["bulk", "rt"]
+
+    def test_rollup_skips_disabled_snapshots(self, slo_off):
+        agg = FleetAggregator(instance="agg:1")
+        agg.ingest({"v": 1, "instance": "w1:1", "seq": 1,
+                    "slo": {"enabled": False, "tenants": {}}})
+        roll = agg.slo_rollup(None)
+        assert roll == {"instances": {}, "breached": []}
+
+    def test_push_document_carries_slo(self, slo_off):
+        from nnstreamer_tpu_torch.obs.fleet import build_push
+        from nnstreamer_tpu_torch.obs.metrics import MetricsRegistry
+        from nnstreamer_tpu_torch.obs.tracing import SpanStore
+
+        def push():
+            return build_push(
+                "w1:1", "worker", 1, interval_s=2.0,
+                registry=MetricsRegistry(enabled=True),
+                health_registry=obs_health.HealthRegistry(),
+                span_store=SpanStore())
+
+        assert push()["slo"] is None  # disabled: no payload bytes
+        slo.enable()
+        slo.slo_registry().record_outcome("rt", "met", 0.01)
+        doc = push()
+        assert doc["slo"]["enabled"] is True
+        assert "rt" in doc["slo"]["tenants"]
 
 
 # --------------------------------------------------------------------------- #

@@ -1,10 +1,11 @@
 """The port's tune/ against the JAX package's.
 
-Every case of tests/test_tune.py that needs no fleet layer, run against
-``nnstreamer_tpu_torch`` (store roundtrip and merge semantics, cost-model
-determinism, the tuner's resolution order store → model → bounded sweep →
-default, the zero-overhead-when-off contract, adoption of a shipped doc,
-/debug/tune); then the port's knob sites (flash's launch configuration
+Every case of tests/test_tune.py, run against ``nnstreamer_tpu_torch``
+(store roundtrip and merge semantics, cost-model determinism, the tuner's
+resolution order store → model → bounded sweep → default, the
+zero-overhead-when-off contract, the fleet federation: the store in push
+docs, the aggregator's lowest-cost tuned view, adoption on a push-ack over
+HTTP; /debug/tune); then the port's knob sites (flash's launch configuration
 with its capture rule, the LM engine's chunk, page size and draft length,
 the filter's bucket rung) and parity: a store written by one package
 loads in the other and gives the same picks. The ``cuda`` cases hold each
@@ -22,8 +23,13 @@ import torch
 from nnstreamer_tpu_torch import tune
 from nnstreamer_tpu_torch.core import graphs
 from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+from nnstreamer_tpu_torch.obs import fleet as obs_fleet
+from nnstreamer_tpu_torch.obs import health as obs_health
 from nnstreamer_tpu_torch.obs.exporter import start_exporter
+from nnstreamer_tpu_torch.obs.fleet import (FleetAggregator, FleetPusher,
+                                            build_push)
 from nnstreamer_tpu_torch.obs.metrics import MetricsRegistry
+from nnstreamer_tpu_torch.obs.tracing import SpanStore
 from nnstreamer_tpu_torch.tune.model import CostModel
 from nnstreamer_tpu_torch.tune.store import MAX_PUSH_ENTRIES, TuneStore
 from nnstreamer_tpu_torch.tune.tuner import Tuner, shape_sig
@@ -34,6 +40,20 @@ def tune_off_after():
     """Whatever a test installs on the module hooks, put it back."""
     yield tune
     tune.disable(save=False)
+    obs_fleet.TUNE_PUSH_HOOK = None
+    obs_fleet.TUNE_ADOPT_HOOK = None
+
+
+def worker_push(instance, seq=1, tune_doc=None):
+    """A synthetic worker push built through the real build_push path
+    (private registries), with an optional tune slice attached."""
+    doc = build_push(instance, "worker", seq, interval_s=2.0,
+                     registry=MetricsRegistry(enabled=True),
+                     health_registry=obs_health.HealthRegistry(),
+                     span_store=SpanStore())
+    if tune_doc is not None:
+        doc["tune"] = tune_doc
+    return doc
 
 
 def _samples(device="cpu", label="f", rows=((1e6, 1e4, 50.0),
@@ -242,31 +262,67 @@ class TestTuneOff:
         # inspection — the hook check is the FIRST thing in the helper
         assert fa._tuned_config(None, False, "wgmma", (128, 64)) == 0
 
+    def test_push_doc_unchanged_without_hook(self, tune_off_after):
+        assert obs_fleet.TUNE_PUSH_HOOK is None
+        assert worker_push("w1:1").get("tune") is None
+
     def test_enable_disable_lifecycle(self, tmp_path, tune_off_after):
         p = str(tmp_path / "store.json")
         tn = tune.enable(p, fit_from_profiler=False)
         assert tune.enabled() and tune.tuner() is tn
         assert tune.enable(p) is tn  # idempotent
+        assert obs_fleet.TUNE_PUSH_HOOK == tn.push_doc
+        assert obs_fleet.TUNE_ADOPT_HOOK == tn.adopt
         tn.store.put("cpu", "f", "sig", "k", 1, "sweep")
         tune.disable()
         assert not tune.enabled()
+        assert obs_fleet.TUNE_PUSH_HOOK is None
+        assert obs_fleet.TUNE_ADOPT_HOOK is None
         # disable persisted the dirty store
         assert TuneStore(p).get("cpu", "f", "sig", "k")["value"] == 1
 
 
 # --------------------------------------------------------------------------- #
-# Adoption and the debug route (the fleet's push doc, tuned view and
-# push-ack wait for obs/fleet.py, ROADMAP §A9)
+# Fleet federation
 # --------------------------------------------------------------------------- #
 
 class TestFleetFederation:
+    def test_push_doc_carries_store(self, tune_off_after):
+        tn = Tuner(store=TuneStore())
+        tn.store.put("cpu", "flash", "sig", "k", [512, 1024], "sweep",
+                     cost_us=10.0)
+        obs_fleet.TUNE_PUSH_HOOK = tn.push_doc
+        doc = worker_push("w1:1")
+        assert doc["tune"]["entries"]["cpu|flash|sig|k"]["value"] \
+            == [512, 1024]
+
+    def test_tuned_view_merges_lowest_cost(self):
+        agg = FleetAggregator(span_store=SpanStore())
+        agg.ingest(worker_push("w1:1", tune_doc={"version": 1, "entries": {
+            "cpu|f|s|k": {"value": 512, "cost_us": 20.0, "ts": 1.0},
+            "cpu|f|s|k2": {"value": 1, "ts": 1.0}}}))
+        agg.ingest(worker_push("w2:1", tune_doc={"version": 1, "entries": {
+            "cpu|f|s|k": {"value": 256, "cost_us": 5.0, "ts": 0.5},
+            "cpu|f|s|k2": {"value": 2, "ts": 2.0}}}))
+        view = agg.tuned_view()
+        # measured: lowest cost wins regardless of age
+        assert view["entries"]["cpu|f|s|k"]["value"] == 256
+        # both unmeasured: newest ts wins
+        assert view["entries"]["cpu|f|s|k2"]["value"] == 2
+
+    def test_tuned_view_none_before_any_tune_push(self):
+        agg = FleetAggregator(span_store=SpanStore())
+        agg.ingest(worker_push("w1:1"))
+        assert agg.tuned_view() is None
+
     def test_adoption_skips_the_sweep(self, tune_off_after):
-        """A fresh instance that adopted a shipped config must answer
-        from the store — its measure closure never runs. (The doc is the
-        shape the JAX aggregator's tuned view ships.)"""
+        """A fresh instance that adopted the fleet's config must answer
+        from the store — its measure closure never runs."""
+        agg = FleetAggregator(span_store=SpanStore())
+        agg.ingest(worker_push("w1:1", tune_doc={"version": 1, "entries": {
+            "cpu|f|sig|k": {"value": 3, "cost_us": 2.0, "ts": 1.0}}}))
         fresh = Tuner(store=TuneStore())
-        assert fresh.adopt({"version": 1, "entries": {
-            "cpu|f|sig|k": {"value": 3, "cost_us": 2.0, "ts": 1.0}}}) == 1
+        assert fresh.adopt(agg.tuned_view()) == 1
         assert fresh.stats["adopted"] == 1
 
         def never(cand):
@@ -274,6 +330,37 @@ class TestFleetFederation:
 
         assert fresh.pick("k", "cpu", "f", "sig", candidates=(1, 2, 3),
                           default=1, measure=never) == 3
+
+    def test_push_ack_adoption_over_http(self, tune_off_after):
+        """The real loop: aggregator already knows a tuned config, a
+        fresh worker's FIRST push-ack delivers it into the worker's
+        store via TUNE_ADOPT_HOOK."""
+        agg = obs_fleet.enable_aggregator(ttl_s=30.0)
+        try:
+            agg.ingest(worker_push("w1:1", tune_doc={
+                "version": 1, "entries": {
+                    "cpu|flash|sig|k": {"value": [512, 1024],
+                                        "cost_us": 7.0, "ts": 1.0}}}))
+            fresh = Tuner(store=TuneStore())
+            obs_fleet.TUNE_PUSH_HOOK = fresh.push_doc
+            obs_fleet.TUNE_ADOPT_HOOK = fresh.adopt
+            with start_exporter(port=0,
+                                registry=MetricsRegistry(enabled=True)) as exp:
+                psh = FleetPusher(
+                    url=f"http://127.0.0.1:{exp.port}", interval_s=3600,
+                    instance="w2:1",
+                    registry=MetricsRegistry(enabled=True),
+                    health_registry=obs_health.HealthRegistry(),
+                    span_store=SpanStore())
+                try:
+                    assert psh.push_now() is True
+                finally:
+                    psh.close()
+            rec = fresh.store.get("cpu", "flash", "sig", "k")
+            assert rec is not None
+            assert rec["value"] == [512, 1024] and rec["source"] == "fleet"
+        finally:
+            obs_fleet.disable_aggregator()
 
     def test_debug_tune_route(self, tune_off_after, tmp_path):
         tn = tune.enable(str(tmp_path / "s.json"), fit_from_profiler=False)
