@@ -261,6 +261,30 @@ Phases (any failure exits non-zero before the result lines are printed):
      ``gpu_smoke``, two flash bf16 prefill batches and one fused DeepLab-v3
      frame under the profiler: all seven ``cuda.*`` kernel labels
      recorded; frames/s and tokens/s with obs off and on, beside the card;
+ 19b. the parallel layer (``run_parallel``), ranks started by
+     nnstreamer_tpu_torch/parallel/launch.py on the card: B5 timed at the
+     shapes the ring and a2a prefill launch (residual float32 at a shard
+     pair, full and causal; normalised float32 at the a2a shape); (a) the
+     LM serving mix of phase 9 through ``TPLMEngine`` at model 2 and 4
+     (gloo, the ranks sharing the card, eager) and model 1 (NCCL, CUDA
+     graphs and eagerly), float32 and w8a8, against the single-card
+     ``LMEngine`` on the card: w8a8 tokens and the first-token logits of
+     the first 4 prompts equal bit for bit, float32 tokens equal or each
+     flip printed with the single-card top-2 margin where it happened;
+     tokens/s, lockstep checks, and a clocked decode step's collective ms
+     by operation (gloo on one card, not NVLink); (b) ``lm_prefill(mesh=)``
+     of one 1024-token prompt over sp 4 in the ring, ring-flash, a2a and
+     a2a-flash modes against the single-card prefill (logits and K/V within
+     SP_TOL of the mode, 16 greedy tokens equal), B5 launched 8·4·5/2 = 80 times across
+     the ranks on ring-flash and 8·4 = 32 on a2a-flash; (c)
+     ``make_tp_prefill`` → ``make_tp_generate`` for 10 steps at model 4,
+     float32 and w8a8, against the single-card window prefill and steps;
+     (d) at ``dryrun_multichip``'s sizes on 4 ranks, GPipe over 4 stages,
+     MoE over data 2 × expert 2, the sharded train step of MobileNet-v2
+     0.25/32/16 classes over data 2 × model 2 for 3 steps, a checkpoint
+     saved at (2, 2) and restored at (4, 1) then stepped, each equal to its
+     single-rank oracle, and the trainer with ``mesh=data:2`` on 2 ranks
+     equal to the unsharded trainer;
  20. print the card's name and power limit again, the launches of each path
      (every count set to 0 just before the path and read just after), the
      graphs of each path, the stream paths' rates, the ``kernels`` JSON line,
@@ -340,6 +364,7 @@ import contextlib
 import gc
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -7006,6 +7031,652 @@ def run_obs_layers(qparams, counters) -> dict:
     return launches
 
 
+# -- the parallel layer (run_parallel): ranks on the one card -------------- #
+
+#: the rank groups' collective timeout (s): a hung collective fails its rank
+PAR_TIMEOUT = 120.0
+#: where the ranks run (a rehearsal on the CPU sets "cpu" and small sizes)
+PAR_DEVICE = "cuda"
+PAR_FIRST_LOGITS = 4     # requests whose first-token logits are compared
+PAR_CLOCK_STEPS = 5      # decode steps timed with COLLECTIVE_CLOCK on
+#: sequence-parallel prefill: one 1024-token prompt over sp 4, every mode
+SP_T, SP_WORLD, SP_DECODE = 1024, 4, 16
+SP_MODES = ("ring", "ring-flash", "a2a", "a2a-flash")
+#: against the single-card dense prefill: ring and a2a (float32 online
+#: softmax over the shards against one softmax) within the JAX tests' ring
+#: tolerance; the flash modes within PREFILL_F32_TOL, the float32 flash
+#: prefill lane's own tolerance against dense (tf32x3 is 1e-5 of plain a
+#: call, and 8 layers of d 1024 compound it: a2a-flash's K/V 3.8e-5 from the
+#: dense prefill in the first run)
+SP_TOL = {"ring": (2e-4, 2e-5), "a2a": (2e-4, 2e-5),
+          "ring-flash": PREFILL_F32_TOL, "a2a-flash": PREFILL_F32_TOL}
+#: make_tp_prefill -> make_tp_generate at model 4
+TPG_PROMPT, TPG_STEPS = 512, 10
+#: dryrun_multichip's sizes (__graft_entry__.py:99-360) on 4 ranks
+DRY_SPEC = "zoo://mobilenet_v2?width=0.25&size=32&num_classes=16&batch=4&dtype=float32"
+DRY_TOL = (2e-4, 2e-5)
+DRY_TRAIN_STEPS = 3
+DRY_CKPT_TOL = (1e-4, 1e-5)
+
+
+def _par_cfg() -> dict:
+    """What the rank functions need of this module's sizes, passed to them
+    (a spawned rank imports this file afresh)."""
+    return {"device": PAR_DEVICE, "dims": LM_DIMS, "max_len": LM_MAX_LEN,
+            "slots": LM_SLOTS, "chunk": LM_CHUNK, "requests": LM_REQUESTS,
+            "prompts": LM_PROMPTS, "gens": LM_GENS, "sp_t": SP_T,
+            "tpg_prompt": TPG_PROMPT}
+
+
+def _sync(cfg: dict) -> None:
+    if cfg["device"] != "cpu":
+        torch.cuda.synchronize()
+
+
+def _par_requests(cfg: dict) -> list:
+    v = cfg["dims"][0]
+    rng = np.random.default_rng(5)
+    prompts, gens = cfg["prompts"], cfg["gens"]
+    return [(rng.integers(0, v, prompts[i % len(prompts)]).astype(np.int32),
+             gens[i % len(gens)]) for i in range(cfg["requests"])]
+
+
+#: this process's bench LM params by quant (a rank runs several parts on
+#: them; nothing writes to them)
+_PAR_PARAMS: dict = {}
+
+
+def _par_params(cfg: dict, quant: str):
+    """The bench LM from seed 0, float32 or w8a8 (quantized on the device),
+    as every rank and the single-card reference build it; built once a
+    process."""
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.models.convert import causal_lm_params
+
+    if quant not in _PAR_PARAMS:
+        if quant == "w8a8":
+            _PAR_PARAMS[quant] = causal_lm.quantize_lm_params(_par_params(cfg, "float32"))
+        else:
+            v, d, h, n_layers = cfg["dims"]
+            _PAR_PARAMS[quant] = causal_lm_params(causal_lm.init_causal_lm(
+                0, v, d, h, n_layers, cfg["max_len"]), cfg["device"])
+    return _PAR_PARAMS[quant]
+
+
+def _padded(cfg: dict, prompt: np.ndarray) -> torch.Tensor:
+    from nnstreamer_tpu_torch.serving import next_pow2_bucket
+
+    tb = min(next_pow2_bucket(len(prompt)), cfg["max_len"])
+    out = np.zeros((1, tb), np.int32)
+    out[0, :len(prompt)] = prompt
+    return torch.from_numpy(out).to(cfg["device"])
+
+
+def par_tp_serve(cfg: dict, quant: str, eager: bool) -> dict:
+    """A rank of the TP serving run: TPLMEngine over {"model": world} on the
+    mix (after a one-step warm-up), the first-token logits of the
+    first PAR_FIRST_LOGITS prompts through the TP admit prefill, and
+    PAR_CLOCK_STEPS decode steps over the slots with the collectives
+    clocked."""
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel import mesh as pmesh
+    from nnstreamer_tpu_torch.parallel.tp_decode import tp_decode_step_slots
+    from nnstreamer_tpu_torch.parallel.tp_prefill import tp_prefill_window
+    from nnstreamer_tpu_torch.serving import TPLMEngine
+
+    mesh = make_mesh({"model": dist.get_world_size()})
+    h, max_len = cfg["dims"][2], cfg["max_len"]
+    requests = _par_requests(cfg)
+    with graphs.disabled() if eager else contextlib.nullcontext():
+        eng = TPLMEngine(_par_params(cfg, quant), h, max_len, mesh,
+                         n_slots=cfg["slots"], chunk=cfg["chunk"])
+        # warm-up: with graphs the whole mix, so the timed run replays as
+        # the single-card reference's does; eagerly one prefill and one
+        # step (handles, allocator, communicators: under gloo every step
+        # pays its collectives)
+        captured = graphs.enabled() and str(dist.get_backend()) != "gloo"
+        for p, g in requests if captured else [(requests[0][0], 2)]:
+            eng.submit(p, max_new=g)
+        eng.run()
+        graphs.reset_stats()
+        before = dict(eng.stats)
+        rids = [eng.submit(p, max_new=g) for p, g in requests]
+        _sync(cfg)
+        t0 = time.perf_counter()
+        res = eng.run()
+        _sync(cfg)
+        wall = time.perf_counter() - t0
+        st = graphs.stats()
+        stats = {k: v - before[k] for k, v in eng.stats.items()}
+        first = [tp_prefill_window(eng._tp, _padded(cfg, p), len(p), h, max_len, mesh,
+                                   "model")[0][0].float().cpu().numpy()
+                 for p, _ in requests[:PAR_FIRST_LOGITS]]
+        # the decode step alone, its collectives clocked (the device is
+        # synchronised around each, so the step runs slower than served)
+        pmesh.COLLECTIVE_CLOCK = {}
+        tok, pos = eng._tokens.clone(), eng._pos.clone().clamp(max=max_len - 8)
+        _sync(cfg)
+        t1 = time.perf_counter()
+        for _ in range(PAR_CLOCK_STEPS):
+            tp_decode_step_slots(eng._tp, tok, eng._kc, eng._vc, pos, h, mesh)
+        _sync(cfg)
+        step_ms = (time.perf_counter() - t1) * 1e3 / PAR_CLOCK_STEPS
+        clock = {op: [c / PAR_CLOCK_STEPS, s * 1e3 / PAR_CLOCK_STEPS]
+                 for op, (c, s) in pmesh.COLLECTIVE_CLOCK.items()}
+        pmesh.COLLECTIVE_CLOCK = None
+    return {"tokens": [res[r] for r in rids], "wall": wall, "stats": stats,
+            "first_logits": np.stack(first), "captures": st["captures"],
+            "replays": st["replays"], "lockstep": eng.lockstep_checks,
+            "backend": str(dist.get_backend()), "step_ms": step_ms, "clock": clock,
+            "kc_shape": tuple(eng._kc.shape)}
+
+
+def _margin_at(cfg: dict, params, prompt: np.ndarray, ref: list, j: int) -> float:
+    """The single-card top-2 logit margin at generated position ``j`` of
+    ``prompt``'s greedy path ``ref`` (the window prefill, then steps)."""
+    from nnstreamer_tpu_torch.models import causal_lm
+
+    h, dev = cfg["dims"][2], cfg["device"]
+    lg, kc, vc, pos = causal_lm.lm_prefill_window(
+        params, torch.from_numpy(prompt[None]).to(dev), len(prompt), h, cfg["max_len"])
+    for t in range(j):
+        tok = torch.tensor([[ref[t]]], dtype=torch.int32, device=dev)
+        lg, kc, vc, pos = causal_lm.lm_decode_step(params, tok, kc, vc, pos, h)
+    top = torch.topk(lg[0].float(), 2).values
+    return float(top[0] - top[1])
+
+
+def _tp_serving_check(cfg: dict, name: str, res: list, want: list,
+                      want_first: np.ndarray, quant: str, requests: list,
+                      flips: list) -> dict:
+    """Every rank's tokens against the single-card engine's: w8a8 equal and
+    the first-token logits bit-equal; float32 equal, or each flip recorded
+    with the single-card top-2 margin where it happened."""
+    for r, rr in enumerate(res[1:], 1):
+        if rr["tokens"] != res[0]["tokens"]:
+            raise AssertionError(f"{name}: rank {r}'s tokens differ from rank 0's")
+    got = res[0]["tokens"]
+    first_err = float(np.max(np.abs(res[0]["first_logits"] - want_first)))
+    mine = []
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a != b:
+            j = next((k for k, (x, y) in enumerate(zip(a, b)) if x != y),
+                     min(len(a), len(b)))
+            margin = _margin_at(cfg, _par_params(cfg, quant), requests[i][0], b, j)
+            mine.append({"run": name, "request": i, "position": j,
+                         "tp": a[j] if j < len(a) else None, "single": b[j],
+                         "single_top2_margin": margin})
+    flips += mine
+    if quant == "w8a8" and (mine or first_err != 0.0):
+        raise AssertionError(f"{name}: w8a8 tokens or first-token logits differ from the "
+                             f"single-card engine's (flips {mine}, logits by {first_err})")
+    return {"first_logits_max_abs_diff": first_err,
+            "requests_equal": sum(a == b for a, b in zip(got, want))}
+
+
+def par_sp_prefill(cfg: dict, mode: str) -> dict:
+    """A rank of the sequence-parallel prefill: lm_prefill(mesh=sp) of one
+    prompt under NNS_LM_SP_MODE=mode, timed, and the flash launches it made
+    on this rank; rank 0 holds it against the single-card dense prefill
+    (logits, K/V within SP_TOL[mode]) and SP_DECODE greedy steps from each
+    cache."""
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+    from nnstreamer_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"sp": dist.get_world_size()})
+    params = _par_params(cfg, "float32")
+    v, _, h, _ = cfg["dims"]
+    max_len = cfg["max_len"]
+    tokens = torch.from_numpy(np.random.default_rng(17).integers(
+        0, v, (1, cfg["sp_t"])).astype(np.int32)).to(cfg["device"])
+    os.environ["NNS_LM_SP_MODE"] = mode
+    try:
+        causal_lm.lm_prefill(params, tokens, h, max_len, mesh=mesh)  # warm-up
+        fa.flash_attention.launches = 0
+        _sync(cfg)
+        dist.barrier()
+        t0 = time.perf_counter()
+        lg, kc, vc, pos = causal_lm.lm_prefill(params, tokens, h, max_len, mesh=mesh)
+        _sync(cfg)
+        ms = (time.perf_counter() - t0) * 1e3
+        launches = fa.flash_attention.launches
+    finally:
+        os.environ.pop("NNS_LM_SP_MODE", None)
+    out = {"ms": ms, "launches": launches}
+    if dist.get_rank() == 0:
+        rl, rk, rv, rp = causal_lm.lm_prefill(params, tokens, h, max_len)
+        rtol, atol = SP_TOL[mode]
+        out.update(logits_err=_max_abs_err(lg, rl), k_err=_max_abs_err(kc, rk),
+                   v_err=_max_abs_err(vc, rv),
+                   within=_within(lg, rl, rtol, atol) and _within(kc, rk, rtol, atol)
+                   and _within(vc, rv, rtol, atol) and int(pos[0]) == int(rp[0]))
+        toks = {}
+        for name, (l0, k, vv, p) in (("sp", (lg, kc, vc, pos)), ("single", (rl, rk, rv, rp))):
+            tok = torch.argmax(l0, -1)[:, None].to(torch.int32)
+            seq = [int(tok)]
+            for _ in range(SP_DECODE - 1):
+                l0, k, vv, p = causal_lm.lm_decode_step(params, tok, k, vv, p, h)
+                tok = torch.argmax(l0, -1)[:, None].to(torch.int32)
+                seq.append(int(tok))
+            toks[name] = seq
+        out["tokens"] = toks
+    return out
+
+
+def par_tp_generate(cfg: dict, quant: str) -> dict:
+    """A rank of make_tp_prefill -> make_tp_generate; rank 0 also runs the
+    single-card window prefill and steps."""
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.parallel import make_mesh, make_tp_generate, tp_shard_params
+    from nnstreamer_tpu_torch.parallel.tp_prefill import make_tp_prefill
+
+    mesh = make_mesh({"model": dist.get_world_size()})
+    params = _par_params(cfg, quant)
+    v, _, h, _ = cfg["dims"]
+    max_len, t = cfg["max_len"], cfg["tpg_prompt"]
+    prompt = np.random.default_rng(23).integers(0, v, (1, t)).astype(np.int32)
+    tp = tp_shard_params(params, h, mesh)
+    _sync(cfg)
+    t0 = time.perf_counter()
+    lg, kc, vc, pos = make_tp_prefill(h, max_len, mesh)(tp, prompt)
+    first = torch.argmax(lg, -1)[:, None].to(torch.int32)
+    toks = make_tp_generate(h, max_len, mesh)(tp, first, kc, vc, pos, TPG_STEPS)
+    _sync(cfg)
+    out = {"ms": (time.perf_counter() - t0) * 1e3,
+           "tokens": [int(first)] + toks[0].cpu().tolist()}
+    if dist.get_rank() == 0:
+        rl, rk, rv, rp = causal_lm.lm_prefill_window(
+            params, torch.from_numpy(prompt).to(cfg["device"]), t, h, max_len)
+        out["first_logits_diff"] = _max_abs_err(lg, rl)
+        tok = torch.argmax(rl, -1)[:, None].to(torch.int32)
+        seq = [int(tok)]
+        for _ in range(TPG_STEPS):
+            rl, rk, rv, rp = causal_lm.lm_decode_step(params, tok, rk, rv, rp, h)
+            tok = torch.argmax(rl, -1)[:, None].to(torch.int32)
+            seq.append(int(tok))
+        out["single"] = seq
+    return out
+
+
+def _dry_stage_fn(p, h):
+    return torch.tanh(h @ p["w"])
+
+
+def par_dryrun(cfg: dict, ckpt_dir: str) -> dict:
+    """dryrun_multichip's lanes on the ranks, each against its single-rank
+    oracle: GPipe over every rank as a stage; MoE over data x expert 2; the
+    sharded train step of DRY_SPEC over data 2 x model for DRY_TRAIN_STEPS
+    steps against plain steps; a checkpoint saved at (2, n/2), restored at
+    (n, 1) and stepped once against the unrestored state's step."""
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch.elements.trainer import _Forward
+    from nnstreamer_tpu_torch.filters.torch_cuda import resolve_model
+    from nnstreamer_tpu_torch.models.convert import moe_params
+    from nnstreamer_tpu_torch.ops.optim import Optimizer
+    from nnstreamer_tpu_torch.parallel import (
+        init_moe_params, make_expert_parallel_moe, make_gpipe_apply, make_mesh,
+        make_sharded_train_step, moe_apply, restore_sharded_state, save_sharded_state,
+        sequential_apply, shard_stage_params, stack_stage_params)
+    from nnstreamer_tpu_torch.parallel.sharding import full_value
+    from nnstreamer_tpu_torch.parallel.train import cross_entropy_loss
+
+    n, dev = dist.get_world_size(), torch.device(cfg["device"])
+    if dev.type == "cuda":
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rng = np.random.default_rng(0)
+    rtol, atol = DRY_TOL
+    out = {}
+    d = 8
+    stacked = stack_stage_params([
+        {"w": torch.from_numpy((rng.normal(size=(d, d)) / np.sqrt(d))
+                               .astype(np.float32)).to(dev)} for _ in range(n)])
+    x = torch.from_numpy(rng.normal(size=(2 * n, d)).astype(np.float32)).to(dev)
+    pp_mesh = make_mesh({"stage": n})
+    got = make_gpipe_apply(_dry_stage_fn, pp_mesh)(shard_stage_params(stacked, pp_mesh), x)
+    want = sequential_apply(_dry_stage_fn, stacked, x)
+    out["gpipe"] = (_within(got, want, rtol, atol), _max_abs_err(got, want))
+    ep = next((k for k in range(n // 2, 1, -1) if n % k == 0), n)
+    mp = moe_params(init_moe_params(0, d, 2 * d, ep), dev)
+    xm = torch.from_numpy(rng.normal(size=(2 * (n // ep), 8, d)).astype(np.float32)).to(dev)
+    fn, placed = make_expert_parallel_moe(mp, make_mesh({"data": n // ep, "expert": ep}))
+    ym, aux = fn(placed, xm)
+    yr, auxr = moe_apply(mp, xm)
+    out["moe"] = (_within(ym, yr, rtol, atol)
+                  and torch.equal(aux["expert_counts"], auxr["expert_counts"]),
+                  _max_abs_err(ym, yr))
+    bundle = resolve_model(DRY_SPEC, {}, dev)
+    call = _Forward(bundle.module, bundle.forward)
+    params = {k: t.detach().clone() for k, t in bundle.module.state_dict().items()
+              if t.is_floating_point()}
+
+    def apply_fn(p, xb):
+        return torch.func.functional_call(call, {f"inner.{k}": t for k, t in p.items()},
+                                          (xb,))
+
+    size, classes, batch = 32, 16, 4
+    xb = torch.from_numpy(rng.normal(size=(batch, size, size, 3)).astype(np.float32)).to(dev)
+    yb = torch.from_numpy(rng.integers(0, classes, (batch,)).astype(np.int32)).to(dev)
+    step, sp, so = make_sharded_train_step(apply_fn, params, make_mesh({"data": 2,
+                                                                        "model": n // 2}))
+    opt = Optimizer("sgd", 1e-3)
+    ref = {k: v.clone() for k, v in params.items()}
+    ref_state = {k: opt.init(v) for k, v in ref.items()}
+    losses, ref_losses = [], []
+    for _ in range(DRY_TRAIN_STEPS):
+        sp, so, loss = step(sp, so, xb, yb)
+        losses.append(float(loss))
+        leaves = {k: v.detach().requires_grad_(True) for k, v in ref.items()}
+        with torch.enable_grad():
+            lr_ = cross_entropy_loss(apply_fn(leaves, xb), yb)
+            grads = torch.autograd.grad(lr_, list(leaves.values()))
+        for (k, v), g in zip(ref.items(), grads):
+            opt.update(v, g, ref_state[k])
+        ref_losses.append(float(lr_.detach()))
+    full = {k: full_value(v) for k, v in sp.items()}
+    out["train"] = (bool(np.allclose(losses, ref_losses, rtol=1e-4))
+                    and all(_within(full[k], ref[k], *DRY_CKPT_TOL) for k in ref),
+                    max(_max_abs_err(full[k], ref[k]) for k in ref), losses)
+    path = os.path.join(ckpt_dir, "ckpt")
+    save_sharded_state(path, sp, so)
+    p_ref, _, loss_ref = step(sp, so, xb, yb)
+    mesh_b = make_mesh({"data": n, "model": 1})
+    step_b, pb_init, ob_init = make_sharded_train_step(apply_fn, params, mesh_b)
+    pb, ob = restore_sharded_state(path, pb_init, mesh=mesh_b, opt_state_like=ob_init)
+    p_res, _, loss_res = step_b(pb, ob, xb, yb)
+    fa_ = {k: full_value(v) for k, v in p_res.items()}
+    fr_ = {k: full_value(v) for k, v in p_ref.items()}
+    out["ckpt"] = (bool(np.isclose(float(loss_res), float(loss_ref), rtol=1e-4))
+                   and all(_within(fa_[k], fr_[k], *DRY_CKPT_TOL) for k in fr_),
+                   max(_max_abs_err(fa_[k], fr_[k]) for k in fr_))
+    dist.barrier()
+    return out
+
+
+def par_trainer(cfg: dict, mesh: str) -> dict:
+    """tensor_trainer in a pipeline on this rank's device: a (fn, params)
+    linear model, 6 frames of batch 4, sgd; ``mesh`` "data:2" or ""."""
+    from nnstreamer_tpu_torch import core
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    rng = np.random.default_rng(0)
+    true_w = rng.normal(size=(8, 4)).astype(np.float32)
+    frames = []
+    for _ in range(6):
+        x = rng.normal(size=(4, 8)).astype(np.float32)
+        frames.append((x, np.argmax(x @ true_w, -1).astype(np.int32)))
+    w = (np.random.default_rng(3).normal(size=(8, 4)) * 0.1).astype(np.float32)
+    p = Pipeline(device=cfg["device"])
+    src = p.add_new("appsrc", caps=core.Caps.tensors(core.TensorsConfig(
+        core.TensorsInfo.from_strings("8:4,4", "float32,int32"), 30)), data=frames)
+    t = p.add_new("tensor_trainer", model=(lambda prm, xx: xx @ prm, w),
+                  learning_rate=0.05, optimizer="sgd", mesh=mesh)
+    Pipeline.link(src, t, p.add_new("fakesink"))
+    p.run(timeout=120)
+    return {"losses": list(t.losses), "params": t.params}
+
+
+def _efficient_residuals(q, k, v, causal: bool) -> tuple:
+    """PyTorch's memory-efficient attention with its log-sum-exp: the
+    function of B5's residual mode in one library call (out = acc / l,
+    lse = m + log l), timed beside the kernel and used nowhere in the port."""
+    out, lse = torch.ops.aten._scaled_dot_product_efficient_attention(
+        q, k, v, None, True, is_causal=causal)[:2]
+    return out, lse[..., :q.shape[2]]
+
+
+def _flash_ring_rows(fa) -> list:
+    """B5 at the shapes (b) launches, in this process: the residual float32
+    kernel at a ring shard pair (1, 16, SP_T/4, 64), full and causal, and
+    the normalised float32 one at the a2a shape (1, 16/4, SP_T, 64) causal.
+    Each shape is first held against plain (``_flash_case``: FLASH_TOL, m
+    and l within 1e-5), then timed: device ms, plain ms, the bound, and the
+    library call's ms: the memory-efficient attention with its log-sum-exp
+    for the residual cases, SDPA for the normalised one."""
+    rows = []
+    rng = np.random.default_rng(31)
+    heads = LM_DIMS[2]
+    hd = LM_DIMS[1] // heads
+    cases = [("residual full", (1, heads, SP_T // SP_WORLD, hd), False, True),
+             ("residual causal", (1, heads, SP_T // SP_WORLD, hd), True, True),
+             ("normalised causal", (1, heads // SP_WORLD, SP_T, hd), True, False)]
+    for name, shape, causal, resid in cases:
+        q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
+                   for _ in range(3))
+        err = _flash_case(fa, q, k, v, causal, f"{shape} float32 {name}")
+        ms = _device_ms(lambda: fa.flash_attention(q, k, v, causal, return_residuals=resid),
+                        5, 10)
+        pms = _device_ms(lambda: fa.flash_attention_plain(q, k, v, causal,
+                                                          return_residuals=resid), 2, 3)
+        if resid:
+            acc, m, l_sum = fa.flash_attention(q, k, v, causal, return_residuals=True)
+            lo, lse = _efficient_residuals(q, k, v, causal)
+            # how far the library's (out, lse) lies from the kernel's (acc / l, m + log l)
+            lib_err = max(_max_abs_err(lo, acc / l_sum[..., None]),
+                          _max_abs_err(lse, m + torch.log(l_sum)))
+            lms = _device_ms(lambda: _efficient_residuals(q, k, v, causal), 10, 10)
+            lib = (f"{lms:.6f} (_scaled_dot_product_efficient_attention with its "
+                   f"log-sum-exp; from the kernel's acc/l and m + log l by {lib_err:.3e})")
+        else:
+            lms = _device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, is_causal=causal), 10, 10)
+            lib = f"{lms:.6f} (scaled_dot_product_attention)"
+        b, h, length, d = shape
+        pairs = b * h * length * (length + 1) // 2 if causal else b * h * length * length
+        nbytes = 4 * q.numel() * 4 + (2 * b * h * length * 4 if resid else 0)
+        # the tf32x3 route: three tf32 products for each float32 one
+        bound, by = _bound_ms(nbytes, 3 * 4 * d * pairs, "tf32")
+        rows.append({"case": name, "shape": shape, "max_abs_err": err, "ms": ms,
+                     "plain_ms": pms, "bound_ms": bound, "bound_by": by, "library_ms": lms})
+        print(f"flash_attention {name} {shape} float32 [{fa._route(q, k, v)}] device "
+              f"ms/call (CUDA graph): kernel={ms:.6f} plain={pms:.6f} library={lib}; "
+              f"bound_ms={bound:.8f} ({by})", flush=True)
+    return rows
+
+
+def run_parallel(counters) -> dict:
+    """The parallel layer, ranks started by parallel/launch.py on the card:
+    (a) TP serving of the bench LM's mix, float32 and w8a8, at model 2 and 4
+    (gloo, the ranks sharing the card, eager) and model 1 (NCCL, CUDA graphs
+    and eagerly), against the single-card LMEngine; (b) the
+    sequence-parallel prefill over sp 4 in every mode against the
+    single-card prefill, with B5's launches across the ranks; (c)
+    make_tp_prefill -> make_tp_generate at model 4; (d) dryrun_multichip's
+    GPipe, MoE, sharded train step and checkpoint re-shape on 4 ranks, and
+    the trainer's mesh=data:2 on 2. Returns the launches by part (the
+    ranks' flash launches summed)."""
+    from nnstreamer_tpu_torch.models import causal_lm
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+
+    cfg = _par_cfg()
+    card = _card() if PAR_DEVICE != "cpu" else "cpu"
+    t_phase = time.perf_counter()
+    requests = _par_requests(cfg)
+    h, max_len = cfg["dims"][2], cfg["max_len"]
+    by_phase = {}
+    rows = []
+    if PAR_DEVICE != "cpu":  # timing launches: no path's count
+        rows = _flash_ring_rows(fa)
+    want, want_first, single_rate = {}, {}, {}
+    for quant in ("float32", "w8a8"):
+        params = _par_params(cfg, quant)
+        counters.reset()
+        eng = _single_engine(params, cfg)
+        _serve_on(eng, requests)  # warm-up: every capture, then replays
+        outs, wall = _serve_on(eng, requests)
+        by_phase[f"parallel single-card {quant}"] = counters.read()
+        want[quant] = outs
+        single_rate[quant] = sum(len(o) for o in outs) / wall
+        want_first[quant] = np.stack([
+            causal_lm.lm_prefill_window(params, _padded(cfg, p), len(p), h, max_len)[0][0]
+            .float().cpu().numpy() for p, _ in requests[:PAR_FIRST_LOGITS]])
+        del params, eng
+        _release()
+    flips, tp_lines, sp_res, tpg = [], {}, {}, {}
+    tokens = sum(g for _, g in requests)
+    ckpt_dir = tempfile.mkdtemp(prefix="nns_ckpt_")
+    plan = ((2, None, (False,)), (4, None, (False,)),
+            (1, "nccl" if PAR_DEVICE != "cpu" else None, (False, True)))
+    t0 = time.perf_counter()
+    groups = _start_groups([(world, backend) for world, backend, _ in plan])
+    print(f"rank groups of {[w for w, _, _ in plan]} started together in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    try:
+        for world, backend, modes in plan:
+            t0 = time.perf_counter()
+            with groups.pop(world) as g:
+                for quant in ("float32", "w8a8"):
+                    for eager in modes:
+                        res = g.run(par_tp_serve, cfg, quant, eager)
+                        r0 = res[0]
+                        graphed = not eager and r0["backend"] != "gloo"
+                        name = f"tp model {world} {quant} {'graphs' if graphed else 'eager'}"
+                        chk = _tp_serving_check(cfg, name, res, want[quant], want_first[quant],
+                                                quant, requests, flips)
+                        tp_lines[name] = {
+                            "tokens_per_s": tokens / r0["wall"],
+                            "single_card_tokens_per_s": single_rate[quant],
+                            "backend": r0["backend"], "decode_steps": r0["stats"]["decode_steps"],
+                            "prefills": r0["stats"]["prefills"], "captures": r0["captures"],
+                            "replays": r0["replays"], "lockstep_checks": r0["lockstep"],
+                            "clocked_step_ms": max(r["step_ms"] for r in res),
+                            "collective_ms_per_step": {
+                                op: max(r["clock"].get(op, [0, 0.0])[1] for r in res)
+                                for op in r0["clock"]},
+                            "collectives_per_step": {op: c for op, (c, _) in r0["clock"].items()},
+                            "kc_shape": r0["kc_shape"], **chk}
+                        print(f"{name} (ranks on {PAR_DEVICE}, {r0['backend']}): {tokens} tokens "
+                              f"in {r0['wall']:.3f} s = {tokens / r0['wall']:.2f} tokens/s "
+                              f"(single card {single_rate[quant]:.2f}); "
+                              f"{json.dumps(tp_lines[name])}", flush=True)
+                if world == SP_WORLD:
+                    for mode in SP_MODES:
+                        res = g.run(par_sp_prefill, cfg, mode)
+                        r0 = res[0]
+                        launches = sum(r["launches"] for r in res)
+                        want_l = 0 if PAR_DEVICE == "cpu" else {
+                            "ring": 0, "a2a": 0,
+                            "ring-flash": cfg["dims"][3] * world * (world + 1) // 2,
+                            "a2a-flash": cfg["dims"][3] * world}[mode]
+                        if not r0["within"] or r0["tokens"]["sp"] != r0["tokens"]["single"] \
+                                or launches != want_l:
+                            raise AssertionError(
+                                f"sp prefill {mode}: within {r0['within']} (logits "
+                                f"{r0['logits_err']}, K {r0['k_err']}, V {r0['v_err']}), tokens "
+                                f"{r0['tokens']}, flash launches {launches} (want {want_l})")
+                        sp_res[mode] = {"ms": max(r["ms"] for r in res),
+                                        "flash_launches": launches,
+                                        "per_rank": [r["launches"] for r in res],
+                                        "logits_err": r0["logits_err"], "k_err": r0["k_err"],
+                                        "v_err": r0["v_err"]}
+                        print(f"sp prefill {mode} (sp {world}, T {cfg['sp_t']}, float32): "
+                              f"{json.dumps(sp_res[mode])}; {SP_DECODE} greedy tokens from its "
+                              f"cache == from the single-card cache", flush=True)
+                    for quant in ("float32", "w8a8"):
+                        res = g.run(par_tp_generate, cfg, quant)
+                        r0 = res[0]
+                        if any(r["tokens"] != r0["tokens"] for r in res) or (
+                                quant == "w8a8" and (r0["tokens"] != r0["single"]
+                                                     or r0["first_logits_diff"] != 0.0)):
+                            raise AssertionError(f"tp prefill+generate {quant}: {r0}")
+                        tpg[quant] = {"ms": max(r["ms"] for r in res),
+                                      "tokens_equal": r0["tokens"] == r0["single"],
+                                      "first_logits_max_abs_diff": r0["first_logits_diff"]}
+                        if r0["tokens"] != r0["single"]:
+                            flips.append({"run": f"tp prefill+generate {quant}",
+                                          "tp": r0["tokens"], "single": r0["single"]})
+                        print(f"tp prefill+generate model {world} {quant} (prompt "
+                              f"{cfg['tpg_prompt']}, {TPG_STEPS} steps): {json.dumps(tpg[quant])}",
+                              flush=True)
+                    res = g.run(par_dryrun, cfg, ckpt_dir)
+                    if not all(r[k][0] for r in res for k in ("gpipe", "moe", "train", "ckpt")):
+                        raise AssertionError(f"dryrun lanes: {res}")
+                    dry = res[0]
+                    print(f"dryrun lanes on {world} ranks, each == its single-rank oracle: gpipe "
+                          f"max err {dry['gpipe'][1]:.3e}, moe {dry['moe'][1]:.3e}, train "
+                          f"({DRY_TRAIN_STEPS} steps, losses {dry['train'][2]}) "
+                          f"{dry['train'][1]:.3e}, checkpoint (2, 2) -> (4, 1) "
+                          f"{dry['ckpt'][1]:.3e}", flush=True)
+                if world == 2:
+                    got = g.run(par_trainer, cfg, "data:2")
+                    ref = g.run(par_trainer, cfg, "")[0]
+                    for r in got:
+                        if not (np.allclose(r["losses"], ref["losses"], rtol=1e-4)
+                                and np.allclose(r["params"], ref["params"], rtol=1e-4,
+                                                atol=1e-5)):
+                            raise AssertionError(f"trainer mesh=data:2: {r} against {ref}")
+                    print(f"trainer mesh=data:2 on {PAR_DEVICE}: losses {got[0]['losses']} == "
+                          f"the unsharded trainer's within rtol 1e-4", flush=True)
+            print(f"rank group of {world} ({g.backend}): {time.perf_counter() - t0:.3f} s",
+                  flush=True)
+    finally:
+        for g in groups.values():
+            g.close()
+        _PAR_PARAMS.clear()
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    print(f"tp float32 flips against the single-card engine: {json.dumps(flips)}",
+          flush=True)
+    by_phase["parallel sp prefill"] = {
+        "flash_attention": sum(v["flash_launches"] for v in sp_res.values())}
+    print(f"parallel phase: {time.perf_counter() - t_phase:.3f} s; {card}; "
+          f"{json.dumps({'b5_rows': rows, 'tp': tp_lines, 'sp': sp_res, 'tp_generate': tpg})}",
+          flush=True)
+    return by_phase
+
+
+def _start_groups(specs: list) -> dict:
+    """{world: RankGroup} for each (world, backend), started in threads so
+    their spawns and CUDA contexts come up together; all closed if one
+    fails."""
+    from nnstreamer_tpu_torch.parallel.launch import RankGroup
+
+    groups, errors = {}, []
+
+    def start(world, backend):
+        try:
+            groups[world] = RankGroup(world, device=PAR_DEVICE, timeout=PAR_TIMEOUT,
+                                      backend=backend)
+        except BaseException as e:  # noqa: BLE001 — raised below, in order
+            errors.append(e)
+
+    threads = [threading.Thread(target=start, args=spec) for spec in specs]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    if errors:
+        for g in groups.values():
+            g.close()
+        raise errors[0]
+    return groups
+
+
+def _single_engine(params, cfg: dict):
+    """The single-card engine the TP runs are held against."""
+    from nnstreamer_tpu_torch.serving import LMEngine
+
+    return LMEngine(params, cfg["dims"][2], cfg["max_len"], n_slots=cfg["slots"],
+                    chunk=cfg["chunk"], device=cfg["device"])
+
+
+def _serve_on(eng, requests: list) -> tuple:
+    """(tokens per request, wall seconds) of ``requests`` on ``eng``."""
+    rids = [eng.submit(p, max_new=g) for p, g in requests]
+    t0 = time.perf_counter()
+    res = eng.run()
+    if eng.device.type == "cuda":
+        torch.cuda.synchronize()
+    return [res[r] for r in rids], time.perf_counter() - t0
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -7117,6 +7788,8 @@ def main() -> int:
     counters.reset()
     run_train()
     by_phase["train"] = counters.read()
+    _release()
+    by_phase.update(run_parallel(counters))
     print(f"card, beside the numbers below: {_card()}", flush=True)
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)
     print(f"graphs by path: {json.dumps(GRAPH_PATHS)}", flush=True)

@@ -37,8 +37,16 @@ bundle's masters as the flax variables tree (models/convert.py), keys
 sorted as a trained JAX tree has them; ``resume=false`` writes that tree,
 ``resume=true`` ``{"params", "opt_state", "frames"}`` with the optax state
 in flax's state-dict form, and a JAX-written file resumes here with its
-count, moments and frame counter. ``mesh=`` needs ``parallel/``, which is
-not ported, and raises.
+count, moments and frame counter.
+
+``mesh=`` ("axis:size[,axis:size...]", a dict, or a parallel.mesh mesh)
+trains data-parallel over the ``data`` axis: the pipeline runs on every rank
+(parallel/launch.py starts them), every rank is fed the same frames, the
+trainer takes its rank's rows of each batch (the batch must divide by the
+data axis size), and the gradients and the loss are averaged over ``data``
+(with equal shards, the whole batch's). The masters and moments stay whole
+on every rank, which all take the same step; the JAX trainer's GSPMD step
+also lays them out over ``model`` (parallel/train.py shards them so).
 """
 
 from __future__ import annotations
@@ -245,6 +253,7 @@ class TensorTrainer(Element):
         self.add_src_pad(template=Caps.any_tensors())
         self._device: Any = None  # the pipeline's device; None → cuda
         self._masters: Optional[_Masters] = None
+        self._mesh: Any = None  # the resolved mesh= (None: unsharded)
         self._opt: Optional[Optimizer] = None
         self._opt_state: Any = None
         self._loss_fn: Optional[Callable[..., torch.Tensor]] = None
@@ -257,11 +266,8 @@ class TensorTrainer(Element):
         self._device = device
 
     def start(self) -> None:
-        if self.mesh:  # None/""/{} all mean unsharded
-            raise ValueError(
-                f"tensor_trainer {self.name}: mesh={self.mesh!r} needs the "
-                "sharded step of parallel/, which the torch port has not "
-                "ported (ROADMAP.md §A item 10)")
+        # None/""/{} all mean unsharded; parse before any other work
+        self._mesh = self._resolve_mesh() if self.mesh else None
         from ..filters.torch_cuda import resolve_model
 
         if self.checkpoint_path:
@@ -284,6 +290,39 @@ class TensorTrainer(Element):
         if self.resume and self.checkpoint_path \
                 and os.path.exists(self.checkpoint_path):
             self._restore()
+
+    def _resolve_mesh(self) -> Any:
+        """The mesh of ``mesh=``: a mesh as is, a dict or an
+        "axis:size[,axis:size...]" string built over the ranks."""
+        import torch.distributed as dist
+
+        from ..parallel.mesh import make_mesh
+
+        if isinstance(self.mesh, dict):
+            axes = {k: int(v) for k, v in self.mesh.items()}
+        elif isinstance(self.mesh, str):
+            axes = {}
+            for part in self.mesh.split(","):
+                k, _, v = part.partition(":")
+                if not k.strip() or not v.strip().isdigit():
+                    raise ValueError(
+                        f"tensor_trainer {self.name}: mesh= wants "
+                        f"\"axis:size[,axis:size...]\", got {self.mesh!r}")
+                axes[k.strip()] = int(v)
+        else:
+            return self.mesh
+        if not dist.is_initialized():
+            raise ValueError(
+                f"tensor_trainer {self.name}: mesh={self.mesh!r} needs ranks: "
+                "run the pipeline on every rank started by parallel/launch.py "
+                "(RankGroup, run_ranks)")
+        return make_mesh(axes)
+
+    def _data_rows(self, t: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a batch along the mesh's ``data`` axis."""
+        from ..parallel.train import data_shard
+
+        return data_shard(t, self._mesh)
 
     def _state_tree(self, flat_fn: Callable[[torch.Tensor], Any]) -> Any:
         """The optimizer state with each moment mapped by ``flat_fn``."""
@@ -322,6 +361,8 @@ class TensorTrainer(Element):
                              "(use tensor_mux)")
         dev = self._masters.flat.device
         x, y = (mem.device(dev) for mem in buf.memories[:2])
+        if self._mesh is not None:
+            x, y = self._data_rows(x), self._data_rows(y)
         loss = self.step(x, y)
         self._n += 1
         self.last_loss = float(loss)
@@ -360,6 +401,11 @@ class TensorTrainer(Element):
         """One optimizer step on (x, y); returns the loss before it.
         ``mark`` as in ``gradient``, and "optimizer" after the update."""
         loss, grad = self.gradient(x, y, mark)
+        if self._mesh is not None:
+            from ..parallel.train import mean_over_data
+
+            loss = mean_over_data(loss, self._mesh)
+            grad = mean_over_data(grad, self._mesh)
         self._opt.update(self._masters.flat, grad, self._opt_state)
         mark("optimizer")
         return loss

@@ -257,7 +257,8 @@ def lm_forward(params: Params, tokens: torch.Tensor,
 
 
 def lm_prefill(params: Params, tokens: torch.Tensor, n_heads: int,
-               max_len: int, flash: Optional[bool] = None
+               max_len: int, flash: Optional[bool] = None, mesh: Any = None,
+               sp_axis: str = "sp"
                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                           torch.Tensor]:
     """Process a whole prompt in one forward and emit the populated cache.
@@ -266,10 +267,70 @@ def lm_prefill(params: Params, tokens: torch.Tensor, n_heads: int,
     kcache, vcache, pos = [T]) in the flat transport layout. ``flash=True``
     swaps the dense attention for the hand-written flash kernel (one
     launch per layer, no (T, T) score matrix); ``None`` reads
-    ``NNS_LM_FLASH=1``. The JAX package's sequence-parallel ``mesh=`` form
-    waits for the port of parallel/."""
+    ``NNS_LM_FLASH=1``.
+
+    With ``mesh`` (a parallel.mesh mesh, on ranks started by
+    parallel/launch.py; every rank passes the whole prompt) the prompt runs
+    sequence-parallel over ``mesh[sp_axis]``: each rank computes its T/n
+    rows of every layer, with causal sequence-parallel attention over the
+    shards (``NNS_LM_SP_MODE``: ``ring``, the default, ``ring-flash``,
+    ``a2a`` or ``a2a-flash``; parallel/ring.py). As in the JAX package,
+    every rank returns the full cache (each layer's K/V gathered over the
+    axis) and the last token's logits (from the last rank). T must divide
+    by the axis size; ``flash=True`` conflicts with ``mesh``."""
     with _full_f32():
+        if mesh is not None:
+            return _lm_prefill_sp(params, tokens, n_heads, max_len, mesh,
+                                  sp_axis, flash)
         return _lm_prefill(params, tokens, n_heads, max_len, flash)
+
+
+def _lm_prefill_sp(params: Params, tokens: torch.Tensor, n_heads: int,
+                   max_len: int, mesh: Any, sp_axis: str,
+                   flash: Optional[bool]):
+    from ..parallel.mesh import (all_gather, axis_index, broadcast,
+                                 mesh_shape)
+    from ..parallel.ring import sp_attention_fn
+
+    b, t = tokens.shape
+    if t > max_len:
+        raise ValueError(
+            f"lm_prefill: prompt length {t} exceeds max_len={max_len}")
+    axes = mesh_shape(mesh)
+    if sp_axis not in axes:
+        raise ValueError(f"lm_prefill: mesh has no {sp_axis!r} axis "
+                         f"(axes: {axes})")
+    n = axes[sp_axis]
+    if t % n:
+        raise ValueError(f"lm_prefill: prompt length {t} not divisible by "
+                         f"the {sp_axis!r} axis size {n}")
+    if flash:
+        raise ValueError(
+            "lm_prefill: flash=True conflicts with mesh= (the sp path uses "
+            "ring attention; run flash single-device)")
+    attn = sp_attention_fn(os.environ.get("NNS_LM_SP_MODE", "ring"), mesh,
+                           sp_axis, causal=True)
+    n_layers = stack_shape(params["wqkv"])[0]
+    d_model = params["embed"].shape[1]
+    hd = d_model // n_heads
+    tl = t // n
+    r = axis_index(mesh, sp_axis)
+    rows = slice(r * tl, (r + 1) * tl)
+    x = params["embed"][tokens[:, rows].long()] + params["pos_embed"][rows][None]
+    kc = vc = None
+    for li in range(n_layers):
+        x, kh, vh = _block_body(x, params, li, None, n_heads, attn)
+        if kc is None:
+            kc = kh.new_zeros((n_layers, b, n_heads, max_len, hd))
+            vc = vh.new_zeros((n_layers, b, n_heads, max_len, hd))
+        kc[li, :, :, :t] = all_gather(kh, mesh, sp_axis, dim=2)
+        vc[li, :, :, :t] = all_gather(vh, mesh, sp_axis, dim=2)
+    # the last token's row lives on the last rank of the axis
+    logits = broadcast(_unembed(x[:, -1:], params)[:, 0].contiguous(), mesh,
+                       sp_axis, src=n - 1)
+    pos = torch.full((1,), t, dtype=torch.int32, device=x.device)
+    flat = (n_layers * b * n_heads, max_len, hd)
+    return logits, kc.reshape(flat), vc.reshape(flat), pos
 
 
 def _lm_prefill(params: Params, tokens: torch.Tensor, n_heads: int,

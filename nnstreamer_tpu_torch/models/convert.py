@@ -27,6 +27,9 @@ state_dict-keyed tensors in the module's layout (a trainer's masters), and
 params)`` bundle's parameters) onto a device as tensors, unchanged in
 layout.
 
+``moe_params`` and ``stage_params`` carry the parallel layer's MoE and
+stacked pipeline-stage trees (parallel/moe.py, parallel/stages.py).
+
 ``causal_lm_params`` carries the JAX package's causal-LM parameter tree
 (``init_causal_lm`` or ``quantize_lm_params`` output, numpy leaves) onto a
 device unchanged in layout: the LM is written as a function of that tree
@@ -206,3 +209,38 @@ def causal_lm_params(tree: Dict[str, Any], device: Any,
 
     return {k: (tensor_tree(v, device) if isinstance(v, dict) else leaf(v))
             for k, v in tree.items()}
+
+
+def moe_params(tree: Dict[str, Any], device: Any) -> Dict[str, torch.Tensor]:
+    """The JAX package's MoE param tree (parallel/moe.py
+    ``init_moe_params``: ``router`` (D, E), ``w1`` (E, D, H), ``w2`` (E, H,
+    D)) → the same tree of tensors on ``device``; both packages' ``x @ w``
+    layout, so nothing is transposed."""
+    missing = {"router", "w1", "w2"} - set(tree)
+    if missing:
+        raise ValueError(f"moe_params: missing leaves {sorted(missing)}")
+    return {k: tensor_tree(tree[k], device) for k in ("router", "w1", "w2")}
+
+
+def stage_params(stacked: Any, device: Any) -> Any:
+    """Stacked pipeline-stage params (parallel/stages.py
+    ``stack_stage_params``: every leaf with a leading stage axis S) → the
+    same tree of tensors on ``device``, each leaf's leading axis checked
+    to be the same S."""
+    out = tensor_tree(stacked, device)
+    sizes = set()
+
+    def walk(t: Any) -> None:
+        if isinstance(t, dict):
+            for v in t.values():
+                walk(v)
+        elif isinstance(t, (list, tuple)):
+            for v in t:
+                walk(v)
+        else:
+            sizes.add(int(t.shape[0]) if t.dim() else -1)
+    walk(out)
+    if len(sizes) != 1 or -1 in sizes:
+        raise ValueError(f"stage_params: leaves disagree on the stage axis "
+                         f"({sorted(sizes)})")
+    return out

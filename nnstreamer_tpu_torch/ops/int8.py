@@ -17,7 +17,10 @@ changes no other row), which also runs a decode step's rows through the
 same kernel at any slot count. The MLP's inter-GEMM epilogue (dequant, gelu,
 requant) is the hand-written ``dequant_gelu_requant`` kernel
 (ops/kernels/epilogue.py). The tensor-parallel helpers (``quant_act_global``,
-``int8_partial``, ``int8_row_sharded_matmul``) wait for ``parallel/``.
+``int8_partial``, ``int8_row_sharded_matmul``) run a row-sharded GEMM over
+a mesh axis (parallel/tp_decode.py): activation grids from the global row
+absmax (``pmax``), exact int32 partials summed across the ranks, one
+rescale, so the TP GEMM has the single-card bits.
 
 A w8a8 leaf is ``{W8A8_TAG: int8 (..., K, N), "s": float32 (..., N)}``,
 the JAX package's layout, so a converted JAX tree serves unchanged.
@@ -150,3 +153,39 @@ def matmul_any(x: torch.Tensor, w: Any, row_blocks: bool = False) -> torch.Tenso
         dt = torch.promote_types(x.dtype, w.dtype)
         x, w = x.to(dt), w.to(dt)
     return _gemm(x, w, torch.matmul, row_blocks)
+
+
+def quant_act_global(x: torch.Tensor, mesh: Any, axis: str
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``quant_act`` for an activation whose logical row is split by
+    columns across the ranks of ``mesh[axis]``: the row absmax is taken
+    here, then its maximum over the axis (``pmax``), so every rank codes
+    its columns on the grid one card would use for the whole row."""
+    from ..parallel.mesh import pmax
+
+    xf = x.to(torch.float32)
+    s = absmax_scale(pmax(xf.abs().amax(dim=-1, keepdim=True), mesh, axis))
+    q = torch.clamp(torch.round(xf / s), -127, 127).to(torch.int8)
+    return q, s
+
+
+def int8_partial(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The exact int32 products of this rank's slice of a row-sharded int8
+    GEMM's contraction; the caller sums them over the axis (integer
+    addition, no order drift) and rescales once."""
+    return _int_mm(xq, wq)
+
+
+def int8_row_sharded_matmul(x: torch.Tensor, wq: torch.Tensor,
+                            w_scale: torch.Tensor, mesh: Any, axis: str
+                            ) -> torch.Tensor:
+    """The distributed w8a8 GEMM of a row-sharded weight: x (..., K_local)
+    on this rank @ int8 rows wq (K_local, N), with the replicated
+    full-contraction grid w_scale (N,). Codes on the ``pmax`` grid, int32
+    partials summed over the axis (``psum``), then ``int8_matmul``'s
+    rescale: the single-card bits."""
+    from ..parallel.mesh import psum
+
+    xq, xs = quant_act_global(x, mesh, axis)
+    tot = psum(int8_partial(xq, wq), mesh, axis)
+    return ((tot.to(torch.float32) * xs) * w_scale).to(x.dtype)

@@ -296,11 +296,9 @@ class LMEngine:
         self.role = r
         if spec_draft < 0 or spec_draft + 1 > max_len:
             raise ValueError("spec_draft must be in [0, max_len-1]")
-        self.device = resolve_device(device)
+        self.device = self._engine_device(device)
         embed = params["embed"]
-        if embed.device != self.device:
-            raise ValueError(f"params live on {embed.device}, the engine on "
-                             f"{self.device}")
+        self._check_params(params)
         self.params = params
         self.n_heads = n_heads
         self.max_len = max_len
@@ -370,9 +368,7 @@ class LMEngine:
             # device-resident per-slot stores (leading axis = slot), float32
             # whatever the params' dtype; the paged engine has none, its
             # K/V live in the page pool
-            shape = (n_slots, n_layers * n_heads, max_len, hd)
-            self._kc = torch.zeros(shape, dtype=torch.float32, device=dev)
-            self._vc = torch.zeros(shape, dtype=torch.float32, device=dev)
+            self._kc, self._vc = self._alloc_slot_caches(n_layers, hd)
         if self.role != "unified" and self._kv is None:
             # the page pool is the transfer substrate: a prefill engine has
             # nothing to export and a decode engine nowhere to splice
@@ -451,6 +447,43 @@ class LMEngine:
     #: the engine's tenant name on a DeviceEngine (``--sched-tenants lm:W``)
     #: and its label in the metric series
     _engine_label = "lm"
+
+    # -- device-layout hooks (serving/tp_engine.py overrides them) --------- #
+
+    def _engine_device(self, device: Any) -> torch.device:
+        return resolve_device(device)
+
+    def _check_params(self, params: Dict[str, Any]) -> None:
+        embed = params["embed"]
+        if embed.device != self.device:
+            raise ValueError(f"params live on {embed.device}, the engine on "
+                             f"{self.device}")
+
+    def _admit_window(self, tokens: torch.Tensor, true_len: torch.Tensor):
+        """The contiguous admit prefill's forward: (logits (1, vocab), kc,
+        vc, pos) of a right-padded prompt."""
+        return causal_lm.lm_prefill_window(self.params, tokens, true_len,
+                                           self.n_heads, self.max_len)
+
+    def _step_slots(self, tokens: torch.Tensor, kc: torch.Tensor,
+                    vc: torch.Tensor, pos: torch.Tensor):
+        """One decode step over every slot's views, written in place."""
+        return causal_lm.lm_decode_step_slots(self.params, tokens, kc, vc,
+                                              pos, self.n_heads)
+
+    def _window_slots(self, tokens_in: torch.Tensor, kc: torch.Tensor,
+                      vc: torch.Tensor, pos: torch.Tensor):
+        """One verify window over every contiguous slot, in place."""
+        return causal_lm.lm_verify_window_slots(self.params, tokens_in, kc,
+                                                vc, pos, self.n_heads)
+
+    def _alloc_slot_caches(self, n_layers: int, hd: int
+                           ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The per-slot K/V stores (leading axis = slot), float32 whatever
+        the params' dtype."""
+        shape = (self.n_slots, n_layers * self.n_heads, self.max_len, hd)
+        return (torch.zeros(shape, dtype=torch.float32, device=self.device),
+                torch.zeros(shape, dtype=torch.float32, device=self.device))
 
     def _init_metrics(self) -> None:
         """Register the serving metric families. Handles are real whether
@@ -1052,8 +1085,7 @@ class LMEngine:
         int64; writes the slot's cache, position and first token. With
         ``conf`` returns (first, the first-token logits' confidence
         triple)."""
-        logits, kc, vc, pos = causal_lm.lm_prefill_window(
-            self.params, tokens, true_len, self.n_heads, self.max_len)
+        logits, kc, vc, pos = self._admit_window(tokens, true_len)
         # the first token is emitted having consumed true_len tokens
         first = self._first_token(logits[0], true_len, slot, greedy)
         self._kc.index_copy_(0, slot, kc[None])
@@ -1258,8 +1290,7 @@ class LMEngine:
             vc = causal_lm.paged_view_slots(kv.vpool, self._table)
         tokens, pos, outs = self._tokens, self._pos, []
         for _ in range(n):
-            logits, _, _, pos = causal_lm.lm_decode_step_slots(
-                self.params, tokens, kc, vc, pos, self.n_heads)
+            logits, _, _, pos = self._step_slots(tokens, kc, vc, pos)
             if greedy:  # skips the sampler's sort/softmax/cumsum
                 nxt = torch.argmax(logits[:, 0], dim=-1).to(torch.int32)
             else:
@@ -1289,9 +1320,8 @@ class LMEngine:
         m (S,))."""
         tokens_in = torch.cat([self._tokens[:, 0], drafts], dim=1)
         if self._kv is None:
-            logits, _, _, pos_w = causal_lm.lm_verify_window_slots(
-                self.params, tokens_in, self._kc, self._vc, self._pos,
-                self.n_heads)
+            logits, _, _, pos_w = self._window_slots(tokens_in, self._kc,
+                                                     self._vc, self._pos)
         else:
             logits, _, _, pos_w = causal_lm.lm_verify_window_paged(
                 self.params, tokens_in, self._kv.kpool, self._kv.vpool,

@@ -21,8 +21,10 @@ converted from the JAX tree:
 - the CLI's --kv-page-size/--kv-pages give the JAX CLI's errors and
   environment.
 
-The JAX file's ``test_tp_engine_rejects_paging`` waits for the port of the
-tensor-parallel engine (ROADMAP §A10). The ``cuda`` case (an admission with
+The JAX file's ``test_tp_engine_rejects_paging`` is held by
+tests/test_torch_tp_engine.py, whose ranks build the port's ``TPLMEngine``
+(it refuses the kv_* options, and the paging environment does not turn
+paging on). The ``cuda`` case (an admission with
 a COW copy and a re-upload, replayed as CUDA graphs, against the eager run)
 runs on the card with ``-m cuda``.
 """

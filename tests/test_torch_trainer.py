@@ -321,7 +321,12 @@ def test_hot_swap_serves_trained_weights_and_leaves_the_zoo_module_alone():
 
 @pytest.mark.parametrize("mesh", ["data:4,model:2", {"data": 2}, "data", "data:x"])
 def test_mesh_is_refused_naming_its_roadmap_item(mesh):
-    with pytest.raises((tgraph.PipelineError, ValueError), match="mesh.*item 10"):
+    """Outside ranks a mesh= is refused, naming what it needs (ranks started
+    by parallel/launch.py); a malformed string names the form it wants.
+    tests/test_torch_parallel.py trains with mesh= on ranks."""
+    want = "mesh=.*parallel/launch.py" if mesh in ("data:4,model:2", {"data": 2}) \
+        else "mesh= wants"
+    with pytest.raises((tgraph.PipelineError, ValueError), match=want):
         train(PORT, linear_model(PORT), linear_data(1, batch=2), dims="8:2,2",
               mesh=mesh)
 
