@@ -265,7 +265,8 @@ Phases (any failure exits non-zero before the result lines are printed):
      nnstreamer_tpu_torch/parallel/launch.py on the card: B5 timed at the
      shapes the ring and a2a prefill launch (residual float32 at a shard
      pair, full and causal; normalised float32 at the a2a shape); (a) the
-     LM serving mix of phase 9 through ``TPLMEngine`` at model 2 and 4
+     LM serving mix of phase 9 (over gloo its first 12 requests,
+     PAR_GLOO_REQUESTS) through ``TPLMEngine`` at model 2 and 4
      (gloo, the ranks sharing the card, eager) and model 1 (NCCL, CUDA
      graphs and eagerly), float32 and w8a8, against the single-card
      ``LMEngine`` on the card: w8a8 tokens and the first-token logits of
@@ -285,6 +286,34 @@ Phases (any failure exits non-zero before the result lines are printed):
      saved at (2, 2) and restored at (4, 1) then stepped, each equal to its
      single-rank oracle, and the trainer with ``mesh=data:2`` on 2 ranks
      equal to the unsharded trainer;
+ 19c. LeNet-5 (``zoo://lenet``, the ``mnist`` alias's model) on 16 GRAY8
+     28x28 frames and MobileNet-v1 224 on 8 frames through
+     ``image_labeling``, each label the model's own argmax and the replayed
+     logits and labels equal to the eager run's; the stream transformer at
+     its zoo defaults (seq 256, dim 128, bf16) behind ``tensor_aggregator``
+     over 4 windows, replayed == eager, within ST_PIPE_TOL of the float32
+     model;
+ 19d. sharded serving (``run_sharded``, in run_parallel's 4-rank gloo group
+     and its 1-rank NCCL group): B5 timed at the shapes below (with the
+     ring rows of 19b); (a) full-width MobileNet-v2 (float32, batch 8)
+     through ``parallel.sharded_bundle`` over data 2 x model 2 behind
+     ``tensor_query`` (``parallel/composite.py``: rank 0 serves, the others
+     follow) over 16 batches, each within rtol 2e-4 / atol 2e-5 of the
+     unsharded bundle on the card with labels equal, batches/s and round
+     trip p50 beside the direct unsharded filter's; uneven batches of 9, 5
+     and 1 and a reload to seed 7 through the leader's filter, with the
+     collectives' ms an invoke; the failover check (the session stopped
+     before frame 2, a new one on the same port); and the composite once on
+     the 1-rank NCCL group; (b) the stream transformer (layers 2, dim 128,
+     heads 8, seq 4096, float32) over sp 4 in ring, ring-flash, a2a and
+     a2a-flash within rtol 5e-3 / atol 5e-4 of the single-card forward, B5
+     launched 2·4·4 = 32 times across the ranks on ring-flash and 2·4 = 8 on
+     a2a-flash; (c) the MoE transformer (8 experts, capacity 1.25, float32):
+     ``ep_bundle`` over data 2 x expert 2 through the filter at seq 256,
+     batch 2, within rtol 2e-4 / atol 2e-5, and ``make_sp_ep_infer`` over
+     sp 2 x expert 2 at seq 4096 in ring-flash (B5 2·2·4 = 16 launches) and
+     a2a-flash (8), expert counts and dropped tokens equal to the
+     single-card run's;
  20. print the card's name and power limit again, the launches of each path
      (every count set to 0 just before the path and read just after), the
      graphs of each path, the stream paths' rates, the ``kernels`` JSON line,
@@ -7038,6 +7067,10 @@ PAR_TIMEOUT = 120.0
 #: where the ranks run (a rehearsal on the CPU sets "cpu" and small sizes)
 PAR_DEVICE = "cuda"
 PAR_FIRST_LOGITS = 4     # requests whose first-token logits are compared
+#: the gloo groups (model 2 and 4) serve the first 12 of the mix's 24
+#: requests (cut to keep the script's time with the sharded phase; the
+#: gloo mix runs 25-113 tokens/s on one H100)
+PAR_GLOO_REQUESTS = 12
 PAR_CLOCK_STEPS = 5      # decode steps timed with COLLECTIVE_CLOCK on
 #: sequence-parallel prefill: one 1024-token prompt over sp 4, every mode
 SP_T, SP_WORLD, SP_DECODE = 1024, 4, 16
@@ -7436,18 +7469,43 @@ def _efficient_residuals(q, k, v, causal: bool) -> tuple:
 def _flash_ring_rows(fa) -> list:
     """B5 at the shapes (b) launches, in this process: the residual float32
     kernel at a ring shard pair (1, 16, SP_T/4, 64), full and causal, and
-    the normalised float32 one at the a2a shape (1, 16/4, SP_T, 64) causal.
-    Each shape is first held against plain (``_flash_case``: FLASH_TOL, m
-    and l within 1e-5), then timed: device ms, plain ms, the bound, and the
-    library call's ms: the memory-efficient attention with its log-sum-exp
-    for the residual cases, SDPA for the normalised one."""
-    rows = []
-    rng = np.random.default_rng(31)
+    the normalised float32 one at the a2a shape (1, 16/4, SP_T, 64) causal
+    (``_flash_rows``)."""
     heads = LM_DIMS[2]
     hd = LM_DIMS[1] // heads
-    cases = [("residual full", (1, heads, SP_T // SP_WORLD, hd), False, True),
-             ("residual causal", (1, heads, SP_T // SP_WORLD, hd), True, True),
-             ("normalised causal", (1, heads // SP_WORLD, SP_T, hd), True, False)]
+    return _flash_rows(fa, [
+        ("residual full", (1, heads, SP_T // SP_WORLD, hd), False, True),
+        ("residual causal", (1, heads, SP_T // SP_WORLD, hd), True, True),
+        ("normalised causal", (1, heads // SP_WORLD, SP_T, hd), True, False)])
+
+
+def _flash_sharded_rows(fa) -> list:
+    """B5 at the shapes run_sharded launches: the stream transformer's
+    ring-flash shard pair (1, 8, 4096/4, 16) residual and a2a-flash
+    (1, 8/4, 4096, 16) normalised over sp 4, and the MoE transformer's over
+    sp 2 (1, 8, 2048, 16) and (1, 4, 4096, 16); all full (not causal)."""
+    import urllib.parse
+
+    rows = []
+    for name, spec, sp in (("stream", ST_SPEC, 4), ("moe", MOE_SP_SPEC, 2)):
+        opts = dict(urllib.parse.parse_qsl(spec.split("?", 1)[1]))
+        heads, dim, seq = int(opts["heads"]), int(opts["dim"]), int(opts["seq"])
+        rows += _flash_rows(fa, [
+            (f"{name} ring-flash residual full", (1, heads, seq // sp, dim // heads),
+             False, True),
+            (f"{name} a2a-flash normalised full", (1, heads // sp, seq, dim // heads),
+             False, False)])
+    return rows
+
+
+def _flash_rows(fa, cases) -> list:
+    """B5 at each (name, shape, causal, residual) float32 case: first held
+    against plain (``_flash_case``: FLASH_TOL, m and l within 1e-5), then
+    timed: device ms, plain ms, the bound, and the library call's ms: the
+    memory-efficient attention with its log-sum-exp for the residual
+    cases, SDPA for the normalised ones."""
+    rows = []
+    rng = np.random.default_rng(31)
     for name, shape, causal, resid in cases:
         q, k, v = (torch.from_numpy(rng.standard_normal(shape, dtype=np.float32)).cuda()
                    for _ in range(3))
@@ -7504,7 +7562,7 @@ def run_parallel(counters) -> dict:
     by_phase = {}
     rows = []
     if PAR_DEVICE != "cpu":  # timing launches: no path's count
-        rows = _flash_ring_rows(fa)
+        rows = _flash_ring_rows(fa) + _flash_sharded_rows(fa)
     want, want_first, single_rate = {}, {}, {}
     for quant in ("float32", "w8a8"):
         params = _par_params(cfg, quant)
@@ -7520,8 +7578,7 @@ def run_parallel(counters) -> dict:
             .float().cpu().numpy() for p, _ in requests[:PAR_FIRST_LOGITS]])
         del params, eng
         _release()
-    flips, tp_lines, sp_res, tpg = [], {}, {}, {}
-    tokens = sum(g for _, g in requests)
+    flips, tp_lines, sp_res, tpg, sharded_lines = [], {}, {}, {}, {}
     ckpt_dir = tempfile.mkdtemp(prefix="nns_ckpt_")
     plan = ((2, None, (False,)), (4, None, (False,)),
             (1, "nccl" if PAR_DEVICE != "cpu" else None, (False, True)))
@@ -7533,16 +7590,20 @@ def run_parallel(counters) -> dict:
         for world, backend, modes in plan:
             t0 = time.perf_counter()
             with groups.pop(world) as g:
+                n_req = PAR_GLOO_REQUESTS if world > 1 else cfg["requests"]
+                wcfg = dict(cfg, requests=n_req)
+                w_tokens = sum(gen for _, gen in requests[:n_req])
                 for quant in ("float32", "w8a8"):
                     for eager in modes:
-                        res = g.run(par_tp_serve, cfg, quant, eager)
+                        res = g.run(par_tp_serve, wcfg, quant, eager)
                         r0 = res[0]
                         graphed = not eager and r0["backend"] != "gloo"
                         name = f"tp model {world} {quant} {'graphs' if graphed else 'eager'}"
-                        chk = _tp_serving_check(cfg, name, res, want[quant], want_first[quant],
-                                                quant, requests, flips)
+                        chk = _tp_serving_check(cfg, name, res, want[quant][:n_req],
+                                                want_first[quant][:n_req], quant,
+                                                requests[:n_req], flips)
                         tp_lines[name] = {
-                            "tokens_per_s": tokens / r0["wall"],
+                            "requests": n_req, "tokens_per_s": w_tokens / r0["wall"],
                             "single_card_tokens_per_s": single_rate[quant],
                             "backend": r0["backend"], "decode_steps": r0["stats"]["decode_steps"],
                             "prefills": r0["stats"]["prefills"], "captures": r0["captures"],
@@ -7553,8 +7614,8 @@ def run_parallel(counters) -> dict:
                                 for op in r0["clock"]},
                             "collectives_per_step": {op: c for op, (c, _) in r0["clock"].items()},
                             "kc_shape": r0["kc_shape"], **chk}
-                        print(f"{name} (ranks on {PAR_DEVICE}, {r0['backend']}): {tokens} tokens "
-                              f"in {r0['wall']:.3f} s = {tokens / r0['wall']:.2f} tokens/s "
+                        print(f"{name} (ranks on {PAR_DEVICE}, {r0['backend']}): {w_tokens} tokens "
+                              f"in {r0['wall']:.3f} s = {w_tokens / r0['wall']:.2f} tokens/s "
                               f"(single card {single_rate[quant]:.2f}); "
                               f"{json.dumps(tp_lines[name])}", flush=True)
                 if world == SP_WORLD:
@@ -7605,6 +7666,11 @@ def run_parallel(counters) -> dict:
                           f"({DRY_TRAIN_STEPS} steps, losses {dry['train'][2]}) "
                           f"{dry['train'][1]:.3e}, checkpoint (2, 2) -> (4, 1) "
                           f"{dry['ckpt'][1]:.3e}", flush=True)
+                    sharded = run_sharded(g, card)
+                    by_phase.update(sharded["launches"])
+                    sharded_lines.update(sharded["lines"])
+                if world == 1:
+                    sharded_lines["a nccl"] = run_sharded_nccl(g, card)
                 if world == 2:
                     got = g.run(par_trainer, cfg, "data:2")
                     ref = g.run(par_trainer, cfg, "")[0]
@@ -7627,9 +7693,518 @@ def run_parallel(counters) -> dict:
     by_phase["parallel sp prefill"] = {
         "flash_attention": sum(v["flash_launches"] for v in sp_res.values())}
     print(f"parallel phase: {time.perf_counter() - t_phase:.3f} s; {card}; "
-          f"{json.dumps({'b5_rows': rows, 'tp': tp_lines, 'sp': sp_res, 'tp_generate': tpg})}",
+          f"{json.dumps({'b5_rows': rows, 'tp': tp_lines, 'sp': sp_res, 'tp_generate': tpg, 'sharded': sharded_lines})}",
           flush=True)
     return by_phase
+
+
+# -- sharded serving and the model families (run_sharded): ranks on the card - #
+
+#: (a) full-width MobileNet-v2 served sharded over auto_mesh_2d(4) (data 2 x
+#: model 2) behind tensor_query, against the unsharded bundle on the card
+SHARD_SPEC = ("zoo://mobilenet_v2?width=1.0&size=224&num_classes=1001&batch=8"
+              "&dtype=float32")
+SHARD_BATCH, SHARD_SIZE = 8, 224
+SHARD_FRAMES = 16        # batches through the composite check
+SHARD_UNEVEN = (9, 5, 1)  # batches the data axis does not divide
+SHARD_RETRY = 6          # frames through the failover check
+SHARD_NCCL = 4           # batches through the 1-rank NCCL group
+SHARD_TOL = (2e-4, 2e-5)
+#: (b) the stream transformer at zoo widths, seq 4096, over sp 4; and the
+#: aggregator -> filter pipeline at the zoo defaults (seq 256, bf16)
+ST_SPEC = "zoo://stream_transformer?layers=2&dim=128&heads=8&seq=4096&dtype=float32"
+ST_PIPE_SPEC = "zoo://stream_transformer"
+ST_PIPE_WINDOWS = 4
+ST_TOL = (5e-3, 5e-4)    # JAX's own for the sequence-parallel forward
+ST_PIPE_TOL = (1e-1, 1e-1)  # bf16 through 2 layers against the float32 model
+#: (c) the MoE transformer at zoo widths, float32: ep_bundle on {data 2,
+#: expert 2} at seq 256 batch 2; sp x ep on {sp 2, expert 2} at seq 4096
+MOE_EP_SPEC = ("zoo://moe_transformer?layers=2&dim=128&heads=8&experts=8&seq=256"
+               "&batch=2&capacity_factor=1.25&dtype=float32")
+MOE_SP_SPEC = ("zoo://moe_transformer?layers=2&dim=128&heads=8&experts=8&seq=4096"
+               "&capacity_factor=1.25&dtype=float32")
+MOE_TOL = (2e-4, 2e-5)
+MOE_SP_MODES = ("ring-flash", "a2a-flash")
+#: (d) the two convnets through image_labeling
+LENET_SPEC, LENET_FRAMES = "zoo://lenet", 16
+V1_SPEC, V1_FRAMES, V1_SIZE = "zoo://mobilenet_v1", 8, 224
+#: where (b)'s pipeline and (d) run (a rehearsal on the CPU sets "cpu")
+FAMILY_DEVICE = "cuda"
+
+
+def _shard_cfg() -> dict:
+    """What the sharded rank functions need of this module's sizes."""
+    return {"device": PAR_DEVICE, "shard_spec": SHARD_SPEC, "batch": SHARD_BATCH,
+            "size": SHARD_SIZE, "uneven": SHARD_UNEVEN, "st_spec": ST_SPEC,
+            "moe_ep_spec": MOE_EP_SPEC, "moe_sp_spec": MOE_SP_SPEC}
+
+
+def _shard_frames(cfg: dict, batches, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 255, (b, cfg["size"], cfg["size"], 3)).astype(np.uint8)
+            for b in batches]
+
+
+def _seq_input(spec_meta: dict, batch: int, seed: int) -> np.ndarray:
+    return np.random.default_rng(seed).standard_normal(
+        (batch, spec_meta["seq"], spec_meta["dim"]), dtype=np.float32)
+
+
+def _lead_or_follow(served, calls):
+    """Rank 0 opens a filter on ``served`` on its card and returns
+    ``calls(filter)``, closing it (which stops the session); the others
+    follow and return their invoke counts."""
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch.filters.base import FilterProps
+    from nnstreamer_tpu_torch.filters.torch_cuda import TorchCudaFilter
+    from nnstreamer_tpu_torch.parallel import follow
+
+    if dist.get_rank() != 0:
+        return follow(served)
+    filt = TorchCudaFilter()
+    filt.open(FilterProps(model=served, device=served.metadata["input_sharding"]))
+    try:
+        return calls(filt)
+    finally:
+        filt.close()
+
+
+def _invoke_host(filt, x: np.ndarray) -> np.ndarray:
+    from nnstreamer_tpu_torch.core.buffer import TensorMemory
+
+    return filt.invoke([TensorMemory(torch.from_numpy(x))])[0].host()
+
+
+def shard_uneven_reload(cfg: dict) -> dict:
+    """A rank of (a)'s filter run: the sharded MobileNet-v2 through the
+    leader's filter on batches of ``cfg["uneven"]`` (zero-padded to the data
+    axis and trimmed), then a hot reload to the bundle at seed 7 and one
+    full batch; every collective clocked (COLLECTIVE_CLOCK)."""
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.parallel import auto_mesh_2d, sharded_bundle
+    from nnstreamer_tpu_torch.parallel import mesh as pmesh
+    from nnstreamer_tpu_torch.parallel.launch import rank_device
+
+    dev = rank_device()
+    mesh = auto_mesh_2d()
+    s1 = sharded_bundle(get_model(cfg["shard_spec"], device=dev), mesh)
+    s2 = sharded_bundle(get_model(cfg["shard_spec"] + "&seed=7", device=dev), mesh)
+
+    def calls(filt):
+        outs = [_invoke_host(filt, x) for x in _shard_frames(cfg, cfg["uneven"], 5)]
+        filt.reload_model(s2)
+        outs.append(_invoke_host(filt, _shard_frames(cfg, (cfg["batch"],), 6)[0]))
+        return {"outs": outs, "invokes": s1.metadata["session"].invokes}
+
+    pmesh.COLLECTIVE_CLOCK = {}
+    try:
+        out = _lead_or_follow(s1, calls)
+        out["clock"] = dict(pmesh.COLLECTIVE_CLOCK)
+        return out
+    finally:
+        pmesh.COLLECTIVE_CLOCK = None
+
+
+def _timed_forward(cfg: dict, fn, x: torch.Tensor) -> tuple:
+    """(output, ms, flash launches) of ``fn(x)`` after one warm-up call."""
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+
+    fn(x)
+    _sync(cfg)
+    fa.flash_attention.launches = 0
+    t0 = time.perf_counter()
+    y = fn(x)
+    _sync(cfg)
+    return y, (time.perf_counter() - t0) * 1e3, fa.flash_attention.launches
+
+
+def stream_sp(cfg: dict, mode: str) -> dict:
+    """A rank of (b): ``make_sp_apply`` of the stream transformer over every
+    rank on ``sp`` in ``mode``, the whole seeded input on every rank; the
+    whole output (rank 0), the forward's ms and this rank's B5 launches."""
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch.models.stream_transformer import make_sp_apply
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.parallel import make_mesh, mesh as pmesh
+    from nnstreamer_tpu_torch.parallel.launch import rank_device
+
+    dev = rank_device()
+    bundle = get_model(cfg["st_spec"], device=dev)
+    apply, params = make_sp_apply(bundle, make_mesh({"sp": pmesh.world()}), mode)
+    x = torch.from_numpy(_seq_input(bundle.metadata, 1, 11)).to(dev)
+    y, ms, launches = _timed_forward(cfg, lambda t: apply(params, t), x)
+    return {"y": y if dist.get_rank() == 0 else None, "ms": ms, "launches": launches}
+
+
+def moe_ep_serve(cfg: dict) -> dict:
+    """A rank of (c)'s filter run: ``ep_bundle`` over {data 2, expert 2}
+    through the leader's filter on one seeded batch."""
+    from nnstreamer_tpu_torch.models.moe_transformer import ep_bundle
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.launch import rank_device
+
+    bundle = get_model(cfg["moe_ep_spec"], device=rank_device())
+    served = ep_bundle(bundle, make_mesh({"data": 2, "expert": 2}))
+    x = _seq_input(bundle.metadata, 2, 12)
+
+    def calls(filt):
+        _invoke_host(filt, x)  # warm-up
+        t0 = time.perf_counter()
+        y = _invoke_host(filt, x)
+        return {"y": y, "ms": (time.perf_counter() - t0) * 1e3}
+
+    return _lead_or_follow(served, calls)
+
+
+def moe_sp_ep(cfg: dict, mode: str) -> dict:
+    """A rank of (c)'s sp x ep run: ``make_sp_ep_infer`` over {sp 2, expert
+    2} in ``mode`` with the router metrics; the output (rank 0), metrics,
+    ms and this rank's B5 launches."""
+    import torch.distributed as dist
+
+    from nnstreamer_tpu_torch.models.moe_transformer import make_sp_ep_infer
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.parallel import make_mesh
+    from nnstreamer_tpu_torch.parallel.launch import rank_device
+
+    dev = rank_device()
+    bundle = get_model(cfg["moe_sp_spec"], device=dev)
+    infer, placed = make_sp_ep_infer(bundle, make_mesh({"sp": 2, "expert": 2}),
+                                     sp_mode=mode)
+    x = torch.from_numpy(_seq_input(bundle.metadata, 1, 13)).to(dev)
+    (y, metrics), ms, launches = _timed_forward(
+        cfg, lambda t: infer(placed, t, metrics=True), x)
+    return {"y": y if dist.get_rank() == 0 else None, "metrics": metrics, "ms": ms,
+            "launches": launches}
+
+
+def _direct_rate(spec: str, frames: list) -> dict:
+    """The unsharded filter on the card over the same batches, one at a
+    time with its output read back (after one warm-up batch): batches/s and
+    the per-batch p50."""
+    from nnstreamer_tpu_torch.filters.base import FilterProps
+    from nnstreamer_tpu_torch.filters.torch_cuda import TorchCudaFilter
+
+    filt = TorchCudaFilter()
+    filt.open(FilterProps(model=spec, device=PAR_DEVICE))
+    try:
+        _invoke_host(filt, frames[0])
+        times = []
+        for x in frames:
+            t0 = time.perf_counter()
+            _invoke_host(filt, x)
+            times.append(time.perf_counter() - t0)
+    finally:
+        filt.close()
+    return {"batches_per_s": len(frames) / sum(times),
+            "p50_ms": float(np.median(times)) * 1e3}
+
+
+def _hop_rates(res: dict) -> dict:
+    """A sync client's rates behind the hop: batches/s after the first
+    batch (its round trips back to back), the round trip p50 of those, and
+    the first batch's (the session's first invoke, with cuDNN's warm-up)."""
+    rtt = res["rtt"]
+    return {"batches_per_s": (len(rtt) - 1) / sum(rtt[1:]),
+            "rtt_p50_ms": float(np.median(rtt[1:])) * 1e3, "first_ms": rtt[0] * 1e3}
+
+
+def _labels_equal(got: list, want: list) -> bool:
+    return all(np.array_equal(np.argmax(g, -1), np.argmax(w, -1))
+               for g, w in zip(got, want))
+
+
+def _clock_per_invoke(res: list) -> dict:
+    """Each collective's ms an invoke, the slowest rank's, and the count."""
+    r0 = res[0]
+    return {op: {"calls_per_invoke": r0["clock"][op][0] / r0["invokes"],
+                 "ms_per_invoke": max(r["clock"].get(op, [0, 0.0])[1] / r["invokes"]
+                                      for r in res) * 1e3}
+            for op in r0["clock"]}
+
+
+def run_sharded(g, card: str) -> dict:
+    """(a)-(c) on the 4-rank gloo group (the ranks sharing the card); returns
+    each part's lines and the ranks' B5 launches by part."""
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.parallel.composite import (
+        composite_query_retry_check, composite_sharded_query_check, uint8_frames)
+
+    cfg = _shard_cfg()
+    lines, launches = {}, {}
+    t0 = time.perf_counter()
+    oracle = get_model(SHARD_SPEC, device=PAR_DEVICE)
+    frames = uint8_frames(SHARD_BATCH, SHARD_SIZE, SHARD_FRAMES, 3)
+    direct = _direct_rate(SHARD_SPEC, frames)
+    res = composite_sharded_query_check(g, SHARD_SPEC, oracle, SHARD_BATCH, SHARD_SIZE,
+                                        SHARD_FRAMES, 3, *SHARD_TOL)
+    if not _labels_equal(res["outputs"], res["oracle"]):
+        raise AssertionError("sharded serving: labels differ from the unsharded bundle's")
+    lines["a composite"] = {"batches": SHARD_FRAMES, **_hop_rates(res),
+                            "max_abs_err": res["max_abs_err"], "direct_unsharded": direct,
+                            "invokes": [r["invokes"] for r in res["ranks"]]}
+    print(f"sharded (a) MobileNet-v2 {SHARD_SIZE} float32 batch {SHARD_BATCH} over data 2 "
+          f"x model 2 ({g.world} {g.backend} ranks on {PAR_DEVICE}) behind tensor_query: "
+          f"{json.dumps(lines['a composite'])}; every batch within rtol/atol "
+          f"{SHARD_TOL} of the unsharded bundle on the card, labels equal [{card}]",
+          flush=True)
+    res = g.run(shard_uneven_reload, cfg)
+    oracle7 = get_model(SHARD_SPEC + "&seed=7", device=PAR_DEVICE)
+    x8 = _shard_frames(cfg, (SHARD_BATCH,), 6)[0]
+    with torch.inference_mode():
+        want = [b.apply(torch.from_numpy(x).to(PAR_DEVICE)).float().cpu().numpy()
+                for b, x in [(oracle, x) for x in _shard_frames(cfg, SHARD_UNEVEN, 5)]
+                + [(oracle7, x8)]]
+    outs = res[0]["outs"]
+    errs = [float(np.abs(o - w).max()) if o.shape == w.shape else float("inf")
+            for o, w in zip(outs, want)]
+    if not all(o.shape == w.shape and np.allclose(o, w, rtol=SHARD_TOL[0], atol=SHARD_TOL[1])
+               for o, w in zip(outs, want)) or not _labels_equal(outs, want):
+        raise AssertionError(f"sharded uneven batches / reload: max abs errs {errs}")
+    lines["a uneven+reload"] = {"batches": list(SHARD_UNEVEN) + [SHARD_BATCH],
+                                "max_abs_err": errs, "invokes": res[0]["invokes"],
+                                "collectives": _clock_per_invoke(res)}
+    print(f"sharded (a) uneven batches {SHARD_UNEVEN} (padded to the data axis, trimmed) "
+          f"and a reload to seed 7, each == its unsharded bundle: "
+          f"{json.dumps(lines['a uneven+reload'])} (collectives clocked, the card "
+          f"synchronised around each) [{card}]", flush=True)
+    res = composite_query_retry_check(g, SHARD_SPEC, oracle, SHARD_BATCH, SHARD_SIZE,
+                                      SHARD_RETRY, 11, *SHARD_TOL)
+    if not _labels_equal(res["outputs"], res["oracle"]):
+        raise AssertionError("sharded failover: labels differ")
+    lines["a failover"] = {"frames": SHARD_RETRY, "max_abs_err": res["max_abs_err"],
+                           "sessions": len(res["ranks"]), "port": res["port"]}
+    print(f"sharded (a) failover: the session stopped before frame 2, a new one on the "
+          f"same ranks bound port {res['port']}, all {SHARD_RETRY} frames returned within "
+          f"tolerance: {json.dumps(lines['a failover'])}", flush=True)
+    del oracle, oracle7
+    # (b) the stream transformer over sp 4
+    st = get_model(ST_SPEC, device=PAR_DEVICE)
+    x = torch.from_numpy(_seq_input(st.metadata, 1, 11)).to(PAR_DEVICE)
+    with torch.inference_mode():
+        single = st.apply(x).float().cpu().numpy()
+    world, layers = g.world, st.metadata["layers"]
+    for mode in SP_MODES:
+        res = g.run(stream_sp, cfg, mode)
+        n = sum(r["launches"] for r in res)
+        want_n = 0 if PAR_DEVICE == "cpu" else {
+            "ring": 0, "a2a": 0, "ring-flash": layers * world * world,
+            "a2a-flash": layers * world}[mode]
+        y = res[0]["y"]
+        err = float(np.abs(y - single).max())
+        if not np.allclose(y, single, rtol=ST_TOL[0], atol=ST_TOL[1]) or n != want_n:
+            raise AssertionError(f"stream sp {mode}: max abs err {err}, B5 launches {n} "
+                                 f"(want {want_n})")
+        launches[f"sharded stream sp {mode}"] = {"flash_attention": n}
+        lines[f"b sp {mode}"] = {"ms": max(r["ms"] for r in res), "max_abs_err": err,
+                                 "flash_launches": n,
+                                 "per_rank": [r["launches"] for r in res]}
+        print(f"sharded (b) stream transformer seq {st.metadata['seq']} over sp {world} "
+              f"{mode}: {json.dumps(lines[f'b sp {mode}'])}; within {ST_TOL} of the "
+              f"single-card forward, B5 launches == {want_n} [{card}]", flush=True)
+    del st
+    # (c) the MoE transformer: ep_bundle, then sp x ep
+    moe = get_model(MOE_EP_SPEC, device=PAR_DEVICE)
+    x = _seq_input(moe.metadata, 2, 12)
+    with torch.inference_mode():
+        want = moe.apply(torch.from_numpy(x).to(PAR_DEVICE)).float().cpu().numpy()
+    res = g.run(moe_ep_serve, cfg)
+    err = float(np.abs(res[0]["y"] - want).max())
+    if not np.allclose(res[0]["y"], want, rtol=MOE_TOL[0], atol=MOE_TOL[1]):
+        raise AssertionError(f"moe ep_bundle: max abs err {err}")
+    lines["c ep_bundle"] = {"ms": res[0]["ms"], "max_abs_err": err,
+                            "follower_invokes": [r["invokes"] for r in res[1:]]}
+    print(f"sharded (c) ep_bundle over data 2 x expert 2 through the filter (seq "
+          f"{moe.metadata['seq']}, batch 2, {moe.metadata['experts']} experts): "
+          f"{json.dumps(lines['c ep_bundle'])}; within {MOE_TOL} of the single-card "
+          f"bundle [{card}]", flush=True)
+    moe = get_model(MOE_SP_SPEC, device=PAR_DEVICE)
+    x = torch.from_numpy(_seq_input(moe.metadata, 1, 13)).to(PAR_DEVICE)
+    metrics = {}
+    with torch.inference_mode():
+        single = moe.module(x, metrics=metrics).float().cpu().numpy()
+    counts = {k: v["expert_counts"].cpu().numpy() for k, v in metrics.items()}
+    dropped = {k: float(v["dropped"]) for k, v in metrics.items()}
+    layers = moe.metadata["layers"]
+    for mode in MOE_SP_MODES:
+        res = g.run(moe_sp_ep, cfg, mode)
+        n = sum(r["launches"] for r in res)
+        # each rank: sp (= 2) ring launches a layer, or one a2a launch
+        want_n = 0 if PAR_DEVICE == "cpu" else (
+            layers * 2 * world if mode == "ring-flash" else layers * world)
+        r0 = res[0]
+        err = float(np.abs(r0["y"] - single).max())
+        same = all(np.array_equal(r["metrics"][k]["expert_counts"], counts[k])
+                   and float(r["metrics"][k]["dropped"]) == dropped[k]
+                   for r in res for k in counts)
+        if not np.allclose(r0["y"], single, rtol=ST_TOL[0], atol=ST_TOL[1]) \
+                or not same or n != want_n:
+            raise AssertionError(f"moe sp x ep {mode}: max abs err {err}, counts/drops "
+                                 f"equal {same}, B5 launches {n} (want {want_n})")
+        launches[f"sharded moe sp x ep {mode}"] = {"flash_attention": n}
+        lines[f"c sp x ep {mode}"] = {
+            "ms": max(r["ms"] for r in res), "max_abs_err": err, "flash_launches": n,
+            "expert_counts": {k: v.tolist() for k, v in counts.items()},
+            "dropped": dropped}
+        print(f"sharded (c) sp x ep over sp 2 x expert 2 {mode} (seq "
+              f"{moe.metadata['seq']}): {json.dumps(lines[f'c sp x ep {mode}'])}; within "
+              f"{ST_TOL} of the single-card forward, expert counts and drops equal, B5 "
+              f"launches == {want_n} [{card}]", flush=True)
+    del moe
+    print(f"sharded phase on {world} ranks: {time.perf_counter() - t0:.3f} s", flush=True)
+    return {"lines": lines, "launches": launches}
+
+
+def run_sharded_nccl(g, card: str) -> dict:
+    """(a) once more on the 1-rank NCCL group: the served bundle's protocol
+    with an axis of 1 (no follower), against the unsharded bundle."""
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.parallel.composite import composite_sharded_query_check
+
+    oracle = get_model(SHARD_SPEC, device=PAR_DEVICE)
+    res = composite_sharded_query_check(g, SHARD_SPEC, oracle, SHARD_BATCH, SHARD_SIZE,
+                                        SHARD_NCCL, 3, *SHARD_TOL)
+    if not _labels_equal(res["outputs"], res["oracle"]):
+        raise AssertionError("sharded serving (NCCL): labels differ")
+    line = {"batches": SHARD_NCCL, **_hop_rates(res), "max_abs_err": res["max_abs_err"],
+            "backend": g.backend}
+    print(f"sharded (a) on the 1-rank {g.backend} group behind tensor_query: "
+          f"{json.dumps(line)} [{card}]", flush=True)
+    return line
+
+
+def _label_pipeline(spec: str, frames: list, caps, labels: str, eager: bool) -> tuple:
+    """``appsrc ! tensor_converter ! tensor_filter model=spec ! tensor_decoder
+    image_labeling ! tensor_sink`` in graphs or eager mode: (sink, the
+    decoder's inputs, wall, steady rate, graph stats)."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    p = Pipeline("cls", device=FAMILY_DEVICE)
+    src = p.add_new("appsrc", caps=caps, data=frames)
+    conv = p.add_new("tensor_converter")
+    filt = p.add_new("tensor_filter", framework="xla-tpu", model=spec)
+    dec = p.add_new("tensor_decoder", mode="image_labeling", option1=labels)
+    arrivals = []
+    sink = p.add_new("tensor_sink", store=True,
+                     new_data=lambda b, a=arrivals: a.append(time.perf_counter()))
+    Pipeline.link(src, conv, filt, dec, sink)
+    with _decoder_inputs() as seen, _mode(eager):
+        t0 = time.perf_counter()
+        p.run(timeout=600)
+        wall = time.perf_counter() - t0
+        st = graphs.stats()
+    if sink.num_buffers != len(frames):
+        raise AssertionError(f"{spec}: {sink.num_buffers} of {len(frames)} labels out")
+    return sink, seen, wall, _steady_fps(arrivals), st
+
+
+def _check_labels(spec: str, frames: list, runs: dict, name: str) -> list:
+    """Each graphs-mode label equal to the model's own argmax on its frame,
+    and the replayed logits and labels equal to the eager run's."""
+    from nnstreamer_tpu_torch.models.zoo import get_model
+
+    sink, seen = runs[False][0], runs[False][1]
+    bundle = get_model(spec, device=FAMILY_DEVICE)
+    for frame, buf in zip(frames, sink.buffers):
+        with torch.inference_mode():
+            logits = bundle.fn()(torch.from_numpy(frame[None]).to(FAMILY_DEVICE))
+        want = int(logits.argmax(dim=-1)[0])
+        if buf.meta["label_index"] != want:
+            raise AssertionError(f"{name}: label {buf.meta['label_index']} != argmax {want}")
+    if not _all_identical(_memories(seen), _memories(runs[True][1])) \
+            or [b.meta["label_index"] for b in sink.buffers] \
+            != [b.meta["label_index"] for b in runs[True][0].buffers]:
+        raise AssertionError(f"{name}: replayed logits or labels differ from the eager ones")
+    return [b.meta["label"] for b in sink.buffers]
+
+
+def run_convnets(tmp: str) -> None:
+    """(d): LeNet-5 on a GRAY8 28x28 stream and MobileNet-v1 224 through
+    image_labeling, each checked as run_classification checks MobileNet-v2."""
+    from nnstreamer_tpu_torch.core.types import Caps
+
+    rng = np.random.default_rng(17)
+    cases = [
+        ("lenet (zoo://mnist's model) 28x28 GRAY8", LENET_SPEC, 10,
+         Caps("video/x-raw", {"format": "GRAY8", "width": 28, "height": 28,
+                              "framerate": Fraction(30)}),
+         [rng.integers(0, 256, (28, 28, 1), dtype=np.uint8) for _ in range(LENET_FRAMES)]),
+        (f"mobilenet_v1 {V1_SIZE}", V1_SPEC, 1001,
+         Caps("video/x-raw", {"format": "RGB", "width": V1_SIZE, "height": V1_SIZE,
+                              "framerate": Fraction(30)}),
+         [rng.integers(0, 256, (V1_SIZE, V1_SIZE, 3), dtype=np.uint8)
+          for _ in range(V1_FRAMES)])]
+    for name, spec, n_labels, caps, frames in cases:
+        labels = os.path.join(tmp, f"labels{n_labels}.txt")
+        with open(labels, "w") as f:
+            f.write("\n".join(f"l{i}" for i in range(n_labels)))
+        runs = {eager: _label_pipeline(spec, frames, caps, labels, eager)
+                for eager in (False, True)}
+        got = _check_labels(spec, frames, runs, name)
+        if FAMILY_DEVICE != "cpu":  # the CPU captures nothing
+            _record_graphs(name.split()[0], 1, "fps", runs[False][3], runs[True][3],
+                           runs[False][4])
+        print(f"{name} image_labeling: {len(frames)} frames in {runs[False][2]:.3f} s "
+              f"(incl. model build), labels {got}; each == the model's argmax, "
+              f"replayed logits == the eager ones", flush=True)
+
+
+def run_stream_pipeline() -> None:
+    """(b)'s pipeline on one card: per-frame embeddings -> tensor_aggregator
+    (windows of seq frames) -> tensor_filter zoo://stream_transformer (zoo
+    defaults: layers 2, dim 128, heads 8, seq 256, bf16) -> tensor_sink, in
+    graphs and eager mode: replayed windows == eager ones, each within
+    ST_PIPE_TOL of the float32 model with the same seeded weights."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.models.zoo import get_model
+
+    ref = get_model(ST_PIPE_SPEC + "?dtype=float32", device=FAMILY_DEVICE)
+    seq, dim = ref.metadata["seq"], ref.metadata["dim"]
+    rng = np.random.default_rng(19)
+    frames = [rng.standard_normal((1, 1, dim), dtype=np.float32)
+              for _ in range(seq * ST_PIPE_WINDOWS)]
+    caps = Caps.tensors(TensorsConfig(TensorsInfo.from_strings(f"{dim}:1:1", "float32"), 30))
+    runs = {}
+    for eager in (False, True):
+        p = Pipeline("stream-transformer", device=FAMILY_DEVICE)
+        src = p.add_new("appsrc", caps=caps, data=list(frames))
+        agg = p.add_new("tensor_aggregator", frames_out=seq, frames_dim=1)
+        filt = p.add_new("tensor_filter", framework="xla-tpu", model=ST_PIPE_SPEC)
+        arrivals = []
+        sink = p.add_new("tensor_sink", store=True,
+                         new_data=lambda b, a=arrivals: a.append(time.perf_counter()))
+        Pipeline.link(src, agg, filt, sink)
+        with _mode(eager):
+            p.run(timeout=600)
+            st = graphs.stats()
+        if sink.num_buffers != ST_PIPE_WINDOWS:
+            raise AssertionError(f"stream pipeline: {sink.num_buffers} of "
+                                 f"{ST_PIPE_WINDOWS} windows")
+        runs[eager] = ([b.memories[0].host() for b in sink.buffers],
+                       _steady_fps(arrivals), st)
+    if not all(np.array_equal(a, b) for a, b in zip(runs[False][0], runs[True][0])):
+        raise AssertionError("stream pipeline: replayed windows differ from the eager ones")
+    errs = []
+    for k, out in enumerate(runs[False][0]):
+        window = np.concatenate(frames[k * seq:(k + 1) * seq], axis=1)
+        with torch.inference_mode():
+            want = ref.apply(torch.from_numpy(window).to(FAMILY_DEVICE)).cpu().numpy()
+        errs.append(float(np.abs(out - want).max()))
+        if out.shape != (1, seq, dim) or not np.allclose(out, want, rtol=ST_PIPE_TOL[0],
+                                                         atol=ST_PIPE_TOL[1]):
+            raise AssertionError(f"stream pipeline window {k}: max abs err {errs[-1]}")
+    if FAMILY_DEVICE != "cpu":
+        _record_graphs("stream transformer", 1, "windows/s", runs[False][1],
+                       runs[True][1], runs[False][2])
+    print(f"stream transformer (zoo defaults: seq {seq}, dim {dim}, bf16) behind "
+          f"tensor_aggregator: {ST_PIPE_WINDOWS} windows, replayed == eager, max abs err "
+          f"against the float32 model {max(errs):.4e} (within {ST_PIPE_TOL})", flush=True)
 
 
 def _start_groups(specs: list) -> dict:
@@ -7788,6 +8363,12 @@ def main() -> int:
     counters.reset()
     run_train()
     by_phase["train"] = counters.read()
+    _release()
+    counters.reset()
+    with tempfile.TemporaryDirectory() as tmp:
+        run_convnets(tmp)
+    run_stream_pipeline()
+    by_phase["convnets, stream transformer pipeline"] = counters.read()
     _release()
     by_phase.update(run_parallel(counters))
     print(f"card, beside the numbers below: {_card()}", flush=True)

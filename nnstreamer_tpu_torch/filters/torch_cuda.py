@@ -62,6 +62,18 @@ Design notes:
     bilinear region resize, in float32;
   * ``arch``/``arch_*`` are kept out of the model options, as in the JAX
     filter (checkpoint restore, their only reader, is not ported).
+  * pre-built bundles (``metadata["jit"] is False``: a sharded bundle,
+    parallel/leader.py, whose every call issues collectives on all ranks)
+    run their function once an invoke, eagerly: never captured (a capture
+    runs a signature eagerly first, which would issue the collectives
+    twice on the leader alone) and never coalesced. The fused preprocess,
+    layouts and precision cast still apply around it, as the JAX filter
+    stages them around its pjit program. The input placement is re-derived
+    from the bundle's ``input_sharding`` on ``open`` and ``reload_model``;
+    a batch that the bundle's ``batch_multiple`` does not divide is
+    zero-padded on the device to the next multiple and the batch-led
+    outputs trimmed back; ``close`` stops the bundle's session (its
+    followers return).
   * obs: with the profiler on, every program call goes through
     ``obs.profile.DISPATCH_HOOK`` (host time, a sampled CUDA-event device
     time, the cost once per shape), and ``_build`` counts a composition of
@@ -284,15 +296,18 @@ class TorchCudaFilter(FilterFramework):
         self._in_info: Optional[TensorsInfo] = None
         self._out_info: Optional[TensorsInfo] = None
         self._lock = threading.Lock()
+        #: the sharded sessions this filter served (parallel/leader.py),
+        #: stopped when it closes
+        self._sessions: List[Any] = []
 
     # -- lifecycle ---------------------------------------------------------- #
     def open(self, props: FilterProps) -> None:
         super().open(props)
         opts = props.custom_dict()
-        self._device = props.device if props.device is not None \
-            else props.accelerator.pick_device()
+        self._device = self._home_device()
         self._bundle = self._maybe_quantize(
             resolve_model(props.model, opts, self._device), opts)
+        self._refresh_device()
         self._precision = opts.get("precision", "")
         self._sync = _flag(opts, "sync")
         self._donate = _flag(opts, "donate")
@@ -326,6 +341,28 @@ class TorchCudaFilter(FilterFramework):
             self._out_info = self._infer_out_info(self._in_info)
         log.info("torch-cuda opened model=%s device=%s",
                  self._bundle.name, self._device)
+
+    def _home_device(self) -> Any:
+        props = self.props
+        return props.device if props.device is not None \
+            else props.accelerator.pick_device()
+
+    def _refresh_device(self) -> None:
+        """The input placement: a sharded bundle's ``input_sharding`` (the
+        leader's device), else the filter's own device. Re-derived on open
+        and on reload, so a hot swap to or from a sharded bundle leaves no
+        stale placement (the JAX filter's ``_refresh_device``). A sharded
+        bundle's session is stopped when the filter closes."""
+        placed = self._bundle.metadata.get("input_sharding")
+        self._device = placed if placed is not None else self._home_device()
+        sess = self._bundle.metadata.get("session")
+        if sess is not None and all(sess is not s for s in self._sessions):
+            self._sessions.append(sess)
+
+    @property
+    def _prebuilt(self) -> bool:
+        return self._bundle is not None \
+            and self._bundle.metadata.get("jit") is False
 
     @staticmethod
     def _maybe_quantize(bundle: ModelBundle, opts: Dict[str, str]) -> ModelBundle:
@@ -430,8 +467,9 @@ class TorchCudaFilter(FilterFramework):
 
         self._infer_fn = base
         self._full = full
-        # a new composition drops the old one's graphs
-        self._fn = graphs.CapturedFn(
+        # a new composition drops the old one's graphs; a pre-built bundle
+        # runs eagerly, its function once a call
+        self._fn = full if self._prebuilt else graphs.CapturedFn(
             full, f"torch-cuda invoke of {self._bundle.name}")
         prof = _profile.DISPATCH_HOOK
         if prof is not None and pre is None and post is None:
@@ -449,12 +487,14 @@ class TorchCudaFilter(FilterFramework):
         opts = self.props.custom_dict() if self.props else {}
         old = self._bundle
         self._bundle = self._maybe_quantize(
-            resolve_model(model, opts, self._device), opts)
+            resolve_model(model, opts, self._home_device()), opts)
+        self._refresh_device()
         self._build()
         if self._in_info is not None:
             new_out = self._infer_out_info(self._in_info)
             if self._out_info is not None and not new_out.is_compatible(self._out_info):
                 self._bundle = old
+                self._refresh_device()
                 self._build()
                 raise ValueError(f"reload rejected: output info changed "
                                  f"{self._out_info} -> {new_out}")
@@ -466,6 +506,9 @@ class TorchCudaFilter(FilterFramework):
         self._full = None
         self._infer_fn = None
         self._bundle = None
+        for sess in self._sessions:
+            sess.stop()  # the followers return
+        self._sessions = []
         super().close()
 
     # -- model metadata ------------------------------------------------------ #
@@ -494,8 +537,20 @@ class TorchCudaFilter(FilterFramework):
     def invoke(self, inputs: Sequence[TensorMemory]) -> List[TensorMemory]:
         if self._bucket > 0:
             return self._invoke_bucketed(inputs)
-        arrays = [m.device(self._device) for m in inputs]
-        return [TensorMemory(o) for o in self._run(self._model_shaped(inputs, arrays))]
+        arrays = self._model_shaped(inputs, [m.device(self._device) for m in inputs])
+        mult = int(self._bundle.metadata.get("batch_multiple", 0) or 0)
+        batch = int(arrays[0].shape[0]) if arrays and arrays[0].dim() else 0
+        pad = (-batch) % mult if mult > 1 else 0
+        if pad:
+            # an uneven final batch: zero rows up to the next multiple of
+            # the data axis, on the device; only batch-led outputs trimmed
+            arrays = [torch.cat([a, a.new_zeros((pad,) + tuple(a.shape[1:]))])
+                      for a in arrays]
+        outs = self._run(arrays)
+        if pad:
+            outs = tuple(o[:batch] if o.dim() and o.shape[0] == batch + pad else o
+                         for o in outs)
+        return [TensorMemory(o) for o in outs]
 
     def _model_shaped(self, inputs: Sequence[TensorMemory],
                       arrays: List[torch.Tensor]) -> List[torch.Tensor]:
@@ -623,6 +678,10 @@ class TorchCudaFilter(FilterFramework):
         single-group paths."""
         if len(groups) == 1:
             return [self.invoke(groups[0])]
+        if self._prebuilt:
+            raise ValueError(
+                f"coalesce: {self._bundle.name} is pre-built (a sharded "
+                "bundle's collectives run once an invoke); serve it serially")
         if self._bucket > 0:
             counts = [len(g) for g in groups]
             stacked = self._invoke_bucketed([m for g in groups for m in g])

@@ -13,7 +13,16 @@ as flax auto-names its submodules (``flax_children``: "ConvBNReLU_0",
     batch_stats ``mean``/``var`` → ``running_mean``/``running_var``;
   * ``nn.Linear``: flax ``(in, out)`` kernel → torch ``(out, in)``; a
     ``Dense(use_bias=False)`` (the input kernels of flax's ``LSTMCell``,
-    ``models/lstm.py``) is a ``Linear`` without bias.
+    ``models/lstm.py``) is a ``Linear`` without bias;
+  * ``LayerNorm``: ``scale``/``bias`` → ``weight``/``bias``;
+  * a module's own raw parameters, listed by its ``flax_params()`` as
+    (flax name, attribute) pairs (``pos_embed``, the MoE ``router``,
+    ``w1``, ``w2``), as they are.
+
+These cover LeNet-5 and MobileNet-v1 (convolutions, batch norms,
+denses) and the stream and MoE transformers (denses, layer norms, raw
+parameters) too; ``load_flax`` loads a JAX bundle's variables into a
+port bundle.
 
 ``flax_shapes`` gives the same tree's shapes, from which the zoo synthesizes
 seeded placeholder weights. ``to_flax_variables`` is the inverse of
@@ -44,7 +53,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from .layers import BatchNorm
+from .layers import BatchNorm, LayerNorm
 
 
 def _leaves(module: nn.Module, prefix: str = "",
@@ -64,7 +73,14 @@ def _leaves(module: nn.Module, prefix: str = "",
         yield "params", path + ("bias",), prefix + "bias", "same"
         yield "batch_stats", path + ("mean",), prefix + "running_mean", "same"
         yield "batch_stats", path + ("var",), prefix + "running_var", "same"
+    elif isinstance(module, LayerNorm):
+        yield "params", path + ("scale",), prefix + "weight", "same"
+        yield "params", path + ("bias",), prefix + "bias", "same"
     else:
+        # a module's own raw parameters (``self.param`` in flax: pos_embed,
+        # the MoE router and expert stacks), in flax's layout
+        for flax_name, attr in getattr(module, "flax_params", lambda: [])():
+            yield "params", path + (flax_name,), prefix + attr, "same"
         # dotted state_dict path of each descendant (ModuleList members
         # sit one level further down, e.g. "blocks.3")
         names = {id(m): n for n, m in module.named_modules() if n}
@@ -138,6 +154,16 @@ def from_flax_variables(variables: Dict[str, Any],
         new_state[key] = t.contiguous()
     module.load_state_dict(new_state, strict=True)
     return new_state
+
+
+def load_flax(bundle: Any, variables: Dict[str, Any]) -> Any:
+    """Load a JAX bundle's flax ``variables`` (any array leaves, turned to
+    numpy) into the port ``bundle``'s module in place; returns the bundle.
+    Module bundles only (the zoo's networks)."""
+    if bundle.module is None:
+        raise ValueError(f"load_flax: bundle {bundle.name!r} has no module")
+    from_flax_variables(variables, bundle.module)
+    return bundle
 
 
 def flax_tree(module: nn.Module, state: Dict[str, torch.Tensor],

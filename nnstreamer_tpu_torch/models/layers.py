@@ -11,6 +11,10 @@
 * ``BatchNorm`` — inference-mode batch norm in flax's order and precision:
   ``(x - mean) * (rsqrt(var + eps) * scale) + bias`` in float32 with float32
   statistics, cast back to the activation dtype; eps is the model's 1e-3.
+* ``LayerNorm`` — flax ``nn.LayerNorm`` over the last axis: float32
+  statistics with its fast variance ``max(E[x²] − E[x]², 0)``, then
+  ``(x − μ) · (rsqrt(var + ε) · scale) + bias`` in float32, cast to the
+  module's dtype; ε 1e-6.
 """
 
 from __future__ import annotations
@@ -61,3 +65,24 @@ class BatchNorm(nn.Module):
         mul = torch.rsqrt(self.running_var + self.eps) * self.weight
         y = (x.float() - self.running_mean.view(shape)) * mul.view(shape)
         return (y + self.bias.view(shape)).to(x.dtype)
+
+
+class LayerNorm(nn.Module):
+    """flax ``nn.LayerNorm(dtype=dtype)`` over the last axis (float32
+    ``weight``/``bias``, flax's ``scale``/``bias``)."""
+
+    def __init__(self, features: int, eps: float = 1e-6,
+                 dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.eps = eps
+        self.dtype = dtype
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        xf = x.float()
+        mean = xf.mean(dim=-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(dim=-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        mul = torch.rsqrt(var + self.eps) * self.weight
+        return ((xf - mean) * mul + self.bias).to(self.dtype)

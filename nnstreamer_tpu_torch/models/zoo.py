@@ -80,20 +80,28 @@ def synthesize_variables(shape_tree: Dict[str, Any], seed: int) -> Dict[str, Any
     arrays with flax-like statistics, deterministically from ``seed``, in
     the leaf order of the JAX package's ``synthesize_variables``
     (models/zoo.py:80-117): lecun-normal kernels, ones for scales/vars,
-    zeros for biases/means (the zoo models' only leaf kinds)."""
+    zeros for biases/means and vectors, and a fan-in normal for any other
+    matrix-like leaf."""
     rng = np.random.default_rng(seed)
     out: Dict[str, Any] = {}
     for path, shape in _flatten_sorted(shape_tree):
         shape = tuple(shape)
         name = path[-1].lower()
-        if name == "kernel":
+        if "kernel" in name or "embedding" in name:
+            fan_in = int(np.prod(shape[:-1])) if len(shape) > 1 else \
+                max(shape[0] if shape else 1, 1)
+            arr = rng.normal(0.0, 1.0 / np.sqrt(max(fan_in, 1)),
+                             shape).astype(np.float32)
+        elif "scale" in name or "var" in name:
+            arr = np.ones(shape, np.float32)
+        elif "bias" in name or "mean" in name or len(shape) < 2:
+            arr = np.zeros(shape, np.float32)
+        else:
+            # a matrix-like leaf of no known kind (the MoE router and
+            # expert stacks, pos_embed): fan-in normal, as JAX does
             fan_in = int(np.prod(shape[:-1]))
             arr = rng.normal(0.0, 1.0 / np.sqrt(max(fan_in, 1)),
                              shape).astype(np.float32)
-        elif name in ("scale", "var"):
-            arr = np.ones(shape, np.float32)
-        else:
-            arr = np.zeros(shape, np.float32)
         node = out
         for k in path[:-1]:
             node = node.setdefault(k, {})
@@ -101,16 +109,34 @@ def synthesize_variables(shape_tree: Dict[str, Any], seed: int) -> Dict[str, Any
     return out
 
 
+_aliases: Dict[str, str] = {}
+
+
 def register_model(name: str, factory: Callable[..., ModelBundle]) -> None:
-    """Register a zoo factory ``factory(device=..., **options)``."""
+    """Register a zoo factory ``factory(device=..., **options)``. A direct
+    registration always wins: it drops any alias installed under the same
+    name (a user factory is never shadowed by a built-in alias)."""
     with _lock:
         _factories[name.lower()] = factory
+        _aliases.pop(name.lower(), None)
+
+
+def register_alias(alias: str, canonical: str) -> None:
+    """Map ``alias`` onto an existing canonical model name, so both resolve
+    to the same memoized bundle (one set of weights). The target is
+    validated at once; a direct factory under ``alias`` keeps precedence."""
+    with _lock:
+        target = _aliases.get(canonical.lower(), canonical.lower())
+        if target not in _factories:
+            raise ValueError(
+                f"register_alias: unknown canonical model {canonical!r}")
+        _aliases[alias.lower()] = target
 
 
 def model_names() -> List[str]:
     _ensure_builtin_models()
     with _lock:
-        return sorted(_factories)
+        return sorted(set(_factories) | set(_aliases))
 
 
 #: resolved-bundle memo: repeated ``zoo://`` specs on one device share one
@@ -118,9 +144,11 @@ def model_names() -> List[str]:
 _bundle_memo: Dict[Any, ModelBundle] = {}
 
 
-def get_model(spec: str, device: Any = None, **overrides: Any) -> ModelBundle:
+def get_model(spec: str, device: Any = None, fresh: bool = False,
+              **overrides: Any) -> ModelBundle:
     """Resolve "zoo://name?opt=val" or bare "name" on ``device`` (None →
-    cuda, raising without a card)."""
+    cuda, raising without a card). ``fresh`` builds a new bundle, outside
+    the memo (one whose weights the caller replaces)."""
     _ensure_builtin_models()
     dev = resolve_device(device)
     s = spec
@@ -134,9 +162,13 @@ def get_model(spec: str, device: Any = None, **overrides: Any) -> ModelBundle:
     opts.update(overrides)
     s = s.lower()
     with _lock:
+        if s not in _factories:  # direct registrations beat aliases
+            s = _aliases.get(s, s)
         factory = _factories.get(s)
     if factory is None:
         raise ValueError(f"unknown zoo model {spec!r}; known: {model_names()}")
+    if fresh:
+        return factory(device=dev, **opts)
     key = (s, str(dev), tuple(sorted((k, str(v)) for k, v in opts.items())))
     with _lock:
         hit = _bundle_memo.get(key)
@@ -161,9 +193,13 @@ def _ensure_builtin_models() -> None:
         return
     from . import causal_lm  # noqa: F401
     from . import deeplab  # noqa: F401
+    from . import lenet  # noqa: F401
     from . import lstm  # noqa: F401
+    from . import mobilenet_v1  # noqa: F401
     from . import mobilenet_v2  # noqa: F401
+    from . import moe_transformer  # noqa: F401
     from . import posenet  # noqa: F401
     from . import simple  # noqa: F401
     from . import ssd_mobilenet  # noqa: F401
+    from . import stream_transformer  # noqa: F401
     _builtins_loaded = True

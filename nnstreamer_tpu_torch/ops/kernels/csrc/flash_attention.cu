@@ -44,8 +44,16 @@
 // in float32, of which the tensor core reads tf32's 19 top bits; a.b is
 // taken as hi_a.lo_b + lo_a.hi_b + hi_a.hi_b, the two small terms first,
 // all accumulated in float32: float32's accuracy (the lo.lo term, and lo's
-// truncation, are below float32's rounding). A bf16 operand, and p rounded
-// to bf16, is a tf32 value already, so bf16 takes the one product hi.hi.
+// truncation, are below float32's rounding). The tensor core's own
+// accumulation is not IEEE round-to-nearest: it truncates toward zero, so
+// no long running sum is carried through it. P.V's 8-key steps, and a
+// score's 8-column steps when D > 128 (past one chunk's 16 steps), are
+// each summed into a zeroed fragment and added to O or S with an IEEE add
+// (C7: carried through the tensor core, O drifted toward zero with L,
+// 1.2e-5 from plain at L 4096, D 16, and a D 512 score's 64 steps put m
+// 2.0e-5 off).
+// A bf16 operand, and p rounded to bf16, is a tf32 value already, so bf16
+// takes the one product hi.hi.
 // Grid (B*H, ceil(L/BQ), ceil(D/DC)), the heaviest causal query blocks
 // issued first. A block of 4 warps owns BQ query rows: each warp two
 // m-tiles of 16 rows (mma's M) while the accumulators fit the registers (DC
@@ -279,7 +287,7 @@ __device__ __forceinline__ void tc_stage(float* dst, const T* src, long long sl,
 // them): a branch per group would split the 16 independent products of a
 // step into blocks the compiler cannot interleave, and cost more than the
 // few groups it saves.
-template <int DC, int MT, bool kSplit>
+template <int DC, int MT, bool kSplit, bool kIeee>
 __device__ __forceinline__ void tc_scores(float (&s)[MT][kTcNT][4], const float* qs,
                                           const float* ks, int row_w, int g, int t, int ksteps) {
   constexpr int LD = DC + 4;
@@ -300,7 +308,18 @@ __device__ __forceinline__ void tc_scores(float (&s)[MT][kTcNT][4], const float*
         to_tf32<kSplit>(kb[0], bhi[0], blo[0]);
         to_tf32<kSplit>(kb[4], bhi[1], blo[1]);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma3<kSplit>(s[mt][nt], ahi[mt], alo[mt], bhi, blo);
+        for (int mt = 0; mt < MT; ++mt) {
+          if constexpr (kIeee) {
+            // D > DC: as P.V's, each step summed from zero and added in
+            // IEEE float32 (C7; a score at D 512 sums 64 steps)
+            float c[4] = {0.f, 0.f, 0.f, 0.f};
+            mma3<kSplit>(c, ahi[mt], alo[mt], bhi, blo);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) s[mt][nt][e] += c[e];
+          } else {
+            mma3<kSplit>(s[mt][nt], ahi[mt], alo[mt], bhi, blo);  // <= 16 steps
+          }
+        }
       }
     }
   }
@@ -380,7 +399,15 @@ __device__ __forceinline__ void tc_pv(float (&o)[MT][DC / 8][4], const float (&p
         to_tf32<kSplit>(vb[8 * j], bhi[0], blo[0]);
         to_tf32<kSplit>(vb[LD + 8 * j], bhi[1], blo[1]);
 #pragma unroll
-        for (int mt = 0; mt < MT; ++mt) mma3<kSplit>(o[mt][j], ahi[mt], alo[mt], bhi, blo);
+        for (int mt = 0; mt < MT; ++mt) {
+          // the step's products summed by the tensor core from zero, then
+          // added to o in IEEE float32: the tensor core's own sum truncates,
+          // and o carried through it drifts toward zero with L (C7)
+          float c[4] = {0.f, 0.f, 0.f, 0.f};
+          mma3<kSplit>(c, ahi[mt], alo[mt], bhi, blo);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) o[mt][j][e] += c[e];
+        }
       }
     }
   }
@@ -468,7 +495,7 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(TcArgs a) {
       __syncthreads();
       const float* kt = k_tile(i & 1);
       vt = kt + kTile;
-      tc_scores<DC, MT, kSplit>(s, qs, kt, row_w, g, t, (a.d + 7) / 8);
+      tc_scores<DC, MT, kSplit, false>(s, qs, kt, row_w, g, t, (a.d + 7) / 8);
     } else {
       // D > DC: the scores sum over the column chunks, staged in turn
       for (int j = 0; j < nd; ++j) {
@@ -477,7 +504,8 @@ __global__ void __launch_bounds__(kTcThreads) flash_tc_kernel(TcArgs a) {
         cp_async_commit();
         cp_async_wait<0>();
         __syncthreads();
-        tc_scores<DC, MT, kSplit>(s, qs, k_tile(0), row_w, g, t, (min(DC, a.d - j * DC) + 7) / 8);
+        tc_scores<DC, MT, kSplit, true>(s, qs, k_tile(0), row_w, g, t,
+                                        (min(DC, a.d - j * DC) + 7) / 8);
         __syncthreads();
       }
       tc_stage<T, DC, kTcBK>(k_tile(0) + kTile, vp, a.svl, k0, c_out, a.len, a.d, a.vec);

@@ -11,7 +11,10 @@ work:
     collective that hangs fails its caller within the timeout;
   * ``group.run(fn, *args)`` runs ``fn(*args)`` on every rank and returns
     the ranks' results in rank order, tensors turned to numpy; a rank's
-    exception is raised in the parent as ``RankError`` naming the rank;
+    exception is raised in the parent as ``RankError`` naming the rank
+    (the lowest that raised, once the others answered or within a few
+    seconds of the first error: a rank hung outside a collective is not
+    waited for);
   * ``run_ranks(fn, world, *args)`` is one group for one call.
 
 ``fn`` travels by its import path, so rank functions live in modules that a
@@ -47,6 +50,11 @@ __all__ = ["RankGroup", "RankError", "run_ranks", "plan", "rank_device",
 #: this process's device as a rank (set in a rank process by the launcher;
 #: None elsewhere)
 _RANK_DEVICE: Optional[torch.device] = None
+
+#: seconds the parent waits for the other ranks' answers after one rank
+#: raised: a rank left waiting in a collective fails within the timeout,
+#: and a hung one is not waited for
+_ERROR_GRACE_S = 5.0
 
 
 class RankError(RuntimeError):
@@ -201,7 +209,9 @@ class RankGroup:
             left = deadline - time.monotonic()
             if left <= 0:
                 missing = sorted(set(range(self.world)) - seen)
-                self.close()
+                self.close(grace=0.5)  # the missing ranks are stuck
+                if errors:  # the others may be hung: the error is the news
+                    raise RankError(*min(errors))
                 raise TimeoutError(f"ranks {missing} did not answer within "
                                    f"{wait:g} s; the group is closed")
             try:
@@ -221,6 +231,8 @@ class RankGroup:
             if ok:
                 out[rank] = payload
             else:
+                if not errors:
+                    deadline = min(deadline, time.monotonic() + _ERROR_GRACE_S)
                 errors.append((rank, payload))
         if errors:
             self.close()
@@ -239,9 +251,9 @@ class RankGroup:
         return self._collect(self._seq, 2 * self.timeout + 30.0
                              if wait is None else wait)
 
-    def close(self) -> None:
-        """Stop every rank (asked first, then terminated) and remove the
-        rendezvous directory."""
+    def close(self, grace: float = 10.0) -> None:
+        """Stop every rank (asked first, terminated after ``grace`` seconds)
+        and remove the rendezvous directory."""
         if self.closed:
             return
         self.closed = True
@@ -250,7 +262,7 @@ class RankGroup:
                 q.put(None)
             except (OSError, ValueError):
                 pass
-        deadline = time.monotonic() + 10.0
+        deadline = time.monotonic() + grace
         for p in self._procs:
             p.join(max(0.0, deadline - time.monotonic()))
         for p in self._procs:

@@ -288,11 +288,17 @@ def all_gather(x: torch.Tensor, mesh: DeviceMesh, axis: str,
     return torch.cat(parts, dim=dim)
 
 
-def broadcast(x: torch.Tensor, mesh: DeviceMesh, axis: str,
+def broadcast(x: torch.Tensor, mesh: DeviceMesh, axis: Optional[str],
               src: int = 0) -> torch.Tensor:
-    """Coordinate ``src``'s ``x`` on every rank of the axis."""
+    """Coordinate ``src``'s ``x`` on every rank of the axis; with ``axis``
+    None, rank ``src``'s on every rank of the mesh (which spans them all,
+    ``make_mesh``) in one call."""
     out = x.contiguous().clone()
-    if axis_size(mesh, axis) > 1:
+    if axis is None:
+        if mesh.size() > 1:
+            with _clocked("broadcast", out):
+                dist.broadcast(out, src)
+    elif axis_size(mesh, axis) > 1:
         ranks = _group_ranks(mesh, axis)
         with _clocked("broadcast", out):
             dist.broadcast(out, ranks[src], group=axis_group(mesh, axis))

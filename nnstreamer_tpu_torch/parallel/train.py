@@ -15,6 +15,11 @@ not the arithmetic (the JAX package's compiler may also split the GEMMs).
 The batch is the whole batch on every rank (the JAX step's global view);
 each rank takes its ``data`` shard, so the batch must divide by the data
 axis size.
+
+``sharded_bundle`` serves the sharded infer step through ``tensor_filter``:
+a module bundle's parameters and buffers become the step's parameter tree
+(``param_form``), and the leader/follower protocol (parallel/leader.py)
+runs every invoke on all ranks.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import torch
+from torch import nn
 from torch.distributed.tensor import DTensor, Shard
 
 from ..ops.optim import Optimizer
@@ -29,8 +35,8 @@ from .mesh import (all_gather, axis_index, mesh_device, mesh_shape, psum)
 from .sharding import as_tensor, full_value, shard_params, tree_flatten
 
 __all__ = ["cross_entropy_loss", "make_sharded_train_step",
-           "make_sharded_infer_step", "data_shard", "local_chunk",
-           "mean_over_data", "leaf_states"]
+           "make_sharded_infer_step", "sharded_bundle", "param_form",
+           "data_shard", "local_chunk", "mean_over_data", "leaf_states"]
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -131,18 +137,72 @@ def _local_state(state: Dict[str, Any]) -> Dict[str, Any]:
 def make_sharded_infer_step(apply_fn: Callable[..., Any], params: Any,
                             mesh: Any):
     """(fn, sharded_params): ``fn(params, x)`` runs the rank's data shard
-    of the whole batch ``x`` and returns the whole batch's output on every
-    rank (gathered over ``data``)."""
+    of the whole batch ``x`` and returns the whole batch's output (each
+    output of a tuple) on every rank, gathered over ``data``."""
     sharded = shard_params(params, mesh)
+    gather = mesh_shape(mesh).get("data", 1) > 1
 
-    def infer(p: Any, x: Any) -> torch.Tensor:
+    def infer(p: Any, x: Any) -> Any:
         pflat, prebuild = tree_flatten(p)
         full = prebuild([full_value(leaf) for _, leaf in pflat])
         with torch.no_grad():
             out = apply_fn(full, data_shard(x, mesh))
-        if mesh_shape(mesh).get("data", 1) > 1:
-            out = all_gather(out, mesh, "data", 0)
-        return out
+        if not gather:
+            return out
+        if isinstance(out, (tuple, list)):
+            return type(out)(all_gather(o, mesh, "data", 0) for o in out)
+        return all_gather(out, mesh, "data", 0)
 
     return infer, sharded
+
+
+class _Bound(nn.Module):
+    """A bundle's ``forward(module, *xs)`` as a module over ``module``, for
+    ``torch.func.functional_call``."""
+
+    def __init__(self, module: nn.Module, forward: Callable[..., Any]) -> None:
+        super().__init__()
+        self.inner = module
+        self._forward = forward
+
+    def forward(self, *xs: Any) -> Any:
+        return self._forward(self.inner, *xs)
+
+
+def param_form(base: Any):
+    """(apply_fn, params) of a ModelBundle, ``apply_fn(params, *xs) ==
+    base.apply(*xs)``: a ``(fn, params)`` bundle's own pair; a module
+    bundle's parameters and buffers by state_dict key, run through
+    ``functional_call``; a plain callable with no parameters."""
+    if base.apply_params is not None and base.params is not None:
+        return base.apply_params, base.params
+    if base.module is not None:
+        fwd = base.forward if base.forward is not None \
+            else (lambda m, *xs: m(*xs))
+        bound = _Bound(base.module, fwd)
+        params = {k: v.detach() for k, v in bound.state_dict().items()}
+        return (lambda p, *xs: torch.func.functional_call(bound, p, xs)), params
+    return (lambda p, *xs: base.apply(*xs)), {}
+
+
+def sharded_bundle(base: Any, mesh: Any) -> Any:
+    """Wrap a ModelBundle for mesh-sharded serving inside a pipeline:
+    ``tensor_filter model=sharded_bundle(b, mesh)`` on rank 0 fans each
+    request batch over the mesh's ``data`` axis with the parameters placed
+    over ``model`` (``make_sharded_infer_step``), while the other ranks run
+    ``parallel.leader.follow`` on their own ``sharded_bundle(b, mesh)``.
+    The bundle keeps ``base``'s public metadata only, is pre-built (``jit:
+    False``: the filter neither captures nor coalesces it) and carries
+    ``batch_multiple`` (the data axis: the filter zero-pads an uneven
+    final batch to it and trims the outputs) and its input placement."""
+    from .leader import served_bundle
+
+    apply_fn, params = param_form(base)
+    infer, sharded = make_sharded_infer_step(apply_fn, params, mesh)
+    axes = mesh_shape(mesh)
+    dp = int(axes.get("data", 1))
+    return served_bundle(
+        base, lambda x: infer(sharded, x), mesh,
+        f"{base.name}@{'x'.join(str(v) for v in axes.values())}",
+        batch_multiple=dp)
 

@@ -1,7 +1,7 @@
 """The port's parallel layer (nnstreamer_tpu_torch/parallel/) against the JAX
 package's, on gloo ranks on the CPU.
 
-Every case of tests/test_parallel.py but six, at its world sizes (8 ranks
+Every case of tests/test_parallel.py, at its world sizes (8 ranks
 for the 8-device virtual mesh; 4 and 2 where it builds smaller meshes), and
 the five mesh cases of test_causal_lm.py. The JAX side runs in this process
 on the 8-device virtual CPU mesh; the port on ranks started by
@@ -19,13 +19,13 @@ sequence-parallel prefill's logits rtol 2e-4 / atol 2e-5 against
 ``lm_forward``. Shardings compare as placements: ``P(None, "model")`` is
 ``Shard(1)`` on the model axis.
 
-Waiting with ``sharded_bundle`` (serving a sharded model through
-``tensor_filter`` and the query server; ROADMAP §A10): the JAX cases
-``test_query_offload_to_mesh_sharded_server``,
+The six cases that serve a sharded model through ``tensor_filter`` and the
+query server (``test_query_offload_to_mesh_sharded_server``,
 ``test_sharded_bundle_honors_fused_preprocess_and_bf16``,
 ``test_composite_sharded_pipeline_with_query_offload``,
 ``test_sharded_uneven_final_batch``, ``test_sharded_reload_reshards`` and
-``test_composite_query_failover_retry``.
+``test_composite_query_failover_retry``) are in
+tests/test_torch_sharded_serving.py.
 
 Port-only: device and backend choice, a rank's exception and a collective
 timeout surfacing in the parent, each collective helper, the a2a causal

@@ -1,5 +1,7 @@
 """Rank functions for the port's parallel tests (tests/test_torch_parallel.py,
-test_torch_tp_decode.py, test_torch_tp_prefill.py, test_torch_tp_engine.py).
+test_torch_tp_decode.py, test_torch_tp_prefill.py, test_torch_tp_engine.py,
+test_torch_sharded_serving.py, test_torch_stream_transformer.py,
+test_torch_moe_model.py).
 
 Each runs on every rank of a ``parallel.launch.RankGroup`` on the CPU; the
 launcher spawns fresh interpreters that import this module by name, so it
@@ -611,3 +613,187 @@ def trainer_run(w, frames, mesh, lr):
     Pipeline.link(src, tr, sink)
     p.run(timeout=120)
     return {"losses": list(tr.losses), "params": tr.params}
+
+
+# -- sharded serving and the transformer families --------------------------- #
+
+def _zoo(spec, variables):
+    """A fresh zoo bundle on this rank's device, with the JAX bundle's
+    ``variables`` (numpy) when given."""
+    from nnstreamer_tpu_torch.models.convert import load_flax
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.parallel.launch import rank_device
+
+    b = get_model(spec, device=rank_device(), fresh=True)
+    return load_flax(b, variables) if variables is not None else b
+
+
+def _any_mesh(axes):
+    return _mesh(axes) if axes else pmesh.auto_mesh_2d()
+
+
+def _lead_filter(served, calls):
+    """Rank 0 opens a torch-cuda filter on ``served`` and returns
+    ``calls(filter)``; closing it stops the session. Every other rank
+    follows and returns its invoke count."""
+    from nnstreamer_tpu_torch.filters.base import FilterProps
+    from nnstreamer_tpu_torch.filters.torch_cuda import TorchCudaFilter
+    from nnstreamer_tpu_torch.parallel.leader import follow
+
+    if dist.get_rank() != 0:
+        return follow(served)
+    filt = TorchCudaFilter()
+    filt.open(FilterProps(model=served, device="cpu"))
+    try:
+        return calls(filt)
+    finally:
+        filt.close()
+
+
+def _invoke(filt, x):
+    from nnstreamer_tpu_torch.core.buffer import TensorMemory
+
+    return filt.invoke([TensorMemory(torch.from_numpy(x))])[0].host()
+
+
+def sharded_uneven(spec, variables, axes, xs):
+    """The served sharded bundle through the filter on batches the data
+    axis does not divide; also whether the filter captured it."""
+    from nnstreamer_tpu_torch.core.graphs import CapturedFn
+    from nnstreamer_tpu_torch.parallel import sharded_bundle
+
+    served = sharded_bundle(_zoo(spec, variables), _any_mesh(axes))
+    return _lead_filter(served, lambda f: {
+        "outs": [_invoke(f, x) for x in xs],
+        "captured": isinstance(f._fn, CapturedFn),
+        "batch_multiple": served.metadata["batch_multiple"],
+        "name": served.name})
+
+
+def sharded_reload(spec, spec2, v1, v2, axes, x):
+    """Hot swaps on the leader's filter: the unsharded base → sharded b1 →
+    sharded b2 → the unsharded base; each output and the filter's input
+    placement after each swap."""
+    from nnstreamer_tpu_torch.parallel import sharded_bundle
+
+    mesh = _any_mesh(axes)
+    b1, b2 = _zoo(spec, v1), _zoo(spec2, v2)
+    s1, s2 = sharded_bundle(b1, mesh), sharded_bundle(b2, mesh)
+
+    def calls(f):
+        out = {"s1": _invoke(f, x)}
+        f.reload_model(s2)
+        out["s2"] = _invoke(f, x)
+        out["placed_s2"] = str(f._device) == str(s2.metadata["input_sharding"])
+        f.reload_model(b1)
+        out["plain"] = _invoke(f, x)
+        out["placed_plain"] = str(f._device)
+        f.reload_model(s1)
+        out["s1_again"] = _invoke(f, x)
+        return out
+
+    return _lead_filter(s1, calls)
+
+
+def leader_fails(spec, axes, how):
+    """The leader raises (``how`` "raise") or hangs past the collective
+    timeout ("hang") before its first invoke; the followers wait for it."""
+    import time
+
+    from nnstreamer_tpu_torch.parallel import sharded_bundle
+    from nnstreamer_tpu_torch.parallel.leader import follow
+
+    served = sharded_bundle(_zoo(spec, None), _any_mesh(axes))
+    if dist.get_rank() != 0:
+        return follow(served)
+    if how == "raise":
+        raise RuntimeError("leader failed before its first invoke")
+    time.sleep(3600)
+    return None
+
+
+def follower_calls(spec, axes):
+    """A follower calling the served bundle directly is refused."""
+    from nnstreamer_tpu_torch.parallel import sharded_bundle
+
+    served = sharded_bundle(_zoo(spec, None), _any_mesh(axes))
+    if dist.get_rank() == 0:
+        served.metadata["session"].stop()
+        return None
+    try:
+        served.apply(torch.zeros(1))
+    except RuntimeError as e:
+        served.metadata["session"].follow()
+        return str(e)
+    return None
+
+
+def ep_serve(spec, variables, axes, x):
+    """``ep_bundle`` served through the leader's filter."""
+    from nnstreamer_tpu_torch.models.moe_transformer import ep_bundle
+
+    served = ep_bundle(_zoo(spec, variables), _mesh(axes))
+    return _lead_filter(served, lambda f: {"y": _invoke(f, x),
+                                           "name": served.name})
+
+
+def ep_infer(spec, variables, axes, x, dp_axis="data", metrics=False):
+    """``make_ep_infer`` on the whole batch (the error text when it
+    refuses); with ``metrics`` the router metrics too."""
+    from nnstreamer_tpu_torch.models.moe_transformer import make_ep_infer
+
+    infer, placed = make_ep_infer(_zoo(spec, variables), _mesh(axes),
+                                  dp_axis=dp_axis)
+    try:
+        out = infer(placed, torch.from_numpy(x), metrics=metrics)
+    except ValueError as e:
+        return str(e)
+    local = {k: tuple(v.to_local().shape) for k, v in placed.items()
+             if k.endswith(("w1", "w2"))}
+    if metrics:
+        return {"y": out[0], "metrics": out[1], "local": local}
+    return {"y": out, "local": local}
+
+
+def ep_shardings(spec, axes, n_experts):
+    """``ep_param_shardings`` of the bundle's state: path → placements."""
+    from nnstreamer_tpu_torch.models.moe_transformer import ep_param_shardings
+
+    b = _zoo(spec, None)
+    sh = ep_param_shardings(b.module.state_dict(), _mesh(axes), n_experts)
+    return {k: [_pl(p) for p in v] for k, v in sh.items()}
+
+
+def sp_ep_infer(spec, variables, axes, x, mode, metrics=False):
+    """``make_sp_ep_infer`` on the whole input (the error text when it
+    refuses), the router metrics when asked, and this rank's flash
+    launches (0 on the CPU)."""
+    from nnstreamer_tpu_torch.models.moe_transformer import make_sp_ep_infer
+
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+
+    infer, placed = make_sp_ep_infer(_zoo(spec, variables), _mesh(axes),
+                                     sp_mode=mode)
+    fa.flash_attention.launches = 0
+    try:
+        out = infer(placed, torch.from_numpy(x), metrics=metrics)
+    except ValueError as e:
+        return str(e)
+    res = {"y": out[0], "metrics": out[1]} if metrics else {"y": out}
+    res["launches"] = fa.flash_attention.launches
+    return res
+
+
+def sp_apply(spec, variables, axes, x, mode):
+    """``make_sp_apply``'s forward of the whole input (the error text when
+    it refuses) and the flash kernel's launches on this rank."""
+    from nnstreamer_tpu_torch.models.stream_transformer import make_sp_apply
+    from nnstreamer_tpu_torch.ops.kernels import flash_attention as fa
+
+    apply, params = make_sp_apply(_zoo(spec, variables), _mesh(axes), mode)
+    fa.flash_attention.launches = 0
+    try:
+        y = apply(params, torch.from_numpy(x))
+    except ValueError as e:
+        return str(e)
+    return {"y": y, "launches": fa.flash_attention.launches}
