@@ -314,6 +314,28 @@ Phases (any failure exits non-zero before the result lines are printed):
      sp 2 x expert 2 at seq 4096 in ring-flash (B5 2·2·4 = 16 launches) and
      a2a-flash (8), expert counts and dropped tokens equal to the
      single-card run's;
+ 19c. the model files (``run_model_files``, after the convnets): (a)
+     SSD-300 at full width restored from a ``.msgpack`` the port wrote from
+     a seed-1 tree, through the README's detection pipeline
+     (``model=<ckpt> custom="arch=zoo://ssd_mobilenet_v2"``) over 32 frames
+     with graphs and eagerly: ``class_reduce`` and ``nms_sweep`` launched
+     once a frame, detections bit-equal to the same weights loaded
+     in-process (``convert.load_flax``) in both modes and unequal to the
+     seed-0 bundle's; (b) MobileNet-v1 1.0/224/1001 behind
+     ``custom="quant=w8"`` through image_labeling over 16 frames, captured
+     and eager: the codes and scales computed on the card bit-equal to the
+     CPU's from the same tree, labels equal between the modes and to the
+     quantized logits' argmax, frames/s and ``params_nbytes`` printed; (c)
+     LeNet and MobileNet-v2 at full width, exported by ``export_model`` in a
+     CPU process (started with the phase, beside (a) and (b)), served from
+     ``model=<x>.jaxexport`` on the card through a CUDA graph, against the
+     zoo bundle on the card (LeNet rtol 1e-5 / atol 1e-6, MobileNet-v2's
+     bf16 logits within 1e-2 of their scale; bit-equality printed); (d)
+     ``framework=torch`` and ``framework=pytorch`` through nns-launch on the
+     reference's pytorch string, once on a TorchScript LeNet scripted in the
+     phase (within rtol 1e-5 / atol 1e-6 of its eager module) and once on
+     the hand-built legacy zip (``write_legacy_lenet``; bit-equal to its
+     eager module), both on the card; then the phase's seconds;
  20. print the card's name and power limit again, the launches of each path
      (every count set to 0 just before the path and read just after), the
      graphs of each path, the stream paths' rates, the ``kernels`` JSON line,
@@ -399,10 +421,12 @@ import sys
 import tempfile
 import threading
 import time
+import zipfile
 from fractions import Fraction
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 SSD_SPEC = "zoo://ssd_mobilenet_v2?size=300&num_classes=91"
@@ -7351,9 +7375,9 @@ def par_dryrun(cfg: dict, ckpt_dir: str) -> dict:
     (n, 1) and stepped once against the unrestored state's step."""
     import torch.distributed as dist
 
-    from nnstreamer_tpu_torch.elements.trainer import _Forward
     from nnstreamer_tpu_torch.filters.torch_cuda import resolve_model
     from nnstreamer_tpu_torch.models.convert import moe_params
+    from nnstreamer_tpu_torch.models.zoo import ForwardModule
     from nnstreamer_tpu_torch.ops.optim import Optimizer
     from nnstreamer_tpu_torch.parallel import (
         init_moe_params, make_expert_parallel_moe, make_gpipe_apply, make_mesh,
@@ -7387,7 +7411,7 @@ def par_dryrun(cfg: dict, ckpt_dir: str) -> dict:
                   and torch.equal(aux["expert_counts"], auxr["expert_counts"]),
                   _max_abs_err(ym, yr))
     bundle = resolve_model(DRY_SPEC, {}, dev)
-    call = _Forward(bundle.module, bundle.forward)
+    call = ForwardModule(bundle.module, bundle.forward)
     params = {k: t.detach().clone() for k, t in bundle.module.state_dict().items()
               if t.is_floating_point()}
 
@@ -8076,17 +8100,20 @@ def run_sharded_nccl(g, card: str) -> dict:
     return line
 
 
-def _label_pipeline(spec: str, frames: list, caps, labels: str, eager: bool) -> tuple:
-    """``appsrc ! tensor_converter ! tensor_filter model=spec ! tensor_decoder
-    image_labeling ! tensor_sink`` in graphs or eager mode: (sink, the
-    decoder's inputs, wall, steady rate, graph stats)."""
+def _label_pipeline(spec: str, frames: list, caps, labels: str, eager: bool,
+                    custom: str = "", device: str = None) -> tuple:
+    """``appsrc ! tensor_converter ! tensor_filter model=spec custom=custom !
+    tensor_decoder image_labeling ! tensor_sink`` in graphs or eager mode on
+    ``device`` (FAMILY_DEVICE unless given): (sink, the decoder's inputs,
+    wall, steady rate, graph stats)."""
     from nnstreamer_tpu_torch.core import graphs
     from nnstreamer_tpu_torch.graph import Pipeline
 
-    p = Pipeline("cls", device=FAMILY_DEVICE)
+    p = Pipeline("cls", device=device or FAMILY_DEVICE)
     src = p.add_new("appsrc", caps=caps, data=frames)
     conv = p.add_new("tensor_converter")
-    filt = p.add_new("tensor_filter", framework="xla-tpu", model=spec)
+    filt = p.add_new("tensor_filter", framework="xla-tpu", model=spec,
+                     custom=custom)
     dec = p.add_new("tensor_decoder", mode="image_labeling", option1=labels)
     arrivals = []
     sink = p.add_new("tensor_sink", store=True,
@@ -8207,6 +8234,306 @@ def run_stream_pipeline() -> None:
           f"against the float32 model {max(errs):.4e} (within {ST_PIPE_TOL})", flush=True)
 
 
+#: the model-files phase: checkpoints, quant=w8, exported programs and the
+#: torch filter (``run_model_files``; a rehearsal on the CPU sets "cpu")
+MF_DEVICE = "cuda"
+MF_SSD_FRAMES = 32
+MF_V1_FRAMES = 16
+MF_SSD_ARCH = "arch=zoo://ssd_mobilenet_v2"
+#: an exported program against the zoo bundle it was exported from, both on
+#: the card: float32 LeNet; MobileNet-v2's bf16 logits within 1e-2 of scale
+MF_EXPORT_TOL = {"lenet": (1e-5, 1e-6), "mobilenet_v2": (1e-2, 0.0)}
+#: the scripted LeNet through the torch filter against its eager module
+MF_SCRIPT_TOL = (1e-5, 1e-6)
+#: the scripted LeNet of (d): uint8 (b, 28, 28, 1) -> (b, 10) float32 logits
+MF_SCRIPT_SEED = 23
+
+
+class ScriptLeNet(torch.nn.Module):
+    """(d)'s TorchScript model: the frame as the pipeline hands it (uint8
+    NHWC) to float32 logits."""
+
+    def __init__(self) -> None:
+        super().__init__()
+        torch.manual_seed(MF_SCRIPT_SEED)
+        self.conv = torch.nn.Conv2d(1, 4, 3, 1)
+        self.fc = torch.nn.Linear(4 * 13 * 13, 10)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float().permute(0, 3, 1, 2) / 255.0
+        x = F.max_pool2d(torch.relu(self.conv(x)), 2)
+        return self.fc(x.reshape(x.size(0), -1))
+
+
+def _mf_ssd(tmp: str, counters) -> dict:
+    """(a) SSD-300 at full width restored from a .msgpack through the
+    README's detection pipeline (``model=<ckpt> custom="arch=..."``), with
+    graphs and eagerly: detections bit-equal to the same weights loaded
+    in-process (``convert.load_flax``), and not the seed-0 bundle's."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.models.convert import load_flax, to_flax_variables
+    from nnstreamer_tpu_torch.models.ssd_mobilenet import write_box_priors
+    from nnstreamer_tpu_torch.models.zoo import get_model
+    from nnstreamer_tpu_torch.utils.checkpoints import load_variables, save_variables
+
+    priors = os.path.join(tmp, "box_priors.txt")
+    write_box_priors(priors, size=300)
+    labels = os.path.join(tmp, "coco.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"c{i}" for i in range(91)))
+    ckpt = os.path.join(tmp, "ssd300_seed1.msgpack")
+    seeded = get_model(SSD_SPEC + "&seed=1", device=MF_DEVICE, fresh=True)
+    save_variables(ckpt, to_flax_variables(seeded.module))
+    del seeded
+    loaded = load_flax(get_model(SSD_SPEC, device=MF_DEVICE, fresh=True),
+                       load_variables(ckpt))
+
+    def run(model, custom: str, eager: bool) -> tuple:
+        p = Pipeline("ssd-restored", device=MF_DEVICE)
+        src = p.add_new("videotestsrc", width=300, height=300, pattern="random",
+                        num_buffers=MF_SSD_FRAMES)
+        conv = p.add_new("tensor_converter")
+        filt = p.add_new("tensor_filter", framework="xla-tpu", model=model,
+                         custom=custom)
+        dec = p.add_new("tensor_decoder", mode="bounding_box", option1="mobilenet-ssd",
+                        option2=labels, option3=priors, option4="300:300",
+                        option5="300:300")
+        arrivals = []
+        sink = p.add_new("tensor_sink", store=True,
+                         new_data=lambda b, a=arrivals: a.append(time.perf_counter()))
+        Pipeline.link(src, conv, filt, dec, sink)
+        with _mode(eager):
+            p.run(timeout=600)
+            st = graphs.stats()
+        if sink.num_buffers != MF_SSD_FRAMES:
+            raise AssertionError(f"restored ssd: {sink.num_buffers} of "
+                                 f"{MF_SSD_FRAMES} frames")
+        dets = [b.meta["detections"] for b in sink.buffers]
+        return dets, _steady_fps(arrivals), st
+
+    counters.reset()
+    runs = {eager: run(ckpt, MF_SSD_ARCH, eager) for eager in (False, True)}
+    launches = counters.read()
+    want = {eager: run(loaded, "", eager)[0] for eager in (False, True)}
+    seed0 = run(SSD_SPEC, "", False)[0]
+    if MF_DEVICE != "cpu":
+        for name in ("class_reduce", "nms_sweep"):
+            if launches.get(name) != 2 * MF_SSD_FRAMES:
+                raise AssertionError(f"restored ssd: {name} launched "
+                                     f"{launches.get(name)} times for 2 x {MF_SSD_FRAMES}")
+    for eager in (False, True):
+        if runs[eager][0] != want[False] or want[eager] != want[False]:
+            raise AssertionError(f"restored ssd ({'eager' if eager else 'graphs'}): "
+                                 "detections differ from the in-process restore")
+    if runs[False][0] == seed0:
+        raise AssertionError("restored ssd: detections equal the seed-0 bundle's")
+    n = sum(len(d) for d in runs[False][0])
+    if n == 0:
+        raise AssertionError("restored ssd: no detections")
+    del loaded
+    print(f"model files (a) SSD-300 restored from {os.path.basename(ckpt)} "
+          f"(custom=\"{MF_SSD_ARCH}\"): {MF_SSD_FRAMES} frames, {n} detections, "
+          f"graphs and eager == the in-process load_flax restore, != seed 0; steady "
+          f"fps {runs[False][1]:.2f} (eager {runs[True][1]:.2f}); launches {launches}",
+          flush=True)
+    if MF_DEVICE != "cpu":
+        _record_graphs("restored ssd", 1, "fps", runs[False][1], runs[True][1],
+                       runs[False][2])
+    return launches
+
+
+def _mf_quant_v1(tmp: str) -> None:
+    """(b) MobileNet-v1 1.0/224/1001 behind custom="quant=w8" through
+    image_labeling, captured and eager: codes and scales bit-equal to those
+    computed on the CPU from the same tree, labels equal between the modes
+    and to the quantized logits' argmax."""
+    from nnstreamer_tpu_torch.core.types import Caps
+    from nnstreamer_tpu_torch.models.quantize import quantize_bundle
+    from nnstreamer_tpu_torch.models.zoo import get_model
+
+    labels = os.path.join(tmp, "labels1001.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"l{i}" for i in range(1001)))
+    rng = np.random.default_rng(29)
+    frames = [rng.integers(0, 256, (V1_SIZE, V1_SIZE, 3), dtype=np.uint8)
+              for _ in range(MF_V1_FRAMES)]
+    caps = Caps("video/x-raw", {"format": "RGB", "width": V1_SIZE, "height": V1_SIZE,
+                                "framerate": Fraction(30)})
+    runs = {eager: _label_pipeline(V1_SPEC, frames, caps, labels, eager,
+                                   custom="quant=w8", device=MF_DEVICE)
+            for eager in (False, True)}
+    card = get_model(V1_SPEC, device=MF_DEVICE).metadata["_w8_bundle"]
+    cpu = quantize_bundle(get_model(V1_SPEC, device="cpu", fresh=True))
+    leaves = _tree_items(cpu.params)
+    for (path, got), (want_path, leaf) in zip(_tree_items(card.params), leaves):
+        if path != want_path or not _identical(got.detach().cpu(), leaf.detach()):
+            raise AssertionError(f"quant=w8 on the card: {path} differs from the CPU's")
+    sink = runs[False][0]
+    got = [b.meta["label_index"] for b in sink.buffers]
+    if got != [b.meta["label_index"] for b in runs[True][0].buffers]:
+        raise AssertionError("quant=w8 mobilenet_v1: labels differ between graphs and eager")
+    with torch.inference_mode():
+        want = [int(card.fn()(torch.from_numpy(x[None]).to(MF_DEVICE)).argmax(-1)[0])
+                for x in frames]
+    if got != want:
+        raise AssertionError(f"quant=w8 mobilenet_v1: labels {got} != argmax {want}")
+    md = card.metadata
+    print(f"model files (b) mobilenet_v1 {V1_SIZE} 1001 classes quant=w8: "
+          f"{MF_V1_FRAMES} frames, labels == argmax, graphs == eager, {len(leaves)} leaves of "
+          f"codes/scales == the CPU's bit for bit; params_nbytes {md['params_nbytes']} "
+          f"of {md['params_nbytes_f32']} unquantized; steady fps {runs[False][3]:.2f} "
+          f"(eager {runs[True][3]:.2f})", flush=True)
+    if MF_DEVICE != "cpu":
+        _record_graphs("mobilenet_v1 quant=w8", 1, "fps", runs[False][3],
+                       runs[True][3], runs[False][4])
+
+
+#: (c)'s models: name -> (zoo spec, frame shape, video format)
+MF_EXPORTS = {"lenet": (LENET_SPEC, (28, 28, 1), "GRAY8"),
+              "mobilenet_v2": (CLS_SPEC, (224, 224, 3), "RGB")}
+
+
+def _mf_export_start(tmp: str) -> tuple:
+    """Start (c)'s export: a process on the CPU alone (no card visible, two
+    threads) writes each model of MF_EXPORTS with export_model; it runs
+    while (a) and (b) do. Returns (process, paths, start time)."""
+    paths = {name: os.path.join(tmp, f"{name}.jaxexport") for name in MF_EXPORTS}
+    code = ("from nnstreamer_tpu_torch.models import export_model, get_model\n"
+            + "".join(f"export_model({paths[n]!r}, get_model({s!r}, device='cpu'))\n"
+                      for n, (s, _, _) in MF_EXPORTS.items()))
+    env = {**os.environ, "CUDA_VISIBLE_DEVICES": "", "OMP_NUM_THREADS": "2"}
+    proc = subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    return proc, paths, time.perf_counter()
+
+
+def _mf_exported(export: tuple) -> None:
+    """(c) LeNet and MobileNet-v2 at full width, exported by export_model in
+    a CPU process, served from model=<x>.jaxexport on the card through the
+    filter's CUDA graph: outputs against the zoo bundle on the card."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.core.types import Caps
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.models.zoo import get_model
+
+    proc, paths, t0 = export
+    try:
+        _, err = proc.communicate(timeout=600)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    if proc.returncode != 0:
+        raise AssertionError(f"export in a CPU process failed: {err[-2000:]}")
+    export_s = time.perf_counter() - t0
+    cases = MF_EXPORTS
+    rng = np.random.default_rng(31)
+    for name, (spec, shape, fmt) in cases.items():
+        frames = [rng.integers(0, 256, shape, dtype=np.uint8) for _ in range(8)]
+        caps = Caps("video/x-raw", {"format": fmt, "width": shape[1],
+                                    "height": shape[0], "framerate": Fraction(30)})
+        p = Pipeline("exported", device=MF_DEVICE)
+        src = p.add_new("appsrc", caps=caps, data=list(frames))
+        conv = p.add_new("tensor_converter")
+        filt = p.add_new("tensor_filter", model=paths[name])  # framework=auto
+        sink = p.add_new("tensor_sink", store=True)
+        Pipeline.link(src, conv, filt, sink)
+        with _mode(False):
+            p.run(timeout=600)
+            st = graphs.stats()
+        if filt.resolved_framework != "xla-tpu" or sink.num_buffers != len(frames):
+            raise AssertionError(f"exported {name}: {filt.resolved_framework}, "
+                                 f"{sink.num_buffers} frames")
+        if MF_DEVICE != "cpu" and (st["captures"] < 1 or st["replays"] < 1):
+            raise AssertionError(f"exported {name}: not served through a CUDA graph {st}")
+        zoo = get_model(spec, device=MF_DEVICE)
+        rtol, atol = MF_EXPORT_TOL[name]
+        err, exact = 0.0, True
+        for x, b in zip(frames, sink.buffers):
+            out = b.memories[0].device()
+            if out.device.type != torch.device(MF_DEVICE).type:
+                raise AssertionError(f"exported {name}: output on {out.device}")
+            with torch.inference_mode():
+                want = zoo.fn()(torch.from_numpy(x[None]).to(MF_DEVICE))
+            exact = exact and _identical(out, want)
+            err = max(err, _max_abs_err(out, want))
+            scale = float(want.abs().max())
+            if not torch.allclose(out, want, rtol=rtol, atol=max(atol, rtol * scale)):
+                raise AssertionError(f"exported {name}: max abs err {err} (scale {scale})")
+        print(f"model files (c) {name} exported in a CPU process (done {export_s:.1f} s "
+              f"after its start, beside (a) and (b)) and served from .jaxexport on the card: {len(frames)} frames, "
+              f"captures {st['captures']} replays {st['replays']}, max abs err "
+              f"against the zoo bundle {err:.3e} (bit-equal: {exact})", flush=True)
+
+
+def _mf_torch_filter(tmp: str) -> None:
+    """(d) framework=torch / pytorch through nns-launch (the reference's
+    pytorch string): a TorchScript LeNet scripted here and the hand-built
+    legacy zip, each against its module run eagerly on the card."""
+    from PIL import Image
+
+    from nnstreamer_tpu_torch.cli import main as cli
+    from nnstreamer_tpu_torch.elements.filter import TensorFilter
+
+    png = os.path.join(tmp, "digit.png")
+    Image.fromarray(np.random.default_rng(37).integers(0, 256, (28, 28), dtype=np.uint8),
+                    "L").save(png)
+    script = ScriptLeNet().eval()
+    scripted = os.path.join(tmp, "lenet_script.pt")
+    torch.jit.script(script).save(scripted)
+    legacy = os.path.join(tmp, "lenet_legacy.pt")
+    legacy_net = write_legacy_lenet(legacy, seed=0)
+    dev = torch.device(MF_DEVICE)
+    cases = [("torch", scripted, script, "10:1", "float32", np.float32, MF_SCRIPT_TOL),
+             ("pytorch", legacy, legacy_net, "10:1:1:1", "uint8", np.uint8, (0.0, 0.0))]
+    for fw, model, net, odims, otype, np_type, (rtol, atol) in cases:
+        out = os.path.join(tmp, f"{fw}.out.log")
+        launch = (f"filesrc location={png} ! pngdec ! videoscale ! imagefreeze ! "
+                  "videoconvert ! video/x-raw,format=GRAY8,framerate=0/1 ! "
+                  f"tensor_converter ! tensor_filter framework={fw} model={model} "
+                  f"input=1:28:28:1 inputtype=uint8 output={odims} outputtype={otype} ! "
+                  f"filesink location={out}")
+        with _decoder_inputs(TensorFilter) as into:
+            rc = cli(["--device", MF_DEVICE, launch])
+        if rc != 0 or len(into) != 1:
+            raise AssertionError(f"nns-launch framework={fw}: exit {rc}, "
+                                 f"{len(into)} frames: {launch}")
+        got = torch.from_numpy(np.fromfile(out, np_type)).reshape(1, 10)
+        x = into[0].memories[0].device(dev)
+        with torch.no_grad():
+            want = net.to(dev)(x).cpu()
+        err = _max_abs_err(got.float(), want.float())
+        if (rtol, atol) == (0.0, 0.0):
+            ok = torch.equal(got, want)
+        else:
+            ok = torch.allclose(got, want, rtol=rtol, atol=atol)
+        if not ok:
+            raise AssertionError(f"framework={fw}: {got} != eager {want}")
+        print(f"model files (d) nns-launch framework={fw} on {os.path.basename(model)}: "
+              f"output == the module run eagerly on the card (max abs err {err:.3e})",
+              flush=True)
+
+
+def run_model_files(counters) -> dict:
+    """The model-files phase: (a) a restored SSD-300, (b) MobileNet-v1
+    quant=w8, (c) exported programs, (d) the torch filter. Returns (a)'s
+    kernel launches."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        export = _mf_export_start(tmp)
+        try:
+            launches = _mf_ssd(tmp, counters)
+            _release()
+            _mf_quant_v1(tmp)
+        finally:
+            _mf_exported(export)
+        _mf_torch_filter(tmp)
+    _release()
+    print(f"model files phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return launches
+
+
 def _start_groups(specs: list) -> dict:
     """{world: RankGroup} for each (world, backend), started in threads so
     their spawns and CUDA contexts come up together; all closed if one
@@ -8250,6 +8577,85 @@ def _serve_on(eng, requests: list) -> tuple:
     if eng.device.type == "cuda":
         torch.cuda.synchronize()
     return [res[r] for r in rids], time.perf_counter() - t0
+
+
+#: the arena of ``write_legacy_lenet``'s file
+LEGACY_ARENA = '''op_version_set = 0
+def forward(self,
+    input_1: Tensor) -> Tensor:
+  _0 = torch.div(torch.permute(torch._cast_Float(input_1, False), [0, 3, 1, 2]), 255.)
+  _1 = torch._convolution(_0, self.conv1.weight, self.conv1.bias, [1, 1], [0, 0], [1, 1], False, [0, 0], 1, False, False, True)
+  _2 = torch.max_pool2d(torch.relu(_1), [2, 2], [2, 2], [0, 0], [1, 1], False)
+  _3 = ops.prim.NumToTensor(torch.size(_2, 0))
+  _4 = torch.view(_2, [int(_3), -1])
+  _5 = torch.addmm(self.fc.bias, _4, torch.t(self.fc.weight), beta=1, alpha=1)
+  _6 = torch.zeros([int(_3), 10], dtype=None, layout=None, device=torch.device("cpu"), pin_memory=False)
+  _7 = torch.softmax(torch.add(_5, _6, alpha=1), 1)
+  return torch._cast_Byte(torch.mul(_7, 255.), False)
+'''
+
+
+class LegacyLeNet(torch.nn.Module):
+    """The model ``write_legacy_lenet`` serializes, as an eager module whose
+    forward runs the arena's ops in its order: uint8 (b, 28, 28, 1) ->
+    (b, 10) uint8 softmax scores, as the reference's pytorch_lenet5.pt."""
+
+    def __init__(self, seed):
+        super().__init__()
+        g = np.random.default_rng(seed)
+        self.w1 = torch.nn.Parameter(torch.from_numpy(g.normal(0, 0.2, (6, 1, 5, 5)).astype(np.float32)), False)
+        self.b1 = torch.nn.Parameter(torch.from_numpy(g.normal(0, 0.1, (6,)).astype(np.float32)), False)
+        self.w2 = torch.nn.Parameter(torch.from_numpy(g.normal(0, 0.05, (10, 6 * 12 * 12)).astype(np.float32)), False)
+        self.b2 = torch.nn.Parameter(torch.from_numpy(g.normal(0, 0.1, (10,)).astype(np.float32)), False)
+
+    def forward(self, x):
+        x = x.float().permute(0, 3, 1, 2) / 255.
+        x = F.max_pool2d(torch.relu(F.conv2d(x, self.w1, self.b1)), [2, 2], [2, 2])
+        x = x.reshape(x.shape[0], -1)
+        y = torch.addmm(self.b2, x, self.w2.t())
+        return (torch.softmax(y + x.new_zeros((x.shape[0], 10)), 1) * 255.).to(torch.uint8)
+
+
+def write_legacy_lenet(path: str, seed: int = 0) -> torch.nn.Module:
+    """A legacy (torch-1.0 era) TorchScript zip at ``path`` in the layout
+    models/torch_legacy.py reads: ``model.json`` protoVersion 2 with the
+    module tree and tensor metadata, raw tensor blobs (the conv bias at an
+    offset into the weight's blob, the dense weight a transposed strided
+    view of its storage) and the ``code/`` arena, whose forward uses the
+    era's ops (``_cast_Float``, ``_convolution``, ``NumToTensor``, a factory
+    op with a baked-in ``device="cpu"``). Returns the eager module it
+    serializes (seeded weights)."""
+    net = LegacyLeNet(seed)
+    w1, b1 = net.w1.detach().numpy(), net.b1.detach().numpy()
+    w2, b2 = net.w2.detach().numpy(), net.b2.detach().numpy()
+    tensors = [
+        # conv weight and bias share one blob, the bias at an offset
+        {"dims": ["6", "1", "5", "5"], "offset": "0", "strides": ["25", "25", "5", "1"],
+         "dataType": "FLOAT", "data": {"key": "tensors/0"}},
+        {"dims": ["6"], "offset": str(w1.size), "strides": ["1"],
+         "dataType": "FLOAT", "data": {"key": "tensors/0"}},
+        # the dense weight stored transposed: a strided view of its storage
+        {"dims": ["10", str(w2.shape[1])], "offset": "0", "strides": ["1", "10"],
+         "dataType": "FLOAT", "data": {"key": "tensors/1"}},
+        {"dims": ["10"], "offset": "0", "strides": ["1"],
+         "dataType": "FLOAT", "data": {"key": "tensors/2"}}]
+    model = {"protoVersion": "2", "producerName": "pytorch", "producerVersion": "1.0",
+             "mainModule": {
+                 "name": "main",
+                 "submodules": [
+                     {"name": "conv1", "parameters": [{"name": "weight", "tensorId": "0"},
+                                                      {"name": "bias", "tensorId": "1"}]},
+                     {"name": "fc", "parameters": [{"name": "weight", "tensorId": "2"},
+                                                   {"name": "bias", "tensorId": "3"}]}],
+                 "torchscriptArena": {"key": "code/main.py"}},
+             "tensors": tensors}
+    with zipfile.ZipFile(path, "w") as z:
+        z.writestr("lenet/model.json", json.dumps(model))
+        z.writestr("lenet/tensors/0", np.concatenate([w1.ravel(), b1]).tobytes())
+        z.writestr("lenet/tensors/1", np.ascontiguousarray(w2.T).tobytes())
+        z.writestr("lenet/tensors/2", b2.tobytes())
+        z.writestr("lenet/code/main.py", LEGACY_ARENA)
+    return net.eval()
 
 
 def _card() -> str:
@@ -8370,6 +8776,7 @@ def main() -> int:
     run_stream_pipeline()
     by_phase["convnets, stream transformer pipeline"] = counters.read()
     _release()
+    by_phase["model files: restored ssd"] = run_model_files(counters)
     by_phase.update(run_parallel(counters))
     print(f"card, beside the numbers below: {_card()}", flush=True)
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)

@@ -66,7 +66,7 @@ from ..core.types import Caps
 from ..graph.element import Element, FlowReturn, Pad, register_element
 from ..graph.events import MessageType
 from ..models import convert
-from ..models.zoo import ModelBundle
+from ..models.zoo import ForwardModule, ModelBundle
 from ..ops.optim import Optimizer
 
 
@@ -117,19 +117,6 @@ def _lookup(tree: Any, path: Tuple[Any, ...]) -> Any:
     return tree
 
 
-class _Forward(nn.Module):
-    """A module bundle's ``forward(module, *xs)`` as a module, so
-    ``functional_call`` can run it with substituted tensors."""
-
-    def __init__(self, inner: nn.Module, forward: Callable[..., Any]) -> None:
-        super().__init__()
-        self.inner = inner
-        self._fwd = forward
-
-    def forward(self, *xs: Any) -> Any:
-        return self._fwd(self.inner, *xs)
-
-
 class _Masters:
     """The trained tree: float32 masters of every leaf in one flat tensor,
     each leaf a view of it in the model's layout; the apply that takes the
@@ -150,7 +137,7 @@ class _Masters:
             tensors = [state[key] for _, _, key, _ in self._entries]
             self._kinds = [kind for *_, kind in self._entries]
             self._paths = [(coll,) + path for coll, path, _, _ in self._entries]
-            self._call = _Forward(self._own, bundle.forward)
+            self._call = ForwardModule(self._own, bundle.forward)
         else:
             raise ValueError(
                 f"tensor_trainer: model {bundle.name!r} has nothing to train "

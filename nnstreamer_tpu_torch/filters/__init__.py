@@ -1,5 +1,6 @@
 """NN backend subplugins. Importing registers the built-ins: torch-cuda,
-custom-easy and python3 (filters/custom.py), and the C custom filter."""
+custom-easy and python3 (filters/custom.py), the C custom filter, and
+torch/pytorch (TorchScript and the legacy zip, filters/torch_backend.py)."""
 
 from .base import (
     FilterFramework,
@@ -22,6 +23,7 @@ def _ensure_builtin_filters() -> None:
     from . import torch_cuda  # noqa: F401
     from . import custom  # noqa: F401
     from . import c_custom  # noqa: F401
+    from . import torch_backend  # noqa: F401
 
 
 _ensure_builtin_filters()

@@ -13,10 +13,16 @@ Model forms accepted by ``model=``:
   * a ``.py`` file exporting ``make_model(device=..., **options)``, which
     returns a ModelBundle or a dict ``{name, apply, params, in_info,
     out_info}`` (``apply(params, *tensors)`` when params are given; infos
-    as TensorsInfo or ``("3:224:224:1", "uint8")`` string pairs).
-  The JAX filter's ``.tflite``, ``.jaxexport``, checkpoint and flax-module
-  forms wait for the port of ``models/tflite_import.py``,
-  ``models/deploy.py`` and ``utils/checkpoints.py``.
+    as TensorsInfo or ``("3:224:224:1", "uint8")`` string pairs);
+  * an exported program (``.jaxexport``/``.stablehlo``/``.jax``, written
+    by ``models.export_model``: a ``torch.export`` archive, models/deploy.py)
+    loaded onto the filter's device;
+  * checkpoint params (a flax ``.msgpack``) with ``custom="arch=<zoo://
+    spec or .py>"`` and ``arch_<opt>=<value>`` options for the arch,
+    restored into a bundle of its own (``deploy.load_checkpointed``).
+  ``.tflite`` files wait for the port of ``models/tflite_import.py``, and
+  orbax checkpoint directories are refused (utils/checkpoints.py); the JAX
+  filter's flax-module form has no torch counterpart.
 
 Design notes:
   * inputs are moved to the device once (``TensorMemory.device()``);
@@ -61,7 +67,7 @@ Design notes:
     ``resize=H:W`` first conforms each region to H×W by the JAX filter's
     bilinear region resize, in float32;
   * ``arch``/``arch_*`` are kept out of the model options, as in the JAX
-    filter (checkpoint restore, their only reader, is not ported).
+    filter: only a checkpoint's restore reads them.
   * pre-built bundles (``metadata["jit"] is False``: a sharded bundle,
     parallel/leader.py, whose every call issues collectives on all ranks)
     run their function once an invoke, eagerly: never captured (a capture
@@ -174,8 +180,10 @@ def resize_region(region: np.ndarray, size: Tuple[int, int],
 
 def resolve_model(model: Any, options: Optional[Dict[str, str]] = None,
                   device: Any = None) -> ModelBundle:
-    """Normalize any accepted model form into a ModelBundle on ``device``."""
-    options = _model_options(options or {})
+    """Normalize any accepted model form into a ModelBundle on ``device``
+    (the JAX filter's routing)."""
+    raw_options = options or {}
+    options = _model_options(raw_options)
     if isinstance(model, ModelBundle):
         return model
     if isinstance(model, (list, tuple)) and len(model) == 2 \
@@ -187,16 +195,36 @@ def resolve_model(model: Any, options: Optional[Dict[str, str]] = None,
         return ModelBundle(getattr(model, "__name__", "model"), model,
                            device=device)
     if isinstance(model, str):
-        if model.startswith("zoo://") or "/" not in model and "." not in model:
+        from ..models import deploy
+
+        if model.startswith("zoo://") or os.path.sep not in model \
+                and not os.path.exists(model) \
+                and not model.endswith((".py", ".tflite")) \
+                and not deploy.is_deployable_path(model):
             return get_model(model, device=device, **options)
         if model.endswith(".py"):
             return _bundle_from_pyfile(model, options, device)
+        if model.lower().endswith(".tflite"):
+            raise ValueError(
+                f"torch-cuda: {model!r}: .tflite models wait for the port of "
+                "models/tflite_import.py (ROADMAP.md §A 11c)")
+        if model.lower().endswith(deploy.EXPORT_EXTS):
+            return deploy.load_exported(model, device)
+        if model.lower().endswith(deploy.CKPT_EXTS) or os.path.isdir(model):
+            arch = raw_options.get("arch")
+            if not arch:
+                raise ValueError(
+                    f"checkpoint model {model!r} needs custom=\"arch=...\" "
+                    "(a zoo:// spec or make_model .py) to restore into")
+            arch_opts = {k[5:]: v for k, v in raw_options.items()
+                         if k.startswith("arch_")}
+            return deploy.load_checkpointed(model, arch, device, **arch_opts)
         raise ValueError(
-            f"torch-cuda: unsupported model file {model!r} (use zoo://, a .py "
-            "exporting make_model, a (fn, params) pair, a ModelBundle or an "
-            "in-process callable; .tflite, .jaxexport and checkpoint models "
-            "wait for the port of models/tflite_import.py, models/deploy.py "
-            "and utils/checkpoints.py)")
+            f"torch-cuda: unsupported model file {model!r} (use zoo://, an "
+            "exported .jaxexport program, checkpoint params + "
+            "custom=\"arch=...\", a .py exporting make_model, or an "
+            "in-process callable; .tflite files and orbax checkpoint "
+            "directories are not ported)")
     raise ValueError(f"torch-cuda: cannot interpret model {model!r}")
 
 

@@ -25,7 +25,9 @@ parameters) too; ``load_flax`` loads a JAX bundle's variables into a
 port bundle.
 
 ``flax_shapes`` gives the same tree's shapes, from which the zoo synthesizes
-seeded placeholder weights. ``to_flax_variables`` is the inverse of
+seeded placeholder weights; ``restore_flax`` loads a flax ``.msgpack``
+checkpoint of that tree into the module (the zoo's ``checkpoint=``,
+models/deploy.py). ``to_flax_variables`` is the inverse of
 ``from_flax_variables``: a module's state as the flax variables tree, numpy
 in flax's layout, with the batch statistics split out under
 ``batch_stats``; ``flax_tree`` gives the same tree of tensors for any
@@ -133,6 +135,23 @@ def flax_shapes(module: nn.Module) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[path[-1]] = _from_torch_shape(kind, tuple(state[key].shape))
     return tree
+
+
+def restore_flax(module: nn.Module, path: str) -> nn.Module:
+    """Load the flax ``.msgpack`` checkpoint at ``path`` into ``module`` in
+    place, as the JAX package restores a bundle's variables
+    (utils/checkpoints.load_variables with the module's flax tree as the
+    template); returns the module. The file's leaves are copied into the
+    module's dtypes (``from_flax_variables``)."""
+    from ..utils.checkpoints import load_variables
+
+    def skeleton(node: Any) -> Any:
+        return {k: skeleton(v) for k, v in node.items()} \
+            if isinstance(node, dict) else None
+
+    from_flax_variables(load_variables(path, skeleton(flax_shapes(module))),
+                        module)
+    return module
 
 
 def from_flax_variables(variables: Dict[str, Any],

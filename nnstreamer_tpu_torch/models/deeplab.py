@@ -14,6 +14,7 @@ variables load unchanged. The ASPP's own BatchNorms are flax's default
 
 from __future__ import annotations
 
+import functools
 from typing import Any, List, Tuple
 
 import torch
@@ -103,6 +104,12 @@ class DeepLabV3(nn.Module):
         return x.permute(0, 2, 3, 1)
 
 
+def _forward(module: nn.Module, x: torch.Tensor) -> Any:
+    if x.dtype == torch.uint8:
+        x = preprocess_uint8(x)
+    return module(x)
+
+
 def make_deeplab_v3(device: torch.device, width: str = "1.0",
                     size: str = "257", num_classes: str = "21",
                     seed: str = "0", batch: str = "1",
@@ -111,13 +118,10 @@ def make_deeplab_v3(device: torch.device, width: str = "1.0",
     model = build_seeded(DeepLabV3, device, int(seed), num_classes=nc,
                          width=w, dtype=DTYPES[dtype])
 
-    def apply(x):
-        if x.dtype == torch.uint8:
-            x = preprocess_uint8(x)
-        return model(x)
 
     return ModelBundle(
-        "deeplab_v3", apply, module=model, device=device,
+        "deeplab_v3", functools.partial(_forward, model), module=model,
+        device=device, forward=_forward,
         in_info=TensorsInfo.from_strings(f"3:{hw}:{hw}:{b}", "uint8"),
         out_info=TensorsInfo.from_strings(f"{nc}:{hw}:{hw}:{b}", "float32"),
         preprocess=preprocess_uint8,

@@ -71,12 +71,9 @@ def _forward(module: nn.Module, x: torch.Tensor) -> torch.Tensor:
 def make_lenet(device: torch.device, size: str = "28", num_classes: str = "10",
                batch: str = "1", seed: str = "0", dtype: str = "float32",
                checkpoint: Optional[str] = None, **_: Any) -> ModelBundle:
-    if checkpoint:
-        raise ValueError("checkpoint restore is not ported to the torch "
-                         "zoo yet (load weights with models.convert)")
     hw, nc, b = int(size), int(num_classes), int(batch)
-    model = build_seeded(LeNet5, device, int(seed), num_classes=nc, size=hw,
-                         dtype=DTYPES[dtype])
+    model = build_seeded(LeNet5, device, int(seed), checkpoint,
+                         num_classes=nc, size=hw, dtype=DTYPES[dtype])
     return ModelBundle(
         "lenet", functools.partial(_forward, model), module=model,
         device=device,

@@ -17,6 +17,7 @@ the JAX package's float32 dots do.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, List, Tuple
 
 import torch
@@ -56,20 +57,22 @@ class LSTMCell(nn.Module):
         return new_h, new_h, new_c
 
 
+def _forward(cell: LSTMCell, x: torch.Tensor, h: torch.Tensor,
+             c: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    with _full_f32():
+        return cell(x, h, c)
+
+
 def cell_bundle(cell: LSTMCell, batch: int = 1, device: Any = None) -> ModelBundle:
     """``cell`` as the zoo's bundle ``(x, h, c) -> (y, h', c')`` for frames of
     ``batch`` rows (a cell carrying a JAX bundle's params, models.convert)."""
     f, inp = cell.hi.in_features, cell.ii.in_features
-
-    def apply(x, h, c):
-        with _full_f32():
-            return cell(x, h, c)
-
     io = TensorsInfo.from_strings(
         f"{inp}:{batch},{f}:{batch},{f}:{batch}", "float32,float32,float32")
     out = TensorsInfo.from_strings(
         f"{f}:{batch},{f}:{batch},{f}:{batch}", "float32,float32,float32")
-    return ModelBundle("lstm_cell", apply, module=cell, device=device,
+    return ModelBundle("lstm_cell", functools.partial(_forward, cell),
+                       module=cell, device=device, forward=_forward,
                        in_info=io, out_info=out,
                        metadata={"features": f, "input": inp})
 

@@ -17,7 +17,7 @@ import torch
 from torch import nn
 
 from ..core.types import TensorsInfo
-from .convert import flax_shapes, from_flax_variables
+from .convert import flax_shapes, from_flax_variables, restore_flax
 from .layers import BatchNorm, conv2d_same
 from .zoo import ModelBundle, register_model, synthesize_variables
 
@@ -155,14 +155,19 @@ def preprocess_uint8(x: torch.Tensor) -> torch.Tensor:
 
 
 def build_seeded(model_cls: Any, device: torch.device, seed: int,
-                 **kwargs: Any) -> nn.Module:
-    """``model_cls(**kwargs)`` on ``device`` with placeholder weights
-    synthesized from ``seed`` in the flax layout (zoo.synthesize_variables)
-    and loaded through the converter."""
+                 checkpoint: Optional[str] = None, **kwargs: Any) -> nn.Module:
+    """``model_cls(**kwargs)`` on ``device`` with the weights of the flax
+    ``.msgpack`` ``checkpoint`` (convert.restore_flax), or without one with
+    placeholder weights synthesized from ``seed`` in the flax layout
+    (zoo.synthesize_variables), both loaded through the converter."""
     with torch.device("meta"):
         model = model_cls(**kwargs)
     model = model.to_empty(device=device)
-    from_flax_variables(synthesize_variables(flax_shapes(model), seed), model)
+    if checkpoint:
+        restore_flax(model, checkpoint)
+    else:
+        from_flax_variables(synthesize_variables(flax_shapes(model), seed),
+                            model)
     return model.eval()
 
 
@@ -172,14 +177,11 @@ def make_mobilenet_bundle(name: str, model_cls: Any, device: torch.device,
                           checkpoint: Optional[str] = None,
                           dtype: str = "bfloat16", seed: str = "0",
                           batch: str = "1", **_: Any) -> ModelBundle:
-    """Classifier-bundle factory: uint8 preprocessing dispatch, seeded
-    weights and I/O metadata."""
-    if checkpoint:
-        raise ValueError("checkpoint restore is not ported to the torch "
-                         "zoo yet (load weights with models.convert)")
+    """Classifier-bundle factory: uint8 preprocessing dispatch, seeded or
+    checkpointed weights and I/O metadata."""
     w, hw, nc, b = float(width), int(size), int(num_classes), int(batch)
-    model = build_seeded(model_cls, device, int(seed), num_classes=nc,
-                         width=w, dtype=DTYPES[dtype])
+    model = build_seeded(model_cls, device, int(seed), checkpoint,
+                         num_classes=nc, width=w, dtype=DTYPES[dtype])
 
     def forward(module, x):
         if x.dtype == torch.uint8:

@@ -9,6 +9,7 @@ input.
 
 from __future__ import annotations
 
+import functools
 from typing import Any, List, Tuple
 
 import torch
@@ -53,6 +54,12 @@ class PoseNet(nn.Module):
                      for head in (self.heatmap_head, self.offset_head))
 
 
+def _forward(module: nn.Module, x: torch.Tensor) -> Any:
+    if x.dtype == torch.uint8:
+        x = preprocess_uint8(x)
+    return module(x)
+
+
 def make_posenet(device: torch.device, width: str = "1.0", size: str = "257",
                  num_keypoints: str = "17", seed: str = "0", batch: str = "1",
                  dtype: str = "bfloat16", **_: Any) -> ModelBundle:
@@ -61,13 +68,10 @@ def make_posenet(device: torch.device, width: str = "1.0", size: str = "257",
                          dtype=DTYPES[dtype])
     out_hw = -(-hw // 16)  # stride-16 feature grid
 
-    def apply(x):
-        if x.dtype == torch.uint8:
-            x = preprocess_uint8(x)
-        return model(x)
 
     return ModelBundle(
-        "posenet", apply, module=model, device=device,
+        "posenet", functools.partial(_forward, model), module=model,
+        device=device, forward=_forward,
         in_info=TensorsInfo.from_strings(f"3:{hw}:{hw}:{b}", "uint8"),
         out_info=TensorsInfo.from_strings(
             f"{k}:{out_hw}:{out_hw}:{b},{2 * k}:{out_hw}:{out_hw}:{b}",

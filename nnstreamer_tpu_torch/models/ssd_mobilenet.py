@@ -15,6 +15,7 @@ self-contained.
 
 from __future__ import annotations
 
+import functools
 import itertools
 import math
 from typing import Any, List, Tuple
@@ -133,6 +134,12 @@ def write_box_priors(path: str, size: int = 300,
     return pri.shape[1]
 
 
+def _forward(module: nn.Module, x: torch.Tensor) -> Any:
+    if x.dtype == torch.uint8:
+        x = preprocess_uint8(x)
+    return module(x)
+
+
 def make_ssd_mobilenet_v2(device: torch.device, width: str = "1.0",
                           size: str = "300", num_classes: str = "91",
                           seed: str = "0", batch: str = "1",
@@ -142,13 +149,10 @@ def make_ssd_mobilenet_v2(device: torch.device, width: str = "1.0",
                          width=w, dtype=DTYPES[dtype])
     n_anchors = sum(g * g * 6 for g in feature_grid_sizes(hw))
 
-    def apply(x):
-        if x.dtype == torch.uint8:
-            x = preprocess_uint8(x)
-        return model(x)
 
     return ModelBundle(
-        "ssd_mobilenet_v2", apply, module=model, device=device,
+        "ssd_mobilenet_v2", functools.partial(_forward, model), module=model,
+        device=device, forward=_forward,
         in_info=TensorsInfo.from_strings(f"3:{hw}:{hw}:{b}", "uint8"),
         out_info=TensorsInfo.from_strings(
             f"4:{n_anchors}:{b},{nc}:{n_anchors}:{b}", "float32,float32"),

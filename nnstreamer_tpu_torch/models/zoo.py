@@ -16,12 +16,14 @@ smoke runs and benchmarks exercise compute, not trained weights.
 
 from __future__ import annotations
 
+import os
 import threading
 import urllib.parse
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
 import numpy as np
+from torch import nn
 
 from ..core.hw import resolve_device
 from ..core.types import TensorsInfo
@@ -62,6 +64,20 @@ class ModelBundle:
     def fn(self) -> Callable[..., Any]:
         """The function over input tensors."""
         return self.apply
+
+
+class ForwardModule(nn.Module):
+    """A module bundle's ``forward(module, *xs)`` as a module over
+    ``module`` (its child ``inner``), so ``torch.func.functional_call`` can
+    run it with substituted tensors (keys ``inner.<state_dict key>``)."""
+
+    def __init__(self, module: nn.Module, forward: Callable[..., Any]) -> None:
+        super().__init__()
+        self.inner = module
+        self._forward = forward
+
+    def forward(self, *xs: Any) -> Any:
+        return self._forward(self.inner, *xs)
 
 
 def _flatten_sorted(tree: Dict[str, Any], prefix=()):
@@ -140,7 +156,8 @@ def model_names() -> List[str]:
 
 
 #: resolved-bundle memo: repeated ``zoo://`` specs on one device share one
-#: bundle (one set of weights on the card)
+#: bundle (one set of weights on the card). Skipped when an option names an
+#: existing path (a checkpoint may change between loads), as in JAX.
 _bundle_memo: Dict[Any, ModelBundle] = {}
 
 
@@ -167,7 +184,8 @@ def get_model(spec: str, device: Any = None, fresh: bool = False,
         factory = _factories.get(s)
     if factory is None:
         raise ValueError(f"unknown zoo model {spec!r}; known: {model_names()}")
-    if fresh:
+    if fresh or any(isinstance(v, str) and os.path.exists(v)
+                    for v in opts.values()):
         return factory(device=dev, **opts)
     key = (s, str(dev), tuple(sorted((k, str(v)) for k, v in opts.items())))
     with _lock:

@@ -27,9 +27,9 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, Optional
 
 import torch
-from torch import nn
 from torch.distributed.tensor import DTensor, Shard
 
+from ..models.zoo import ForwardModule
 from ..ops.optim import Optimizer
 from .mesh import (all_gather, axis_index, mesh_device, mesh_shape, psum)
 from .sharding import as_tensor, full_value, shard_params, tree_flatten
@@ -156,19 +156,6 @@ def make_sharded_infer_step(apply_fn: Callable[..., Any], params: Any,
     return infer, sharded
 
 
-class _Bound(nn.Module):
-    """A bundle's ``forward(module, *xs)`` as a module over ``module``, for
-    ``torch.func.functional_call``."""
-
-    def __init__(self, module: nn.Module, forward: Callable[..., Any]) -> None:
-        super().__init__()
-        self.inner = module
-        self._forward = forward
-
-    def forward(self, *xs: Any) -> Any:
-        return self._forward(self.inner, *xs)
-
-
 def param_form(base: Any):
     """(apply_fn, params) of a ModelBundle, ``apply_fn(params, *xs) ==
     base.apply(*xs)``: a ``(fn, params)`` bundle's own pair; a module
@@ -179,7 +166,7 @@ def param_form(base: Any):
     if base.module is not None:
         fwd = base.forward if base.forward is not None \
             else (lambda m, *xs: m(*xs))
-        bound = _Bound(base.module, fwd)
+        bound = ForwardModule(base.module, fwd)
         params = {k: v.detach() for k, v in bound.state_dict().items()}
         return (lambda p, *xs: torch.func.functional_call(bound, p, xs)), params
     return (lambda p, *xs: base.apply(*xs)), {}

@@ -13,12 +13,9 @@ labels each frame as the JAX pipeline does. ``zoo://mnist`` is an alias of
 beats the alias; MobileNet-v1 and v2 at the same width have their JAX
 counterparts' parameter counts, which differ.
 
-Waiting (ROADMAP §A11): ``tests/test_model_pipelines.py:428``, LeNet's
-``.jaxexport`` round trip, needs the port of ``models/deploy.py``;
-``tests/test_model_pipelines.py:486``, MobileNet-v1's quantized label
-pipeline, needs ``custom=quant=w8`` on convolutional bundles, which the
-port's ``models/quantize.py`` refuses (it quantizes function-of-tree
-bundles only): the test below holds that refusal.
+``tests/test_model_pipelines.py:428``, LeNet's ``.jaxexport`` round trip,
+is held in ``tests/test_torch_deploy.py``; ``:486``, MobileNet-v1's
+quantized label pipeline, in ``tests/test_torch_quant_w8.py``.
 """
 
 from fractions import Fraction
@@ -170,15 +167,3 @@ def test_zoo_catalog_has_the_jax_families():
     for name in ("lenet", "mnist", "mobilenet_v1", "mobilenet_v2",
                  "stream_transformer", "moe_transformer"):
         assert name in port and name in jnames()
-
-
-def test_quant_w8_on_convnets_is_refused(tmp_path):
-    """Waiting: MobileNet-v1's quantized label pipeline (JAX
-    tests/test_model_pipelines.py:486) needs quant=w8 on a convolutional
-    bundle; the port refuses it rather than serve it unquantized."""
-    from nnstreamer_tpu_torch.filters.base import FilterProps
-    from nnstreamer_tpu_torch.filters.torch_cuda import TorchCudaFilter
-
-    f = TorchCudaFilter()
-    with pytest.raises(ValueError):
-        f.open(FilterProps(model=V1, custom="quant=w8", device="cpu"))

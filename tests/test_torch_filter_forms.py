@@ -295,8 +295,12 @@ def test_bad_info_spec_raises_like_jax(tmp_path):
         resolve_model(str(path), device=CPU)
 
 
-@pytest.mark.parametrize("path", ["/m/model.tflite", "/m/model.jaxexport",
-                                  "/m/ckpt.msgpack"])
+@pytest.mark.parametrize("path", ["/m/model.tflite", "/m/MODEL.TFLITE",
+                                  "/m/ckpt.orbax"])
 def test_unported_model_files_are_refused_naming_what_they_wait_for(path):
-    with pytest.raises(ValueError, match="wait for the port of"):
-        resolve_model(path, device=CPU)
+    """What stays unported: ``.tflite`` files (models/tflite_import.py) and
+    orbax checkpoints, even with an ``arch=`` to restore into."""
+    match = "wait for the port of" if path.lower().endswith(".tflite") \
+        else "orbax checkpoint directories are not"
+    with pytest.raises(ValueError, match=match):
+        resolve_model(path, {"arch": "zoo://lenet"}, device=CPU)

@@ -144,10 +144,9 @@ def test_parse_builds_the_jax_graph(pipeline):
     assert got == want
 
 
-#: the cases the CLI runs: custom=quant=w8 of a convolutional zoo model
-#: (weight-only int8 of its parameter tree) is not ported; the port
-#: quantizes parameter-tree bundles (zoo://causal_lm) only
-RUN_CASES = [c for c in PASS_CASES if "quant=w8" not in c]
+#: the cases the CLI runs: every one (custom=quant=w8 of a convolutional
+#: zoo model quantizes its flax variables tree, models/quantize.py)
+RUN_CASES = list(PASS_CASES)
 
 
 @pytest.mark.parametrize("pipeline", RUN_CASES,

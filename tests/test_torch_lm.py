@@ -516,8 +516,17 @@ def test_filter_quant_errors_match_jax():
     mobilenet = get_model("zoo://mobilenet_v2?width=0.35&size=32", device=CPU)
     with pytest.raises(ValueError, match="w8a8"):
         tquant.quantize_bundle_w8a8(mobilenet)
-    with pytest.raises(ValueError, match="quant=w8"):
-        tquant.quantize_bundle(mobilenet)
+    # weight-only w8 quantizes a convolutional bundle, as JAX's does; a
+    # bundle with no parameters raises JAX's error
+    assert tquant.quantize_bundle(mobilenet).metadata["quantized"] == "w8"
+    from nnstreamer_tpu.models.zoo import ModelBundle as JBundle
+    from nnstreamer_tpu_torch.models.zoo import ModelBundle
+
+    with pytest.raises(ValueError) as je:
+        jquant.quantize_bundle(JBundle("f", lambda x: x))
+    with pytest.raises(ValueError, match="params") as te:
+        tquant.quantize_bundle(ModelBundle("f", lambda x: x))
+    assert str(te.value) == str(je.value)
 
 
 def test_prefill_bundle_flash_matches_dense_bf16(trees):
