@@ -336,6 +336,30 @@ Phases (any failure exits non-zero before the result lines are printed):
      phase (within rtol 1e-5 / atol 1e-6 of its eager module) and once on
      the hand-built legacy zip (``write_legacy_lenet``; bit-equal to its
      eager module), both on the card; then the phase's seconds;
+ 19d. the TensorFlow side (``run_tflite``, after the model files), on
+     ``.tflite`` files this script writes with the port's own FlatBuffers
+     and FlexBuffers builders (``write_ssd_mobilenet_v2_tflite``,
+     ``write_mobilenet_v2_quant_tflite``; seeded weights): (a)
+     ssd_mobilenet_v2_coco 300x300 float32 (1917 anchors,
+     ``TFLite_Detection_PostProcess`` fast path, 90 classes) through
+     ``tensor_filter framework=tensorflow2-lite ! tensor_decoder
+     mode=bounding_box option1=mobilenet-ssd-postprocess`` over 32 frames
+     with graphs and eagerly: ``class_reduce`` once and ``nms_sweep`` twice
+     a frame (the post-process's K 1917 sweep, the decoder's K 10), decoder
+     inputs and detections bit-equal between the modes, 4 frames'
+     post-process on the card equal to the same file on the CPU in count
+     and classes (boxes and scores within rtol 1e-4 / atol 1e-5), the two
+     kernels inside the op equal to their plain versions on the op's own
+     inputs, ``nms_sweep`` at K 1917 timed beside its bound and its plain
+     version; (b) MobileNet-v2 224 uint8 in the reference's quant layout
+     through ``framework=tensorflow-lite`` and image_labeling over 32
+     frames, graphs == eager, 4 frames' codes on the card against the CPU's
+     (labels equal, at most one step on at most 2%); (c)
+     ``framework=tensorflow``: with TensorFlow installed a GraphDef built
+     here through nns-launch, its output on the card equal to
+     ``Session.run`` and no card memory taken by TensorFlow, else the
+     ``ImportError`` naming it from ``open()``; the load seconds, frames/s
+     and the phase's seconds printed;
  20. print the card's name and power limit again, the launches of each path
      (every count set to 0 just before the path and read just after), the
      graphs of each path, the stream paths' rates, the ``kernels`` JSON line,
@@ -8534,6 +8558,342 @@ def run_model_files(counters) -> dict:
     return launches
 
 
+#: the TFLite phase (``run_tflite``): (a) ssd_mobilenet_v2_coco as a float32
+#: .tflite through framework=tensorflow2-lite, (b) MobileNet-v2 224 uint8 as
+#: the reference's quant file through tensorflow-lite, (c) framework=
+#: tensorflow; a rehearsal on the CPU sets "cpu" and smaller sizes
+TFL_DEVICE = "cuda"
+TFL_SSD = {"size": 300, "width": 1.0}
+TFL_CLS = {"size": 224, "width": 1.0}
+TFL_FRAMES = 32
+#: frames also run through the same file loaded on the CPU
+TFL_CPU_FRAMES = 4
+#: the card's post-process boxes and scores against the CPU's (rtol, atol);
+#: counts and classes equal
+TFL_SSD_TOL = (1e-4, 1e-5)
+
+
+def _tfl_frames(size: int, seed: int) -> list:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, 256, (size, size, 3), dtype=np.uint8)
+            for _ in range(TFL_FRAMES)]
+
+
+def _tfl_pipeline(model: str, framework: str, frames: list, tail: dict,
+                  eager: bool, transform: str = "") -> tuple:
+    """``appsrc ! tensor_converter ! [tensor_transform !] tensor_filter
+    framework=... model=... ! tensor_decoder ... ! tensor_sink`` on
+    TFL_DEVICE in graphs or eager mode: (sink, the decoder's inputs, steady
+    rate, graph stats)."""
+    from nnstreamer_tpu_torch.core import graphs
+    from nnstreamer_tpu_torch.core.types import Caps
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    size = frames[0].shape[0]
+    p = Pipeline("tflite", device=TFL_DEVICE)
+    caps = Caps("video/x-raw", {"format": "RGB", "width": size, "height": size,
+                                "framerate": Fraction(30)})
+    chain = [p.add_new("appsrc", caps=caps, data=list(frames)),
+             p.add_new("tensor_converter")]
+    if transform:
+        chain.append(p.add_new("tensor_transform", mode="arithmetic",
+                               option=transform))
+    chain.append(p.add_new("tensor_filter", framework=framework, model=model))
+    chain.append(p.add_new("tensor_decoder", **tail))
+    arrivals = []
+    chain.append(p.add_new("tensor_sink", store=True,
+                           new_data=lambda b, a=arrivals: a.append(time.perf_counter())))
+    Pipeline.link(*chain)
+    with _decoder_inputs() as seen, _mode(eager):
+        p.run(timeout=600)
+        st = graphs.stats()
+    if chain[-1].num_buffers != len(frames):
+        raise AssertionError(f"tflite {framework}: {chain[-1].num_buffers} of "
+                             f"{len(frames)} frames")
+    return chain[-1], seen, _steady_fps(arrivals), st
+
+
+def _tfl_load(path: str, device) -> tuple:
+    from nnstreamer_tpu_torch.models.tflite_import import load_tflite
+
+    t0 = time.perf_counter()
+    bundle = load_tflite(path, device=device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    return bundle, time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def _recording(ep, names) -> list:
+    """Record the arguments of each call of the ``ep`` kernel wrappers
+    ``names`` while inside."""
+    calls, saved = [], {n: getattr(ep, n) for n in names}
+
+    def wrap(name, fn):
+        def recorded(*args, **kwargs):
+            calls.append((name, args, kwargs))
+            return fn(*args, **kwargs)
+        recorded.launches = 0  # the wrapper counts these launches, not fn
+        return recorded
+
+    for n, fn in saved.items():
+        setattr(ep, n, wrap(n, fn))
+    try:
+        yield calls
+    finally:
+        for n, fn in saved.items():
+            setattr(ep, n, fn)
+
+
+def _tfl_inside_the_op(ep, card, frame: np.ndarray) -> dict:
+    """One eager call of the card bundle with the kernels' arguments
+    recorded: B2 and B3 at their shapes inside the post-process, each equal
+    to its plain version on the same inputs; B3 at K 1917 timed."""
+    from nnstreamer_tpu_torch.core import graphs
+
+    x = torch.from_numpy(frame).to(TFL_DEVICE)
+    with graphs.disabled(), torch.inference_mode(), \
+            _recording(ep, ("class_reduce", "nms_sweep")) as calls:
+        card.fn()(x)
+    if TFL_DEVICE == "cpu":
+        return {}
+    shapes = [(n, tuple(a[0].shape)) for n, a, _ in calls]
+    if [n for n, _ in shapes] != ["class_reduce", "nms_sweep"]:
+        raise AssertionError(f"tflite ssd: kernels inside the op {shapes}")
+    (_, (cls,), _), (_, cols, kw) = calls
+    best, idx = ep.class_reduce(cls)
+    pbest, pidx = ep.class_reduce_plain(cls)
+    swept = ep.nms_sweep(*cols, **kw)
+    plain = ep.nms_sweep_plain(*cols, **kw)
+    torch.cuda.synchronize()
+    if not (_identical(best, pbest) and torch.equal(idx, pidx)):
+        raise AssertionError("tflite ssd: class_reduce differs from plain inside the op")
+    if not torch.equal(swept, plain):
+        raise AssertionError("tflite ssd: nms_sweep differs from plain inside the op")
+    k = int(cols[0].shape[0])
+    ms = _device_ms(lambda: ep.nms_sweep(*cols, **kw), 5, 5)
+    plain_ms = _device_ms(lambda: ep.nms_sweep_plain(*cols, **kw), 1, 2)
+    bound, by = _bound_ms(6 * k * 4, NMS_OPS_PER_PAIR * k * (k - 1) / 2)
+    alive = int((swept > 0).sum())
+    print(f"tflite ssd: inside TFLite_Detection_PostProcess class_reduce {tuple(cls.shape)} "
+          f"and nms_sweep K={k} (global scratch past {ep.NMS_SMEM_MAX_K}; {alive} "
+          f"kept) == their plain versions; nms_sweep K={k} device ms/call (CUDA "
+          f"graph): kernel={ms:.6f} plain={plain_ms:.6f} library=none; "
+          f"bound_ms={bound:.8f} ({by})", flush=True)
+    return {"k": k, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
+
+
+def _tfl_ssd(tmp: str, counters) -> dict:
+    """(a) ssd_mobilenet_v2_coco written as a float32 .tflite, served through
+    ``tensor_filter framework=tensorflow2-lite ! tensor_decoder
+    mode=bounding_box option1=mobilenet-ssd-postprocess`` with graphs and
+    eagerly: decoder inputs and detections bit-equal, B2 once and B3 twice a
+    frame (the post-process's K 1917 sweep and the decoder's K 10); the
+    post-process on the card against the same file on the CPU."""
+    from nnstreamer_tpu_torch.ops.kernels import epilogue as ep
+
+    path = os.path.join(tmp, "ssd_mobilenet_v2_coco.tflite")
+    t0 = time.perf_counter()
+    meta = write_ssd_mobilenet_v2_tflite(path, **TFL_SSD)
+    write_s = time.perf_counter() - t0
+    card, load_s = _tfl_load(path, TFL_DEVICE)
+    labels = os.path.join(tmp, "coco90.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"c{i}" for i in range(90)))
+    size = TFL_SSD["size"]
+    frames = _tfl_frames(size, 41)
+    tail = dict(mode="bounding_box", option1="mobilenet-ssd-postprocess",
+                option2=labels, option4=f"{size}:{size}", option5=f"{size}:{size}")
+    runs, launches = {}, {}
+    for eager in (False, True):
+        counters.reset()
+        runs[eager] = _tfl_pipeline(path, "tensorflow2-lite", frames, tail, eager,
+                                    "typecast:float32,add:-127.5,div:127.5")
+        for name, n in counters.read().items():
+            launches[name] = launches.get(name, 0) + n
+        if TFL_DEVICE != "cpu":
+            got = counters.read()
+            if got["class_reduce"] != TFL_FRAMES or got["nms_sweep"] != 2 * TFL_FRAMES:
+                raise AssertionError(f"tflite ssd ({'eager' if eager else 'graphs'}): "
+                                     f"launches {got} for {TFL_FRAMES} frames")
+    dets = {e: [b.meta["detections"] for b in runs[e][0].buffers] for e in runs}
+    if dets[False] != dets[True] or not _all_identical(
+            _memories(runs[False][1]), _memories(runs[True][1])):
+        raise AssertionError("tflite ssd: replayed outputs differ from the eager ones")
+    n = sum(len(d) for d in dets[False])
+    if n == 0:
+        raise AssertionError("tflite ssd: no detections")
+    cpu, _ = _tfl_load(path, "cpu")
+    worst = 0.0
+    for frame in frames[:TFL_CPU_FRAMES]:
+        x = torch.from_numpy(((frame.astype(np.float32) - 127.5) / 127.5)[None])
+        with torch.inference_mode():
+            got = [t.cpu() for t in card.fn()(x.to(TFL_DEVICE))]
+            want = cpu.fn()(x)
+        if not (torch.equal(got[3], want[3]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f"tflite ssd: card count/classes {got[3]} {got[1]} "
+                                 f"!= the CPU's {want[3]} {want[1]}")
+        for g, w in ((got[0], want[0]), (got[2], want[2])):
+            worst = max(worst, _max_abs_err(g, w))
+            if not torch.allclose(g, w, rtol=TFL_SSD_TOL[0], atol=TFL_SSD_TOL[1]):
+                raise AssertionError(f"tflite ssd: card boxes/scores off the CPU's by "
+                                     f"{_max_abs_err(g, w)}")
+    inside = _tfl_inside_the_op(ep, card, ((frames[0].astype(np.float32) - 127.5)
+                                           / 127.5)[None])
+    st = runs[False][3]
+    print(f"tflite (a) ssd_mobilenet_v2_coco {size}x{size} float32 .tflite "
+          f"({meta['bytes']} bytes, {meta['anchors']} anchors, grids {meta['grids']}; "
+          f"written in {write_s:.3f} s, loaded on the card in {load_s:.3f} s) through "
+          f"framework=tensorflow2-lite: {TFL_FRAMES} frames, {n} detections, graphs "
+          f"== eager; {TFL_CPU_FRAMES} frames' post-process on the card == the CPU's "
+          f"in count and classes, boxes and scores within {TFL_SSD_TOL} (max abs err "
+          f"{worst:.3e}); steady fps {runs[False][2]:.2f} (eager {runs[True][2]:.2f}); "
+          f"launches {launches}", flush=True)
+    if TFL_DEVICE != "cpu":
+        _record_graphs("tflite ssd", 1, "fps", runs[False][2], runs[True][2], st)
+    return {"launches": launches, "nms_k1917": inside}
+
+
+def _tfl_cls(tmp: str) -> None:
+    """(b) the layout of mobilenet_v2_1.0_224_quant.tflite (uint8 in and out),
+    through ``tensor_filter framework=tensorflow-lite ! tensor_decoder
+    mode=image_labeling`` with graphs and eagerly: codes bit-equal, labels
+    equal; the codes on the card against the same file on the CPU."""
+    path = os.path.join(tmp, "mobilenet_v2_1.0_224_quant.tflite")
+    t0 = time.perf_counter()
+    meta = write_mobilenet_v2_quant_tflite(path, **TFL_CLS)
+    write_s = time.perf_counter() - t0
+    card, load_s = _tfl_load(path, TFL_DEVICE)
+    labels = os.path.join(tmp, "labels1001.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"l{i}" for i in range(1001)))
+    frames = _tfl_frames(TFL_CLS["size"], 43)
+    tail = dict(mode="image_labeling", option1=labels)
+    runs = {eager: _tfl_pipeline(path, "tensorflow-lite", frames, tail, eager)
+            for eager in (False, True)}
+    got = [b.meta["label_index"] for b in runs[False][0].buffers]
+    if got != [b.meta["label_index"] for b in runs[True][0].buffers] \
+            or not _all_identical(_memories(runs[False][1]), _memories(runs[True][1])):
+        raise AssertionError("tflite quant: replayed codes or labels differ from eager")
+    cpu, _ = _tfl_load(path, "cpu")
+    steps, flipped, total = 0, 0, 0
+    for frame, label in zip(frames[:TFL_CPU_FRAMES], got):
+        x = torch.from_numpy(frame[None])
+        with torch.inference_mode():
+            card_codes = card.fn()(x.to(TFL_DEVICE))[0].cpu().to(torch.int32)
+            cpu_codes = cpu.fn()(x)[0].to(torch.int32)
+        diff = (card_codes - cpu_codes).abs()
+        steps, flipped = max(steps, int(diff.max())), flipped + int((diff > 0).sum())
+        total += diff.numel()
+        if int(cpu_codes.argmax()) != label or int(card_codes.argmax()) != label:
+            raise AssertionError(f"tflite quant: label {label} on the card, the CPU's "
+                                 f"argmax {int(cpu_codes.argmax())}")
+    if steps > 1 or flipped > 0.02 * total:
+        raise AssertionError(f"tflite quant: card codes off the CPU's by up to {steps} "
+                             f"steps on {flipped} of {total}")
+    print(f"tflite (b) mobilenet_v2 {TFL_CLS['size']} uint8 .tflite ({meta['bytes']} bytes; "
+          f"written in {write_s:.3f} s, loaded on the card in {load_s:.3f} s) through "
+          f"framework=tensorflow-lite and image_labeling: {TFL_FRAMES} frames, "
+          f"{len(set(got))} distinct labels, graphs == eager; {TFL_CPU_FRAMES} frames "
+          f"on the card vs the CPU: labels equal, codes {flipped} of {total} differ "
+          f"(at most {steps} step); steady fps {runs[False][2]:.2f} (eager "
+          f"{runs[True][2]:.2f})", flush=True)
+    if TFL_DEVICE != "cpu":
+        _record_graphs("tflite quant", 1, "fps", runs[False][2], runs[True][2],
+                       runs[False][3])
+
+
+def _tfl_tensorflow(tmp: str) -> None:
+    """(c) framework=tensorflow: with TensorFlow installed, a frozen GraphDef
+    built here through nns-launch, its outputs on the filter's device, equal
+    to ``Session.run``, with no card memory taken by TensorFlow; without
+    it, ``open()`` raises the ImportError naming tensorflow."""
+    from nnstreamer_tpu_torch.cli import main as cli
+    from nnstreamer_tpu_torch.core.types import TensorsInfo
+    from nnstreamer_tpu_torch.filters.base import FilterProps
+    from nnstreamer_tpu_torch.filters.tf_backend import TensorFlowFilter
+
+    try:
+        import tensorflow as tf
+    except ImportError as e:
+        f = TensorFlowFilter()
+        try:
+            f.open(FilterProps(model=os.path.join(tmp, "absent.pb"), device=TFL_DEVICE))
+        except ImportError as raised:
+            if "tensorflow" not in str(raised):
+                raise AssertionError(f"framework=tensorflow: {raised!r}") from raised
+            print(f"tflite (c) framework=tensorflow: `import tensorflow` fails on this "
+                  f"machine ({e}); open() raised {type(raised).__name__}: {raised}",
+                  flush=True)
+            return
+        raise AssertionError("framework=tensorflow opened without tensorflow")
+    rng = np.random.default_rng(47)
+    w = rng.standard_normal((784, 10)).astype(np.float32) * 0.05
+    g = tf.Graph()
+    with g.as_default():
+        x = tf.compat.v1.placeholder(tf.float32, [None, 784], name="input")
+        tf.nn.softmax(tf.matmul(x, tf.constant(w)), name="softmax")
+    model = os.path.join(tmp, "mnist.pb")
+    with open(model, "wb") as f:
+        f.write(g.as_graph_def().SerializeToString())
+    data = os.path.join(tmp, "9.raw")
+    digit = rng.integers(0, 256, 784, dtype=np.uint8)
+    digit.tofile(data)
+    out = os.path.join(tmp, "tf.out.log")
+    launch = (f"filesrc location={data} ! application/octet-stream ! "
+              "tensor_converter input-dim=784:1 input-type=uint8 ! "
+              "tensor_transform mode=arithmetic option=typecast:float32,add:-127.5,div:127.5 ! "
+              f"tensor_filter framework=tensorflow model={model} input=784:1 "
+              "inputtype=float32 inputname=input output=10:1 outputtype=float32 "
+              f"outputname=softmax ! filesink location={out}")
+    free0 = torch.cuda.mem_get_info()[0] if TFL_DEVICE != "cpu" else 0
+    seen, invoke = [], TensorFlowFilter.invoke
+
+    def recorded(self, inputs):
+        outs = invoke(self, inputs)
+        seen.append(([m.host().copy() for m in inputs], outs))
+        return outs
+
+    TensorFlowFilter.invoke = recorded
+    try:
+        rc = cli(["--device", TFL_DEVICE, launch])
+    finally:
+        TensorFlowFilter.invoke = invoke
+    taken = (free0 - torch.cuda.mem_get_info()[0]) / 2 ** 20 if TFL_DEVICE != "cpu" else 0.0
+    if rc != 0 or len(seen) != 1:
+        raise AssertionError(f"nns-launch framework=tensorflow: exit {rc}, {len(seen)} frames")
+    (fed,), (result,) = seen[0][0], seen[0][1]
+    with tf.compat.v1.Session(graph=g, config=tf.compat.v1.ConfigProto(
+            device_count={"GPU": 0})) as sess:
+        want = sess.run("softmax:0", {"input:0": fed.reshape(1, 784)})
+    got = result.device()
+    if got.device.type != torch.device(TFL_DEVICE).type \
+            or not np.array_equal(got.cpu().numpy(), want) \
+            or not np.array_equal(np.fromfile(out, np.float32).reshape(1, 10), want):
+        raise AssertionError(f"framework=tensorflow: output on {got.device} differs "
+                             "from Session.run")
+    if taken > 256:
+        raise AssertionError(f"framework=tensorflow: TensorFlow took {taken:.1f} MiB of the card")
+    print(f"tflite (c) framework=tensorflow {tf.__version__} through nns-launch: output "
+          f"on {got.device} == Session.run; card memory taken while it ran "
+          f"{taken:.1f} MiB", flush=True)
+
+
+def run_tflite(counters) -> dict:
+    """The TFLite phase: (a) SSD-MobileNet-v2, (b) quantized MobileNet-v2,
+    (c) framework=tensorflow. Returns (a)'s launches and its K-1917 sweep."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        ssd = _tfl_ssd(tmp, counters)
+        _release()
+        _tfl_cls(tmp)
+        _release()
+        _tfl_tensorflow(tmp)
+    _release()
+    print(f"tflite phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    return ssd
+
+
 def _start_groups(specs: list) -> dict:
     """{world: RankGroup} for each (world, backend), started in threads so
     their spawns and CUDA contexts come up together; all closed if one
@@ -8658,6 +9018,475 @@ def write_legacy_lenet(path: str, seed: int = 0) -> torch.nn.Module:
     return net.eval()
 
 
+# --------------------------------------------------------------------------- #
+# .tflite writer: TFLite models built here from a seed, on the port's own
+# FlatBuffers and FlexBuffers builders (the card's machine has no
+# ``flatbuffers`` package)
+# --------------------------------------------------------------------------- #
+
+#: schema TensorType and BuiltinOperator codes the writer uses
+TFL_F32, TFL_I32, TFL_U8 = 0, 2, 3
+TFL_ADD, TFL_AVG_POOL, TFL_CONCAT, TFL_CONV, TFL_DWCONV = 0, 1, 2, 3, 4
+TFL_LOGISTIC, TFL_RESHAPE, TFL_SOFTMAX, TFL_CUSTOM = 14, 22, 25, 32
+#: TFLite_Detection_PostProcess of ssd_mobilenet_v2_coco as
+#: export_tflite_ssd_graph.py writes it
+SSD_POSTPROCESS = {"max_detections": 10, "max_classes_per_detection": 1,
+                   "detections_per_class": 100, "use_regular_nms": False,
+                   "nms_score_threshold": 1e-8, "nms_iou_threshold": 0.6,
+                   "num_classes": 90, "y_scale": 10.0, "x_scale": 10.0,
+                   "h_scale": 5.0, "w_scale": 5.0}
+
+
+def tflite_flexbuffer_map(values: dict) -> bytes:
+    """A custom operator's options: a FlexBuffers map of ints, floats and
+    bools (``converters/flexbuf_codec.Builder``)."""
+    from nnstreamer_tpu_torch.converters import flexbuf_codec
+
+    b = flexbuf_codec.Builder()
+    start = b.start()
+    for key, v in values.items():
+        b.key(key)
+        if isinstance(v, bool):
+            b.bool(v)
+        elif isinstance(v, float):
+            b.float(v)
+        else:
+            b.sint(int(v))
+    b.end_map(start)
+    return bytes(b.finish())
+
+
+def tflite_bytes(tensors: list, operators: list, inputs: list,
+                 outputs: list) -> bytes:
+    """A one-subgraph ``.tflite`` flatbuffer. ``tensors``: dicts of
+    ``shape``, ``type``, ``data`` (numpy or None), ``quant`` ((scale, zero
+    point) or None) and ``name``; ``operators``: dicts of ``code``,
+    ``inputs``, ``outputs``, ``options`` ((union type, [(slot, packer,
+    value, default), ...]) or None), ``custom_code`` and
+    ``custom_options``. The layout is that of ``tests/test_tflite_ops.py``'s
+    ``build_tflite`` (buffer 0 empty, version 3, identifier ``TFL3``)."""
+    from nnstreamer_tpu_torch.converters import flatbuf_codec as fb
+
+    b = fb.Builder(1 << 20)
+    buffers = []
+    b.start_object(1)
+    buffers.append(b.end_object())
+    buffer_of = []
+    for t in tensors:
+        if t.get("data") is None:
+            buffer_of.append(0)
+            continue
+        data = b.create_byte_vector(np.ascontiguousarray(t["data"]).tobytes())
+        b.start_object(1)
+        b.add_uoffset(0, data)
+        buffers.append(b.end_object())
+        buffer_of.append(len(buffers) - 1)
+    tables = []
+    for t, buf in zip(tensors, buffer_of):
+        shape = b.create_vector(fb.I32, t["shape"])
+        name = b.create_string(t.get("name", ""))
+        quant = None
+        if t.get("quant") is not None:
+            scale, zp = t["quant"]
+            scales = b.create_vector(fb.F32, np.atleast_1d(scale).tolist())
+            zps = b.create_vector(fb.I64, np.atleast_1d(zp).tolist())
+            b.start_object(7)
+            b.add_uoffset(2, scales)
+            b.add_uoffset(3, zps)
+            quant = b.end_object()
+        b.start_object(8)
+        b.add_uoffset(0, shape)
+        b.add_scalar(1, fb.I8, t["type"], 0)
+        b.add_scalar(2, fb.U32, buf, 0)
+        b.add_uoffset(3, name)
+        if quant is not None:
+            b.add_uoffset(4, quant)
+        tables.append(b.end_object())
+    codes = []
+    for op in operators:
+        key = (op["code"], op.get("custom_code"))
+        if key not in codes:
+            codes.append(key)
+    code_tables = []
+    for code, custom in codes:
+        custom_off = b.create_string(custom) if custom else None
+        b.start_object(4)
+        b.add_scalar(0, fb.I8, min(code, 127), 0)
+        if custom_off is not None:
+            b.add_uoffset(1, custom_off)
+        b.add_scalar(3, fb.I32, code, 0)
+        code_tables.append(b.end_object())
+    op_tables = []
+    for op in operators:
+        ins = b.create_vector(fb.I32, op["inputs"])
+        outs = b.create_vector(fb.I32, op["outputs"])
+        opt = op.get("options")
+        opt_off = None
+        if opt is not None:
+            b.start_object(1 + max((s for s, _, _, _ in opt[1]), default=0))
+            for slot, packer, value, default in opt[1]:
+                b.add_scalar(slot, packer, value, default)
+            opt_off = b.end_object()
+        custom_off = (b.create_byte_vector(op["custom_options"])
+                      if op.get("custom_options") else None)
+        b.start_object(9)
+        b.add_scalar(0, fb.U32, codes.index((op["code"], op.get("custom_code"))), 0)
+        b.add_uoffset(1, ins)
+        b.add_uoffset(2, outs)
+        if opt_off is not None:
+            b.add_scalar(3, fb.U8, opt[0], 0)
+            b.add_uoffset(4, opt_off)
+        if custom_off is not None:
+            b.add_uoffset(5, custom_off)
+        op_tables.append(b.end_object())
+    tensor_vec = b.create_offset_vector(tables)
+    in_vec = b.create_vector(fb.I32, inputs)
+    out_vec = b.create_vector(fb.I32, outputs)
+    op_vec = b.create_offset_vector(op_tables)
+    b.start_object(5)
+    b.add_uoffset(0, tensor_vec)
+    b.add_uoffset(1, in_vec)
+    b.add_uoffset(2, out_vec)
+    b.add_uoffset(3, op_vec)
+    subgraph = b.end_object()
+    subgraphs = b.create_offset_vector([subgraph])
+    code_vec = b.create_offset_vector(code_tables)
+    buffer_vec = b.create_offset_vector(buffers)
+    desc = b.create_string("written by chip_smoke.py")
+    b.start_object(8)
+    b.add_scalar(0, fb.U32, 3, 0)
+    b.add_uoffset(1, code_vec)
+    b.add_uoffset(2, subgraphs)
+    b.add_uoffset(3, desc)
+    b.add_uoffset(4, buffer_vec)
+    model = b.end_object()
+    return bytes(b.finish(model, b"TFL3"))
+
+
+def _tfl_conv_options(stride: int, act: int) -> tuple:
+    from nnstreamer_tpu_torch.converters.flatbuf_codec import I8, I32
+
+    # Conv2DOptions: 0 padding (SAME), 1 stride_w, 2 stride_h, 3 activation
+    return (1, [(0, I8, 0, 0), (1, I32, stride, 0), (2, I32, stride, 0),
+                (3, I8, act, 0)])
+
+
+def _tfl_dwconv_options(stride: int, act: int) -> tuple:
+    from nnstreamer_tpu_torch.converters.flatbuf_codec import I8, I32
+
+    # DepthwiseConv2DOptions: 0 padding, 1/2 strides, 3 depth_multiplier,
+    # 4 activation
+    return (2, [(0, I8, 0, 0), (1, I32, stride, 0), (2, I32, stride, 0),
+                (3, I32, 1, 0), (4, I8, act, 0)])
+
+
+class TFLiteNet:
+    """A TFLite graph under construction: NHWC float32 activations, convs
+    with their folded-BatchNorm bias, seeded weights (He-normal for a
+    ReLU6 conv, LeCun-normal for a linear one). ``acts`` lists the
+    activation tensors (the calibration's outputs); ``quantize`` turns the
+    graph into its uint8 form on calibrated grids."""
+
+    RELU6, LINEAR = 3, 0
+
+    def __init__(self, seed: int) -> None:
+        self.rng = np.random.default_rng(seed)
+        self.tensors: list = []
+        self.operators: list = []
+        self.acts: list = []
+        self.inputs: list = []
+        self.outputs: list = []
+
+    def tensor(self, shape, data=None, type_=TFL_F32, name="", **role) -> int:
+        self.tensors.append(dict(shape=tuple(int(d) for d in shape), type=type_,
+                                 data=data, name=name, **role))
+        return len(self.tensors) - 1
+
+    def act(self, shape, name="", **role) -> int:
+        i = self.tensor(shape, name=name, role="act", **role)
+        self.acts.append(i)
+        return i
+
+    def shape(self, i: int) -> tuple:
+        return self.tensors[i]["shape"]
+
+    def _weights(self, shape, fan_in: int, act: int) -> np.ndarray:
+        std = np.sqrt((2.0 if act == self.RELU6 else 1.0) / fan_in)
+        return (self.rng.standard_normal(shape) * std).astype(np.float32)
+
+    def conv(self, x: int, cout: int, k: int = 1, stride: int = 1,
+             act: int = RELU6, gain: float = 1.0, name: str = "") -> int:
+        n, h, w, cin = self.shape(x)
+        wt = self.tensor((cout, k, k, cin), self._weights(
+            (cout, k, k, cin), k * k * cin, act) * np.float32(gain), role="weight")
+        bias = self.tensor((cout,), (self.rng.standard_normal(cout) * 0.05)
+                           .astype(np.float32), role="bias", of=(x, wt))
+        y = self.act((n, -(-h // stride), -(-w // stride), cout), name)
+        self.operators.append(dict(code=TFL_CONV, inputs=[x, wt, bias], outputs=[y],
+                                   options=_tfl_conv_options(stride, act)))
+        return y
+
+    def dwconv(self, x: int, stride: int, act: int = RELU6) -> int:
+        n, h, w, c = self.shape(x)
+        wt = self.tensor((1, 3, 3, c), self._weights((1, 3, 3, c), 9, act),
+                         role="weight")
+        bias = self.tensor((c,), (self.rng.standard_normal(c) * 0.05)
+                           .astype(np.float32), role="bias", of=(x, wt))
+        y = self.act((n, -(-h // stride), -(-w // stride), c))
+        self.operators.append(dict(code=TFL_DWCONV, inputs=[x, wt, bias], outputs=[y],
+                                   options=_tfl_dwconv_options(stride, act)))
+        return y
+
+    def add(self, a: int, b: int) -> int:
+        y = self.act(self.shape(a))
+        self.operators.append(dict(code=TFL_ADD, inputs=[a, b], outputs=[y]))
+        return y
+
+    def reshape(self, x: int, shape, name: str = "") -> int:
+        s = self.tensor((len(shape),), np.asarray(shape, np.int32), TFL_I32)
+        y = self.act(shape, name, same_as=x)
+        self.operators.append(dict(code=TFL_RESHAPE, inputs=[x, s], outputs=[y]))
+        return y
+
+    def mobilenet_v2_body(self, x: int, width: float) -> tuple:
+        """MobileNet-v2's body (TF-slim ``mobilenet_v2``, depth multiplier
+        ``width``): returns (the 15th layer's expansion output, the last
+        1x1 conv's)."""
+        def depth(c):
+            d = max(8, int(c * width + 4) // 8 * 8)
+            return d + 8 if d < 0.9 * c * width else d
+
+        y = self.conv(x, depth(32), 3, 2)
+        blocks = [(1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+                  (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)]
+        layer, tap = 2, None
+        for t, c, n, s in blocks:
+            for i in range(n):
+                cin = self.shape(y)[-1]
+                h = y
+                if t != 1:
+                    h = self.conv(h, cin * t)
+                    if layer == 15:
+                        tap = h  # layer_15/expansion_output
+                h = self.dwconv(h, s if i == 0 else 1)
+                h = self.conv(h, depth(c), act=self.LINEAR)
+                y = self.add(y, h) if i > 0 else h
+                layer += 1
+        return tap, self.conv(y, depth(1280) if width > 1 else 1280)
+
+    def quantize(self, ranges: dict) -> None:
+        """uint8 grids: the input's (1/128, 128); each activation's from its
+        calibrated (min, max) with 0 inside, a reshape's and a pool's its
+        input's; weights per tensor; a bias on its conv's accumulator grid
+        (input scale × weight scale, int32); a softmax's (1/256, 0)."""
+        def grid(lo, hi):
+            lo, hi = min(lo, 0.0), max(hi, 0.0)
+            scale = max((hi - lo) / 255.0, 1e-8)
+            return np.float32(scale), int(np.clip(round(-lo / scale), 0, 255))
+
+        for i, t in enumerate(self.tensors):
+            role = t.get("role")
+            if role == "input":
+                t["quant"] = (np.float32(1 / 128), 128)
+            elif role == "act" and "softmax" in t:
+                t["quant"] = (np.float32(1 / 256), 0)
+            elif role == "act" and "same_as" not in t:
+                t["quant"] = grid(*ranges[i])
+            elif role == "weight":
+                a = t["data"]
+                scale, zp = grid(float(a.min()), float(a.max()))
+                t["data"] = np.clip(np.round(a / scale) + zp, 0, 255).astype(np.uint8)
+                t["quant"] = (scale, zp)
+            if role in ("input", "act", "weight"):
+                t["type"] = TFL_U8
+        for t in self.tensors:  # pass-through grids, in graph order
+            if "same_as" in t:
+                t["quant"] = self.tensors[t["same_as"]]["quant"]
+        for t in self.tensors:
+            if t.get("role") == "bias":
+                x, w = t["of"]
+                scale = np.float32(self.tensors[x]["quant"][0]) \
+                    * np.float32(self.tensors[w]["quant"][0])
+                t["data"] = np.round(t["data"] / scale).astype(np.int32)
+                t["type"], t["quant"] = TFL_I32, (scale, 0)
+
+    def write(self, path: str, outputs=None) -> int:
+        blob = tflite_bytes(self.tensors, self.operators, self.inputs,
+                            self.outputs if outputs is None else outputs)
+        with open(path, "wb") as f:
+            f.write(blob)
+        return len(blob)
+
+
+def _run_outputs(net: TFLiteNet, path: str, outputs: list, inputs: list) -> list:
+    """The graph so far written with ``outputs`` as its outputs (16 at
+    most, a frame's most), run by the port on the CPU on each of
+    ``inputs`` (the written file is the same whatever card runs it): one
+    tuple of tensors an input."""
+    from nnstreamer_tpu_torch.models.tflite_import import load_tflite
+
+    net.write(path, outputs=outputs)
+    bundle = load_tflite(path, device="cpu")
+    with torch.inference_mode():
+        runs = [bundle.fn()(torch.from_numpy(x)) for x in inputs]
+    os.remove(path)
+    return runs
+
+
+def _calibrate(net: TFLiteNet, path: str, inputs: list) -> dict:
+    """Each activation's (min, max) over ``inputs`` in the float graph."""
+    lo, hi = {}, {}
+    for start in range(0, len(net.acts), 16):
+        acts = net.acts[start:start + 16]
+        for run in _run_outputs(net, path, acts, inputs):
+            for i, y in zip(acts, run):
+                lo[i] = min(lo.get(i, np.inf), float(y.min()))
+                hi[i] = max(hi.get(i, -np.inf), float(y.max()))
+    return {i: (lo[i], hi[i]) for i in net.acts}
+
+
+def ssd_anchors(grids: list, num_layers: int = 6, min_scale: float = 0.2,
+                max_scale: float = 0.95) -> np.ndarray:
+    """ssd_mobilenet_v2_coco's ``multiple_grid_anchor_generator`` (aspect
+    ratios 1, 2, 1/2, 3, 1/3, the interpolated scale, the lowest layer
+    reduced to 3 boxes): (N, 4) [ycenter, xcenter, h, w], cell-major."""
+    scales = [min_scale + (max_scale - min_scale) * i / (num_layers - 1)
+              for i in range(num_layers)] + [1.0]
+    rows = []
+    for layer, g in enumerate(grids):
+        if layer == 0:
+            boxes = [(0.1, 1.0), (scales[0], 2.0), (scales[0], 0.5)]
+        else:
+            boxes = [(scales[layer], ar) for ar in (1.0, 2.0, 0.5, 3.0, 1 / 3)]
+            boxes.append((np.sqrt(scales[layer] * scales[layer + 1]), 1.0))
+        for y in range(g):
+            for x in range(g):
+                for s, ar in boxes:
+                    rows.append(((y + 0.5) / g, (x + 0.5) / g,
+                                 s / np.sqrt(ar), s * np.sqrt(ar)))
+    return np.asarray(rows, np.float32)
+
+
+def write_ssd_mobilenet_v2_tflite(path: str, size: int = 300, width: float = 1.0,
+                                  seed: int = 0) -> dict:
+    """ssd_mobilenet_v2_coco as ``export_tflite_ssd_graph.py`` writes it,
+    float32, seeded: the MobileNet-v2 body, feature maps at layer_15's
+    expansion, layer_19 and four extra 1x1/3x3-stride-2 pairs (512, 256,
+    256, 128 × ``width``), 1x1 box and class predictors (3 anchors a cell on
+    the first map, 6 after), 91 class columns through LOGISTIC and
+    ``TFLite_Detection_PostProcess`` (``SSD_POSTPROCESS``, anchors a
+    constant). The class heads are centred and scaled to logits of
+    standard deviation 1 on four seeded frames (``_center_heads``: scores
+    spread, none saturated). Returns the anchor count and grids."""
+    from nnstreamer_tpu_torch.converters.flatbuf_codec import I32
+
+    net = TFLiteNet(seed)
+    x = net.tensor((1, size, size, 3), name="normalized_input_image_tensor",
+                   role="input")
+    net.inputs = [x]
+    tap, top = net.mobilenet_v2_body(x, width)
+    maps = [tap, top]
+    y = top
+    for d in (512, 256, 256, 128):
+        d = max(16, int(d * width))
+        y = net.conv(net.conv(y, d // 2), d, 3, 2)
+        maps.append(y)
+    boxes, classes, grids, class_convs = [], [], [], []
+    for i, m in enumerate(maps):
+        _, h, w, _ = net.shape(m)
+        grids.append(h)
+        a = 3 if i == 0 else 6
+        boxes.append(net.reshape(net.conv(m, a * 4, act=net.LINEAR, gain=0.5),
+                                 (1, h * w * a, 4)))
+        logit = net.conv(m, a * 91, act=net.LINEAR)
+        class_convs.append(net.operators[-1])
+        classes.append(net.reshape(logit, (1, h * w * a, 91)))
+    anchors = ssd_anchors(grids)
+    n = len(anchors)
+
+    def concat(parts, last, name):
+        y = net.act((1, n, last), name)
+        net.operators.append(dict(code=TFL_CONCAT, inputs=parts, outputs=[y],
+                                  options=(10, [(0, I32, 1, 0)])))
+        return y
+
+    box_enc = concat(boxes, 4, "raw_outputs/box_encodings")
+    logits = concat(classes, 91, "raw_outputs/class_logits")
+    rng = np.random.default_rng(seed + 1)
+    calib = [rng.uniform(-1, 1, (1, size, size, 3)).astype(np.float32) for _ in range(4)]
+    _center_heads(net, path, class_convs, calib, 1.0)
+    scores = net.act((1, n, 91), "class_predictions")
+    net.operators.append(dict(code=TFL_LOGISTIC, inputs=[logits], outputs=[scores]))
+    anchor_t = net.tensor((n, 4), anchors, name="anchors")
+    outs = [net.act((1, 10, 4), "TFLite_Detection_PostProcess"),
+            net.act((1, 10), "TFLite_Detection_PostProcess:1"),
+            net.act((1, 10), "TFLite_Detection_PostProcess:2"),
+            net.act((1,), "TFLite_Detection_PostProcess:3")]
+    net.operators.append(dict(code=TFL_CUSTOM, custom_code="TFLite_Detection_PostProcess",
+                              custom_options=tflite_flexbuffer_map(SSD_POSTPROCESS),
+                              inputs=[box_enc, scores, anchor_t], outputs=outs))
+    net.outputs = outs
+    nbytes = net.write(path)
+    return {"anchors": n, "grids": grids, "bytes": nbytes}
+
+
+def _center_heads(net: TFLiteNet, path: str, convs: list, inputs: list,
+                  std: float) -> None:
+    """Seeded ReLU6 features have a positive mean, which gives each output
+    channel of a linear head an offset of its own, so one class would win
+    everywhere. Over the calibration ``inputs``, each head conv's bias loses
+    its channel's mean, then weights and bias are scaled so the centred
+    outputs have standard deviation ``std``."""
+    runs = _run_outputs(net, path, [op["outputs"][0] for op in convs], inputs)
+    centred = []
+    for j, op in enumerate(convs):
+        y = torch.cat([r[j].reshape(-1, r[j].shape[-1]) for r in runs]).double().cpu()
+        mean = y.mean(dim=0)
+        bias = net.tensors[op["inputs"][2]]
+        bias["data"] = (bias["data"] - mean.numpy()).astype(np.float32)
+        centred.append((y - mean).reshape(-1))
+    gain = np.float32(std / float(torch.cat(centred).std()))
+    for op in convs:
+        for t in op["inputs"][1:]:
+            net.tensors[t]["data"] = net.tensors[t]["data"] * gain
+
+
+def write_mobilenet_v2_quant_tflite(path: str, size: int = 224, width: float = 1.0,
+                                    seed: int = 0) -> dict:
+    """The layout of the reference's ``mobilenet_v2_1.0_224_quant.tflite``,
+    seeded: uint8 (1, size, size, 3) in on the grid (1/128, 128), the
+    MobileNet-v2 body, a VALID average pool over the last grid, a 1x1 conv
+    to 1001 logits, RESHAPE to (1, 1001) and SOFTMAX, uint8 (1, 1001) out
+    on (1/256, 0); every activation uint8 on a per-tensor grid calibrated
+    from the float graph over four seeded frames, weights uint8 per tensor,
+    biases int32 on their accumulator grids. The logits are centred and
+    scaled to a standard deviation of 6 first (``_center_heads``: a softmax
+    with a clear top-1 that varies with the frame)."""
+    from nnstreamer_tpu_torch.converters.flatbuf_codec import F32, I8, I32
+
+    net = TFLiteNet(seed)
+    x = net.tensor((1, size, size, 3), name="input", role="input")
+    net.inputs = [x]
+    _, top = net.mobilenet_v2_body(x, width)
+    _, g, _, c = net.shape(top)
+    pooled = net.act((1, 1, 1, c), same_as=top)
+    net.operators.append(dict(code=TFL_AVG_POOL, inputs=[top], outputs=[pooled], options=(
+        5, [(0, I8, 1, 0), (1, I32, 1, 0), (2, I32, 1, 0), (3, I32, g, 0), (4, I32, g, 0)])))
+    logits4 = net.conv(pooled, 1001, act=net.LINEAR)
+    rng = np.random.default_rng(seed + 1)
+    calib = [(rng.integers(0, 256, (1, size, size, 3)).astype(np.float32) - 128) / 128
+             for _ in range(4)]
+    _center_heads(net, path, [net.operators[-1]], calib, 6.0)
+    logits = net.reshape(logits4, (1, 1001))
+    probs = net.act((1, 1001), "MobilenetV2/Predictions/Reshape_1", softmax=True)
+    net.operators.append(dict(code=TFL_SOFTMAX, inputs=[logits], outputs=[probs],
+                              options=(9, [(0, F32, 1.0, 0.0)])))
+    net.outputs = [probs]
+    ranges = _calibrate(net, path, calib)
+    net.quantize(ranges)
+    return {"bytes": net.write(path)}
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -8777,6 +9606,8 @@ def main() -> int:
     by_phase["convnets, stream transformer pipeline"] = counters.read()
     _release()
     by_phase["model files: restored ssd"] = run_model_files(counters)
+    tflite = run_tflite(counters)
+    by_phase["tflite ssd"] = tflite["launches"]
     by_phase.update(run_parallel(counters))
     print(f"card, beside the numbers below: {_card()}", flush=True)
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)

@@ -1,7 +1,10 @@
 """FlatBuffers builder and table reader for the tensor frame schema.
 
 The port depends on no ``flatbuffers`` package, so it carries the part of
-the runtime that ``converters/fb_io.py`` uses for ``nnstreamer.fbs``:
+the runtime that ``converters/fb_io.py`` uses for ``nnstreamer.fbs``, and
+what a writer of TFLite models needs besides (``chip_smoke.py``'s
+``.tflite`` writer: 8-bit, float and 64-bit scalars, numeric and offset
+vectors, a file identifier):
 
   * ``Builder`` writes back to front as ``flatbuffers.Builder`` does: every
     scalar aligned to its size from the end of the buffer, strings with a
@@ -28,6 +31,12 @@ from typing import Any, Dict, List, Optional, Tuple
 _I32 = struct.Struct("<i")
 _U32 = struct.Struct("<I")
 _U16 = struct.Struct("<H")
+I8 = struct.Struct("<b")
+U8 = struct.Struct("<B")
+U32 = _U32
+I32 = _I32
+I64 = struct.Struct("<q")
+F32 = struct.Struct("<f")
 
 
 class Builder:
@@ -78,6 +87,12 @@ class Builder:
         self.prep(4, 0)
         self._place(_U32, value)
 
+    def prepend(self, packer: struct.Struct, value: Any) -> None:
+        """One scalar of ``packer``'s format (``I8``, ``U8``, ``U32``,
+        ``I64``, ``F32``, ...), aligned to its size."""
+        self.prep(packer.size, 0)
+        self._place(packer, value)
+
     def prepend_uoffset(self, off: int) -> None:
         """A uoffset to ``off``, relative to where it is written."""
         self.prep(4, 0)
@@ -105,6 +120,22 @@ class Builder:
         self._vector_len = n
         return self.end_vector()
 
+    def create_vector(self, packer: struct.Struct, values: Any) -> int:
+        """A vector of scalars of ``packer``'s format."""
+        values = list(values)
+        self.start_vector(packer.size, len(values), packer.size)
+        for v in reversed(values):
+            self._place(packer, v)
+        return self.end_vector()
+
+    def create_offset_vector(self, offsets: Any) -> int:
+        """A vector of uoffsets (tables or strings written earlier)."""
+        offsets = list(offsets)
+        self.start_vector(4, len(offsets), 4)
+        for off in reversed(offsets):
+            self.prepend_uoffset(off)
+        return self.end_vector()
+
     def create_string(self, s: str) -> int:
         data = s.encode("utf-8")
         return self._create_bytes(data, len(data), True)
@@ -124,6 +155,12 @@ class Builder:
     def add_int32(self, slot: int, value: int, default: int) -> None:
         if value != default:
             self.prepend_int32(value)
+            self._slot(slot)
+
+    def add_scalar(self, slot: int, packer: struct.Struct, value: Any,
+                   default: Any) -> None:
+        if value != default:
+            self.prepend(packer, value)
             self._slot(slot)
 
     def add_uoffset(self, slot: int, off: int, default: int = 0) -> None:
@@ -163,8 +200,19 @@ class Builder:
         self._vtable = None
         return obj
 
-    def finish(self, root: int) -> bytearray:
-        self.prep(self._minalign, 4)
+    def finish(self, root: int, file_identifier: Optional[bytes] = None
+               ) -> bytearray:
+        """Prepend the root offset, after a 4-byte ``file_identifier`` when
+        one is given (``b"TFL3"``)."""
+        if file_identifier is None:
+            self.prep(self._minalign, 4)
+        else:
+            if len(file_identifier) != 4:
+                raise ValueError("flatbuffers: a file identifier is 4 bytes")
+            self.prep(self._minalign, 8)
+            self.prep(4, 4)
+            self._head -= 4
+            self._buf[self._head:self._head + 4] = file_identifier
         self.prepend_uoffset(root)
         return self._buf[self._head:]
 

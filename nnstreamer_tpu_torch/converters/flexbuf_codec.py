@@ -3,7 +3,8 @@
 The port depends on no ``flatbuffers`` package, so it carries its own codec
 of what ``converters/fb_io.py`` writes and reads: a map with string keys, an
 unsigned int with a minimum width, signed ints, strings, an untyped vector
-of mixed elements, a typed vector of ints, and blobs.
+of mixed elements, a typed vector of ints, and blobs; and of what a TFLite
+custom operator's options hold (models/tflite_import.py): floats and bools.
 
 ``Builder`` reproduces ``flatbuffers.flexbuffers.Builder()`` with its
 defaults byte for byte: a map's keys are sorted bytewise, repeated keys are
@@ -14,13 +15,16 @@ strings get a NUL after them and blobs do not. A blob is appended as one
 slice, so a payload costs one copy.
 
 The reader follows the stock one (``GetRoot``, ``AsMap``, ``AsInt``,
-``AsString``, ``AsBlob``, ``AsVector``, ``AsTypedVector``): ``get_root``
-returns a ``Ref``, whose ``as_*`` accessors read the same values. A blob
-comes back as a ``memoryview`` into the buffer, without a copy.
+``AsFloat``, ``AsString``, ``AsBlob``, ``AsVector``, ``AsTypedVector``):
+``get_root`` returns a ``Ref``, whose ``as_*`` accessors read the same
+values. A blob comes back as a ``memoryview`` into the buffer, without a
+copy. ``loads`` is the stock ``Loads``: the root as Python values (a map a
+dict, a vector a list, a bool a bool, a blob bytes).
 """
 
 from __future__ import annotations
 
+import struct
 from typing import Any, Dict, List, Optional
 
 # bit widths (the low 2 bits of a packed type)
@@ -59,6 +63,15 @@ def _width_i(value: int) -> int:
 _BYTES_TO_WIDTH = {1: W8, 2: W16, 4: W32, 8: W64}
 
 
+def _width_f(value: float) -> int:
+    """float32 when the value survives it, else float64 (stock ``F``)."""
+    return W32 if struct.unpack("<f", struct.pack("<f", value))[0] == value \
+        else W64
+
+
+_FLOAT_FMT = {4: "<f", 8: "<d"}
+
+
 def _padding(size: int, scalar_size: int) -> int:
     return -size & (scalar_size - 1)
 
@@ -73,7 +86,7 @@ class _Value:
 
     __slots__ = ("value", "type", "min_width")
 
-    def __init__(self, value: int, type_: int, min_width: int):
+    def __init__(self, value: Any, type_: int, min_width: int):
         self.value, self.type, self.min_width = value, type_, min_width
 
     def elem_width(self, buf_size: int, elem_index: int = 0) -> int:
@@ -120,7 +133,7 @@ class Builder:
         elif v.type in (UINT, BOOL, NULL):
             self._write_uint(v.value, byte_width)
         elif v.type == FLOAT:
-            raise TypeError("floats are not part of the tensor wire format")
+            self._buf.extend(struct.pack(_FLOAT_FMT[byte_width], v.value))
         else:
             self._write_uint(len(self._buf) - v.value, byte_width)
 
@@ -189,6 +202,13 @@ class Builder:
     def uint(self, value: int, byte_width: int = 0) -> None:
         width = _width_u(value) if byte_width == 0 else _BYTES_TO_WIDTH[byte_width]
         self._stack.append(_Value(int(value), UINT, width))
+
+    def float(self, value: float) -> None:
+        """A float, 4 bytes wide when float32 holds it exactly, else 8."""
+        self._stack.append(_Value(value, FLOAT, _width_f(value)))
+
+    def bool(self, value: bool) -> None:
+        self._stack.append(_Value(int(bool(value)), BOOL, W8))
 
     def string(self, value: str) -> None:
         self._write_blob(value.encode("utf-8"), True, STRING)
@@ -298,6 +318,48 @@ class Ref:
         if VECTOR_INT2 <= t <= VECTOR_FLOAT4:
             return (t - VECTOR_INT2) // 3 + 2
         raise self._type_error("int")
+
+    @property
+    def as_float(self) -> float:
+        t = self.type
+        if t == FLOAT:
+            return struct.unpack_from(_FLOAT_FMT[self.parent_width], self.buf,
+                                      self.off)[0]
+        if t == INDIRECT_FLOAT:
+            return struct.unpack_from(_FLOAT_FMT[self.byte_width], self.buf,
+                                      self._indirect())[0]
+        if t in (NULL, BOOL, INT, UINT, INDIRECT_INT, INDIRECT_UINT):
+            return float(self.as_int)
+        raise self._type_error("float")
+
+    @property
+    def value(self) -> Any:
+        """The value as Python objects, as the stock ``Loads`` gives it."""
+        t = self.type
+        if t == NULL:
+            return None
+        if t == BOOL:
+            return self.as_int != 0
+        if t in (INT, UINT, INDIRECT_INT, INDIRECT_UINT):
+            return self.as_int
+        if t in (FLOAT, INDIRECT_FLOAT):
+            return self.as_float
+        if t in (STRING, KEY):
+            return self.as_string
+        if t == BLOB:
+            return bytes(self.as_blob)
+        if t == MAP:
+            m = self.as_map
+            keys = m.keys()
+            return {keys[i].as_string: Vector.__getitem__(m, i).value
+                    for i in range(len(m))}
+        if t == VECTOR:
+            v = self.as_vector
+            return [v[i].value for i in range(len(v))]
+        if VECTOR_INT <= t <= VECTOR_STRING_DEPRECATED or t == VECTOR_BOOL:
+            v = self.as_typed_vector
+            return [v[i].value for i in range(len(v))]
+        raise self._type_error("a Python value")
 
     @property
     def as_key_bytes(self) -> bytes:
@@ -416,3 +478,8 @@ def get_root(buf) -> Ref:
         raise ValueError("buffer is too small")
     byte_width = buf[-1]
     return Ref(buf, len(buf) - 2 - byte_width, byte_width, buf[-2])
+
+
+def loads(buf) -> Any:
+    """The root of ``buf`` as Python values (stock ``Loads``)."""
+    return get_root(buf).value

@@ -1,6 +1,8 @@
-"""NN backend subplugins. Importing registers the built-ins: torch-cuda,
-custom-easy and python3 (filters/custom.py), the C custom filter, and
-torch/pytorch (TorchScript and the legacy zip, filters/torch_backend.py)."""
+"""NN backend subplugins. Importing registers the built-ins: torch-cuda
+(with the TFLite names), custom-easy and python3 (filters/custom.py), the C
+custom filter, torch/pytorch (TorchScript and the legacy zip,
+filters/torch_backend.py) and tensorflow (frozen GraphDefs,
+filters/tf_backend.py; TensorFlow itself is imported at open())."""
 
 from .base import (
     FilterFramework,
@@ -24,6 +26,7 @@ def _ensure_builtin_filters() -> None:
     from . import custom  # noqa: F401
     from . import c_custom  # noqa: F401
     from . import torch_backend  # noqa: F401
+    from . import tf_backend  # noqa: F401
 
 
 _ensure_builtin_filters()

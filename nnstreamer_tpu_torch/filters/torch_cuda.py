@@ -1,8 +1,8 @@
 """The ``torch-cuda`` backend — NN execution with PyTorch on the CUDA card.
 
 Port of nnstreamer_tpu/filters/xla.py. Registered as ``torch-cuda`` with
-``xla-tpu`` (and ``xla``, ``jax``) as aliases, so the JAX package's
-reference pipeline strings run unchanged.
+``xla-tpu`` (and ``xla``, ``jax``, and the TFLite names) as aliases, so the
+JAX package's reference pipeline strings run unchanged.
 
 Model forms accepted by ``model=``:
   * ``zoo://<name>?opt=val`` — the torch model zoo (models/zoo.py), built on
@@ -19,9 +19,13 @@ Model forms accepted by ``model=``:
     loaded onto the filter's device;
   * checkpoint params (a flax ``.msgpack``) with ``custom="arch=<zoo://
     spec or .py>"`` and ``arch_<opt>=<value>`` options for the arch,
-    restored into a bundle of its own (``deploy.load_checkpointed``).
-  ``.tflite`` files wait for the port of ``models/tflite_import.py``, and
-  orbax checkpoint directories are refused (utils/checkpoints.py); the JAX
+    restored into a bundle of its own (``deploy.load_checkpointed``);
+  * a ``.tflite`` flatbuffer, lowered to torch ops on the filter's device
+    (models/tflite_import.py) and captured like any bundle; the reference's
+    framework names ``tensorflow-lite``, ``tensorflow2-lite``,
+    ``tensorflow1-lite`` and ``tflite`` are aliases of this filter, so
+    ``framework=tensorflow-lite model=foo.tflite`` runs unchanged.
+  Orbax checkpoint directories are refused (utils/checkpoints.py); the JAX
   filter's flax-module form has no torch counterpart.
 
 Design notes:
@@ -205,9 +209,9 @@ def resolve_model(model: Any, options: Optional[Dict[str, str]] = None,
         if model.endswith(".py"):
             return _bundle_from_pyfile(model, options, device)
         if model.lower().endswith(".tflite"):
-            raise ValueError(
-                f"torch-cuda: {model!r}: .tflite models wait for the port of "
-                "models/tflite_import.py (ROADMAP.md §A 11c)")
+            from ..models.tflite_import import load_tflite
+
+            return load_tflite(model, device)
         if model.lower().endswith(deploy.EXPORT_EXTS):
             return deploy.load_exported(model, device)
         if model.lower().endswith(deploy.CKPT_EXTS) or os.path.isdir(model):
@@ -220,11 +224,11 @@ def resolve_model(model: Any, options: Optional[Dict[str, str]] = None,
                          if k.startswith("arch_")}
             return deploy.load_checkpointed(model, arch, device, **arch_opts)
         raise ValueError(
-            f"torch-cuda: unsupported model file {model!r} (use zoo://, an "
-            "exported .jaxexport program, checkpoint params + "
-            "custom=\"arch=...\", a .py exporting make_model, or an "
-            "in-process callable; .tflite files and orbax checkpoint "
-            "directories are not ported)")
+            f"torch-cuda: unsupported model file {model!r} (use zoo://, a "
+            ".tflite flatbuffer, an exported .jaxexport program, checkpoint "
+            "params + custom=\"arch=...\", a .py exporting make_model, or "
+            "an in-process callable; orbax checkpoint directories are not "
+            "ported)")
     raise ValueError(f"torch-cuda: cannot interpret model {model!r}")
 
 
@@ -298,10 +302,16 @@ def _layout_infos(infos: Optional[TensorsInfo],
 
 @register_filter
 class TorchCudaFilter(FilterFramework):
-    """framework=torch-cuda (aliases: xla-tpu, xla, jax)."""
+    """framework=torch-cuda (aliases: xla-tpu, xla, jax, tensorflow-lite,
+    tensorflow2-lite, tensorflow1-lite, tflite)."""
 
     NAME = "torch-cuda"
-    ALIASES = ("xla-tpu", "xla", "jax")
+    #: the TFLite names route reference pipeline strings
+    #: (framework=tensorflow-lite model=foo.tflite) to this filter: the
+    #: flatbuffer is lowered to torch ops (models/tflite_import.py) instead
+    #: of the TFLite Interpreter (tensor_filter_tensorflow_lite.cc:154)
+    ALIASES = ("xla-tpu", "xla", "jax", "tensorflow-lite", "tensorflow2-lite",
+               "tensorflow1-lite", "tflite")
     ALLOCATE_IN_INVOKE = True
     SUPPORTS_LAYOUT = True  # NCHW permutes run inside the invoke
 

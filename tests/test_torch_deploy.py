@@ -241,10 +241,11 @@ def test_export_with_no_in_info_needs_example_args(tmp_path):
 
 def test_filter_routes_model_files_as_jax(tmp_path):
     """The routing of the JAX filter (xla.py:88-110): bare names to the
-    zoo, ``.tflite`` refused (not ported), exported programs to
-    load_exported, checkpoints to load_checkpointed."""
+    zoo, ``.tflite`` to load_tflite (a missing file raising
+    FileNotFoundError, as there), exported programs to load_exported,
+    checkpoints to load_checkpointed."""
     assert resolve_model("lenet", device=CPU) is get_model("zoo://lenet", device="cpu")
-    with pytest.raises(ValueError, match="tflite_import"):
+    with pytest.raises(FileNotFoundError, match="m.tflite"):
         resolve_model(str(tmp_path / "m.tflite"), device=CPU)
     with pytest.raises(FileNotFoundError):
         resolve_model(str(tmp_path / "missing.jaxexport"), device=CPU)

@@ -297,10 +297,28 @@ def test_bad_info_spec_raises_like_jax(tmp_path):
 
 @pytest.mark.parametrize("path", ["/m/model.tflite", "/m/MODEL.TFLITE",
                                   "/m/ckpt.orbax"])
-def test_unported_model_files_are_refused_naming_what_they_wait_for(path):
-    """What stays unported: ``.tflite`` files (models/tflite_import.py) and
-    orbax checkpoints, even with an ``arch=`` to restore into."""
-    match = "wait for the port of" if path.lower().endswith(".tflite") \
-        else "orbax checkpoint directories are not"
-    with pytest.raises(ValueError, match=match):
-        resolve_model(path, {"arch": "zoo://lenet"}, device=CPU)
+def test_unported_model_files_are_refused_naming_what_they_wait_for(
+        path, tmp_path):
+    """What stays unported: orbax checkpoints, even with an ``arch=`` to
+    restore into. ``.tflite`` files, in either spelling, resolve to a
+    tflite bundle (models/tflite_import.py) as in the JAX filter, the
+    ``arch=`` option ignored."""
+    if not path.lower().endswith(".tflite"):
+        with pytest.raises(ValueError,
+                           match="orbax checkpoint directories are not"):
+            resolve_model(path, {"arch": "zoo://lenet"}, device=CPU)
+        return
+    from test_tflite_ops import F32, build_tflite
+
+    model = tmp_path / path.rsplit("/", 1)[1]
+    model.write_bytes(build_tflite(
+        tensors=[{"shape": (1, 2), "type": F32, "data": None},
+                 {"shape": (1, 2), "type": F32, "data": None}],
+        operators=[{"code": 19, "inputs": [0], "outputs": [1]}],  # RELU
+        inputs=[0], outputs=[1]))
+    bundle = resolve_model(str(model), {"arch": "zoo://lenet"}, device=CPU)
+    want = jresolve(str(model), {"arch": "zoo://lenet"})
+    assert bundle.metadata["format"] == want.metadata["format"] == "tflite"
+    assert bundle.metadata["tflite_ops"] == want.metadata["tflite_ops"]
+    (out,) = bundle.fn()(torch.tensor([[-1.0, 2.0]]))
+    assert torch.equal(out, torch.tensor([[0.0, 2.0]]))
