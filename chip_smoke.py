@@ -232,7 +232,10 @@ Phases (any failure exits non-zero before the result lines are printed):
      to the masters; a second pipeline resumes at frame 24 and, hot-swapped
      to the trained bundle while running, serves its eager forward's logits
      bit for bit (unlike the initial model's); frames/s, step ms and peak
-     memory; then the element on the card against the CPU at float32 (TF32
+     memory; a ``checkpoint_path=<dir> resume=true`` cycle over 4 of the
+     frames: the EOS orbax directory equal to the masters, a second
+     pipeline resuming at frame 4 with masters and adam's moments
+     bit-equal to the directory's; then the element on the card against the CPU at float32 (TF32
      off), 3 steps at batch 4 with adam and with sgd: losses within
      TRAIN_LOSS_RTOL, each leaf's change of the masters within
      TRAIN_CHANGE_RTOL of the CPU's (a fault of this run's own masters, a
@@ -321,7 +324,12 @@ Phases (any failure exits non-zero before the result lines are printed):
      with graphs and eagerly: ``class_reduce`` and ``nms_sweep`` launched
      once a frame, detections bit-equal to the same weights loaded
      in-process (``convert.load_flax``) in both modes and unequal to the
-     seed-0 bundle's; (b) MobileNet-v1 1.0/224/1001 behind
+     seed-0 bundle's; (a') the same tree written by the port as an orbax
+     directory (utils/orbax_dir.py), served through ``model=<dir>`` over
+     the same 32 frames in both modes: B2 and B3 once a frame, detections
+     bit-equal to (a)'s, the directory's leaves bit-equal to the
+     ``.msgpack``'s, its bytes, save and load seconds and zstd's MB/s
+     printed; (b) MobileNet-v1 1.0/224/1001 behind
      ``custom="quant=w8"`` through image_labeling over 16 frames, captured
      and eager: the codes and scales computed on the card bit-equal to the
      CPU's from the same tree, labels equal between the modes and to the
@@ -335,7 +343,11 @@ Phases (any failure exits non-zero before the result lines are printed):
      reference's pytorch string, once on a TorchScript LeNet scripted in the
      phase (within rtol 1e-5 / atol 1e-6 of its eager module) and once on
      the hand-built legacy zip (``write_legacy_lenet``; bit-equal to its
-     eager module), both on the card; then the phase's seconds;
+     eager module), both on the card; (e) the orbax directory the JAX
+     package wrote (``tests/data/orbax_lenet_seed1``, orbax 0.11.32) read
+     here bit-equal to its ``.msgpack`` twin, and LeNet served from each
+     over 16 GRAY8 frames with equal labels and logits; then the phase's
+     seconds beside the card's name and power limit;
  19d. the TensorFlow side (``run_tflite``, after the model files), on
      ``.tflite`` files this script writes with the port's own FlatBuffers
      and FlexBuffers builders (``write_ssd_mobilenet_v2_tflite``,
@@ -582,6 +594,9 @@ C_FRAMES, C_FACTOR = 16, 3.5
 #: compute with float32 masters; 24 frames of 16 images
 TRAIN_SPEC = "zoo://mobilenet_v2?batch=16"
 TRAIN_FRAMES, TRAIN_BATCH = 24, 16
+#: the orbax-directory resume cycle (check_train_dir_resume): frames of its
+#: first run
+TRAIN_DIR_FRAMES = 4
 #: the trainer on the card against the CPU: float32, TF32 off, 3 steps at
 #: batch 4. Losses: both sum in float32 in their own orders (rtol, stated
 #: before the first run on the card, which measured 4.819e-06). Masters:
@@ -5473,7 +5488,66 @@ def run_train() -> None:
     LOOP_STATS["train"] = {"frames_per_s": fps, "images_per_s": fps * TRAIN_BATCH,
                            "step_ms": step_ms, "peak_mib": peak,
                            "loss_first": losses[0], "loss_last": losses[-1]}
+    check_train_dir_resume(frames[:TRAIN_DIR_FRAMES])
     check_train_card_vs_cpu()
+
+
+def check_train_dir_resume(frames: list) -> None:
+    """``checkpoint_path=<dir> resume=true`` on the card: the first run
+    trains ``frames`` and writes an orbax directory on EOS ({params,
+    opt_state as optax's tuple, frames}); the directory's params equal the
+    masters bit for bit; a second pipeline resumes from it at
+    len(frames), its masters and adam's moments bit-equal to the
+    directory's, and its EOS writes the same leaves back."""
+    from nnstreamer_tpu_torch.utils import checkpoints
+
+    n = len(frames)
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = os.path.join(tmp, "mobilenet_v2_ckpt")
+        t0 = time.perf_counter()
+        p, _, tr, _, _ = _train_pipeline("cuda", TRAIN_SPEC, ckpt, frames, serve=False)
+        p.run(timeout=600)
+        first_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        blob = checkpoints.load_variables(ckpt)
+        load_s = time.perf_counter() - t0
+        size = _dir_bytes(ckpt)
+        masters = [t.cpu().numpy() for t in _tree_leaves(tr.params)]
+        saved = _tree_leaves(blob["params"])
+        if tr._n != n or blob["frames"] != n or int(blob["opt_state"][0]["count"]) != n \
+                or blob["opt_state"][1] is not None or len(saved) != len(masters) \
+                or any(a.tobytes() != b.tobytes() for a, b in zip(saved, masters)):
+            raise AssertionError("train dir: the EOS directory differs from the masters")
+        p2, src2, tr2, _, _ = _train_pipeline("cuda", TRAIN_SPEC, ckpt, serve=False)
+        t0 = time.perf_counter()
+        p2.start()
+        resume_s = time.perf_counter() - t0
+        try:
+            m = tr2._masters
+            resumed = {"params": tr2.params,
+                       "mu": m.tree(tr2._opt_state["0"]["mu"]),
+                       "nu": m.tree(tr2._opt_state["0"]["nu"])}
+            want = {"params": blob["params"], "mu": blob["opt_state"][0]["mu"],
+                    "nu": blob["opt_state"][0]["nu"]}
+            for k in resumed:
+                got = [t.cpu().numpy().tobytes() for t in _tree_leaves(resumed[k])]
+                if tr2._n != n or got != [a.tobytes() for a in _tree_leaves(want[k])]:
+                    raise AssertionError(f"train dir: resumed at {tr2._n} with {k} "
+                                         "unlike the directory's")
+            src2.end_of_stream()
+            if not p2.wait_eos(300):
+                raise AssertionError("train dir: the resumed pipeline did not end")
+        finally:
+            p2.stop()
+        again = checkpoints.load_variables(ckpt)
+        if any(a.tobytes() != b.tobytes() for a, b in
+               zip(_tree_leaves(again["params"]), saved)) or again["frames"] != n:
+            raise AssertionError("train dir: the resumed run wrote other leaves back")
+    print(f"train checkpoint_path=<dir> resume=true: {n} frames then EOS in "
+          f"{first_s:.3f} s, the orbax directory {size} bytes (params, adam's "
+          f"moments, frames), read in {load_s:.3f} s, == the masters; resumed at {n} "
+          f"(start {resume_s:.3f} s) with masters and moments == the directory's; "
+          f"{_card()}", flush=True)
 
 
 def _tree_items(tree, path: str = "") -> list:
@@ -8264,6 +8338,10 @@ MF_DEVICE = "cuda"
 MF_SSD_FRAMES = 32
 MF_V1_FRAMES = 16
 MF_SSD_ARCH = "arch=zoo://ssd_mobilenet_v2"
+#: (e): the orbax directory the JAX package wrote (scripts/make_orbax_fixture.py)
+#: and its .msgpack twin, served as LeNet over MF_LENET_FRAMES GRAY8 frames
+MF_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+MF_LENET_FRAMES = 16
 #: an exported program against the zoo bundle it was exported from, both on
 #: the card: float32 LeNet; MobileNet-v2's bf16 logits within 1e-2 of scale
 MF_EXPORT_TOL = {"lenet": (1e-5, 1e-6), "mobilenet_v2": (1e-2, 0.0)}
@@ -8307,9 +8385,14 @@ def _mf_ssd(tmp: str, counters) -> dict:
     with open(labels, "w") as f:
         f.write("\n".join(f"c{i}" for i in range(91)))
     ckpt = os.path.join(tmp, "ssd300_seed1.msgpack")
+    ckpt_dir = os.path.join(tmp, "ssd300_seed1")
     seeded = get_model(SSD_SPEC + "&seed=1", device=MF_DEVICE, fresh=True)
-    save_variables(ckpt, to_flax_variables(seeded.module))
-    del seeded
+    tree = to_flax_variables(seeded.module)
+    save_variables(ckpt, tree)
+    t0 = time.perf_counter()
+    save_variables(ckpt_dir, tree)
+    dir_save_s = time.perf_counter() - t0
+    del seeded, tree
     loaded = load_flax(get_model(SSD_SPEC, device=MF_DEVICE, fresh=True),
                        load_variables(ckpt))
 
@@ -8364,7 +8447,110 @@ def _mf_ssd(tmp: str, counters) -> dict:
     if MF_DEVICE != "cpu":
         _record_graphs("restored ssd", 1, "fps", runs[False][1], runs[True][1],
                        runs[False][2])
+    _mf_ssd_orbax(ckpt, ckpt_dir, dir_save_s, runs, run, counters)
     return launches
+
+
+def _mf_where() -> str:
+    return _card() if MF_DEVICE != "cpu" else "on the CPU"
+
+
+def _dir_bytes(path: str) -> int:
+    return sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(path)
+               for f in fs)
+
+
+def _mf_ssd_orbax(ckpt: str, ckpt_dir: str, save_s: float, runs: dict, run,
+                  counters) -> None:
+    """(a') the same seed-1 tree, written by the port as an orbax directory
+    (utils/orbax_dir.py: OCDBT store, zarr chunks, zstd through
+    libzstd.so.1), served through ``model=<dir>`` with graphs and eagerly:
+    ``class_reduce`` and ``nms_sweep`` launched once a frame, detections
+    bit-equal to the ``.msgpack`` restore's in both modes; the directory's
+    leaves bit-equal to the file's. Prints the directory's bytes, the save
+    and load seconds and zstd's decompression rate over its chunks."""
+    from nnstreamer_tpu_torch.utils import ocdbt, zstd
+    from nnstreamer_tpu_torch.utils.checkpoints import load_variables
+
+    t0 = time.perf_counter()
+    got = load_variables(ckpt_dir)
+    load_s = time.perf_counter() - t0
+    want = load_variables(ckpt)
+    got_items, want_items = _tree_items(got), _tree_items(want)
+    if [p for p, _ in got_items] != [p for p, _ in want_items] or any(
+            a.dtype != b.dtype or a.tobytes() != b.tobytes()
+            for (_, a), (_, b) in zip(got_items, want_items)):
+        raise AssertionError("orbax ssd: the directory's leaves differ from the .msgpack's")
+    reader = ocdbt.Reader(ckpt_dir)
+    chunks = [reader.read(k) for k in reader.list() if not k.endswith(b".zarray")]
+    t0 = time.perf_counter()
+    raw = sum(len(zstd.decompress(c)) for c in chunks)
+    zstd_s = time.perf_counter() - t0
+    counters.reset()
+    dirs = {eager: run(ckpt_dir, MF_SSD_ARCH, eager) for eager in (False, True)}
+    launches = counters.read()
+    if MF_DEVICE != "cpu":
+        for name in ("class_reduce", "nms_sweep"):
+            if launches.get(name) != 2 * MF_SSD_FRAMES:
+                raise AssertionError(f"orbax ssd: {name} launched {launches.get(name)} "
+                                     f"times for 2 x {MF_SSD_FRAMES}")
+    for eager in (False, True):
+        if dirs[eager][0] != runs[eager][0]:
+            raise AssertionError(f"orbax ssd ({'eager' if eager else 'graphs'}): "
+                                 "detections differ from the .msgpack restore's")
+    print(f"model files (a') SSD-300 restored from an orbax directory the port wrote "
+          f"({_dir_bytes(ckpt_dir)} bytes in {len(os.listdir(ckpt_dir))} entries, "
+          f"{len(chunks)} zstd chunks; .msgpack {os.path.getsize(ckpt)} bytes): save "
+          f"{save_s:.3f} s, load {load_s:.3f} s, zstd decompression {raw / zstd_s / 1e6:.1f} "
+          f"MB/s ({raw} bytes); leaves == the .msgpack's; {MF_SSD_FRAMES} frames graphs "
+          f"and eager == the .msgpack restore's detections; launches {launches}; steady fps "
+          f"{dirs[False][1]:.2f} (eager {dirs[True][1]:.2f}); {_mf_where()}", flush=True)
+
+
+def _mf_orbax_fixture(tmp: str) -> None:
+    """(e) the committed orbax directory the JAX package wrote with orbax
+    0.11.32 (tests/data/orbax_lenet_seed1: jax.Array leaves, a per-process
+    store under the root manifest) read on this machine, which has no JAX
+    orbax: leaves bit-equal to lenet_seed1.msgpack; LeNet served from each
+    through ``model=<path> custom="arch=zoo://lenet"`` and image_labeling
+    over MF_LENET_FRAMES GRAY8 frames on the card: labels and logits
+    equal."""
+    from nnstreamer_tpu_torch.core.types import Caps
+    from nnstreamer_tpu_torch.utils.checkpoints import load_variables
+
+    directory = os.path.join(MF_FIXTURE, "orbax_lenet_seed1")
+    msgpack = os.path.join(MF_FIXTURE, "lenet_seed1.msgpack")
+    t0 = time.perf_counter()
+    got = load_variables(directory)
+    load_s = time.perf_counter() - t0
+    got_items, want_items = _tree_items(got), _tree_items(load_variables(msgpack))
+    if [p for p, _ in got_items] != [p for p, _ in want_items] or any(
+            a.dtype != b.dtype or a.tobytes() != b.tobytes()
+            for (_, a), (_, b) in zip(got_items, want_items)):
+        raise AssertionError("orbax fixture: leaves differ from lenet_seed1.msgpack's")
+    rng = np.random.default_rng(29)
+    frames = [rng.integers(0, 256, (28, 28, 1), dtype=np.uint8)
+              for _ in range(MF_LENET_FRAMES)]
+    caps = Caps("video/x-raw", {"format": "GRAY8", "width": 28, "height": 28,
+                                "framerate": Fraction(30)})
+    labels = os.path.join(tmp, "labels10.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"l{i}" for i in range(10)))
+    out = {}
+    for path in (directory, msgpack):
+        sink, seen = _label_pipeline(path, frames, caps, labels, False,
+                                     custom="arch=zoo://lenet", device=MF_DEVICE)[:2]
+        out[path] = ([b.meta["label_index"] for b in sink.buffers],
+                     [b.memories[0].host() for b in seen])
+    (dl, dx), (ml, mx) = out[directory], out[msgpack]
+    if dl != ml or len(dx) != len(mx) or any(a.tobytes() != b.tobytes()
+                                             for a, b in zip(dx, mx)):
+        raise AssertionError("orbax fixture: LeNet from the directory serves other "
+                             "labels or logits than from the .msgpack")
+    print(f"model files (e) the JAX package's orbax directory ({_dir_bytes(directory)} "
+          f"bytes, orbax 0.11.32) read here in {load_s:.3f} s: {len(got_items)} leaves "
+          f"== lenet_seed1.msgpack's; LeNet served from it over {MF_LENET_FRAMES} "
+          f"frames: labels {dl} and logits == the .msgpack's", flush=True)
 
 
 def _mf_quant_v1(tmp: str) -> None:
@@ -8540,8 +8726,9 @@ def _mf_torch_filter(tmp: str) -> None:
 
 
 def run_model_files(counters) -> dict:
-    """The model-files phase: (a) a restored SSD-300, (b) MobileNet-v1
-    quant=w8, (c) exported programs, (d) the torch filter. Returns (a)'s
+    """The model-files phase: (a) a restored SSD-300 and (a') the same from
+    an orbax directory, (b) MobileNet-v1 quant=w8, (c) exported programs,
+    (d) the torch filter, (e) the JAX package's orbax fixture. Returns (a)'s
     kernel launches."""
     t0 = time.perf_counter()
     with tempfile.TemporaryDirectory() as tmp:
@@ -8553,8 +8740,10 @@ def run_model_files(counters) -> dict:
         finally:
             _mf_exported(export)
         _mf_torch_filter(tmp)
+        _mf_orbax_fixture(tmp)
     _release()
-    print(f"model files phase: {time.perf_counter() - t0:.3f} s", flush=True)
+    print(f"model files phase: {time.perf_counter() - t0:.3f} s; {_mf_where()}",
+          flush=True)
     return launches
 
 

@@ -35,9 +35,12 @@ float32 tensor, so the optimizer is a handful of elementwise launches.
 Checkpoints use the JAX package's layout (utils/checkpoints.py): a module
 bundle's masters as the flax variables tree (models/convert.py), keys
 sorted as a trained JAX tree has them; ``resume=false`` writes that tree,
-``resume=true`` ``{"params", "opt_state", "frames"}`` with the optax state
-in flax's state-dict form, and a JAX-written file resumes here with its
-count, moments and frame counter.
+``resume=true`` ``{"params", "opt_state", "frames"}``, and a JAX-written
+checkpoint resumes here with its count, moments and frame counter. A
+``.msgpack`` path holds the optax state in flax's state-dict form
+(``{"0": {"count", "mu", "nu"}, "1": {}}``); any other path is an orbax
+directory, where the state is optax's tuple as orbax stores it (the
+``EmptyState`` entries as ``None``).
 
 ``mesh=`` ("axis:size[,axis:size...]", a dict, or a parallel.mesh mesh)
 trains data-parallel over the ``data`` axis: the pipeline runs on every rank
@@ -257,10 +260,6 @@ class TensorTrainer(Element):
         self._mesh = self._resolve_mesh() if self.mesh else None
         from ..filters.torch_cuda import resolve_model
 
-        if self.checkpoint_path:
-            from ..utils.checkpoints import check_path
-
-            check_path(self.checkpoint_path)
         device = resolve_device(self._device)
         self._loss_fn = LOSSES.get(self.loss)
         if self._loss_fn is None:
@@ -316,12 +315,21 @@ class TensorTrainer(Element):
         return {k: {kk: (vv if kk == "count" else flat_fn(vv)) for kk, vv in v.items()}
                 for k, v in self._opt_state.items()}
 
+    def _payload_state(self, flat_fn: Callable[[torch.Tensor], Any]) -> Any:
+        """The optimizer state as a checkpoint at ``checkpoint_path`` holds
+        it: flax's state dict for a ``.msgpack``, optax's tuple (an
+        ``EmptyState`` as None) for an orbax directory."""
+        state = self._state_tree(flat_fn)
+        if self.checkpoint_path.endswith(".msgpack"):
+            return state
+        return tuple(state[str(i)] or None for i in range(len(state)))
+
     def _restore(self) -> None:
         from ..utils import checkpoints
 
         m = self._masters
         template = {"params": m.tree(m.flat),
-                    "opt_state": self._state_tree(m.tree), "frames": 0}
+                    "opt_state": self._payload_state(m.tree), "frames": 0}
         try:
             blob = checkpoints.load_variables(self.checkpoint_path, template)
         except Exception as e:  # noqa: BLE001 — format mismatch
@@ -334,8 +342,10 @@ class TensorTrainer(Element):
         with torch.no_grad():
             m.load(m.flat, blob["params"])
             for k, v in self._opt_state.items():
+                saved_state = blob["opt_state"][int(k)] \
+                    if isinstance(blob["opt_state"], tuple) else blob["opt_state"][k]
                 for kk, vv in v.items():
-                    saved = blob["opt_state"][k][kk]
+                    saved = saved_state[kk]
                     if kk == "count":
                         vv.copy_(torch.as_tensor(saved, dtype=vv.dtype))
                     else:
@@ -418,7 +428,8 @@ class TensorTrainer(Element):
 
             m = self._masters
             params = m.tree(m.flat)
-            payload = ({"params": params, "opt_state": self._state_tree(m.tree),
+            payload = ({"params": params,
+                        "opt_state": self._payload_state(m.tree),
                         "frames": self._n}
                        if self.resume else params)
             checkpoints.save_variables(self.checkpoint_path, payload)

@@ -17,7 +17,8 @@ Model forms accepted by ``model=``:
   * an exported program (``.jaxexport``/``.stablehlo``/``.jax``, written
     by ``models.export_model``: a ``torch.export`` archive, models/deploy.py)
     loaded onto the filter's device;
-  * checkpoint params (a flax ``.msgpack``) with ``custom="arch=<zoo://
+  * checkpoint params (a flax ``.msgpack``, or an orbax checkpoint
+    directory as the JAX package writes one) with ``custom="arch=<zoo://
     spec or .py>"`` and ``arch_<opt>=<value>`` options for the arch,
     restored into a bundle of its own (``deploy.load_checkpointed``);
   * a ``.tflite`` flatbuffer, lowered to torch ops on the filter's device
@@ -226,9 +227,9 @@ def resolve_model(model: Any, options: Optional[Dict[str, str]] = None,
         raise ValueError(
             f"torch-cuda: unsupported model file {model!r} (use zoo://, a "
             ".tflite flatbuffer, an exported .jaxexport program, checkpoint "
-            "params + custom=\"arch=...\", a .py exporting make_model, or "
-            "an in-process callable; orbax checkpoint directories are not "
-            "ported)")
+            "params + custom=\"arch=...\" (a .msgpack file or an orbax "
+            "directory), a .py exporting make_model, or an in-process "
+            "callable)")
     raise ValueError(f"torch-cuda: cannot interpret model {model!r}")
 
 

@@ -25,8 +25,8 @@ parameters) too; ``load_flax`` loads a JAX bundle's variables into a
 port bundle.
 
 ``flax_shapes`` gives the same tree's shapes, from which the zoo synthesizes
-seeded placeholder weights; ``restore_flax`` loads a flax ``.msgpack``
-checkpoint of that tree into the module (the zoo's ``checkpoint=``,
+seeded placeholder weights; ``restore_flax`` loads a checkpoint of that
+tree (a flax ``.msgpack`` or an orbax directory) into the module (the zoo's ``checkpoint=``,
 models/deploy.py). ``to_flax_variables`` is the inverse of
 ``from_flax_variables``: a module's state as the flax variables tree, numpy
 in flax's layout, with the batch statistics split out under
@@ -138,18 +138,21 @@ def flax_shapes(module: nn.Module) -> Dict[str, Any]:
 
 
 def restore_flax(module: nn.Module, path: str) -> nn.Module:
-    """Load the flax ``.msgpack`` checkpoint at ``path`` into ``module`` in
-    place, as the JAX package restores a bundle's variables
-    (utils/checkpoints.load_variables with the module's flax tree as the
-    template); returns the module. The file's leaves are copied into the
-    module's dtypes (``from_flax_variables``)."""
+    """Load the flax checkpoint at ``path`` (a ``.msgpack`` file or an
+    orbax directory) into ``module`` in place, as the JAX package restores
+    a bundle's variables (utils/checkpoints.load_variables with the
+    module's flax tree as the template); returns the module. The file's
+    leaves are copied into the module's dtypes (``from_flax_variables``)."""
     from ..utils.checkpoints import load_variables
 
-    def skeleton(node: Any) -> Any:
-        return {k: skeleton(v) for k, v in node.items()} \
-            if isinstance(node, dict) else None
+    def template(node: Any) -> Any:
+        # float32 leaves of the flax shapes (a directory casts to them, as
+        # orbax does to the float32 variables the JAX zoo passes)
+        return {k: template(v) for k, v in node.items()} \
+            if isinstance(node, dict) \
+            else np.broadcast_to(np.zeros((), np.float32), node)
 
-    from_flax_variables(load_variables(path, skeleton(flax_shapes(module))),
+    from_flax_variables(load_variables(path, template(flax_shapes(module))),
                         module)
     return module
 

@@ -16,11 +16,11 @@ source — deploys in a pipeline string by its file. Two forms:
   ``device=`` arguments a program traced on another device carries). A
   JAX-written StableHLO artifact is refused with a ``ValueError`` naming
   its format.
-* checkpoint params (a flax ``.msgpack`` file, as the JAX package writes
-  it) + ``custom="arch=zoo://..."`` — weights produced by a training job,
-  glued to a zoo or ``.py`` architecture at load time
-  (utils/checkpoints). Orbax checkpoint directories stay refused by
-  ``utils.checkpoints``.
+* checkpoint params (a flax ``.msgpack`` file, or an orbax checkpoint
+  directory, ``.ckpt``/``.orbax`` or any other name, as the JAX package
+  writes them) + ``custom="arch=zoo://..."`` — weights produced by a
+  training job, glued to a zoo or ``.py`` architecture at load time
+  (utils/checkpoints).
 """
 
 from __future__ import annotations
@@ -148,7 +148,7 @@ def load_exported(path: str, device: Any = None) -> ModelBundle:
 
 def load_checkpointed(path: str, arch: str, device: Any = None,
                       **arch_opts: Any) -> ModelBundle:
-    """Checkpoint params (a flax ``.msgpack``) + ``arch=`` spec → ModelBundle
+    """Checkpoint params (``.msgpack`` / orbax dir) + ``arch=`` spec → ModelBundle
     on ``device`` with the trained weights swapped in.
 
     ``arch`` is any model spec the zoo resolves (``zoo://...``) or a ``.py``

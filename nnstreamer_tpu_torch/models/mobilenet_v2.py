@@ -157,7 +157,8 @@ def preprocess_uint8(x: torch.Tensor) -> torch.Tensor:
 def build_seeded(model_cls: Any, device: torch.device, seed: int,
                  checkpoint: Optional[str] = None, **kwargs: Any) -> nn.Module:
     """``model_cls(**kwargs)`` on ``device`` with the weights of the flax
-    ``.msgpack`` ``checkpoint`` (convert.restore_flax), or without one with
+    ``checkpoint``, a ``.msgpack`` or an orbax directory
+    (convert.restore_flax), or without one with
     placeholder weights synthesized from ``seed`` in the flax layout
     (zoo.synthesize_variables), both loaded through the converter."""
     with torch.device("meta"):

@@ -1,11 +1,13 @@
 """Sharded train-state checkpoints: save from a mesh, restore to a mesh —
 port of nnstreamer_tpu/parallel/checkpoint.py.
 
-The format is ``torch.distributed.checkpoint`` over the DTensor state, a
-directory of each rank's shards and one metadata file, where the JAX
-package writes an orbax directory: the port does not depend on orbax, and
-the port never reads JAX's orbax directories (a chosen divergence, pinned by
-tests/test_torch_parallel.py). As in JAX:
+``save_sharded_state`` writes ``torch.distributed.checkpoint`` over the
+DTensor state, a directory of each rank's shards and one metadata file,
+where the JAX package writes an orbax directory (a chosen divergence of the
+save side, pinned by tests/test_torch_parallel.py). ``restore_sharded_state``
+reads both: its own directories, and the orbax directories the JAX
+package's ``save_sharded_state`` writes (utils/orbax_dir.py; every rank
+reads the logical arrays and keeps its placement's part). As in JAX:
 
   * ``save_sharded_state(path, params, opt_state=None)`` writes the logical
     arrays of a (possibly sharded) state; every rank calls it;
@@ -20,7 +22,11 @@ tests/test_torch_parallel.py). As in JAX:
     against a params-only checkpoint returns ``opt_state=None``.
 
 ``params_like``/``opt_state_like`` give shapes and dtypes (their values are
-not read): trees of tensors, DTensors or numpy arrays.
+not read): trees of tensors, DTensors or numpy arrays. The port's optimizer
+state is the params tree with each leaf replaced by its optimizer's state
+(``{"0": {"trace": ...}, "1": {}}``); in an orbax directory the JAX package
+stores optax's, the moments' trees under ``opt_state/<i>/<name>/`` and one
+``count`` for all leaves, which a restore maps leaf by leaf.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ import torch
 import torch.distributed.checkpoint as dcp
 from torch.distributed.tensor import distribute_tensor
 
+from ..utils import orbax_dir
 from .mesh import mesh_device
 from .sharding import full_value, param_spec, tree_flatten
 
@@ -87,15 +94,8 @@ def _saved_keys(path: str) -> set:
     return set(reader.read_metadata().state_dict_metadata)
 
 
-def restore_sharded_state(path: str, params_like: Any, mesh: Any = None,
-                          opt_state_like: Any = None) -> Tuple[Any, Any]:
-    """(params, opt_state) read into ``mesh``'s placements (DTensors), or
-    whole as numpy without ``mesh``. ``opt_state=None`` when the caller
-    gave no template or the checkpoint holds none."""
-    abspath = os.path.abspath(path)
-    saved = _saved_keys(abspath)
-    has_opt = any(k.startswith("opt_state/") for k in saved)
-    want_opt = opt_state_like is not None and has_opt
+def _placements(params_like: Any, mesh: Any):
+    """(placements of a params path, placements of an opt_state path)."""
     p_flat, _ = tree_flatten(params_like)
     by_path = {p: _shape_dtype(leaf)[0] for p, leaf in p_flat}
 
@@ -112,6 +112,21 @@ def restore_sharded_state(path: str, params_like: Any, mesh: Any = None,
             return param_spec(p, (), mesh)
         return param_spec(owner, shape, mesh)
 
+    return param_placements, opt_placements
+
+
+def restore_sharded_state(path: str, params_like: Any, mesh: Any = None,
+                          opt_state_like: Any = None) -> Tuple[Any, Any]:
+    """(params, opt_state) read into ``mesh``'s placements (DTensors), or
+    whole as numpy without ``mesh``. ``opt_state=None`` when the caller
+    gave no template or the checkpoint holds none."""
+    abspath = os.path.abspath(path)
+    if orbax_dir.is_orbax_dir(abspath):
+        return _restore_orbax(abspath, params_like, mesh, opt_state_like)
+    saved = _saved_keys(abspath)
+    has_opt = any(k.startswith("opt_state/") for k in saved)
+    want_opt = opt_state_like is not None and has_opt
+    param_placements, opt_placements = _placements(params_like, mesh)
     state, p_rebuild = _target(params_like, "params", mesh, param_placements)
     o_rebuild = None
     if want_opt:
@@ -133,4 +148,61 @@ def restore_sharded_state(path: str, params_like: Any, mesh: Any = None,
 
     params = out("params", params_like, p_rebuild)
     opt = out("opt_state", opt_state_like, o_rebuild) if want_opt else None
+    return params, opt
+
+
+def _optax_paths(p: str) -> Tuple[str, ...]:
+    """Where an orbax directory of the JAX package keeps the port's
+    optimizer-state leaf ``p`` (``<param path>/<i>/<name>``): the port's own
+    path, optax's moment ``<i>/<name>/<param path>``, or optax's one
+    ``<i>/<name>`` (the count)."""
+    parts = p.split("/")
+    if len(parts) < 3:
+        return (p,)
+    leaf, i, name = "/".join(parts[:-2]), parts[-2], parts[-1]
+    return (p, f"{i}/{name}/{leaf}", f"{i}/{name}")
+
+
+def _restore_orbax(path: str, params_like: Any, mesh: Any,
+                   opt_state_like: Any) -> Tuple[Any, Any]:
+    """restore_sharded_state of an orbax directory: the logical arrays,
+    read whole on every rank, cast to the template's dtypes and cut to
+    this rank's placement."""
+    stored, _ = tree_flatten(orbax_dir.load(path))
+    saved = {p: leaf for p, leaf in stored}
+    param_placements, opt_placements = _placements(params_like, mesh)
+
+    def place(value: Any, like: Any, p: str, placements_of: Any) -> Any:
+        shape, dtype = _shape_dtype(like)
+        a = np.array(value)  # a copy; 0-d stays 0-d
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16) \
+            if a.dtype.name == "bfloat16" else torch.from_numpy(a)
+        if tuple(t.shape) != tuple(shape):
+            raise ValueError(f"checkpoint {path}: {p} has shape "
+                             f"{tuple(t.shape)}, the template {tuple(shape)}")
+        t = t.to(dtype)
+        if mesh is None:
+            return t.numpy()
+        return distribute_tensor(t.to(mesh_device(mesh)), mesh,
+                                 placements_of(p, shape), src_data_rank=None)
+
+    def read(prefix: str, like: Any, candidates: Any, placements_of: Any):
+        flat, rebuild = tree_flatten(like)
+        leaves, missing = [], []
+        for p, leaf in flat:
+            key = next((f"{prefix}/{c}" for c in candidates(p)
+                        if f"{prefix}/{c}" in saved), None)
+            if key is None:
+                missing.append(f"{prefix}/{p}")
+                continue
+            leaves.append(place(saved[key], leaf, p, placements_of))
+        if missing:
+            raise ValueError(f"checkpoint {path} lacks {missing[:4]} "
+                             f"({len(missing)} leaves)")
+        return rebuild(leaves)
+
+    params = read("params", params_like, lambda p: (p,), param_placements)
+    has_opt = any(p.startswith("opt_state/") for p in saved)
+    opt = read("opt_state", opt_state_like, _optax_paths, opt_placements) \
+        if opt_state_like is not None and has_opt else None
     return params, opt

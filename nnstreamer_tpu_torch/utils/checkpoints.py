@@ -1,17 +1,26 @@
-"""Model parameter (de)serialization in flax's ``.msgpack`` byte layout.
+"""Model parameter (de)serialization: flax's ``.msgpack`` bytes and orbax
+checkpoint directories.
 
 Port of nnstreamer_tpu/utils/checkpoints.py. The JAX package writes a
-parameter tree with ``flax.serialization.to_bytes``; neither flax nor
-msgpack is a dependency of the port, so this module carries its own codec of
-the subset flax emits:
+parameter tree to a path ending in ``.msgpack`` with
+``flax.serialization.to_bytes``, and to any other path as an orbax
+``StandardCheckpointer`` directory (``force=True``). Neither flax, msgpack
+nor orbax is a dependency of the port: ``.msgpack`` files go through this
+module's own codec of the subset flax emits, directories through
+utils/orbax_dir.py (its own OCDBT store and zarr arrays; zstd from the
+system's ``libzstd.so.1``, which only directories need).
+
+The ``.msgpack`` form:
 
   * the tree is flax's state dict of the value: dicts keep their insertion
     order with ``str`` keys, a list or tuple becomes ``{"0": ..., "1": ...}``;
   * an array (numpy or ``torch.Tensor``, read from its host bytes) is
     msgpack ext type 1 holding the msgpack array ``(shape, dtype name, raw C
     bytes)``; a numpy scalar is ext type 3 of the same payload. An array
-    above 2**30 bytes, which flax splits into chunks, raises (no model of
-    the repository has one);
+    above ``MAX_CHUNK_SIZE`` bytes becomes flax's chunked form, the map
+    ``{"__msgpack_chunked_array__": True, "shape": {"0": ...}, "chunks":
+    {"0": ..., ...}}`` of its flattened pieces of ``MAX_CHUNK_SIZE //
+    itemsize`` items each, and is joined again on reading;
   * the rest is plain msgpack: maps, str, bin, int, float (as float64),
     bool, nil and arrays, each in the smallest form msgpack-python picks.
 
@@ -21,7 +30,9 @@ returns numpy leaves; given a ``template`` it restores the template's
 structure as ``flax.serialization.from_state_dict`` does (every key of a
 template dict must be in the file, lists and tuples come back from their
 ``"0"``, ``"1"``, ... maps; leaves are not checked against the template).
-Orbax checkpoint directories, the JAX package's other form, are refused.
+A directory restores with orbax's semantics instead (utils/orbax_dir.py):
+the template's tree must match the checkpoint's, and each leaf is cast to
+the template leaf's dtype or Python type.
 """
 
 from __future__ import annotations
@@ -34,30 +45,31 @@ import torch
 
 #: msgpack ext type codes of flax.serialization
 EXT_NDARRAY, EXT_NPSCALAR = 1, 3
-#: flax's MAX_CHUNK_SIZE: flax writes larger arrays in chunks
+#: flax's MAX_CHUNK_SIZE: larger arrays are written in chunks of this size
 MAX_CHUNK_SIZE = 2 ** 30
-
-
-def check_path(path: str) -> None:
-    """Raise unless ``path`` is a ``.msgpack`` file (orbax is not ported)."""
-    if not str(path).endswith(".msgpack"):
-        raise ValueError(
-            f"checkpoint {path!r}: only .msgpack files are ported; orbax "
-            "checkpoint directories are not (ROADMAP.md §A item 3)")
 
 
 def save_variables(path: str, variables: Any) -> None:
     """Write ``variables`` (nested dicts, lists and tuples of tensors, numpy
-    arrays and Python scalars) to a ``.msgpack`` file as flax would."""
-    check_path(path)
+    arrays and Python scalars): a ``.msgpack`` path as flax would, any
+    other as an orbax checkpoint directory, replacing what is there."""
+    if not str(path).endswith(".msgpack"):
+        from . import orbax_dir
+
+        orbax_dir.save(path, variables)
+        return
     with open(path, "wb") as f:
         f.write(to_bytes(variables))
 
 
 def load_variables(path: str, template: Any = None) -> Any:
-    """Read a ``.msgpack`` file; restored into ``template``'s structure when
-    one is given (see the module docstring)."""
-    check_path(path)
+    """Read a ``.msgpack`` file or an orbax checkpoint directory; restored
+    into ``template``'s structure when one is given (see the module
+    docstring)."""
+    if not str(path).endswith(".msgpack"):
+        from . import orbax_dir
+
+        return orbax_dir.load(path, template)
     with open(path, "rb") as f:
         state = from_bytes(f.read())
     return state if template is None else restore(template, state)
@@ -116,10 +128,36 @@ def restore(template: Any, state: Any, path: str = "") -> Any:
     return state
 
 
+def _chunk_leaves(state: Any) -> Any:
+    """flax's ``_chunk_array_leaves_in_place``: each array above
+    ``MAX_CHUNK_SIZE`` bytes as the chunked map of its flat pieces."""
+    if isinstance(state, dict):
+        return {k: _chunk_leaves(v) for k, v in state.items()}
+    if isinstance(state, np.ndarray) and state.nbytes > MAX_CHUNK_SIZE:
+        step = max(1, int(MAX_CHUNK_SIZE / state.dtype.itemsize))
+        flat = state.reshape(-1)
+        return {"__msgpack_chunked_array__": True,
+                "shape": {str(i): d for i, d in enumerate(state.shape)},
+                "chunks": {str(i): flat[j:j + step] for i, j in
+                           enumerate(range(0, flat.size, step))}}
+    return state
+
+
+def _unchunk_leaves(state: Any) -> Any:
+    """flax's ``_unchunk_array_leaves_in_place``."""
+    if not isinstance(state, dict):
+        return state
+    if "__msgpack_chunked_array__" in state:
+        shape = tuple(state["shape"][str(i)] for i in range(len(state["shape"])))
+        chunks = [state["chunks"][str(i)] for i in range(len(state["chunks"]))]
+        return np.concatenate(chunks).reshape(shape)
+    return {k: _unchunk_leaves(v) for k, v in state.items()}
+
+
 def to_bytes(variables: Any) -> bytes:
     """``flax.serialization.to_bytes`` of ``variables``."""
     out = bytearray()
-    _pack(to_state_dict(variables), out)
+    _pack(_chunk_leaves(to_state_dict(variables)), out)
     return bytes(out)
 
 
@@ -130,7 +168,7 @@ def from_bytes(data: bytes) -> Any:
     if reader.pos != len(data):
         raise ValueError(f"{len(data) - reader.pos} trailing bytes after the "
                          "msgpack object")
-    return obj
+    return _unchunk_leaves(obj)
 
 
 # --------------------------------------------------------------------------- #
@@ -176,9 +214,6 @@ def _ndarray_payload(arr: np.ndarray) -> bytes:
     """flax ``_ndarray_to_bytes``: msgpack of (shape, dtype name, bytes)."""
     if arr.dtype.hasobject or arr.dtype.isalignedstruct:
         raise ValueError("object and structured dtypes are not serializable")
-    if arr.nbytes > MAX_CHUNK_SIZE:
-        raise ValueError(f"an array of {arr.nbytes} bytes: flax writes arrays above "
-                         f"{MAX_CHUNK_SIZE} bytes in chunks, which are not ported")
     body = bytearray()
     _pack((list(arr.shape), arr.dtype.name, arr.tobytes("C")), body)
     return bytes(body)

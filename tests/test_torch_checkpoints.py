@@ -5,8 +5,9 @@ msgpack subset ``flax.serialization`` writes (the card's machine has neither
 flax nor msgpack). Here the same trees go through both: the port's bytes
 must equal ``flax.serialization.to_bytes``'s, a file either side writes must
 load on the other bit for bit, and the JAX package's own
-``utils/checkpoints.py`` and the port's read each other's files. Orbax
-directories, the JAX package's other form, are refused by the port.
+``utils/checkpoints.py`` and the port's read each other's files, in both of
+the JAX package's forms: ``.msgpack`` files and orbax directories (the
+latter at length in tests/test_torch_orbax.py).
 """
 
 import numpy as np
@@ -110,12 +111,30 @@ def test_tensors_are_written_from_their_host_bytes():
 
 
 def test_arrays_flax_would_chunk_are_refused(monkeypatch):
-    """flax writes an array above MAX_CHUNK_SIZE bytes in chunks, which the
-    port does not (shrunk here to 64 bytes)."""
+    """flax writes an array above MAX_CHUNK_SIZE bytes in chunks
+    (``__msgpack_chunked_array__``); so does the port, byte for byte (both
+    limits shrunk here to 64 bytes), and each side joins the other's chunks
+    again. The name predates chunking: such arrays were once refused."""
     monkeypatch.setattr(ck, "MAX_CHUNK_SIZE", 64)
-    assert ck.to_bytes({"a": np.arange(16, dtype=np.float32)})
-    with pytest.raises(ValueError, match="chunks"):
-        ck.to_bytes({"a": np.arange(17, dtype=np.float32)})
+    monkeypatch.setattr(serialization, "MAX_CHUNK_SIZE", 64)
+    rng = np.random.default_rng(7)
+    tree = {"fits": np.arange(16, dtype=np.float32),
+            "a": np.arange(17, dtype=np.float32),
+            "m": {"w": rng.normal(size=(5, 9)).astype(np.float32),
+                  "h": np.asarray(jnp.linspace(-2, 2, 70).astype(jnp.bfloat16)),
+                  "b": rng.integers(0, 2, 200).astype(bool)},
+            "s": np.float64(1.5)}
+    want = serialization.to_bytes(tree)
+    got = ck.to_bytes(tree)
+    assert got == want
+    assert b"__msgpack_chunked_array__" in got
+    back = ck.from_bytes(want)
+    assert _same(back, _np(tree))
+    flax_back = serialization.msgpack_restore(got)
+    assert all(np.asarray(flax_back["m"][k]).tobytes() == tree["m"][k].tobytes()
+               for k in ("w", "h", "b"))
+    assert ck.to_bytes({"one": np.arange(64, dtype=np.int8)}) == \
+        serialization.to_bytes({"one": np.arange(64, dtype=np.int8)})
 
 
 def test_msgpack_roundtrip(tmp_path):
@@ -167,9 +186,18 @@ def test_corrupt_files_raise(tmp_path):
 
 @pytest.mark.parametrize("op", ["save", "load"])
 def test_orbax_directories_are_refused(tmp_path, op):
+    """A path without ``.msgpack`` is an orbax directory on both sides: the
+    port's ("save") restores through the JAX package's load_variables, and
+    the JAX package's ("load") loads in the port, bit for bit. The name
+    predates the port's orbax support: directories were once refused."""
     path = str(tmp_path / "ckpt")
-    with pytest.raises(ValueError, match="orbax.*ROADMAP"):
-        if op == "save":
-            ck.save_variables(path, {"w": np.ones(2)})
-        else:
-            ck.load_variables(path)
+    tree = {"n": {"b": np.ones(2, np.int8)},
+            "w": np.arange(6, dtype=np.float32).reshape(2, 3)}
+    template = {"n": {"b": np.zeros(2, np.int8)}, "w": np.zeros((2, 3), np.float32)}
+    if op == "save":
+        ck.save_variables(path, tree)
+        got = jck.load_variables(path, template)
+    else:
+        jck.save_variables(path, tree)
+        got = ck.load_variables(path)
+    assert _same(got, tree)

@@ -249,8 +249,19 @@ def test_filter_routes_model_files_as_jax(tmp_path):
         resolve_model(str(tmp_path / "m.tflite"), device=CPU)
     with pytest.raises(FileNotFoundError):
         resolve_model(str(tmp_path / "missing.jaxexport"), device=CPU)
-    with pytest.raises(ValueError, match="orbax"):
+    with pytest.raises(FileNotFoundError):  # a directory with no checkpoint
         resolve_model(str(tmp_path), {"arch": "zoo://lenet"}, device=CPU)
+    from nnstreamer_tpu.models.zoo import get_model as jget_model
+    from nnstreamer_tpu.utils.checkpoints import save_variables as jsave
+
+    ckpt = str(tmp_path / "ckpt")  # an orbax directory the JAX package wrote
+    jsave(ckpt, jget_model("zoo://lenet?seed=2").params)
+    restored = resolve_model(ckpt, {"arch": "zoo://lenet"}, device=CPU)
+    assert restored.metadata["deployed_from"] == ckpt
+    x = torch.zeros((1, 28, 28, 1), dtype=torch.uint8)
+    with torch.inference_mode():
+        assert torch.equal(restored.fn()(x), get_model("zoo://lenet?seed=2",
+                                                       device="cpu").fn()(x))
 
 
 # --------------------------------------------------------------------------- #

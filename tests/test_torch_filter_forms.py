@@ -299,14 +299,29 @@ def test_bad_info_spec_raises_like_jax(tmp_path):
                                   "/m/ckpt.orbax"])
 def test_unported_model_files_are_refused_naming_what_they_wait_for(
         path, tmp_path):
-    """What stays unported: orbax checkpoints, even with an ``arch=`` to
-    restore into. ``.tflite`` files, in either spelling, resolve to a
-    tflite bundle (models/tflite_import.py) as in the JAX filter, the
-    ``arch=`` option ignored."""
+    """Model files the JAX filter takes and the port once refused. An orbax
+    checkpoint (``ckpt.orbax``, a directory the JAX package writes) restores
+    into its ``arch=`` as in the JAX filter, and a missing one raises
+    FileNotFoundError as there. ``.tflite`` files, in either spelling,
+    resolve to a tflite bundle (models/tflite_import.py) as in the JAX
+    filter, the ``arch=`` option ignored."""
     if not path.lower().endswith(".tflite"):
-        with pytest.raises(ValueError,
-                           match="orbax checkpoint directories are not"):
+        from nnstreamer_tpu.models.zoo import get_model as jget_model
+        from nnstreamer_tpu.utils.checkpoints import save_variables as jsave
+
+        with pytest.raises(FileNotFoundError):
+            jresolve(path, {"arch": "zoo://lenet"})
+        with pytest.raises(FileNotFoundError):
             resolve_model(path, {"arch": "zoo://lenet"}, device=CPU)
+        model = str(tmp_path / path.rsplit("/", 1)[1])
+        jsave(model, jget_model("zoo://lenet?seed=4").params)
+        bundle = resolve_model(model, {"arch": "zoo://lenet"}, device=CPU)
+        want = jresolve(model, {"arch": "zoo://lenet"})
+        x = np.random.default_rng(4).integers(0, 256, (1, 28, 28, 1), dtype=np.uint8)
+        with torch.inference_mode():
+            got = bundle.fn()(torch.from_numpy(x))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want.fn()(x)),
+                                   rtol=1e-5, atol=1e-6)
         return
     from test_tflite_ops import F32, build_tflite
 

@@ -7,7 +7,10 @@ flax.
   the filter serves it through a CUDA graph, bit-equal to the zoo bundle
   on the card.
 * A checkpoint restored on the card equals the same restore on the CPU
-  moved up, leaf for leaf.
+  moved up, leaf for leaf, from a ``.msgpack`` and from an orbax directory
+  the port wrote; the committed orbax directory the JAX package wrote
+  (tests/data/orbax_lenet_seed1) restores on the card bit-equal to its
+  ``.msgpack`` twin.
 * ``quant=w8`` computed on the card gives the CPU's codes and scales bit
   for bit.
 * The legacy zip's tensors load onto the card and the torch filter's
@@ -73,6 +76,39 @@ def test_checkpoint_restored_on_the_card_equals_the_cpu(tmp_path, card):
     a, b = on_card.module.state_dict(), on_cpu.module.state_dict()
     for k in b:
         assert a[k].device == card and torch.equal(a[k].cpu(), b[k]), k
+
+
+def test_orbax_dir_restored_on_the_card_equals_the_cpu(tmp_path, card):
+    from nnstreamer_tpu_torch.models import get_model, load_checkpointed
+    from nnstreamer_tpu_torch.models.convert import to_flax_variables
+    from nnstreamer_tpu_torch.utils.checkpoints import save_variables
+
+    spec = "zoo://ssd_mobilenet_v2?width=0.35&size=64&num_classes=4&seed=1"
+    ckpt = str(tmp_path / "ssd")
+    save_variables(ckpt, to_flax_variables(get_model(spec, device="cpu").module))
+    opts = dict(width="0.35", size="64", num_classes="4")
+    on_card = load_checkpointed(ckpt, "zoo://ssd_mobilenet_v2", device=card, **opts)
+    on_cpu = load_checkpointed(ckpt, "zoo://ssd_mobilenet_v2", device="cpu", **opts)
+    a, b = on_card.module.state_dict(), on_cpu.module.state_dict()
+    for k in b:
+        assert a[k].device == card and torch.equal(a[k].cpu(), b[k]), k
+
+
+def test_jax_written_orbax_fixture_restores_on_the_card(card):
+    from nnstreamer_tpu_torch.models import load_checkpointed
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data")
+    restored = {name: load_checkpointed(os.path.join(data, name), "zoo://lenet",
+                                        device=card)
+                for name in ("orbax_lenet_seed1", "lenet_seed1.msgpack")}
+    a, b = (r.module.state_dict() for r in restored.values())
+    for k in b:
+        assert a[k].device == card and torch.equal(a[k], b[k]), k
+    x = torch.from_numpy(np.random.default_rng(8).integers(
+        0, 256, (1, 28, 28, 1), dtype=np.uint8)).to(card)
+    with torch.inference_mode():
+        outs = [r.fn()(x) for r in restored.values()]
+    assert torch.equal(outs[0], outs[1])
 
 
 def test_quant_w8_codes_on_the_card_equal_the_cpu(card):

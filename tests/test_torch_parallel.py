@@ -30,7 +30,8 @@ tests/test_torch_sharded_serving.py.
 Port-only: device and backend choice, a rank's exception and a collective
 timeout surfacing in the parent, each collective helper, the a2a causal
 mode, the trainer's ``mesh=`` and the checkpoint format (a
-``torch.distributed.checkpoint`` directory, not orbax).
+``torch.distributed.checkpoint`` directory written; the JAX package's orbax
+directories read too).
 """
 
 import os
@@ -279,20 +280,41 @@ class TestShardedCheckpoint:
 
     def test_checkpoint_format_is_torch_distributed_not_orbax(self, groups,
                                                               tmp_path):
-        """A chosen divergence: the port writes torch.distributed.checkpoint
-        directories and reads no orbax one; .msgpack paths are refused as
-        in JAX."""
+        """A chosen divergence of the save side: the port writes
+        torch.distributed.checkpoint directories; .msgpack paths are refused
+        as in JAX. The restore side also reads the orbax directory the JAX
+        package's save_sharded_state writes (here from arrays sharded over
+        its 8-device mesh, with optax's sgd state): every rank gets the
+        logical params and momentum traces bit-equal, in the placements of
+        its own train state."""
+        import optax
+        from jax.sharding import NamedSharding
+        from jax.sharding import PartitionSpec as P
+
         from nnstreamer_tpu.parallel import save_sharded_state as jsave
-        from nnstreamer_tpu_torch.parallel import restore_sharded_state
 
         w, _, _ = self._setup()
-        got = groups.run(8, tr.ckpt_partial, w, {"data": 4, "model": 2},
-                         str(tmp_path))
+        axes = {"data": 4, "model": 2}
+        got = groups.run(8, tr.ckpt_partial, w, axes, str(tmp_path))
         assert os.path.isfile(tmp_path / "full" / ".metadata")
         assert all(r["msgpack"] and ".msgpack" in r["msgpack"] for r in got)
-        jsave(str(tmp_path / "orbax"), _np(w))
-        with pytest.raises(FileNotFoundError):
-            restore_sharded_state(str(tmp_path / "orbax"), w)
+        jmesh = jmake_mesh(axes)
+        jw = {"w1": jax.device_put(jnp.asarray(w["w1"]),
+                                   NamedSharding(jmesh, P(None, "model"))),
+              "w2": jnp.asarray(w["w2"])}
+        opt = optax.sgd(1e-3, momentum=0.9)
+        grads = {k: jnp.asarray(np.random.default_rng(9).normal(size=v.shape),
+                                jnp.float32) for k, v in w.items()}
+        _, state = opt.update(grads, opt.init(jw), jw)
+        jsave(str(tmp_path / "orbax"), jw, state)
+        got = groups.run(8, tr.ckpt_from_orbax, w, axes, str(tmp_path / "orbax"))
+        for res in got:
+            assert res["placements"] == res["want_placements"]
+            assert res["trace_placements"] == res["want_trace_placements"]
+            for k in ("w1", "w2"):
+                assert np.asarray(res["params"][k]).tobytes() == w[k].tobytes()
+                assert np.asarray(res["trace"][k]).tobytes() == \
+                    np.asarray(state[0].trace[k]).tobytes()
 
 
 # -- sequence parallelism ---------------------------------------------------- #

@@ -339,10 +339,27 @@ def test_empty_mesh_is_unsharded(mesh):
 
 
 def test_orbax_checkpoint_path_is_refused(tmp_path):
-    with pytest.raises((tgraph.PipelineError, ValueError), match="orbax"):
-        train(PORT, linear_model(PORT), linear_data(2, batch=2), dims="8:2,2",
-              checkpoint_path=str(tmp_path / "orbax_ckpt"), resume=True)
-        checkpoints.load_variables(str(tmp_path / "orbax_ckpt"))
+    """checkpoint_path=<dir> (once refused, hence the name) writes an orbax
+    directory on EOS and resumes from it: the second run starts at frame 2
+    and the JAX package's load_variables reads the port's payload."""
+    from nnstreamer_tpu.utils import checkpoints as jck
+
+    ckpt = str(tmp_path / "orbax_ckpt")
+    t1, _, _ = train(PORT, linear_model(PORT), linear_data(2, batch=2), dims="8:2,2",
+                     checkpoint_path=ckpt, resume=True)
+    t2, _, _ = train(PORT, linear_model(PORT), linear_data(1, batch=2), dims="8:2,2",
+                     checkpoint_path=ckpt, resume=True)
+    assert t2._n == 3
+    saved = checkpoints.load_variables(ckpt)
+    assert saved["frames"] == 3 and saved["opt_state"][1] is None
+    import optax
+
+    w = np.zeros((8, 4), np.float32)
+    template = {"params": w, "frames": 0, "opt_state": optax.adam(1e-3).init(w)}
+    back = jck.load_variables(ckpt, template)
+    assert back["frames"] == 3
+    assert np.asarray(back["params"]).tobytes() == _leaves_bytes(t2.params)[0]
+    assert len(t1.losses) == 2
 
 
 def test_plain_checkpoint_stays_servable(tmp_path):

@@ -494,6 +494,21 @@ def ckpt_partial(w, axes, path):
     return out
 
 
+def ckpt_from_orbax(w, axes, path):
+    """Restore the JAX package's orbax directory at ``path`` (params and
+    optax's sgd state) onto this mesh with the port's own train state as
+    the template."""
+    from nnstreamer_tpu_torch.parallel import restore_sharded_state
+
+    mesh, _, params, opt = _setup_mlp(w, axes)
+    pr, osr = restore_sharded_state(path, params, mesh=mesh, opt_state_like=opt)
+    return {"params": _full(pr), "trace": {k: _full(v["0"]["trace"])
+                                           for k, v in osr.items()},
+            "placements": _placements(pr), "want_placements": _placements(params),
+            "trace_placements": {k: _placements(v["0"]) for k, v in osr.items()},
+            "want_trace_placements": {k: _placements(v["0"]) for k, v in opt.items()}}
+
+
 # -- sequence parallelism ---------------------------------------------------- #
 
 def sp_attention(q, k, v, axes, mode, causal):
