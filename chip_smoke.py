@@ -51,7 +51,8 @@ Phases (any failure exits non-zero before the result lines are printed):
      then gpu_smoke (utils/probes.py): every item passes, and the CUDA
      normalize_u8 and quantize_affine launch;
   9. LM serving at the bench LM's full width (V 8192, d_model 1024, 16
-     heads, 8 layers, d_ff 4096; seeded random weights): ``LMEngine`` with
+     heads, d_ff 4096) and 4 of its 8 layers (LM_DIMS; seeded random
+     weights): ``LMEngine`` with
      max_len 1024, 8 slots, chunk 16 serves the bench's 24-request greedy
      mix, over float32 params and over their w8a8 form; tokens/s, prefills,
      decode steps, waste and launches are printed, ``dequant_gelu_requant``
@@ -268,7 +269,7 @@ Phases (any failure exits non-zero before the result lines are printed):
      nnstreamer_tpu_torch/parallel/launch.py on the card: B5 timed at the
      shapes the ring and a2a prefill launch (residual float32 at a shard
      pair, full and causal; normalised float32 at the a2a shape); (a) the
-     LM serving mix of phase 9 (over gloo its first 12 requests,
+     LM serving mix of phase 9 (over gloo its first 10 requests,
      PAR_GLOO_REQUESTS) through ``TPLMEngine`` at model 2 and 4
      (gloo, the ranks sharing the card, eager) and model 1 (NCCL, CUDA
      graphs and eagerly), float32 and w8a8, against the single-card
@@ -372,6 +373,24 @@ Phases (any failure exits non-zero before the result lines are printed):
      ``Session.run`` and no card memory taken by TensorFlow, else the
      ``ImportError`` naming it from ``open()``; the load seconds, frames/s
      and the phase's seconds printed;
+ 19e. the examples (``run_examples``, after the parallel layer): each of
+     ``examples/<name>_torch.py`` by its ``main`` on the card at its own
+     defaults (classify_stream: 100 random 224x224 frames through
+     MobileNet-v2 width 1.0; adaptive_batch_serving: 400 frames at batch
+     16; deploy_serve, remote_offload, mqtt_fanout, online_finetune,
+     serve_lm with its w8a8 engine, streaming_generate's 24 tokens through
+     the repo loop), what each prints checked (counts, labels, tokens,
+     ``served 8 frames``), and its seconds printed; serve_reference_models
+     on the reference's file names built here (the quantized MobileNet-v2
+     224 ``.tflite``, the legacy TorchScript LeNet): the label and digit
+     equal to the CPU's, the ``.pb`` block skipped (no TensorFlow on this
+     machine); the kernels' launches over the nine (``dequant_gelu_requant``
+     must launch); then the repairs: the repo accumulator loop through
+     ``tensor_mux`` rerun EXAMPLES_LOOP_RUNS times with no stall,
+     ``tensor_batch``'s health probe read by the watchdog,
+     ``SingleShot(accelerator="true:gpu")`` on the card, and
+     ``core/data.py``'s casts (in range equal to the CPU's); the phase's
+     seconds;
  20. print the card's name and power limit again, the launches of each path
      (every count set to 0 just before the path and read just after), the
      graphs of each path, the stream paths' rates, the ``kernels`` JSON line,
@@ -474,8 +493,12 @@ CLS_FRAMES = 8
 SEG_FRAMES = 64
 SEG_BATCH, SEG_BATCH_FRAMES = 4, 30  # 7 full groups + 1 padded
 POSE_FRAMES = 16
-#: the bench LM (bench.py _LM_DIMS): vocab, d_model, heads, layers
-LM_DIMS = (8192, 1024, 16, 8)
+#: the bench LM (bench.py _LM_DIMS): vocab, d_model, heads, layers; its
+#: full width, and 4 of its 8 layers (a depth cut that keeps the script
+#: within its time on the slower machines: the same script ran 982-1227 s
+#: by machine at 8; every path of this LM here runs at this depth, the
+#: fleet's, the obs phases' and the parallel phase's too)
+LM_DIMS = (8192, 1024, 16, 4)
 LM_MAX_LEN, LM_SLOTS, LM_CHUNK = 1024, 8, 16
 #: bench.py's serving mix: prompt lengths and generation budgets cycle
 LM_REQUESTS, LM_PROMPTS, LM_GENS = 24, (64, 192, 384, 512), (32, 64, 96, 128)
@@ -1584,6 +1607,8 @@ def _mode(eager: bool):
 GRAPH_PATHS = {}
 #: the stream paths' rates, round trips and host copies
 LOOP_STATS = {}
+#: seconds by phase of main, in order (``_PhaseClock``)
+PHASE_SECONDS = {}
 
 
 def _record_graphs(path: str, distinct: int, unit: str, rate: float,
@@ -7189,10 +7214,13 @@ PAR_TIMEOUT = 120.0
 #: where the ranks run (a rehearsal on the CPU sets "cpu" and small sizes)
 PAR_DEVICE = "cuda"
 PAR_FIRST_LOGITS = 4     # requests whose first-token logits are compared
-#: the gloo groups (model 2 and 4) serve the first 12 of the mix's 24
-#: requests (cut to keep the script's time with the sharded phase; the
-#: gloo mix runs 25-113 tokens/s on one H100)
-PAR_GLOO_REQUESTS = 12
+#: the gloo groups (model 2 and 4) serve the first 10 of the mix's 24
+#: requests (cut to keep the script's time; the gloo mix runs 16-113
+#: tokens/s on one H100): all LM_SLOTS (8) slots filled, and requests 8 and
+#: 9 admitted into the two slots the 32-token requests free mid-decode, so
+#: a slot is reset and reused across the ranks; the longest request (128
+#: tokens) still sets the decode steps
+PAR_GLOO_REQUESTS = 10
 PAR_CLOCK_STEPS = 5      # decode steps timed with COLLECTIVE_CLOCK on
 #: sequence-parallel prefill: one 1024-token prompt over sp 4, every mode
 SP_T, SP_WORLD, SP_DECODE = 1024, 4, 16
@@ -7713,6 +7741,9 @@ def run_parallel(counters) -> dict:
             t0 = time.perf_counter()
             with groups.pop(world) as g:
                 n_req = PAR_GLOO_REQUESTS if world > 1 else cfg["requests"]
+                if n_req <= cfg["slots"]:
+                    raise AssertionError(f"model {world}: {n_req} requests fill "
+                                         f"{cfg['slots']} slots without reusing one")
                 wcfg = dict(cfg, requests=n_req)
                 w_tokens = sum(gen for _, gen in requests[:n_req])
                 for quant in ("float32", "w8a8"):
@@ -9676,6 +9707,294 @@ def write_mobilenet_v2_quant_tflite(path: str, size: int = 224, width: float = 1
     return {"bytes": net.write(path)}
 
 
+#: the examples phase: ``examples/<name>_torch.py``, each by its ``main``
+#: at its own defaults on the card, in this order
+EXAMPLES_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "examples")
+EXAMPLES = ("classify_stream", "adaptive_batch_serving", "deploy_serve",
+            "remote_offload", "mqtt_fanout", "online_finetune", "serve_lm",
+            "streaming_generate", "serve_reference_models")
+#: reruns of the repaired repo loop (an accumulator through tensor_mux)
+EXAMPLES_LOOP_RUNS = 20
+
+
+def _example_module(name: str):
+    import importlib
+
+    if EXAMPLES_DIR not in sys.path:
+        sys.path.insert(0, EXAMPLES_DIR)
+    return importlib.import_module(f"{name}_torch")
+
+
+def _example(name: str, argv=()) -> tuple:
+    """``examples/<name>_torch.py``'s ``main(argv)`` in this process (its
+    default device: the card); returns what it printed and its seconds."""
+    import io
+
+    mod = _example_module(name)
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = mod.main(list(argv))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    if rc not in (None, 0):
+        raise AssertionError(f"{name}_torch: main returned {rc}")
+    return out.getvalue(), dt
+
+
+def _lines(text: str, prefix: str) -> list:
+    return [ln for ln in text.splitlines() if ln.startswith(prefix)]
+
+
+def _check_example(name: str, text: str) -> str:
+    """What ``name`` printed, checked; returns its summary line."""
+    import ast
+    import re
+
+    def need(ok: bool, what: str) -> None:
+        if not ok:
+            raise AssertionError(f"{name}_torch: {what}; it printed:\n{text}")
+
+    if name == "classify_stream":
+        frames = _lines(text, "frame ")
+        need(frames and all(re.fullmatch(r"frame \d+: class\d+", ln)
+                            for ln in frames), "no frame label lines")
+        row = _lines(text, "tensor_filter")  # its name counts every filter made
+        need(len(row) == 1 and int(row[0].split()[1]) == 100,
+             "the filter saw != 100 frames")
+        return _lines(text, "filter latency:")[0]
+    if name == "adaptive_batch_serving":
+        line = _lines(text, "400 per-frame results in ")
+        need(line and "batch=16, budget=50.0ms" in line[0], "not 400 results")
+        return line[0]
+    if name == "deploy_serve":
+        line = _lines(text, "served 8 frames; first label: class")
+        need(line and _lines(text, "exported "), "not 8 frames served")
+        return line[0]
+    if name == "remote_offload":
+        frames = _lines(text, "frame ")
+        need(len(frames) == 10 and all("nan" not in ln and "inf" not in ln
+                                       for ln in frames), "not 10 finite logits")
+        return f"{len(frames)} frames behind the hop; {frames[-1]}"
+    if name == "mqtt_fanout":
+        line = _lines(text, "recorder got 10, detector got 10")
+        need(line, "a subscriber missed frames")
+        return line[0]
+    if name == "online_finetune":
+        line = _lines(text, "loss: ")
+        m = re.fullmatch(r"loss: ([\d.]+) → ([\d.]+) after 50 online steps",
+                         line[0] if line else "")
+        need(m and float(m.group(2)) < float(m.group(1)), "the loss did not fall")
+        need(_lines(text, "trained params ready for filter.update_model(): (16, 4)"),
+             "no trained params")
+        return line[0]
+    if name == "serve_lm":
+        toks = {ln.split("->")[0].strip(): ast.literal_eval(ln.split("->")[1].strip())
+                for ln in text.splitlines() if "->" in ln}
+        need(set(toks) == {"greedy", "sampled t=1.0", "nucleus p=0.9", "top-k 16",
+                           "w8a8 int8"}, "missing requests")
+        need(all(len(v) == 16 for k, v in toks.items() if k != "w8a8 int8")
+             and len(toks["w8a8 int8"]) == 12
+             and all(0 <= t < 128 for v in toks.values() for t in v),
+             "wrong token counts or ids")
+        line = _lines(text, "speculative: identical greedy output")
+        need(line, "no speculative line")
+        return line[0]
+    if name == "streaming_generate":
+        m = re.fullmatch(r"prompt=\[1, 7, 3\] generated=(\[.*\])", text.strip())
+        need(m and len(ast.literal_eval(m.group(1))) == 24, "not 24 tokens")
+        return text.strip()
+    raise ValueError(name)
+
+
+def _reference_files(tmp: str) -> tuple:
+    """The reference's model directory layout, the two files the card's
+    machine can serve (no TensorFlow there) built under their names: the
+    quantized MobileNet-v2 224 .tflite and the legacy TorchScript LeNet,
+    with a seeded orange.png, 9.png and a 1001-line labels file."""
+    from PIL import Image
+
+    models, data = os.path.join(tmp, "models"), os.path.join(tmp, "data")
+    os.makedirs(models)
+    os.makedirs(data)
+    rng = np.random.default_rng(25)
+    write_mobilenet_v2_quant_tflite(
+        os.path.join(models, "mobilenet_v2_1.0_224_quant.tflite"))
+    Image.fromarray(rng.integers(0, 256, (224, 224, 3), dtype=np.uint8),
+                    "RGB").save(os.path.join(data, "orange.png"))
+    write_legacy_lenet(os.path.join(models, "pytorch_lenet5.pt"), seed=0)
+    Image.fromarray(rng.integers(0, 256, (28, 28), dtype=np.uint8),
+                    "L").save(os.path.join(data, "9.png"))
+    labels = os.path.join(tmp, "labels.txt")
+    with open(labels, "w") as f:
+        f.write("\n".join(f"label{i}" for i in range(1001)))
+    return models, data, labels
+
+
+def _accumulator_loop(frames: list) -> list:
+    """The repo accumulator loop on the card: ``appsrc → tensor_mux ←
+    tensor_reposrc → tensor_filter (x + h) → tee → [queue → sink], [queue
+    → tensor_reposink]``; returns the sink's first values."""
+    from nnstreamer_tpu_torch.core.types import Caps, TensorsConfig, TensorsInfo
+    from nnstreamer_tpu_torch.elements.repo import reset_repo
+    from nnstreamer_tpu_torch.graph import Pipeline
+
+    reset_repo()
+    p = Pipeline("accumulator", device="cuda")
+    src = p.add_new("appsrc", caps=Caps.tensors(TensorsConfig(
+        TensorsInfo.from_strings("2", "float32"), 30)), data=frames, framerate=30)
+    state = p.add_new("tensor_reposrc", slot_index=6, dims="2", types="float32")
+    mux = p.add_new("tensor_mux", sync_mode="nosync")
+    filt = p.add_new("tensor_filter", model=lambda x, h: x + h)
+    tee = p.add_new("tee")
+    q1, q2 = p.add_new("queue"), p.add_new("queue")
+    rsink = p.add_new("tensor_reposink", slot_index=6)
+    sink = p.add_new("tensor_sink", store=True)
+    Pipeline.link(src, mux)
+    Pipeline.link(state, mux)
+    Pipeline.link(mux, filt, tee)
+    Pipeline.link(tee, q1, sink)
+    Pipeline.link(tee, q2, rsink)
+    p.start()
+    try:
+        deadline = time.monotonic() + 60
+        while sink.num_buffers < len(frames) and time.monotonic() < deadline:
+            time.sleep(0.002)
+    finally:
+        p.stop()
+    return [float(b.memories[0].host()[0]) for b in sink.buffers]
+
+
+def _check_repairs() -> str:
+    """The repaired N-input EOS order (the accumulator loop rerun
+    EXAMPLES_LOOP_RUNS times, none may stall), ``tensor_batch``'s health
+    probe and ``SingleShot(accelerator=)`` on the card, and
+    ``core/data.py``'s casts there (in range equal to the CPU's, out of
+    range printed); returns the summary line."""
+    from nnstreamer_tpu_torch.core.data import typecast_array
+    from nnstreamer_tpu_torch.core.types import TensorDType
+    from nnstreamer_tpu_torch.graph import Pipeline
+    from nnstreamer_tpu_torch.obs import health
+    from nnstreamer_tpu_torch.single import SingleShot
+
+    frames = [np.full(2, 1, np.float32)] * 3
+    stalls = 0
+    for _ in range(EXAMPLES_LOOP_RUNS):
+        got = _accumulator_loop(frames)
+        if got != [1.0, 2.0, 3.0]:
+            stalls += 1
+            print(f"  accumulator loop: {got}", flush=True)
+    if stalls:
+        raise AssertionError(f"repaired repo loop: {stalls} of {EXAMPLES_LOOP_RUNS} "
+                             "runs stalled or went wrong")
+
+    was = health.registry().is_enabled
+    health.enable(interval_s=60.0)
+    try:
+        p = Pipeline("batch-probe", device="cuda")
+        src = p.add_new("videotestsrc", width=32, height=32, num_buffers=8)
+        conv = p.add_new("tensor_converter")
+        bat = p.add_new("tensor_batch", max_batch=4)
+        filt = p.add_new("tensor_filter", model=lambda x: x.float().mean((1, 2, 3)))
+        unb = p.add_new("tensor_unbatch")
+        sink = p.add_new("tensor_sink", store=True)
+        Pipeline.link(src, conv, bat, filt, unb, sink)
+        p.run(timeout=120)
+        comps = {c["name"]: c for c in health.snapshot()["components"]}
+        probe = comps[f"element:{p.name}:{bat.name}"]["probe"]
+    finally:
+        if not was:
+            health.disable()
+    if bat.health_probe() != {"depth": 0, "bound": 16} or probe["bound"] != 16 \
+            or sink.num_buffers != 8:
+        raise AssertionError(f"tensor_batch probe {bat.health_probe()}, watchdog "
+                             f"{probe}, {sink.num_buffers} frames")
+
+    x = np.arange(6, dtype=np.float32).reshape(2, 3)
+    with SingleShot(model=lambda t: t * 2 + 1, accelerator="true:gpu",
+                    timeout_s=5.0) as single:
+        y, = single.invoke(x)
+    if single.device.type != "cuda" or y.device.type != "cuda" \
+            or not np.array_equal(y.cpu().numpy(), x * 2 + 1):
+        raise AssertionError(f"SingleShot(accelerator='true:gpu'): {single.device}, "
+                             f"{y.device}")
+
+    tame = torch.tensor([3.7, -3.7, 127.9, -128.0, 0.5, -0.0], dtype=torch.float64)
+    for dt in ("int8", "int16", "int32", "int64", "float16", "bfloat16"):
+        got = typecast_array(tame.cuda(), TensorDType(dt)).cpu()
+        if not torch.equal(got, typecast_array(tame, TensorDType(dt))):
+            raise AssertionError(f"typecast_array to {dt} on the card: {got.tolist()}")
+    wild = torch.tensor([300.5, -1.0, 1e10, -1e10, float("nan"), 2.0 ** 32 + 5],
+                        dtype=torch.float64)
+    casts = {dt: (typecast_array(wild.cuda(), TensorDType(dt)).cpu().tolist(),
+                  typecast_array(wild, TensorDType(dt)).tolist())
+             for dt in ("uint8", "int8", "int32", "uint32")}
+    print(f"  in-range casts equal the CPU's; out-of-range float64 casts "
+          f"{wild.tolist()} (card, CPU; no defined C result): {casts}", flush=True)
+    return (f"repaired repo loop {EXAMPLES_LOOP_RUNS} runs, 0 stalls; tensor_batch "
+            f"probe {probe['depth']}/{probe['bound']}; SingleShot(accelerator="
+            f"'true:gpu') on {single.device}")
+
+
+def run_examples(counters) -> dict:
+    """The examples phase: the nine ``examples/*_torch.py`` on the card at
+    their defaults (serve_reference_models on the two files built here;
+    its ``.pb`` block needs TensorFlow, which this machine lacks), then the
+    repairs. Returns the kernels' launches over the nine scripts."""
+    t0 = time.perf_counter()
+    counters.reset()
+    for name in EXAMPLES[:-1]:
+        text, dt = _example(name)
+        print(f"example {name}_torch: {dt:.3f} s; {_check_example(name, text)}",
+              flush=True)
+        _release()
+    with tempfile.TemporaryDirectory() as tmp:
+        t1 = time.perf_counter()
+        models, data, labels = _reference_files(tmp)
+        built = time.perf_counter() - t1
+        ref = _example_module("serve_reference_models")
+        blocks = ("tflite", "pytorch")
+        kw = {"blocks": blocks, "models": models, "data": data, "labels": labels}
+        t1 = time.perf_counter()
+        found = ref.serve_reference(**kw)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t1
+        on_cpu = ref.serve_reference(device="cpu", **kw)
+    if set(found) != set(blocks) or found != on_cpu:
+        raise AssertionError(f"serve_reference_models_torch: card {found}, CPU {on_cpu}")
+    print(f"example serve_reference_models_torch: {dt:.3f} s (files built in "
+          f"{built:.3f} s); tflite {found['tflite']!r}, pytorch digit "
+          f"{found['pytorch']}, equal to the CPU's; the framework=tensorflow "
+          "block skipped: it needs the tensorflow package, which this machine "
+          "lacks", flush=True)
+    launches = counters.read()
+    if not launches.get("dequant_gelu_requant"):
+        raise AssertionError(f"examples: serve_lm's w8a8 engine launched no "
+                             f"dequant_gelu_requant ({launches})")
+    _release()
+    t1 = time.perf_counter()
+    print(f"repairs: {_check_repairs()}; {time.perf_counter() - t1:.3f} s", flush=True)
+    _release()
+    print(f"examples phase: {time.perf_counter() - t0:.3f} s; launches {launches}",
+          flush=True)
+    return launches
+
+
+class _PhaseClock:
+    """Seconds since the last mark, kept in PHASE_SECONDS under each
+    mark's name and printed with the script's seconds so far."""
+
+    def __init__(self) -> None:
+        self.start = self.last = time.perf_counter()
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        PHASE_SECONDS[name] = round(now - self.last, 3)
+        print(f"phase seconds: {name} {now - self.last:.3f} s (script "
+              f"{now - self.start:.3f} s)", flush=True)
+        self.last = now
+
+
 def _card() -> str:
     """The card's name and power limit, as nvidia-smi prints them."""
     smi = subprocess.run(
@@ -9714,6 +10033,7 @@ def main() -> int:
     print(f"python {sys.version.split()[0]} torch {torch.__version__} "
           f"cuda {torch.version.cuda}", flush=True)
 
+    clock = _PhaseClock()
     t0 = time.perf_counter()
     logs = build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.3f} s "
@@ -9741,6 +10061,7 @@ def main() -> int:
     module = {"flash_attention": fa, "normalize_u8": pp, "quantize_affine": pp}
     counters = _Counters({k["name"]: getattr(module.get(k["name"], ep), k["name"])
                           for k in kernels})
+    clock.mark("build and kernel checks")
 
     with tempfile.TemporaryDirectory() as tmp:
         launches = run_detection(ep, tmp)
@@ -9751,17 +10072,22 @@ def main() -> int:
                      "deeplab batched": {"segment_colorize": run_batched_segmentation(ep)}})
     run_pose()
     by_phase["gpu_smoke"] = run_gpu_smoke(counters)
+    clock.mark("vision pipelines")
     params = _lm_params()
     by_phase["lm serving float32"] = run_lm_serving(params, "float32", counters)
     by_phase["lm serving w8a8"] = run_lm_serving(quantize_lm_params(params), "w8a8",
                                                  counters)
     by_phase["lm paged float32"] = run_lm_paged(params, "float32", counters)
     by_phase["lm paged w8a8"] = run_lm_paged(quantize_lm_params(params), "w8a8", counters)
+    clock.mark("lm serving and paged")
     with tempfile.TemporaryDirectory() as tmp:
         by_phase["multi-tenant"] = run_multitenant(params, counters, tmp)
+    clock.mark("multi-tenant")
     qparams = quantize_lm_params(params)
     by_phase.update(run_obs(qparams, counters))
+    clock.mark("obs")
     by_phase.update(run_obs_layers(qparams, counters))
+    clock.mark("obs layers")
     del qparams
     _release()
     del params
@@ -9769,8 +10095,11 @@ def main() -> int:
     by_phase["lm flash prefill float32"] = run_flash_prefill(counters, torch.float32)
     run_filter_options()
     by_phase["repo_lstm"] = run_repo_lstm(counters)
+    clock.mark("flash prefill, filter options, repo_lstm")
     by_phase.update(run_query(counters))
+    clock.mark("query")
     by_phase.update(run_fleet(counters))
+    clock.mark("fleet")
     by_phase["crop_bucketed"] = run_crop_bucketed(counters)
     by_phase["stream_elements"] = run_stream_elements(counters)
     check_media_elements()
@@ -9787,6 +10116,7 @@ def main() -> int:
     counters.reset()
     run_train()
     by_phase["train"] = counters.read()
+    clock.mark("crop, stream elements, media, interop, custom filters, train")
     _release()
     counters.reset()
     with tempfile.TemporaryDirectory() as tmp:
@@ -9794,14 +10124,20 @@ def main() -> int:
     run_stream_pipeline()
     by_phase["convnets, stream transformer pipeline"] = counters.read()
     _release()
+    clock.mark("convnets, stream transformer pipeline")
     by_phase["model files: restored ssd"] = run_model_files(counters)
     tflite = run_tflite(counters)
     by_phase["tflite ssd"] = tflite["launches"]
+    clock.mark("model files, tflite")
     by_phase.update(run_parallel(counters))
+    clock.mark("parallel")
+    by_phase["examples"] = run_examples(counters)
+    clock.mark("examples")
     print(f"card, beside the numbers below: {_card()}", flush=True)
     print(f"launches by path: {json.dumps(by_phase)}", flush=True)
     print(f"graphs by path: {json.dumps(GRAPH_PATHS)}", flush=True)
     print(f"stream paths: {json.dumps(LOOP_STATS)}", flush=True)
+    print(f"seconds by phase: {json.dumps(PHASE_SECONDS)}", flush=True)
     for k in kernels:
         k["launches"] = sum(phase.get(k["name"], 0) for phase in by_phase.values())
 

@@ -59,9 +59,13 @@ class AcceleratorSpec:
         preference = tuple(p.strip() for p in prefs.split(",") if p.strip())
         return cls(enabled, preference)
 
-    def pick_device(self) -> torch.device:
+    def pick_device(self, device: Any = None) -> torch.device:
         """Resolve to a torch.device honoring preference order; with no
-        usable preference the device is cuda (raising without a card)."""
+        usable preference the device is cuda (raising without a card).
+        An explicit ``device`` (the filter's and SingleShot's ``device=``)
+        wins over the spec."""
+        if device is not None:
+            return resolve_device(device)
         if not self.enabled:
             return resolve_device("cpu")
         for plat in self.preference:

@@ -38,7 +38,7 @@ from __future__ import annotations
 import collections
 import threading
 import time
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -133,6 +133,13 @@ class TensorBatch(Element):
     def chain(self, pad: Pad, buf: Buffer) -> Optional[FlowReturn]:
         self._enqueue(buf)
         return FlowReturn.OK
+
+    def health_probe(self) -> Dict[str, int]:
+        """Pending-buffer occupancy against the backpressure bound for
+        the health watchdog's queue-dwell rule (obs/health.py) — an
+        unlocked monitoring sample like the queue element's."""
+        return {"depth": len(self._dq),
+                "bound": int(self.max_pending or 4 * self.max_batch)}
 
     def handle_event(self, pad: Pad, event: Event) -> None:
         self._enqueue(event)

@@ -26,7 +26,7 @@ import time
 from typing import Any, List, Optional, Sequence
 
 from ..core.buffer import Buffer, TensorMemory
-from ..core.hw import AcceleratorSpec, resolve_device
+from ..core.hw import AcceleratorSpec
 from ..core.log import logger
 from ..core.types import Caps, TensorFormat, TensorsConfig, TensorsInfo
 from ..filters.base import (
@@ -175,8 +175,7 @@ class TensorFilter(Element):
                 "not implement NCHW layout conversion (the torch-cuda "
                 "backend does)")
         accelerator = AcceleratorSpec.parse(self.accelerator)
-        device = resolve_device(self.device) if self.device is not None \
-            else accelerator.pick_device()
+        device = accelerator.pick_device(self.device)
         props = FilterProps(
             model=self.model,
             custom=self.custom,

@@ -61,9 +61,7 @@ class TensorFlowFilter(FilterFramework):
         import tensorflow as tf  # noqa: PLC0415 — heavy, open()-time only
 
         _hide_gpus(tf)
-        self._device = torch.device(
-            props.device if props.device is not None
-            else props.accelerator.pick_device())
+        self._device = props.accelerator.pick_device(props.device)
         path = props.model_path
         if not path or not os.path.isfile(path):
             raise FileNotFoundError(f"tensorflow: model file {path!r}")

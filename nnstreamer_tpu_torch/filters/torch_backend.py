@@ -57,8 +57,7 @@ class TorchFilter(FilterFramework):
 
     def open(self, props: FilterProps) -> None:
         super().open(props)
-        self._device = props.device if props.device is not None \
-            else props.accelerator.pick_device()
+        self._device = props.accelerator.pick_device(props.device)
         model = props.model
         if isinstance(model, str):
             if not os.path.isfile(model):

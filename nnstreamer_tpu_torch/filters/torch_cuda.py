@@ -382,9 +382,7 @@ class TorchCudaFilter(FilterFramework):
                  self._bundle.name, self._device)
 
     def _home_device(self) -> Any:
-        props = self.props
-        return props.device if props.device is not None \
-            else props.accelerator.pick_device()
+        return self.props.accelerator.pick_device(self.props.device)
 
     def _refresh_device(self) -> None:
         """The input placement: a sharded bundle's ``input_sharding`` (the

@@ -10,9 +10,14 @@ Documentation/component-description.md:108-124).
 
 Outputs are the backend's tensors, resident on ``device`` (``.cpu()`` to
 fetch). ``device`` is cuda unless the caller asks for another; without a
-card the default raises. Each invoke goes through the filter, so on the
-card the first call of an input signature is captured into a CUDA graph
-and later calls replay it (core/graphs.py).
+card the default raises. ``accelerator=`` takes the filter property's
+spelling ("true:gpu", "false", "true:cpu") and resolves as the filter
+element resolves it: ``AcceleratorSpec.pick_device``, where an explicit
+``device=`` wins over it. ``timeout_s`` is accepted and kept
+as ``self.timeout_s``; like the JAX package's, nothing reads it. Each
+invoke goes through the filter, so on the card the first call of an
+input signature is captured into a CUDA graph and later calls replay it
+(core/graphs.py).
 """
 
 from __future__ import annotations
@@ -21,16 +26,17 @@ import time
 from typing import Any, List, Optional
 
 from .core.buffer import TensorMemory
-from .core.hw import resolve_device
+from .core.hw import AcceleratorSpec
 from .core.types import TensorsInfo
 from .filters.base import FilterProps, InvokeStats, detect_framework, find_filter
 
 
 class SingleShot:
     def __init__(self, model: Any = None, framework: str = "auto",
-                 custom: str = "", device: Any = "cuda",
+                 custom: str = "", device: Any = None,
                  input_info: Optional[TensorsInfo] = None,
-                 output_info: Optional[TensorsInfo] = None):
+                 output_info: Optional[TensorsInfo] = None,
+                 accelerator: str = "", timeout_s: float = 0.0):
         fw_name = framework
         if fw_name in ("auto", "", None):
             fw_name = detect_framework(model)
@@ -41,8 +47,11 @@ class SingleShot:
             raise ValueError(f"unknown framework {fw_name!r}")
         self.framework = fw_name
         self.fw = cls()
+        accel = AcceleratorSpec.parse(accelerator)
+        self.device = accel.pick_device(device)
+        self.timeout_s = timeout_s
         self.fw.open(FilterProps(
-            model=model, custom=custom, device=resolve_device(device),
+            model=model, custom=custom, accelerator=accel, device=self.device,
             input_info=input_info, output_info=output_info))
         self.stats = InvokeStats()
 
