@@ -363,8 +363,8 @@ Phases (any failure exits non-zero before the result lines are printed):
      post-process on the card equal to the same file on the CPU in count
      and classes (boxes and scores within rtol 1e-4 / atol 1e-5), the two
      kernels inside the op equal to their plain versions on the op's own
-     inputs, ``nms_sweep`` at K 1917 timed beside its bound and its plain
-     version; (b) MobileNet-v2 224 uint8 in the reference's quant layout
+     inputs, ``nms_sweep`` at K 1917 timed beside its bound, its plain
+     version and the phase split at K 1917; (b) MobileNet-v2 224 uint8 in the reference's quant layout
      through ``framework=tensorflow-lite`` and image_labeling over 32
      frames, graphs == eager, 4 frames' codes on the card against the CPU's
      (labels equal, at most one step on at most 2%); (c)
@@ -451,11 +451,12 @@ normalised and residual, ragged L, D 1 to 512, strided views; each case
 printed with its route: ``wgmma`` for bf16 at D 64 and 128 with L 70, 200
 and 1000, the LM's split-head views uncopied and a view off 16-byte
 alignment copied, ``tf32x3`` for the rest, float32 always, D 136 to 512 in
-128-column chunks), ``nms_sweep`` bit for bit at K 1 to 2048 (past the
-shared-memory relation at K 1025 and 2048) and on IoUs that sit exactly on
-or one float above the threshold, with the launch floor (a one-element
-fill replayed as the kernel is) beside its bound and the phase split of
-``scripts/nms_phase_split.py``, and ``dequant_gelu_requant`` (R 1,
+128-column chunks), ``nms_sweep`` bit for bit at K 1 to 4097 (past the
+shared-memory relation at K 1025, 1917, 2048 and 4097) and on IoUs that sit
+exactly on or one float above the threshold, with the launch floor (a
+one-element fill replayed as the kernel is) beside its bound and the phase
+split of ``scripts/nms_phase_split.py`` at K 256, 1917 and 2048, and
+``dequant_gelu_requant`` (R 1,
 3, 8, 33, 132 and 512 by F 4096, 1000, 11 and 70000, float32 and bf16, a
 zero row each; timed at R 8 and 512) against their plain versions, and one w8a8 MLP
 at the serving shape bit for bit against its composition with the plain
@@ -816,6 +817,14 @@ def _nms_edge_boxes(dev) -> list:
     return [torch.tensor(c, dtype=torch.float32, device=dev) for c in cols]
 
 
+def _nms_split_text(k: int) -> str:
+    """The phase split's numbers at K, as ``check_nms_sweep`` read them."""
+    got = NMS_SPLIT[k]
+    return (", ".join(f"{name} {us:.3f} us" for name, us in got["phases_us"].items())
+            + f"; sweep {got['sweep_us_a_chunk']:.4f} us a chunk of {got['chunks']}"
+            " (the phase split's random boxes)")
+
+
 def check_nms_sweep(ep, dev, rng) -> dict:
     def run_both(cols, iou, thr, name):
         got = ep.nms_sweep(*cols, iou_threshold=iou, threshold=thr)
@@ -824,9 +833,10 @@ def check_nms_sweep(ep, dev, rng) -> dict:
         if not torch.equal(got, want):
             raise AssertionError(f"nms_sweep differs from plain: {name}")
 
-    # K 1000 and 2048: past the earlier one-block kernel's limit (512) and
-    # past the shared-memory relation (1024)
-    for k in (1, 7, 33, 64, 256, 300, 512, 1000, 1024, 1025, 2048):
+    # K 1000 and up: past the earlier one-block kernel's limit (512); past
+    # the shared-memory relation (1024) the global route, at the TFLite
+    # SSD's 1917 and at 4097, five tiles a row
+    for k in (1, 7, 33, 64, 256, 300, 512, 1000, 1024, 1025, 1917, 2048, 4097):
         run_both(_random_boxes(rng, k, dev), 0.5, 0.5, f"K={k}")
         run_both(_random_boxes(rng, k, dev), 0.1, 0.2, f"K={k} IoU 0.1")
     cols = _random_boxes(rng, 256, dev)
@@ -859,16 +869,22 @@ def check_nms_sweep(ep, dev, rng) -> dict:
     bound, by = _bound_ms(6 * k * 4, NMS_OPS_PER_PAIR * k * (k - 1) / 2)
     big = _random_boxes(rng, 2048, dev)
     big_ms = _device_ms(lambda: ep.nms_sweep(*big, iou_threshold=0.5, threshold=0.5), 5, 5)
+    split = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "nms_phase_split.py"),
+                            "--k", "256", "1917", "2048", "--json"],
+                           capture_output=True, text=True, timeout=300)
+    if split.returncode != 0:
+        raise AssertionError(f"nms_phase_split failed:\n{split.stderr[-3000:]}")
+    for line in split.stdout.splitlines():
+        if line.startswith("nms_phase_split: "):
+            got = json.loads(line.split(": ", 1)[1])
+            NMS_SPLIT[got["k"]] = got
+        else:
+            print(line, flush=True)
     print(f"nms_sweep K={k} device ms/call (CUDA graph): kernel={ms:.6f} "
           f"plain={plain_ms:.6f} library=none; eager ms/call: kernel={eager_ms:.6f} "
           f"plain={eager_plain_ms:.6f}; bound_ms={bound:.8f} ({by}), launch floor "
           f"{floor_ms:.6f} (a one-element fill_ replayed the same way); K=2048 "
-          f"kernel={big_ms:.6f}", flush=True)
-    split = subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "nms_phase_split.py")],
-                           capture_output=True, text=True, timeout=300)
-    if split.returncode != 0:
-        raise AssertionError(f"nms_phase_split failed:\n{split.stderr[-3000:]}")
-    print(split.stdout.rstrip(), flush=True)
+          f"kernel={big_ms:.6f} (== plain; {_nms_split_text(2048)}); {_card()}", flush=True)
     return {"name": "nms_sweep", "route": "cuda",
             "source": "nnstreamer_tpu_torch/ops/kernels/csrc/nms_sweep.cu",
             "replaces": "nnstreamer_tpu/ops/pallas/epilogue.py:130",
@@ -1609,6 +1625,8 @@ GRAPH_PATHS = {}
 LOOP_STATS = {}
 #: seconds by phase of main, in order (``_PhaseClock``)
 PHASE_SECONDS = {}
+#: ``scripts/nms_phase_split.py``'s phases by K, from ``check_nms_sweep``
+NMS_SPLIT = {}
 
 
 def _record_graphs(path: str, distinct: int, unit: str, rate: float,
@@ -8892,6 +8910,7 @@ def _tfl_inside_the_op(ep, card, frame: np.ndarray) -> dict:
         raise AssertionError("tflite ssd: nms_sweep differs from plain inside the op")
     k = int(cols[0].shape[0])
     ms = _device_ms(lambda: ep.nms_sweep(*cols, **kw), 5, 5)
+    floor_ms = _launch_floor_ms(cols[0].device)
     plain_ms = _device_ms(lambda: ep.nms_sweep_plain(*cols, **kw), 1, 2)
     bound, by = _bound_ms(6 * k * 4, NMS_OPS_PER_PAIR * k * (k - 1) / 2)
     alive = int((swept > 0).sum())
@@ -8899,7 +8918,8 @@ def _tfl_inside_the_op(ep, card, frame: np.ndarray) -> dict:
           f"and nms_sweep K={k} (global scratch past {ep.NMS_SMEM_MAX_K}; {alive} "
           f"kept) == their plain versions; nms_sweep K={k} device ms/call (CUDA "
           f"graph): kernel={ms:.6f} plain={plain_ms:.6f} library=none; "
-          f"bound_ms={bound:.8f} ({by})", flush=True)
+          f"bound_ms={bound:.8f} ({by}), launch floor {floor_ms:.6f}; phases "
+          f"{_nms_split_text(k)}; {_card()}", flush=True)
     return {"k": k, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound}
 
 
@@ -8967,8 +8987,9 @@ def _tfl_ssd(tmp: str, counters) -> dict:
           f"framework=tensorflow2-lite: {TFL_FRAMES} frames, {n} detections, graphs "
           f"== eager; {TFL_CPU_FRAMES} frames' post-process on the card == the CPU's "
           f"in count and classes, boxes and scores within {TFL_SSD_TOL} (max abs err "
-          f"{worst:.3e}); steady fps {runs[False][2]:.2f} (eager {runs[True][2]:.2f}); "
-          f"launches {launches}", flush=True)
+          f"{worst:.3e}); steady fps {runs[False][2]:.2f} (eager {runs[True][2]:.2f}; "
+          f"336.29 with the earlier K > 1024 nms_sweep route on an H100 80GB HBM3 at "
+          f"700 W); launches {launches}; {_card()}", flush=True)
     if TFL_DEVICE != "cpu":
         _record_graphs("tflite ssd", 1, "fps", runs[False][2], runs[True][2], st)
     return {"launches": launches, "nms_k1917": inside}

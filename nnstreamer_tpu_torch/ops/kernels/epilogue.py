@@ -131,6 +131,28 @@ class_reduce.launches = 0
 #: the largest K whose IoU relation the kernel keeps in shared memory;
 #: above it the wrapper hands it global scratch (see the source)
 NMS_SMEM_MAX_K = 1024
+#: a tile of that scratch: 32 rows by 32 words of the relation, word by
+#: word, each word's 32 rows padded to 36 (``kPitch`` in the source)
+NMS_TILE_WORDS = 32 * 36
+
+
+def nms_slab_tile(c: int, k: int) -> int:
+    """Where chunk ``c``'s slab starts, in tiles, in the relation the kernel
+    builds for K > NMS_SMEM_MAX_K (``slab_tile`` in csrc/nms_sweep.cu):
+    chunk c is rows 32 c .. 32 c + 31 by the tiles of words 32 (c // 32)
+    .. 32 T - 1, with W = ceil(K / 32) words a row in T = ceil(W / 32)
+    tiles. Chunk W gives the tile count."""
+    tiles = -(-k // 1024)
+    q, r = divmod(c, 32)
+    return 32 * (q * tiles - q * (q - 1) // 2) + r * (tiles - q)
+
+
+def nms_scratch_words(k: int) -> int:
+    """The int32 words of global scratch ``nms_sweep`` hands the kernel for
+    K candidates: none up to NMS_SMEM_MAX_K, else every chunk's slab."""
+    if k <= NMS_SMEM_MAX_K:
+        return 0
+    return nms_slab_tile(-(-k // 32), k) * NMS_TILE_WORDS
 
 
 def nms_sweep_plain(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
@@ -182,8 +204,8 @@ def nms_sweep(x0: torch.Tensor, y0: torch.Tensor, x1: torch.Tensor,
     _require(k > 0, f"nms_sweep: K >= 1 candidates required, got {k}")
     out = torch.empty(k, device=scores.device, dtype=torch.float32)
     scratch = None
-    if k > NMS_SMEM_MAX_K:  # the relation: ceil(K / 32) words of K | 1 rows
-        scratch = torch.empty(-(-k // 32) * (k | 1), device=scores.device,
+    if k > NMS_SMEM_MAX_K:  # the relation, chunk-major in tiles
+        scratch = torch.empty(nms_scratch_words(k), device=scores.device,
                               dtype=torch.int32)
     fn = _entry("nms_sweep", "nns_nms_sweep",
                 (_P,) * 7 + (ctypes.c_int, ctypes.c_float, ctypes.c_float, _P))

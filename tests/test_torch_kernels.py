@@ -103,16 +103,32 @@ def test_nms_sweep_plain_bit_exact_with_pallas(name, k, iou, thr, kw):
         assert (plain.numpy() == -1.0).all()
 
 
-@pytest.mark.parametrize("k", [1000, 1025])
+@pytest.mark.parametrize("k", [1000, 1025, 1917])
 def test_nms_sweep_plain_bit_exact_with_reference_large_k(k):
-    # K past the old one-block limit of 512, and past the kernel's
-    # shared-memory relation (1024)
+    # K past the old one-block limit of 512, past the kernel's
+    # shared-memory relation (1024), and the TFLite SSD's 1917 anchors
     cols = _boxes(k, seed=k)
     ref = np.asarray(jep.nms_sweep_reference(*cols, 0.5, 0.3))
     plain = tep.nms_sweep_plain(*(torch.from_numpy(c) for c in cols),
                                 iou_threshold=0.5, threshold=0.3)
     np.testing.assert_array_equal(ref, plain.numpy())
     assert 0 < int((plain.numpy() > 0).sum()) < k
+
+
+@pytest.mark.parametrize("k", [1025, 1917, 2048, 4097])
+def test_nms_scratch_layout_is_every_chunk_slab_in_order(k):
+    # past NMS_SMEM_MAX_K the kernel builds the relation chunk-major: chunk
+    # c's slab is its 32 rows by the tiles c // 32 .. T - 1 of their words,
+    # slabs back to back in chunk order, the order its sweep reads them
+    words = -(-k // 32)
+    tiles = -(-words // 32)
+    starts, n = [], 0
+    for c in range(words):
+        starts.append(n)
+        n += tiles - c // 32
+    assert [tep.nms_slab_tile(c, k) for c in range(words + 1)] == starts + [n]
+    assert tep.nms_scratch_words(k) == n * tep.NMS_TILE_WORDS
+    assert tep.nms_scratch_words(tep.NMS_SMEM_MAX_K) == 0
 
 
 def test_nms_sweep_duplicate_boxes_keep_first():
@@ -291,17 +307,35 @@ def test_nms_sweep_kernel_matches_plain(cuda_device, name, k, iou, thr, kw):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("k", [31, 33, 513, 1000, 1024, 1025, 2048])
+@pytest.mark.parametrize("k", [31, 33, 513, 1000, 1024, 1025, 1055, 1056,
+                               1057, 1917, 2048, 4097])
 @pytest.mark.parametrize("iou", [0.5, 0.1], ids=["iou0.5", "iou0.1"])
 def test_nms_sweep_kernel_bit_exact_up_to_k2048(cuda_device, k, iou):
     # the chunked sweep across word boundaries, the shared-memory relation
-    # up to K 1024 and the global one past it
+    # up to K 1024 and the global one past it: K 1055-1057 around the end of
+    # a whole word (33 of them), the TFLite SSD's 1917, and K 4097 with five
+    # tiles a row
     cols = [torch.from_numpy(c).to(cuda_device) for c in _boxes(k, seed=k)]
     before = tep.nms_sweep.launches
     got = tep.nms_sweep(*cols, iou_threshold=iou, threshold=0.2)
     want = tep.nms_sweep_plain(*cols, iou_threshold=iou, threshold=0.2)
     assert tep.nms_sweep.launches == before + 1
     assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+def test_nms_sweep_kernel_bit_exact_as_the_tflite_op_calls_it(cuda_device):
+    # TFLite_Detection_PostProcess's fast path: 1917 anchors, the score
+    # column the 0/1 indicator of the threshold, threshold 0.5, IoU 0.6,
+    # every row alive
+    cols = [torch.from_numpy(c).to(cuda_device) for c in _boxes(1917, seed=23)]
+    cols[4] = torch.ones_like(cols[4])
+    before = tep.nms_sweep.launches
+    got = tep.nms_sweep(*cols, iou_threshold=0.6, threshold=0.5)
+    want = tep.nms_sweep_plain(*cols, iou_threshold=0.6, threshold=0.5)
+    assert tep.nms_sweep.launches == before + 1
+    assert torch.equal(got, want)
+    assert 0 < int((want > 0).sum()) < 1917
 
 
 @pytest.mark.cuda
